@@ -1,0 +1,80 @@
+"""Pre/de-emphasis filters and silence trimming, the port of the synthesis
+side of ``dc_tts_tpu/dsp/features.py``.
+
+The de-emphasis IIR y[t] = x[t] + coef*y[t-1] (``scipy.signal.lfilter([1],
+[1, -coef], x)``) is computed blocked, without a sequential loop: within a
+block of L samples it is an upper-triangular Toeplitz matmul, and the carry
+between blocks (c_f = coef^L c_{f-1} + last of block f) is the same
+recurrence over the n/L block ends, again one Toeplitz matmul.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def preemphasis(y: torch.Tensor, coef: float) -> torch.Tensor:
+    """y'[0] = y[0]; y'[t] = y[t] - coef*y[t-1]."""
+    return torch.cat([y[..., :1], y[..., 1:] - coef * y[..., :-1]], dim=-1)
+
+
+@functools.lru_cache(maxsize=16)
+def _iir_toeplitz(coef: float, L: int) -> np.ndarray:
+    """(L, L) K[j, i] = coef^(i-j) for i >= j, else 0 (float64 powers)."""
+    idx = np.arange(L)
+    p = idx[None, :] - idx[:, None]
+    K = np.where(p >= 0, coef ** np.maximum(p, 0), 0.0)
+    return K.astype(np.float32)
+
+
+def deemphasis(x: torch.Tensor, coef: float, block: int = 512
+               ) -> torch.Tensor:
+    """Inverse pre-emphasis filter along the last axis, blocked as two
+    Toeplitz matmuls (see the module docstring). float32, or float64 for a
+    float64 input."""
+    if x.dtype != torch.float64:
+        x = x.float()
+    n = x.shape[-1]
+    L = min(block, max(1, n))
+    nb = -(-n // L)
+    xb = F.pad(x, (0, nb * L - n)).reshape(*x.shape[:-1], nb, L)
+    kw = {"device": x.device, "dtype": x.dtype}
+    local = xb @ torch.as_tensor(_iir_toeplitz(coef, L), **kw)
+    carry = local[..., -1] @ torch.as_tensor(_iir_toeplitz(coef ** L, nb),
+                                             **kw)
+    prev = F.pad(carry[..., :-1], (1, 0))
+    decay = torch.as_tensor((coef ** np.arange(1, L + 1)).astype(np.float32),
+                            **kw)
+    y = local + prev[..., None] * decay
+    return y.reshape(*x.shape[:-1], nb * L)[..., :n]
+
+
+def trim_silence(y: np.ndarray, top_db: float = 60.0,
+                 frame_length: int = 2048, hop_length: int = 512
+                 ) -> np.ndarray:
+    """Trim leading/trailing silence, librosa.effects.trim-style (host
+    numpy): frame RMS -> dB relative to peak -> keep [first, last] frame
+    above -top_db."""
+    if y.size == 0:
+        return y
+    n = len(y)
+    pad = frame_length // 2
+    yp = np.pad(y, (pad, pad), mode="constant")
+    n_frames = 1 + n // hop_length
+    idx = (np.arange(n_frames)[:, None] * hop_length
+           + np.arange(frame_length)[None, :])
+    frames = yp[np.minimum(idx, len(yp) - 1)]
+    rms = np.sqrt(np.mean(frames.astype(np.float64) ** 2, axis=-1))
+    ref = rms.max()
+    if ref <= 0:
+        return y
+    db = 20.0 * np.log10(np.maximum(rms, 1e-10) / ref)
+    nonsilent = np.flatnonzero(db > -top_db)
+    if nonsilent.size == 0:
+        return y[:0]
+    start = int(nonsilent[0]) * hop_length
+    end = min(n, (int(nonsilent[-1]) + 1) * hop_length)
+    return y[start:end]

@@ -1,0 +1,54 @@
+"""SSRN: spectrogram super-resolution network, the port of
+``dc_tts_tpu/models/ssrn.py`` (float32).
+
+Coarse mel (B, T/r, n_mels) -> full linear spectrogram (B, T, 1 + n_fft/2):
+C(c,1) -> HC(3,1) -> HC(3,3) -> 2x[ D(stride2) -> HC(3,1) -> HC(3,3) ]
+-> C(2c,1) -> 2x HC(3,1) -> C(1+n_fft/2, 1) -> 2x C(1,relu) -> C(1)
+-> sigmoid. All non-causal; the JAX package has no kernel here, so every
+conv is a torch matmul.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from ..config import Config
+from .blocks import C, D, HC, apply_stack, init_stack
+from .text2mel import _check_float32
+
+
+def ssrn_specs(cfg: Config):
+    c = cfg.c
+    assert cfg.r == 4, "SSRN's two stride-2 deconvs implement exactly r=4"
+    specs = [C(1, 1, c, None)]
+    specs += [HC(3, 3 ** j) for j in range(2)]
+    for _ in range(2):
+        specs += [D(3)]
+        specs += [HC(3, 3 ** j) for j in range(2)]
+    specs += [C(1, 1, 2 * c, None)]
+    specs += [HC(3, 1), HC(3, 1)]
+    specs += [C(1, 1, cfg.n_freq, None)]
+    specs += [C(1, 1, None, "relu"), C(1, 1, None, "relu")]
+    specs += [C(1, 1, None, None)]
+    return tuple(specs)
+
+
+@dataclass(frozen=True)
+class SSRN:
+    cfg: Config
+
+    def init(self, gen: torch.Generator, device="cpu") -> dict:
+        params, out = init_stack(gen, self.cfg.n_mels, ssrn_specs(self.cfg),
+                                 device)
+        assert out == self.cfg.n_freq
+        return {"stack": params}
+
+    def apply(self, params, Y: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Y (B, T/r, n_mels) -> (Z_logits, Z) each (B, T, n_freq)."""
+        _check_float32(self.cfg)
+        logits = apply_stack(params["stack"], ssrn_specs(self.cfg), Y,
+                             ln_eps=self.cfg.ln_eps)
+        return logits, torch.sigmoid(logits)

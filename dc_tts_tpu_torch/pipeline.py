@@ -1,0 +1,118 @@
+"""Batched synthesis on one GPU: text -> mel -> linear spectrogram ->
+waveform, the port of ``dc_tts_tpu/pipeline.py``'s single-device path.
+
+The chain per batch: TextEnc -> the T-step autoregressive decode (kernel K1
+in the default "fused" mode) -> SSRN -> denormalize -> Griffin-Lim (kernel
+K2 under the default ``stft_method="dft_pallas2"``) -> de-emphasis ->
+optional 16-bit PCM quantisation on the device. Every step is enqueued on
+the current CUDA stream; nothing waits for the device until results are
+copied back. The mesh, pipeline and time-sharded modes are not ported.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from . import text as text_mod
+from .config import Config
+from .device import resolve_device
+from .dsp.features import trim_silence
+from .dsp.griffin_lim import spectrogram_to_wav
+from .models.ssrn import SSRN
+from .models.text2mel import Text2Mel
+from .params import to_device
+
+DECODE_MODES = ("fused", "incremental")
+
+
+class Synthesizer:
+    """Both networks' parameters on one device, and the synthesis chain.
+
+    device defaults to "cuda" and raises when there is no CUDA device;
+    pass device="cpu" to run the plain PyTorch versions on the CPU.
+    decode_mode "auto" is the fused decode kernel. Only
+    decode_prec="highest" is ported (the JAX package's reduced modes are
+    TPU matmul tricks)."""
+
+    def __init__(self, cfg: Config, t2m_params, ssrn_params, *,
+                 device="cuda", decode_mode: str = "auto",
+                 pcm16: bool = False, decode_prec: str = "highest"):
+        if decode_prec != "highest":
+            raise ValueError(f"decode_prec={decode_prec!r} is not ported; "
+                             "only 'highest' is")
+        if decode_mode == "auto":
+            decode_mode = "fused"
+        if decode_mode not in DECODE_MODES:
+            raise ValueError(f"decode_mode={decode_mode!r} is not ported; "
+                             f"use one of {('auto',) + DECODE_MODES}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.text2mel = Text2Mel(cfg)
+        self.ssrn = SSRN(cfg)
+        self.t2m_params = to_device(t2m_params, self.device)
+        self.ssrn_params = to_device(ssrn_params, self.device)
+        self.decode_mode = decode_mode
+        self.pcm16 = pcm16
+        # the decode kernel's packed weights (~29 MB at base_config), made
+        # once here rather than on every batch
+        self.packed = None
+        if decode_mode == "fused":
+            from .ops.decode import pack_decode_params
+            self.packed = pack_decode_params(cfg, self.t2m_params)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def synthesize_ids(self, ids):
+        """ids (B, max_N) int -> (wavs (B, n_samples), Y, Z, align), all on
+        the device; wavs are int16 when pcm16 is set."""
+        ids = torch.as_tensor(np.asarray(ids), dtype=torch.long,
+                              device=self.device)
+        Y, align = self.text2mel.decode(self.t2m_params, ids,
+                                        mode=self.decode_mode,
+                                        packed=self.packed)
+        _, Z = self.ssrn.apply(self.ssrn_params, Y)
+        wav = spectrogram_to_wav(Z, self.cfg)
+        if self.pcm16:
+            wav = torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0
+                              ).to(torch.int16)
+        return wav, Y, Z, align
+
+    def synthesize_ids_chunked(self, ids, chunk: int = 40) -> np.ndarray:
+        """Any batch size, in chunks of ``chunk`` rows -> wavs (B, n_samples)
+        on the host. Every chunk is enqueued before any result is copied
+        back; each copy is a non-blocking copy into pinned host memory, so
+        a chunk's transfer overlaps the next chunks' compute."""
+        ids = np.asarray(ids)
+        wavs = [self.synthesize_ids(ids[i: i + chunk])[0]
+                for i in range(0, ids.shape[0], chunk)]
+        if self.device.type != "cuda":
+            return torch.cat(wavs).numpy()
+        host = []
+        for w in wavs:
+            h = torch.empty(w.shape, dtype=w.dtype, pin_memory=True)
+            h.copy_(w, non_blocking=True)
+            host.append(h)
+        torch.cuda.synchronize(self.device)
+        return torch.cat(host).numpy()
+
+    def synthesize(self, sentences: Sequence[str], *, trim: bool = True):
+        """Raw sentences -> list of float32 waveforms (host, trimmed)."""
+        ids = text_mod.encode_batch(list(sentences), self.cfg)
+        wavs = self.synthesize_ids(ids)[0].cpu().numpy()
+        if wavs.dtype == np.int16:
+            wavs = wavs.astype(np.float32) / 32767.0
+        if trim:
+            return [trim_silence(w) for w in wavs]
+        return list(wavs)
+
+
+def restore_synthesis_params(cfg: Config, logdir1: str, logdir2: str):
+    """(t2m_params, ssrn_params) on the CPU from the two checkpoint
+    namespaces: Text2Mel from logdir1, SSRN from logdir2."""
+    from .train import checkpoint
+    gen = torch.Generator().manual_seed(0)
+    t2m_params, _ = checkpoint.restore(logdir1, Text2Mel(cfg).init(gen))
+    ssrn_params, _ = checkpoint.restore(logdir2, SSRN(cfg).init(gen))
+    return t2m_params, ssrn_params
