@@ -30,15 +30,59 @@ line:
              1e-4) and the float64 plain vocoder (waveform 1e-4); and
              CUDA-event times of each stage of one chunk, whose output is
              held equal to synthesize_ids' on the same chunk.
-6. the kernels line, the nvidia-smi line, and the ``ok`` line.
+6. K4      - the HC block's forward and backward kernels against their
+             plain versions run in float64, at three full-width shapes of
+             the trainer (TextEnc HC(3,9) B=32 T=180 C=512; AudioEnc
+             HC(3,27) causal T=210 C=256; SSRN HC(3,1) T=840 C=1024): y and
+             all 7 gradients for a seeded cotangent, each within max(2e-5 x
+             its max |value|, 2 x the float32 plain version's own
+             distance); gradients bitwise equal across two calls.
+7. train-t2m  - a seeded synthetic corpus (64 utterances of 2-9 s at
+             22050 Hz, the Harvard sentences as texts) through prepro on
+             the card and TrainLoader with two length buckets (one holds
+             the full 180x210 grid); 30 Text2Mel steps at base_config()
+             (B=32, dropout 0.05, use_pallas=True) through the CLI's step,
+             loader and prefetch, counters set to 0 just before and read
+             just after: 28 forward and 28 backward K4 launches a step,
+             every loss finite, and for each bucket shape the mean loss of
+             its last (up to) 5 steps below its first 5 (like with like:
+             the two buckets' losses differ by more than 30 steps of
+             warm-up learning move them). Then ms/step with use_pallas on
+             and off on one full-grid batch (three readings each of
+             TIME_STEPS steps, alternated), K4's summed kernel time per
+             step (every HC shape of a step replayed), and, on the first
+             full-grid batch of the seeded shuffle (its ids, teacher-forced
+             mels and zero pads) with fresh seeded parameters at dropout 0,
+             use_pallas on against off: the loss equal (rtol 1e-5); every
+             gradient within 1e-4 x its max |value| with each ReLU mask and
+             L1 sign taken from the float64 run (see _equivalence; the
+             distances to float64 with each route's own decisions, and how
+             many decisions each switched, are printed beside it); and K4 at
+             each of the 28 HC blocks, at the input and output cotangent of
+             the float64 run, within phase K4's tolerance.
+8. train-ssrn - the same for SSRN: 8 steps, 8 + 8 K4 launches a step, its
+             losses finite and printed (at the warm-up learning rate a few
+             steps move them less than dropout does, so no descent check),
+             the same equivalence with its 8 HC blocks.
+9. train-cli  - python -m dc_tts_tpu_torch.train 1 and 2 on that corpus
+             (--max-steps 4 --ckpt-every 2 --buckets 2) as
+             subprocesses: exit 0, model_gs_000k.npz in the JAX package's
+             key layout; a restart resumes at step 4 and ends at 6; then
+             python -m dc_tts_tpu_torch.synthesize from both logdirs writes
+             two wavs.
+10. the kernels line, the nvidia-smi line, and the ``ok`` line.
 
 Kernel times are CUDA-event means over repeated calls on the same inputs.
 ``bound_ms`` is the larger of (bytes each input read once + each output
 written once) / 3.35 TB/s and (float32 operations) / 67 TFLOP/s, the
 H100 SXM's published peaks at 700 W. K2's operations count each 2048-point
 transform as a real FFT (2.5 N log2 N): every frame is real and every
-spectrum Hermitian. A summary also goes to
-``chiprun_out/chip_smoke.json`` beside this script.
+spectrum Hermitian. K4's operations are its tap matmuls, 2*B*T*K*C*2C for
+the forward and three times that for the backward (h recomputed, dx, dW);
+its row passes (layer norms, gate) add under 1 % at these widths. K4's
+``ms``, ``plain_ms`` and ``bound_ms`` in the kernels line are sums over
+the three shapes, its ``launches`` the train-t2m and train-ssrn runs'.
+A summary also goes to ``chiprun_out/chip_smoke.json`` beside this script.
 """
 from __future__ import annotations
 
@@ -46,6 +90,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -55,6 +100,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
 PEAK_FP32 = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s
 B_MAIN, CHUNK = 20, 20
+# the training phases' device and batch (a rehearsal on the CPU sets them)
+DEV, B_TRAIN = "cuda", 32
+# steps per ms/step reading; a training gradient's gate against the other
+# route, each leaf over its max |value|, with ReLU masks and L1 signs frozen
+TIME_STEPS, EQUIV_GRAD_TOL = 10, 1e-4
 
 
 def line(phase: str, **kw) -> None:
@@ -379,6 +429,522 @@ def phase_e2e(results, smi):
                           audio_s_per_s=audio_s / wall, stages_ms=stages)
 
 
+# ---------------------------------------------------------------------------
+# K4 and training
+
+
+K4_SHAPES = (("TextEnc HC(3,9)", 32, 180, 512, 3, 9, False),
+             ("AudioEnc HC(3,27)", 32, 210, 256, 3, 27, True),
+             ("SSRN HC(3,1)", 32, 840, 1024, 3, 1, False))
+K4_NAMES = ("y", "dx", "dw", "db", "dg1", "db1", "dg2", "db2")
+
+
+def _hc_inputs(B, T, C, size, seed, dev):
+    """x, w, b, g1, be1, g2, be2 and a cotangent dy, seeded, float32."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, T, C, generator=g)
+    w = torch.randn(size, C, 2 * C, generator=g) * (2.0 / (size * C)) ** 0.5
+    vecs = [torch.randn(n, generator=g) * 0.3 + (1.0 if i in (1, 3) else 0.0)
+            for i, n in enumerate([2 * C, C, C, C, C])]
+    dy = torch.randn(B, T, C, generator=g)
+    return [t.to(dev) for t in (x, w, *vecs)], dy.to(dev)
+
+
+def _k4_distances(args, dy, geo):
+    """{name: (kernel's distance, float32 plain version's distance,
+    tolerance)} for y and the 7 gradients, each distance the max |.| from
+    the plain version run in float64, the tolerance max(2e-5 x the max
+    |value|, 2 x the float32 plain version's distance). A non-finite output
+    gets an infinite distance."""
+    from dc_tts_tpu_torch.ops import hc_vjp as K4
+
+    outs = (K4.hc_block_fwd(*args, *geo), *K4.hc_block_bwd(*args, dy, *geo))
+    p32 = (K4.hc_block_fwd_plain(*args, *geo),
+           *K4.hc_block_bwd_plain(*args, dy, *geo))
+    a64 = [a.double() for a in args]
+    ref = (K4.hc_block_fwd_plain(*a64, *geo),
+           *K4.hc_block_bwd_plain(*a64, dy.double(), *geo))
+    dist = {}
+    for name, o, p, r in zip(K4_NAMES, outs, p32, ref):
+        dk = float((o.double() - r).abs().max())
+        dk = dk if bool(torch.isfinite(o).all()) else float("inf")
+        dp = float((p.double() - r).abs().max())
+        dist[name] = (dk, dp, max(2e-5 * float(r.abs().max()), 2 * dp))
+    return dist
+
+
+def _k4_bounds(B, T, C, K):
+    """(forward bound, backward bound, forward operations) of one HC block:
+    the inputs read once and the outputs written once (float32), and the
+    tap matmuls, 2*B*T*K*C*2C operations forward and three times that
+    backward (h recomputed, dx, dW)."""
+    act, params = 4 * B * T * C, 4 * (K * C * 2 * C + 6 * C)
+    flops = 2.0 * B * T * K * C * 2 * C
+    return (bound(act + params + act, flops),
+            bound(2 * act + params + act + params, 3 * flops), flops)
+
+
+def phase_k4(results):
+    from dc_tts_tpu_torch.ops import hc_vjp as K4
+
+    dev = torch.device("cuda")
+    per_shape = []
+    for label, B, T, C, size, rate, causal in K4_SHAPES:
+        args, dy = _hc_inputs(B, T, C, size, 4, dev)
+        geo = (size, rate, causal, 1e-5)
+        grads = K4.hc_block_bwd(*args, dy, *geo)
+        again = K4.hc_block_bwd(*args, dy, *geo)
+        bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
+        del grads, again
+        dist = _k4_distances(args, dy, geo)
+        ok = bitwise and all(d[0] <= d[2] for d in dist.values())
+        ms_f = cuda_ms(lambda: K4.hc_block_fwd(*args, *geo), 5)
+        ms_b = cuda_ms(lambda: K4.hc_block_bwd(*args, dy, *geo), 3)
+        plain_f = cuda_ms(lambda: K4.hc_block_fwd_plain(*args, *geo), 3)
+        plain_b = cuda_ms(lambda: K4.hc_block_bwd_plain(*args, dy, *geo), 3)
+        bf, bb, flops = _k4_bounds(B, T, C, size)
+        line("K4", ok=ok, shape=repr(label), B=B, T=T, C=C, rate=rate,
+             causal=causal, bitwise_equal_grads=bitwise,
+             **{f"{n}_kernel_vs_f64": f"{d[0]:.3e}" for n, d in dist.items()},
+             **{f"{n}_plain_f32_vs_f64": f"{d[1]:.3e}"
+                for n, d in dist.items()},
+             fwd_ms=f"{ms_f:.3f}", bwd_ms=f"{ms_b:.3f}",
+             plain_fwd_ms=f"{plain_f:.3f}", plain_bwd_ms=f"{plain_b:.3f}",
+             fwd_bound_ms=f"{bf[0]:.4f}", bwd_bound_ms=f"{bb[0]:.4f}",
+             bound_by=bf[1], fwd_gflop=f"{flops / 1e9:.2f}",
+             bwd_gflop=f"{3 * flops / 1e9:.2f}")
+        if not ok:
+            raise AssertionError(f"K4 disagrees with its plain version at "
+                                 f"{label}: {dist} bitwise={bitwise}")
+        per_shape.append(dict(shape=label, fwd_ms=ms_f, bwd_ms=ms_b,
+                              plain_fwd_ms=plain_f, plain_bwd_ms=plain_b,
+                              fwd_bound_ms=bf[0], bwd_bound_ms=bb[0],
+                              bound_by=bf[1],
+                              fwd_err=dist["y"][0],
+                              bwd_err=max(d[0] for n, d in dist.items()
+                                          if n != "y")))
+        del args, dy
+        torch.cuda.empty_cache()
+    s = lambda k: sum(r[k] for r in per_shape)  # noqa: E731
+    results["K4_shapes"] = per_shape
+    results["hc_block_fwd"] = dict(
+        max_abs_err=max(r["fwd_err"] for r in per_shape), ms=s("fwd_ms"),
+        plain_ms=s("plain_fwd_ms"), bound_ms=s("fwd_bound_ms"),
+        bound_by=per_shape[0]["bound_by"])
+    results["hc_block_bwd"] = dict(
+        max_abs_err=max(r["bwd_err"] for r in per_shape), ms=s("bwd_ms"),
+        plain_ms=s("plain_bwd_ms"), bound_ms=s("bwd_bound_ms"),
+        bound_by=per_shape[0]["bound_by"])
+
+
+def make_corpus_and_features(root):
+    """2 x B_TRAIN utterances (half of 2-5 s, half of 6-9 s, so that each of
+    two length buckets holds one full batch) with the Harvard sentences as
+    texts, and prepro's features computed on the card."""
+    from dc_tts_tpu_torch import text
+    from dc_tts_tpu_torch.config import base_config
+    from dc_tts_tpu_torch.data.dataset import prepro_corpus
+    from dc_tts_tpu_torch.data.synthetic import make_corpus
+
+    cfg = base_config()
+    rng = np.random.default_rng(0)
+    secs = np.concatenate([rng.uniform(2.0, 5.0, B_TRAIN),
+                           rng.uniform(6.0, 9.0, B_TRAIN)])
+    sents = text.load_test_sentences(os.path.join(HERE,
+                                                  "harvard_sentences.txt"))
+    data = make_corpus(os.path.join(root, "corpus"),
+                       [sents[i % len(sents)] for i in range(2 * B_TRAIN)],
+                       secs, cfg.sr, seed=0)
+    feats = os.path.join(root, "feats")
+    t0 = time.perf_counter()
+    n = prepro_corpus(cfg.replace(data=data), feats, progress=False,
+                      device=DEV)
+    torch.cuda.synchronize()
+    line("corpus", utterances=n, audio_s=f"{secs.sum():.1f}",
+         prepro_s=f"{time.perf_counter() - t0:.2f}", device=DEV)
+    return data, feats
+
+
+def _k4_step_ms(specs_shapes, B):
+    """(CUDA-event ms, bound ms, GFLOP) of K4's forward + backward over
+    every HC block of one step, replayed at the step's shapes with seeded
+    inputs."""
+    from dc_tts_tpu_torch.ops import hc_vjp as K4
+
+    dev = torch.device(DEV)
+    total = b_ms = gflop = 0.0
+    for spec, T, C in specs_shapes:
+        args, dy = _hc_inputs(B, T, C, spec.size, 5, dev)
+        geo = (spec.size, spec.rate, spec.causal, 1e-5)
+        total += cuda_ms(lambda: (K4.hc_block_fwd(*args, *geo),
+                                  K4.hc_block_bwd(*args, dy, *geo)), 2)
+        bf, bb, flops = _k4_bounds(B, T, C, spec.size)
+        b_ms += bf[0] + bb[0]
+        gflop += 4 * flops / 1e9
+    return total, b_ms, gflop
+
+
+def _hc_shapes(net, cfg):
+    from dc_tts_tpu_torch.models.blocks import HC, D, stack_in_channels
+    from dc_tts_tpu_torch.models.ssrn import ssrn_specs
+    from dc_tts_tpu_torch.models.text2mel import (audio_dec_specs,
+                                                  audio_enc_specs,
+                                                  text_enc_specs)
+    out = []
+    if net == "t2m":
+        for specs, T, cin in ((text_enc_specs(cfg), cfg.max_N, cfg.e),
+                              (audio_enc_specs(cfg), cfg.max_T, cfg.n_mels),
+                              (audio_dec_specs(cfg), cfg.max_T, 2 * cfg.d)):
+            out += [(sp, T, c) for sp, c in zip(specs,
+                                                stack_in_channels(specs, cin))
+                    if isinstance(sp, HC)]
+    else:
+        T = cfg.max_T
+        specs = ssrn_specs(cfg)
+        for sp, c in zip(specs, stack_in_channels(specs, cfg.n_mels)):
+            if isinstance(sp, D):
+                T *= 2
+            elif isinstance(sp, HC):
+                out.append((sp, T, c))
+    return out
+
+
+def _equivalence(net, cfg, params, batch):
+    """The training loss and its gradients with use_pallas on and off at
+    dropout 0 on one real batch (Text2Mel: its ids and teacher-forced mels,
+    zero pads included; SSRN: its mels and magnitudes), each also against
+    the plain route run in float64, and K4 at every HC block of that float64
+    run.
+
+    The training gradient is not a smooth function of the forward values:
+    every ReLU's mask and the L1 term's sign(pred - target) switch where a
+    value lies within rounding of the kink, and one switched element moves a
+    weight gradient by up to ~1e-2 of its size. Two float32 routes that round
+    the forward differently therefore differ at such elements by chance, and
+    so does either of them from float64. The leaves are held to each other
+    with those decisions frozen: each float32 route is run again with every
+    ReLU mask and L1 sign taken from the float64 run (the forward changes
+    only at the switched elements, by their rounding), which leaves the
+    smooth rest, K4 included, to compare tightly. The runs with their own
+    decisions are printed beside it: their distances to float64 and the
+    number of decisions each switched.
+
+    Returns a dict: loss (relative loss difference, on against off, own
+    decisions), leaves (rows of (on - off, leaf, on - f64, off - f64), each
+    max |.| over the leaf's max |value| in float64, decisions frozen), own
+    (the same rows with each route's own decisions), flips ({route: its own
+    decisions that differ from the float64 run's}), blocks (rows of (worst distance / tolerance, block) of K4
+    at the float64 run's HC inputs and output cotangents, as phase K4)."""
+    from dc_tts_tpu_torch.models import SSRN, Text2Mel
+    from dc_tts_tpu_torch.models import blocks as BL
+    from dc_tts_tpu_torch.train import losses
+    from dc_tts_tpu_torch.train import steps as TS
+    from dc_tts_tpu_torch.train.optimizer import tree_leaves, tree_map
+
+    p64 = tree_map(lambda p: p.detach().double().requires_grad_(True),
+                   params)
+    act, l1_loss, apply_block = BL._act, losses.l1_loss, BL.apply_block
+    decisions, seen = [], []
+    run = {"mode": "f64", "i": 0, "flips": 0}
+
+    def decide(d):
+        """This kink's decision in the float64 run; counts the elements where
+        the current run's own decision ``d`` differs from it."""
+        if run["mode"] == "f64":
+            decisions.append(d)
+            return d
+        ref = decisions[run["i"]]
+        run["i"] += 1
+        run["flips"] += int((ref != d).sum())
+        return ref
+
+    def relu(x, name):
+        if name != "relu":
+            return act(x, name)
+        mask = decide(x.detach() > 0)
+        return x * mask.to(x.dtype) if run["mode"] == "frozen" else act(x,
+                                                                        name)
+
+    def l1(pred, target):
+        sign = decide(torch.sign((pred - target).detach()).to(torch.int8))
+        if run["mode"] == "frozen":
+            return torch.mean((pred - target) * sign.to(pred.dtype))
+        return l1_loss(pred, target)
+
+    def spy(p, spec, h, **kw):
+        """apply_block, keeping each HC block's input and output in the
+        float64 run."""
+        y = apply_block(p, spec, h, **kw)
+        if isinstance(spec, BL.HC) and run["mode"] == "f64":
+            seen.append((spec, p, h.detach(), y))
+        return y
+
+    def loss_grads(use_pallas, p, dt, mode):
+        run.update(mode=mode, i=0, flips=0)
+        c = cfg.replace(use_pallas=use_pallas, dropout_rate=0.0)
+        if net == "t2m":
+            S = TS.teacher_forcing_shift(batch["mels"]).to(dt)
+            logits, Y, align, _ = Text2Mel(c).apply(p, batch["texts"], S,
+                                                    train=True)
+            loss = losses.text2mel_loss(
+                logits, Y, align, batch["mels"].to(dt), c,
+                batch["text_lens"], batch["mel_lens"])[0]
+        else:
+            logits, Z = SSRN(c).apply(p, batch["mels"].to(dt), train=True)
+            loss = losses.ssrn_loss(logits, Z, batch["mags"].to(dt), c)[0]
+        leaves = tree_leaves(p)
+        outs = [y for *_, y in seen] if mode == "f64" else []
+        grads = torch.autograd.grad(loss, leaves + outs)
+        return (loss.item(), [t.double() for t in grads[:len(leaves)]],
+                grads[len(leaves):], run["flips"])
+
+    BL._act, losses.l1_loss, BL.apply_block = relu, l1, spy
+    try:
+        ref = loss_grads(False, p64, torch.float64, "f64")
+        own = {u: loss_grads(u, params, torch.float32, "own")
+               for u in (True, False)}
+        frozen = {u: loss_grads(u, params, torch.float32, "frozen")
+                  for u in (True, False)}
+    finally:
+        BL._act, losses.l1_loss, BL.apply_block = act, l1_loss, apply_block
+
+    def rows(on, off):
+        out = []
+        for n, a, b, r in zip(_leaf_names(params), on, off, ref[1]):
+            m = max(float(r.abs().max()), 1e-30)
+            out.append((float((a - b).abs().max()) / m, n,
+                        float((a - r).abs().max()) / m,
+                        float((b - r).abs().max()) / m))
+        return out
+
+    block_rows = []
+    for i, ((spec, p, h, _), dy) in enumerate(zip(seen, ref[2])):
+        args = [t.detach().float() for t in (
+            h, p["conv"]["w"], p["conv"]["b"], p["ln1"]["gamma"],
+            p["ln1"]["beta"], p["ln2"]["gamma"], p["ln2"]["beta"])]
+        dist = _k4_distances(args, dy.float(),
+                             (spec.size, spec.rate, spec.causal, cfg.ln_eps))
+        block_rows.append((max(d[0] / d[2] for d in dist.values()),
+                           f"{i}:HC({spec.size},{spec.rate})"))
+    return dict(
+        loss=abs(own[True][0] - own[False][0]) / abs(own[False][0]),
+        leaves=rows(frozen[True][1], frozen[False][1]),
+        own=rows(own[True][1], own[False][1]),
+        flips={"on": own[True][3], "off": own[False][3]},
+        blocks=block_rows)
+
+
+def _leaf_names(tree, prefix=""):
+    """Leaf paths in ``tree_leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}/{i}")]
+    return [prefix.lstrip("/")]
+
+
+def phase_train(results, net, data, feats, n_steps):
+    from dc_tts_tpu_torch.config import base_config
+    from dc_tts_tpu_torch.data.dataset import (TrainLoader,
+                                               compute_bucket_shapes,
+                                               load_dataset_index)
+    from dc_tts_tpu_torch.ops import hc_vjp as K4
+    from dc_tts_tpu_torch.train import steps as TS
+    from dc_tts_tpu_torch.train.__main__ import prefetch_to_device
+
+    dev = torch.device(DEV)
+    cfg = base_config().replace(data=data, use_pallas=True, B=B_TRAIN)
+    examples = load_dataset_index(cfg, feats, data)
+    buckets = compute_bucket_shapes(cfg, examples, feats, 2)
+    loader = TrainLoader(cfg, examples, feats, seed=0, buckets=buckets)
+    init, make = ((TS.init_text2mel_state, TS.make_text2mel_step)
+                  if net == "t2m" else
+                  (TS.init_ssrn_state, TS.make_ssrn_step))
+    state = init(cfg, torch.Generator().manual_seed(0), dev)
+    step = make(cfg, seed=1)
+    gen = torch.Generator(device=dev)
+    per_step = 28 if net == "t2m" else 8
+    batches = prefetch_to_device(loader, dev)
+
+    losses, shapes, full = [], [], None
+    K4.hc_block_fwd.launches = K4.hc_block_bwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        batch = next(batches)
+        state, metrics = step(state, batch, gen)
+        losses.append(float(metrics["loss"]))
+        shapes.append(tuple(batch["mels"].shape[1:2]))
+        if batch["mels"].shape[1] == cfg.max_T:
+            full = batch
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fwd": K4.hc_block_fwd.launches,
+                "bwd": K4.hc_block_bwd.launches}
+    loader.stop()
+    by_shape = {}
+    for sh, lo in zip(shapes, losses):
+        by_shape.setdefault(sh, []).append(lo)
+    # the loader's threads hand batches out in the order they finish, so a
+    # bucket's share of the steps varies by a few from run to run: up to 5
+    # of each bucket's first and last steps are compared
+    descent = {str(sh[0]): (float(np.mean(v[:min(5, len(v) // 2)])),
+                            float(np.mean(v[-min(5, len(v) // 2):])))
+               for sh, v in by_shape.items() if len(v) >= 2}
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    ok = (launches["fwd"] == launches["bwd"] == per_step * n_steps
+          and all(np.isfinite(losses)) and full is not None)
+    if net == "t2m":
+        # SSRN's few steps at the warm-up learning rate (~1e-6) move its
+        # loss less than dropout does: only Text2Mel's descent is checked
+        ok = ok and all(len(v) >= 4 for v in by_shape.values()) and all(
+            b < a for a, b in descent.values())
+
+    # ms/step on one full-grid batch, each reading the mean of TIME_STEPS
+    # steps after one warm-up step, in the order on, off, off, on, on, off
+    times = {True: [], False: []}
+    for use_pallas in (True, False, False, True, True, False):
+        s_ = make(cfg.replace(use_pallas=use_pallas), seed=1)
+        state, _ = s_(state, full, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(TIME_STEPS):
+            state, _ = s_(state, full, gen)
+        torch.cuda.synchronize()
+        times[use_pallas].append((time.perf_counter() - t1) / TIME_STEPS
+                                 * 1e3)
+    k4_ms, k4_bound, k4_gflop = _k4_step_ms(_hc_shapes(net, cfg), cfg.B)
+    # the equivalence's batch and parameters follow from the seeds alone (one
+    # loader thread hands batches out in the shuffle's order), so every run
+    # compares the same numbers: the first full-grid batch, fresh parameters
+    one = TrainLoader(cfg, examples, feats, seed=0, buckets=buckets,
+                      num_threads=1)
+    eq_batch = next(b for b in one if b["mels"].shape[1] == cfg.max_T)
+    one.stop()
+    eq = _equivalence(net, cfg,
+                      init(cfg, torch.Generator().manual_seed(0), dev).params,
+                      {k: torch.from_numpy(v).to(dev)
+                       for k, v in eq_batch.items()})
+    d_grad, worst = max(eq["leaves"])[:2]
+    o_grad, o_worst = max(eq["own"])[:2]
+    b_ratio, b_worst = max(eq["blocks"])
+    ok = (ok and eq["loss"] <= 1e-5 and d_grad <= EQUIV_GRAD_TOL
+          and b_ratio <= 1.0 and len(eq["blocks"]) == per_step)
+    ms_on, ms_off = float(np.mean(times[True])), float(np.mean(times[False]))
+    med = lambda rows, j: f"{np.median([r[j] for r in rows]):.2e}"  # noqa
+    top = lambda rows, j: f"{max(r[j] for r in rows):.2e}"  # noqa
+    line(f"train-{net}", ok=ok, steps=n_steps, B=cfg.B,
+         buckets=json.dumps(buckets).replace(" ", ""),
+         launches=json.dumps(launches).replace(" ", ""),
+         launches_per_step=f"{launches['fwd'] / n_steps:g}",
+         loss_first5=f"{first:.5f}", loss_last5=f"{last:.5f}",
+         per_bucket_first_last=json.dumps(
+             {k_: [round(a, 5), round(b, 5)] for k_, (a, b)
+              in descent.items()}).replace(" ", ""),
+         wall_s=f"{wall:.2f}", ms_per_step_pallas=f"{ms_on:.2f}",
+         ms_per_step_plain=f"{ms_off:.2f}",
+         ms_pallas_readings=",".join(f"{t:.2f}" for t in times[True]),
+         ms_plain_readings=",".join(f"{t:.2f}" for t in times[False]),
+         k4_ms_per_step=f"{k4_ms:.2f}",
+         k4_bound_ms_per_step=f"{k4_bound:.2f}",
+         k4_gflop_per_step=f"{k4_gflop:.1f}",
+         equiv_loss_rel=f"{eq['loss']:.2e}",
+         frozen_grad_on_vs_off=f"{d_grad:.2e}", frozen_worst_leaf=worst,
+         frozen_worst_on_vs_f64=top(eq["leaves"], 2),
+         frozen_worst_off_vs_f64=top(eq["leaves"], 3),
+         frozen_median_on_vs_f64=med(eq["leaves"], 2),
+         frozen_median_off_vs_f64=med(eq["leaves"], 3),
+         own_grad_on_vs_off=f"{o_grad:.2e}", own_worst_leaf=o_worst,
+         own_worst_on_vs_f64=top(eq["own"], 2),
+         own_worst_off_vs_f64=top(eq["own"], 3),
+         own_median_on_vs_f64=med(eq["own"], 2),
+         own_median_off_vs_f64=med(eq["own"], 3),
+         switched_on=eq["flips"]["on"], switched_off=eq["flips"]["off"],
+         leaves=len(eq["leaves"]), blocks_checked=len(eq["blocks"]),
+         block_worst_dist_over_tol=f"{b_ratio:.2f}", block_worst=b_worst,
+         tol=f"loss 1e-5, grads {EQUIV_GRAD_TOL:g} x max with the float64 "
+             "run's decisions, each block as phase K4")
+    if not ok:
+        raise AssertionError(f"train-{net} failed: launches={launches} "
+                             f"losses={losses} equiv={eq['loss']},{d_grad}"
+                             f" blocks={b_ratio}")
+    results[f"train-{net}"] = dict(
+        losses=losses, launches=launches, ms_per_step_pallas=ms_on,
+        ms_per_step_plain=ms_off, k4_ms_per_step=k4_ms,
+        k4_bound_ms_per_step=k4_bound,
+        ms_pallas_readings=times[True], ms_plain_readings=times[False],
+        equiv_loss_rel=eq["loss"], frozen_grad_on_vs_off=d_grad,
+        own_grad_on_vs_off=o_grad, switched=eq["flips"],
+        block_worst_dist_over_tol=b_ratio, wall_s=wall)
+    for key in ("fwd", "bwd"):
+        results.setdefault("k4_launches", {"fwd": 0, "bwd": 0})
+        results["k4_launches"][key] += launches[key]
+    del state
+    torch.cuda.empty_cache()
+
+
+def _run(args, timeout=600):
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-m", *args], cwd=HERE, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"{' '.join(args[:2])} exited {r.returncode}:\n"
+                             + r.stdout[-3000:] + r.stderr[-3000:])
+    return r.stdout
+
+
+def phase_train_cli(results, data, feats, root):
+    from dc_tts_tpu_torch.config import base_config
+    from dc_tts_tpu_torch.train import checkpoint as ckpt
+    from dc_tts_tpu_torch.train import steps as TS
+
+    cfg = base_config()
+    t0 = time.perf_counter()
+    logdirs = {n: os.path.join(root, f"logdir-{n}") for n in (1, 2)}
+    for n in (1, 2):
+        common = ["dc_tts_tpu_torch.train", str(n), "--data", data,
+                  "--features", feats, "--logdir", logdirs[n],
+                  "--ckpt-every", "2", "--log-every", "2", "--buckets", "2",
+                  "--device", DEV, "--batch-size",
+                  str(B_TRAIN)]
+        _run(common + ["--max-steps", "4"])
+        init = (TS.init_text2mel_state if n == 1 else TS.init_ssrn_state)(
+            cfg, torch.Generator().manual_seed(0))
+        want = set(ckpt._flatten({"params": init.params,
+                                  "opt_state": init.opt_state})) | {
+                                      "__step__"}
+        path = os.path.join(logdirs[n], "model_gs_000k.npz")
+        with np.load(path) as d:
+            keys, step = set(d.files), int(d["__step__"])
+        if keys != want or step != 4:
+            raise AssertionError(f"train {n}: checkpoint keys/step wrong "
+                                 f"({len(keys ^ want)} keys differ, step "
+                                 f"{step})")
+        out = _run(common + ["--max-steps", "6"])
+        with np.load(path) as d:
+            step = int(d["__step__"])
+        if "resumed from step 4 (full checkpoint)" not in out or step != 6:
+            raise AssertionError(f"train {n}: restart did not resume: "
+                                 f"step {step}\n{out[-2000:]}")
+    sent = os.path.join(root, "two.txt")
+    with open(sent, "w") as f:
+        f.write("header\n1. The birch canoe slid on the smooth planks.\n"
+                "2. Glue the sheet to the dark blue background.\n")
+    out_dir = os.path.join(root, "samples")
+    _run(["dc_tts_tpu_torch.synthesize", "--sentences", sent, "--logdir1",
+          logdirs[1], "--logdir2", logdirs[2], "--out", out_dir, "--device",
+          DEV])
+    wavs = sorted(os.listdir(out_dir))
+    ok = wavs == ["1.wav", "2.wav"]
+    line("train-cli", ok=ok, wavs=wavs, keys=len(want),
+         seconds=f"{time.perf_counter() - t0:.1f}")
+    if not ok:
+        raise AssertionError(f"synthesize wrote {wavs}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -389,12 +955,25 @@ def main() -> int:
     phase_k1(results)
     phase_k2(results)
     phase_e2e(results, smi)
+    phase_k4(results)
+    with tempfile.TemporaryDirectory() as root:
+        data, feats = make_corpus_and_features(root)
+        phase_train(results, "t2m", data, feats, 30)
+        phase_train(results, "ssrn", data, feats, 8)
+        phase_train_cli(results, data, feats, root)
+    results["launches"].update(
+        {"hc_block_fwd": results["k4_launches"]["fwd"],
+         "hc_block_bwd": results["k4_launches"]["bwd"]})
     kernels = []
     for key, name, src, rep in (
             ("K1", "fused_decode", "dc_tts_tpu_torch/csrc/decode.cu",
              "dc_tts_tpu/ops/pallas_decode.py:274"),
             ("K2", "gl2_run", "dc_tts_tpu_torch/csrc/gl2.cu",
-             "dc_tts_tpu/ops/pallas_gl2.py:407")):
+             "dc_tts_tpu/ops/pallas_gl2.py:407"),
+            ("hc_block_fwd", "hc_block_fwd", "dc_tts_tpu_torch/csrc/hc_vjp.cu",
+             "dc_tts_tpu/ops/pallas_hc_vjp.py:236"),
+            ("hc_block_bwd", "hc_block_bwd", "dc_tts_tpu_torch/csrc/hc_vjp.cu",
+             "dc_tts_tpu/ops/pallas_hc_vjp.py:269")):
         r = results[key]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": results["launches"][key],
@@ -404,7 +983,10 @@ def main() -> int:
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "kernels": kernels, "e2e": results["e2e"]},
+        json.dump({"card": smi, "kernels": kernels, "e2e": results["e2e"],
+                   "K4_shapes": results["K4_shapes"],
+                   "train": {k: results[k] for k in ("train-t2m",
+                                                     "train-ssrn")}},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -9,7 +9,8 @@ test config without editing source.
 Fields that select a TPU-only path keep their names and defaults so that a
 config means the same thing in both packages; the port refuses the values it
 has not ported yet where they are read (``stft_method`` in
-``dsp/griffin_lim.py``, ``compute_dtype`` in ``models``).
+``dsp/griffin_lim.py``, ``compute_dtype`` and, in training, ``remat`` in
+``models``).
 """
 from __future__ import annotations
 
@@ -64,7 +65,9 @@ class Config:
     stft_method: str = "dft_pallas2"
     remat: bool = False
     compute_dtype: str = "float32"  # only "float32" is ported
-    use_pallas: bool = False        # training-only kernel switch; not ported
+    # training only: every HC block runs kernel K4 (ops/hc_vjp.py), its CUDA
+    # forward and backward on the card
+    use_pallas: bool = False
 
     # ------------------------------------------------------------------
     @property

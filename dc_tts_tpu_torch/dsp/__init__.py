@@ -1,1 +1,2 @@
-"""Signal processing: STFT, emphasis filters, Griffin-Lim, wav output."""
+"""Signal processing: features, STFT, emphasis filters, Griffin-Lim, wav
+I/O."""

@@ -1,5 +1,9 @@
-"""Pre/de-emphasis filters and silence trimming, the port of the synthesis
-side of ``dc_tts_tpu/dsp/features.py``.
+"""Spectrogram features, pre/de-emphasis filters and silence trimming, the
+port of ``dc_tts_tpu/dsp/features.py``.
+
+``wav_to_spectrograms`` is the feature contract of training: pre-emphasis,
+|STFT| (``stft.py``), the mel projection, dB and normalisation, on the
+tensor's device. ``reduce_mel`` keeps every r-th mel frame for Text2Mel.
 
 The de-emphasis IIR y[t] = x[t] + coef*y[t-1] (``scipy.signal.lfilter([1],
 [1, -coef], x)``) is computed blocked, without a sequential loop: within a
@@ -10,10 +14,14 @@ recurrence over the n/L block ends, again one Toeplitz matmul.
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .mel import mel_filterbank
+from .stft import stft
 
 
 def preemphasis(y: torch.Tensor, coef: float) -> torch.Tensor:
@@ -50,6 +58,37 @@ def deemphasis(x: torch.Tensor, coef: float, block: int = 512
                             **kw)
     y = local + prev[..., None] * decay
     return y.reshape(*x.shape[:-1], nb * L)[..., :n]
+
+
+def wav_to_spectrograms(y: torch.Tensor, cfg
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Waveform (..., n) -> (mel (..., T, n_mels), mag (..., T, n_freq)):
+    pre-emphasis -> |STFT| -> mel matmul -> 20 log10(max(1e-5, .)) ->
+    clip((db - ref_db + max_db) / max_db, 1e-8, 1), float32, time-major."""
+    y = preemphasis(y.float(), cfg.preemphasis)
+    mag = stft(y, cfg.n_fft, cfg.hop_length, cfg.win_length).abs()
+    basis = torch.as_tensor(mel_filterbank(cfg.sr, cfg.n_fft, cfg.n_mels),
+                            device=y.device)
+    mel = mag @ basis.T
+
+    def to_norm_db(x):
+        db = 20.0 * torch.log10(torch.clamp(x, min=1e-5))
+        return torch.clamp((db - cfg.ref_db + cfg.max_db) / cfg.max_db,
+                           1e-8, 1.0)
+
+    return to_norm_db(mel), to_norm_db(mag)
+
+
+def reduce_mel(mel: np.ndarray, mag: np.ndarray, r: int
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Pad T to a multiple of r and keep every r-th mel frame: mel becomes
+    (T/r, n_mels), mag keeps (T, n_freq)."""
+    t = mel.shape[-2]
+    pad = (r - t % r) % r
+    widths = [(0, 0)] * (mel.ndim - 2) + [(0, pad), (0, 0)]
+    mel = np.pad(mel, widths, mode="constant")
+    mag = np.pad(mag, widths, mode="constant")
+    return mel[..., ::r, :], mag
 
 
 def trim_silence(y: np.ndarray, top_db: float = 60.0,

@@ -7,9 +7,15 @@
 * D  - stride-2 transposed conv -> layer-norm -> activation
 
 A stack is a tuple of specs and a list of parameter dicts. ``apply_stack``
-runs the whole sequence; ``step_stack`` runs one causal frame against
-per-layer history buffers, for the incremental decoder. Dropout is a
-training feature and is not ported.
+runs the whole sequence (with dropout after every block in training);
+``step_stack`` runs one causal frame against per-layer history buffers, for
+the incremental decoder.
+
+With ``use_pallas`` in training every HC block runs kernel K4
+(``ops/hc_vjp.py``): its forward and its hand-written backward, then
+dropout. The JAX package gates that path on the TPU core's VMEM
+(``hc_train_fits``); the CUDA kernels tile time themselves and take every
+HC shape of the trainer, so the port has no gate.
 """
 from __future__ import annotations
 
@@ -101,25 +107,40 @@ def _highway(p: dict, h: torch.Tensor, x: torch.Tensor,
     return h1 * h2 + (1.0 - h1) * x
 
 
-def apply_block(p: dict, spec, x: torch.Tensor, *, ln_eps: float):
-    if isinstance(spec, C):
+def apply_block(p: dict, spec, x: torch.Tensor, *, ln_eps: float,
+                dropout_rate: float = 0.0, gen=None, train: bool = False,
+                use_pallas: bool = False) -> torch.Tensor:
+    if use_pallas and train and isinstance(spec, HC):
+        from ..ops.hc_vjp import hc_block_trainable
+        y = hc_block_trainable(x, p["conv"]["w"], p["conv"]["b"],
+                               p["ln1"]["gamma"], p["ln1"]["beta"],
+                               p["ln2"]["gamma"], p["ln2"]["beta"],
+                               spec.size, spec.rate, spec.causal, ln_eps)
+    elif isinstance(spec, C):
         y = L.conv1d(p["conv"], x, size=spec.size, rate=spec.rate,
                      causal=spec.causal)
-        return _act(L.layer_norm(p["ln"], y, ln_eps), spec.act)
-    if isinstance(spec, HC):
+        y = _act(L.layer_norm(p["ln"], y, ln_eps), spec.act)
+    elif isinstance(spec, HC):
         h = L.conv1d(p["conv"], x, size=spec.size, rate=spec.rate,
                      causal=spec.causal)
-        return _highway(p, h, x, ln_eps)
-    if isinstance(spec, D):
+        y = _highway(p, h, x, ln_eps)
+    elif isinstance(spec, D):
         y = L.conv1d_transpose(p["conv"], x)
-        return _act(L.layer_norm(p["ln"], y, ln_eps), spec.act)
-    raise TypeError(spec)
+        y = _act(L.layer_norm(p["ln"], y, ln_eps), spec.act)
+    else:
+        raise TypeError(spec)
+    return L.dropout(y, dropout_rate, gen, train)
 
 
 def apply_stack(params: Sequence[dict], specs: Sequence, x: torch.Tensor, *,
-                ln_eps: float) -> torch.Tensor:
+                ln_eps: float, dropout_rate: float = 0.0, gen=None,
+                train: bool = False, use_pallas: bool = False
+                ) -> torch.Tensor:
+    """Run a stack. In training (``train``) every block is followed by
+    dropout drawn from ``gen``, layer after layer in order."""
     for p, spec in zip(params, specs):
-        x = apply_block(p, spec, x, ln_eps=ln_eps)
+        x = apply_block(p, spec, x, ln_eps=ln_eps, dropout_rate=dropout_rate,
+                        gen=gen, train=train, use_pallas=use_pallas)
     return x
 
 

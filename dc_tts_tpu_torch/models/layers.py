@@ -118,6 +118,23 @@ def conv1d_step(params, frames: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# dropout (inverted)
+
+
+def dropout(x: torch.Tensor, rate: float, gen, train: bool) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale it by 1/(1 - rate). ``gen`` is a ``torch.Generator`` on x's device;
+    without it, at rate 0 or outside training, x is returned unchanged. The
+    masks are not JAX's bits (the two generators differ)."""
+    if not train or rate <= 0.0 or gen is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+# ---------------------------------------------------------------------------
 # transposed conv1d, stride 2, SAME
 
 

@@ -4,8 +4,8 @@
 Coarse mel (B, T/r, n_mels) -> full linear spectrogram (B, T, 1 + n_fft/2):
 C(c,1) -> HC(3,1) -> HC(3,3) -> 2x[ D(stride2) -> HC(3,1) -> HC(3,3) ]
 -> C(2c,1) -> 2x HC(3,1) -> C(1+n_fft/2, 1) -> 2x C(1,relu) -> C(1)
--> sigmoid. All non-causal; the JAX package has no kernel here, so every
-conv is a torch matmul.
+-> sigmoid. All non-causal. In synthesis every conv is a torch matmul; in
+training under ``cfg.use_pallas`` the eight HC blocks run kernel K4.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import torch
 
 from ..config import Config
 from .blocks import C, D, HC, apply_stack, init_stack
-from .text2mel import _check_float32
+from .text2mel import _check_ported
 
 
 def ssrn_specs(cfg: Config):
@@ -45,10 +45,13 @@ class SSRN:
         assert out == self.cfg.n_freq
         return {"stack": params}
 
-    def apply(self, params, Y: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Y (B, T/r, n_mels) -> (Z_logits, Z) each (B, T, n_freq)."""
-        _check_float32(self.cfg)
-        logits = apply_stack(params["stack"], ssrn_specs(self.cfg), Y,
-                             ln_eps=self.cfg.ln_eps)
+    def apply(self, params, Y: torch.Tensor, *, gen=None,
+              train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Y (B, T/r, n_mels) -> (Z_logits, Z) each (B, T, n_freq). In
+        training (``train``) dropout draws from ``gen``."""
+        cfg = self.cfg
+        _check_ported(cfg, train)
+        logits = apply_stack(params["stack"], ssrn_specs(cfg), Y,
+                             ln_eps=cfg.ln_eps, dropout_rate=cfg.dropout_rate,
+                             gen=gen, train=train, use_pallas=cfg.use_pallas)
         return logits, torch.sigmoid(logits)

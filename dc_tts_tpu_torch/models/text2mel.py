@@ -10,6 +10,10 @@
 * AudioDec: C(d,1) -> HC(3,3^j) j=0..3 -> 2x HC(3,1) -> 3x C(d,1,relu)
   -> C(n_mels,1) -> sigmoid. Causal.
 
+``apply`` is the teacher-forced full-sequence forward of training, with
+dropout from a ``torch.Generator`` and, under ``cfg.use_pallas``, kernel K4
+in every HC block (``blocks.apply_block``).
+
 Decode modes: "incremental" (a Python loop of one-frame steps with cached
 conv history) and "fused" (the whole loop in one launch of the decode
 kernel, ops/decode.py). The JAX package's O(T^2) "reference" mode is not
@@ -58,11 +62,13 @@ def audio_dec_specs(cfg: Config):
     return tuple(specs)
 
 
-def _check_float32(cfg: Config) -> None:
+def _check_ported(cfg: Config, train: bool = False) -> None:
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r} is not ported; only "
             "float32 is")
+    if train and cfg.remat:
+        raise NotImplementedError("remat=True is not ported")
 
 
 @dataclass(frozen=True)
@@ -85,16 +91,49 @@ class Text2Mel:
         assert out == cfg.n_mels
         return params
 
-    # ------------------------------------------------------------- encoder
-    def text_encode(self, params, ids: torch.Tensor
+    # ------------------------------------------------------------- stacks
+    def _stack(self, params, specs, x, gen, train):
+        cfg = self.cfg
+        _check_ported(cfg, train)
+        return apply_stack(params, specs, x, ln_eps=cfg.ln_eps,
+                           dropout_rate=cfg.dropout_rate, gen=gen,
+                           train=train, use_pallas=cfg.use_pallas)
+
+    def text_encode(self, params, ids: torch.Tensor, *, gen=None,
+                    train: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """ids (B, N) -> K, V each (B, N, d)."""
-        cfg = self.cfg
-        _check_float32(cfg)
         x = L.embedding_lookup(params["embed"], ids)
-        x = apply_stack(params["text_enc"], text_enc_specs(cfg), x,
-                        ln_eps=cfg.ln_eps)
+        x = self._stack(params["text_enc"], text_enc_specs(self.cfg), x, gen,
+                        train)
         return torch.chunk(x, 2, dim=-1)
+
+    def audio_encode(self, params, S: torch.Tensor, *, gen=None,
+                     train: bool = False) -> torch.Tensor:
+        """Shifted mel S (B, T, n_mels) -> queries Q (B, T, d)."""
+        return self._stack(params["audio_enc"], audio_enc_specs(self.cfg), S,
+                           gen, train)
+
+    def audio_decode(self, params, R: torch.Tensor, *, gen=None,
+                     train: bool = False) -> torch.Tensor:
+        """R (B, T, 2d) -> mel logits (B, T, n_mels)."""
+        return self._stack(params["audio_dec"], audio_dec_specs(self.cfg), R,
+                           gen, train)
+
+    def apply(self, params, ids: torch.Tensor, S: torch.Tensor, *, gen=None,
+              train: bool = False, monotonic: bool = False,
+              prev_max_attentions=None):
+        """Teacher-forced forward: ids (B, N), S (B, T, n_mels) shifted mels
+        -> (logits, Y, alignments (B, N, T), max_attentions (B, T)). With
+        ``monotonic`` every query row attends only inside the window at
+        ``prev_max_attentions`` (B,)."""
+        Kt, V = self.text_encode(params, ids, gen=gen, train=train)
+        Q = self.audio_encode(params, S, gen=gen, train=train)
+        R, alignments, max_attentions = self.attention(
+            Q, Kt, V,
+            prev_max_attentions=prev_max_attentions if monotonic else None)
+        logits = self.audio_decode(params, R, gen=gen, train=train)
+        return logits, torch.sigmoid(logits), alignments, max_attentions
 
     # ------------------------------------------------------------- attention
     def attention(self, Q, Kt, V, *, prev_max_attentions=None):

@@ -1,0 +1,279 @@
+"""Kernel K4: the gated highway-conv (HC) block of training, forward and
+backward, the port of ``dc_tts_tpu/ops/pallas_hc_vjp.py:hc_block_trainable``
+(forward kernel ``_fwd_kernel``, backward kernel ``_bwd_kernel``).
+
+The function, per batch row (T steps, C channels, K taps at dilation
+``rate``; ``left`` frames of zero padding in front, all of them when
+causal, half of (K-1)*rate otherwise):
+
+    taps = concat_k x[t + k*rate - left]       (T, K*C)
+    h    = taps @ W + b                        (T, 2C);  a = h[:, :C], b2 = h[:, C:]
+    n1   = (a - mu1) * inv1;  g = sigmoid(n1*g1 + be1)
+    n2   = (b2 - mu2) * inv2; h2 = n2*g2 + be2
+    y    = g*h2 + (1-g)*x
+
+and its gradients for a cotangent dy (derivation at
+``pallas_hc_vjp.py:14-27``):
+
+    dg  = dy*(h2 - x);  dh2 = dy*g;  dz1 = dg*g*(1-g)
+    dg1 = sum dz1*n1;   dbe1 = sum dz1;  dg2 = sum dh2*n2;  dbe2 = sum dh2
+    da  = inv1*(dn1 - mean(dn1) - n1*mean(dn1*n1)),  dn1 = dz1*g1
+    db2 = inv2*(dn2 - mean(dn2) - n2*mean(dn2*n2)),  dn2 = dh2*g2
+    dh  = [da, db2];  db = sum dh;  dW = taps^T @ dh
+    dx  = dy*(1-g) + sum_k dh[t - k*rate + left] @ W[k]^T
+
+On the H100 (csrc/hc_vjp.cu) the three tap matmuls dominate: 2*B*T*K*C*2C
+float32 operations each, ~1 TFLOP per SSRN step at full width. The TPU
+kernel holds a batch row and the weights in VMEM and accumulates the
+weight gradients across its sequential grid; the GPU runs blocks in
+parallel with 227 KB of shared memory at most, so the port splits the work:
+a tiled SGEMM whose tile loader does the tap gather (x is never copied into
+a taps matrix), then row kernels for the layer norms and the gate. The
+backward recomputes h as the TPU kernel does, gathers dx (each output row
+sums the K taps that read it, so there are no atomics), and sums dW, db and
+the layer-norm gradients over B*T rows in two stages: partials per tile or
+row chunk, then a fixed-order sum. Gradients are therefore bitwise
+reproducible. There is no time tiling to choose and no VMEM gate: every HC
+shape of the trainer runs; an input the kernels do not take raises.
+
+``hc_block_fwd`` and ``hc_block_bwd`` launch the kernels for CUDA tensors
+(each counts its launches) and run ``hc_block_fwd_plain`` /
+``hc_block_bwd_plain`` for CPU tensors only. ``hc_block_bwd_plain`` is the
+hand-derived backward above in PyTorch ops, not autograd, so it is an
+independent oracle for the backward kernel. ``hc_block_trainable`` is the
+differentiable entry (``HCBlockTrainable``). The TPU kernel's bf16 operand
+mode is not ported.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+_GEMM_TILE = 128          # csrc/hc_vjp.cu BM = BN
+_GEMM_DEPTH = 8           # csrc/hc_vjp.cu BK
+_SMS = 132                # H100 SXM streaming multiprocessors
+_MAX_C = 5600             # hc_bwd_rows keeps 10*C floats in shared memory
+
+
+def _pads(size: int, rate: int, causal: bool):
+    total = (size - 1) * rate
+    left = total if causal else total // 2
+    return left, total - left
+
+
+def _taps(x: torch.Tensor, size: int, rate: int, causal: bool):
+    """x (B, T, C) -> (B, T, size*C), tap k reading x[t + k*rate - left]."""
+    if size == 1:
+        return x
+    left, right = _pads(size, rate, causal)
+    xp = F.pad(x, (0, 0, left, right))
+    T = x.shape[1]
+    return torch.cat([xp[:, k * rate: k * rate + T] for k in range(size)],
+                     dim=-1)
+
+
+def _ln(v: torch.Tensor, eps: float):
+    mu = v.mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt((v - mu).square().mean(dim=-1, keepdim=True) + eps)
+    return (v - mu) * inv, inv
+
+
+def _forward_parts(x, w, b, g1, b1, g2, b2, size, rate, causal, eps):
+    K, C, C2 = w.shape
+    taps = _taps(x, size, rate, causal)
+    h = taps @ w.reshape(K * C, C2) + b
+    n1, inv1 = _ln(h[..., :C], eps)
+    n2, inv2 = _ln(h[..., C:], eps)
+    g = torch.sigmoid(n1 * g1 + b1)
+    h2 = n2 * g2 + b2
+    return taps, n1, inv1, n2, inv2, g, h2
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
+
+def hc_block_fwd_plain(x, w, b, g1, b1, g2, b2, size: int, rate: int,
+                       causal: bool, eps: float) -> torch.Tensor:
+    """K4's forward in PyTorch ops, in the input's precision."""
+    _, _, _, _, _, g, h2 = _forward_parts(x, w, b, g1, b1, g2, b2, size,
+                                          rate, causal, eps)
+    return g * h2 + (1.0 - g) * x
+
+
+def hc_block_bwd_plain(x, w, b, g1, b1, g2, b2, dy, size: int, rate: int,
+                       causal: bool, eps: float):
+    """K4's backward by the hand derivation (module docstring) in PyTorch
+    ops, without autograd. Returns (dx, dw, db, dg1, db1, dg2, db2)."""
+    B, T, C = x.shape
+    K = size
+    taps, n1, inv1, n2, inv2, g, h2 = _forward_parts(
+        x, w, b, g1, b1, g2, b2, size, rate, causal, eps)
+    dg = dy * (h2 - x)
+    dh2 = dy * g
+    dz1 = dg * g * (1.0 - g)
+    rows = (0, 1)
+    dg1, dbe1 = (dz1 * n1).sum(rows), dz1.sum(rows)
+    dg2, dbe2 = (dh2 * n2).sum(rows), dh2.sum(rows)
+    dn1 = dz1 * g1
+    da = inv1 * (dn1 - dn1.mean(-1, keepdim=True)
+                 - n1 * (dn1 * n1).mean(-1, keepdim=True))
+    dn2 = dh2 * g2
+    dbb = inv2 * (dn2 - dn2.mean(-1, keepdim=True)
+                  - n2 * (dn2 * n2).mean(-1, keepdim=True))
+    dh = torch.cat([da, dbb], dim=-1)                   # (B, T, 2C)
+    dbias = dh.sum(rows)
+    dw = (taps.reshape(-1, K * C).T @ dh.reshape(-1, 2 * C)).reshape(
+        K, C, 2 * C)
+    # scatter the tap gradients back to the padded input, then un-pad
+    dtaps = dh @ w.reshape(K * C, 2 * C).T              # (B, T, K*C)
+    left, right = _pads(size, rate, causal)
+    dxp = x.new_zeros(B, T + left + right, C)
+    for k in range(K):
+        dxp[:, k * rate: k * rate + T] += dtaps[..., k * C: (k + 1) * C]
+    dx = dxp[:, left: left + T] + dy * (1.0 - g)
+    return dx, dw, dbias, dg1, dbe1, dg2, dbe2
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+
+
+def _check(name: str, x, w, rows, size: int, extra=()):
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x must be (B, T, C), got {tuple(x.shape)}")
+    B, T, C = x.shape
+    if tuple(w.shape) != (size, C, 2 * C):
+        raise ValueError(f"{name}: w must be ({size}, {C}, {2 * C}), got "
+                         f"{tuple(w.shape)}")
+    want = [2 * C] + [C] * 4
+    for r, n in zip(rows, want):
+        if tuple(r.shape) != (n,):
+            raise ValueError(f"{name}: bias/layer-norm vectors must be "
+                             f"({2 * C},) and ({C},), got {tuple(r.shape)}")
+    for t in (x, w, *rows, *extra):
+        if t.device != x.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: the CUDA kernels take float32 tensors "
+                             f"on one device, got {t.dtype} on {t.device}")
+    if C > _MAX_C:
+        raise ValueError(f"{name}: C={C} > {_MAX_C} does not fit the row "
+                         "kernel's shared memory")
+    if B * T * 2 * C >= 2 ** 31:
+        raise ValueError(f"{name}: B*T*2C must be < 2**31")
+
+
+def _row_chunk(M: int) -> int:
+    """Rows per block of the backward's row kernel: about four blocks per
+    SM, at least 8 rows each (fixed by the shape, so sums keep their
+    order)."""
+    return max(8, -(-M // (4 * _SMS)))
+
+
+def _dw_splits(K: int, C: int, M: int) -> int:
+    """Row ranges the dW product is split over: enough blocks for two per
+    SM, each range at least 8 slices deep."""
+    t = _GEMM_TILE
+    tiles = -(-(K * C) // t) * -(-(2 * C) // t)
+    return max(1, min(-(-2 * _SMS // tiles), M // (8 * _GEMM_DEPTH)))
+
+
+def hc_block_fwd(x, w, b, g1, b1, g2, b2, size: int, rate: int, causal: bool,
+                 eps: float) -> torch.Tensor:
+    """y = HC(x). x (B, T, C), w (K, C, 2C), b (2C,), g1/b1/g2/b2 (C,).
+    CUDA tensors launch the forward kernels (one counted launch per call);
+    CPU tensors take ``hc_block_fwd_plain``."""
+    if x.device.type == "cpu":
+        return hc_block_fwd_plain(x, w, b, g1, b1, g2, b2, size, rate,
+                                  causal, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"hc_block_fwd: unsupported device {x.device}")
+    from ._build import check, load_library
+
+    rows = [t.contiguous() for t in (b, g1, b1, g2, b2)]
+    x, w = x.contiguous(), w.contiguous()
+    _check("hc_block_fwd", x, w, rows, size)
+    B, T, C = x.shape
+    left, _ = _pads(size, rate, causal)
+    lib = load_library()
+    h = torch.empty(B, T, 2 * C, device=x.device)
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = lib.dctts_hc_fwd(x.data_ptr(), w.data_ptr(),
+                            *(r.data_ptr() for r in rows), h.data_ptr(),
+                            y.data_ptr(), B, T, C, size, rate, left,
+                            float(eps), stream)
+    check(code, "HC forward kernels")
+    hc_block_fwd.launches += 1
+    return y
+
+
+def hc_block_bwd(x, w, b, g1, b1, g2, b2, dy, size: int, rate: int,
+                 causal: bool, eps: float):
+    """(dx, dw, db, dg1, db1, dg2, db2) of HC at x for the cotangent dy.
+    CUDA tensors launch the backward kernels (one counted launch per call);
+    CPU tensors take ``hc_block_bwd_plain``."""
+    if x.device.type == "cpu":
+        return hc_block_bwd_plain(x, w, b, g1, b1, g2, b2, dy, size, rate,
+                                  causal, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"hc_block_bwd: unsupported device {x.device}")
+    from ._build import check, load_library
+
+    rows = [t.contiguous() for t in (b, g1, b1, g2, b2)]
+    x, w, dy = x.contiguous(), w.contiguous(), dy.contiguous()
+    _check("hc_block_bwd", x, w, rows, size, (dy,))
+    if dy.shape != x.shape:
+        raise ValueError(f"hc_block_bwd: dy {tuple(dy.shape)} != x "
+                         f"{tuple(x.shape)}")
+    B, T, C = x.shape
+    M = B * T
+    left, _ = _pads(size, rate, causal)
+    R, S = _row_chunk(M), _dw_splits(size, C, M)
+    lib = load_library()
+    dev = x.device
+    h = torch.empty(B, T, 2 * C, device=dev)
+    dh = torch.empty_like(h)
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(w)
+    dparams = torch.empty(6 * C, device=dev)
+    row_part = torch.empty(-(-M // R), 6 * C, device=dev)
+    dw_part = torch.empty(S if S > 1 else 0, *w.shape, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.dctts_hc_bwd(x.data_ptr(), w.data_ptr(),
+                            *(r.data_ptr() for r in rows), dy.data_ptr(),
+                            h.data_ptr(), dh.data_ptr(), dx.data_ptr(),
+                            dw.data_ptr(), dparams.data_ptr(),
+                            row_part.data_ptr(), dw_part.data_ptr(), B, T, C,
+                            size, rate, left, float(eps), R, S, stream)
+    check(code, "HC backward kernels")
+    hc_block_bwd.launches += 1
+    db, dg1, db1, dg2, db2 = dparams.split([2 * C, C, C, C, C])
+    return dx, dw, db, dg1, db1, dg2, db2
+
+
+hc_block_fwd.launches = 0
+hc_block_bwd.launches = 0
+
+
+class HCBlockTrainable(torch.autograd.Function):
+    """The HC block with K4's hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, g1, b1, g2, b2, size, rate, causal, eps):
+        ctx.save_for_backward(x, w, b, g1, b1, g2, b2)
+        ctx.geom = (size, rate, causal, eps)
+        return hc_block_fwd(x, w, b, g1, b1, g2, b2, size, rate, causal, eps)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        grads = hc_block_bwd(*ctx.saved_tensors, dy, *ctx.geom)
+        return (*grads, None, None, None, None)
+
+
+def hc_block_trainable(x, w, b, g1, b1, g2, b2, size: int, rate: int,
+                       causal: bool, eps: float) -> torch.Tensor:
+    """Differentiable HC block. x (B, T, C), w (K, C, 2C) -> (B, T, C)."""
+    return HCBlockTrainable.apply(x, w, b, g1, b1, g2, b2, size, rate,
+                                  causal, eps)

@@ -1,1 +1,1 @@
-"""Training is not ported yet; ``checkpoint`` restores parameters."""
+"""Training: losses, optimizer, steps, checkpoints and the CLI."""

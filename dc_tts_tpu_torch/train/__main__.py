@@ -1,0 +1,205 @@
+"""Training CLI: ``python -m dc_tts_tpu_torch.train {1,2}``.
+
+``1`` trains Text2Mel, ``2`` SSRN: an endless loop over shuffled batches,
+a checkpoint (the JAX package's npz layout) and alignment/spectrogram plots
+every ``--ckpt-every`` steps, resume from the latest checkpoint on restart,
+stop at ``--max-steps``. The same flags and cadence as
+``python -m dc_tts_tpu.train``, plus ``--device`` (default cuda; raises
+without a card unless ``--device cpu``). One GPU: the parallel modes, the
+reduced training dtypes and the JAX PRNG choice are refused. As in the JAX
+package, kernel K4 runs only where a caller sets ``cfg.use_pallas``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..config import base_config, test_config
+from ..data.dataset import (TrainLoader, compute_bucket_shapes,
+                            load_dataset_index)
+from ..device import resolve_device
+from ..params import requires_grad
+from ..utils.logging import MetricLogger
+from ..utils.plotting import plot_alignment, plot_spectrogram
+from . import checkpoint
+from .steps import (TrainState, init_ssrn_state, init_text2mel_state,
+                    make_ssrn_step, make_text2mel_step,
+                    teacher_forcing_shift)
+
+
+def prefetch_to_device(batches, device):
+    """Yield each numpy batch as tensors on ``device``. On a card the copy
+    of batch k+1 (from pinned memory, on a side stream) is issued before
+    batch k is handed out, so it overlaps step k."""
+    if device.type != "cuda":
+        for b in batches:
+            yield {k: torch.from_numpy(v) for k, v in b.items()}
+        return
+    side = torch.cuda.Stream(device)
+
+    def put(b):
+        with torch.cuda.stream(side):
+            out = {k: torch.from_numpy(v).pin_memory().to(device,
+                                                          non_blocking=True)
+                   for k, v in b.items()}
+        done = torch.cuda.Event()
+        done.record(side)
+        return out, done
+
+    it = iter(batches)
+    nxt = put(next(it))
+    for b in it:
+        cur, done = nxt
+        nxt = put(b)
+        main = torch.cuda.current_stream(device)
+        main.wait_event(done)
+        for t in cur.values():
+            t.record_stream(main)
+        yield cur
+
+
+def _plots(num: int, cfg, params, batch, gs: int, tag: str, logdir: str,
+           logger: MetricLogger) -> None:
+    """The alignment and spectrogram images of one checkpoint."""
+    from ..models.ssrn import SSRN
+    from ..models.text2mel import Text2Mel
+    with torch.no_grad():
+        if num == 1:
+            S = teacher_forcing_shift(batch["mels"])
+            _, Y, align, _ = Text2Mel(cfg).apply(params, batch["texts"], S)
+            align, gt, hat = (t[0].cpu().numpy()
+                              for t in (align, batch["mels"], Y))
+            plot_alignment(align, tag, logdir)
+            logger.log_image(gs, "alignment", align)
+            names = ("mel_gt", "mel_hat")
+        else:
+            _, Z = SSRN(cfg).apply(params, batch["mels"])
+            gt, hat = (t[0].cpu().numpy() for t in (batch["mags"], Z))
+            names = ("mag_gt", "mag_hat")
+    for name, img in zip(names, (gt, hat)):
+        plot_spectrogram(img, name, tag, logdir)
+        logger.log_image(gs, name, np.asarray(img).T)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Train Text2Mel (1) or SSRN (2)")
+    ap.add_argument("num", type=int, choices=[1, 2])
+    ap.add_argument("--data", default=None, help="corpus dir (transcript.csv)")
+    ap.add_argument("--features", default=".",
+                    help="dir containing mels/ and mags/ from prepro")
+    ap.add_argument("--on-the-fly", action="store_true",
+                    help="compute spectrograms in the loader threads instead "
+                         "of reading prepro's .npy features")
+    ap.add_argument("--logdir", default=None)
+    ap.add_argument("--batch-size", type=int, default=None)
+    ap.add_argument("--max-steps", type=int, default=None)
+    ap.add_argument("--ckpt-every", type=int, default=1000)
+    ap.add_argument("--keep-ckpts", type=int, default=5,
+                    help="checkpoints retained; 0 keeps all")
+    ap.add_argument("--log-every", type=int, default=50)
+    ap.add_argument("--data-parallel", type=int, default=None,
+                    help="not ported: the port trains on one GPU")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="not ported: the port trains on one GPU")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tiny", action="store_true",
+                    help="use the tiny test config")
+    ap.add_argument("--dtype", default="float32",
+                    help="conv operand dtype; only float32 is ported")
+    ap.add_argument("--rng", default=None,
+                    help="not ported: selects a JAX PRNG implementation; "
+                         "the port draws dropout masks from torch.Generator")
+    ap.add_argument("--tensorboard", action="store_true",
+                    help="also write TensorBoard event files into the logdir")
+    ap.add_argument("--buckets", type=int, default=3,
+                    help="number of static length-bucket shapes; 1 trains "
+                         "on the full grid only")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where to run (default cuda; no CPU fallback)")
+    args = ap.parse_args(argv)
+    if args.data_parallel not in (None, 1) or args.model_parallel != 1:
+        ap.error("--data-parallel/--model-parallel other than 1 are not "
+                 "ported to the PyTorch package: it trains on one GPU")
+    if args.dtype != "float32":
+        ap.error(f"--dtype {args.dtype} is not ported to the PyTorch "
+                 "package; only float32 is")
+    if args.rng is not None:
+        ap.error("--rng selects a JAX PRNG implementation and is not ported "
+                 "to the PyTorch package")
+    device = resolve_device(args.device)
+
+    cfg = test_config() if args.tiny else base_config()
+    if args.data:
+        cfg = cfg.replace(data=args.data)
+    if args.batch_size:
+        cfg = cfg.replace(B=args.batch_size)
+    logdir = args.logdir or (cfg.logdir + "-" + str(args.num))
+    max_steps = args.max_steps or cfg.num_iterations
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    print(f"device: {device} ({name})")
+
+    examples = load_dataset_index(cfg, args.features, cfg.data,
+                                  on_the_fly=args.on_the_fly)
+    print(f"dataset: {len(examples)} usable examples"
+          + (" (on-the-fly features)" if args.on_the_fly else ""))
+    buckets = None
+    if args.buckets > 1:
+        buckets = compute_bucket_shapes(cfg, examples, args.features,
+                                        args.buckets,
+                                        on_the_fly=args.on_the_fly)
+        print(f"buckets: {buckets}")
+    loader = TrainLoader(cfg, examples, args.features, seed=args.seed,
+                         buckets=buckets, on_the_fly=args.on_the_fly)
+
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.num == 1:
+        state = init_text2mel_state(cfg, gen, device)
+        step_fn = make_text2mel_step(cfg, seed=args.seed + 1)
+    else:
+        state = init_ssrn_state(cfg, gen, device)
+        step_fn = make_ssrn_step(cfg, seed=args.seed + 1)
+
+    # full-state resume: parameters, Adam moments and schedule counts; a
+    # params-only checkpoint restores with fast-forwarded counts
+    params, opt_state, start_step, kind = checkpoint.restore_train_state(
+        logdir, state.params, state.opt_state)
+    requires_grad(params)
+    state = TrainState(params, opt_state, start_step)
+    if start_step:
+        print(f"resumed from step {start_step} ({kind} checkpoint)")
+
+    logger = MetricLogger(logdir, tensorboard=args.tensorboard)
+    drop_gen = torch.Generator(device=device)
+    t_last, n_last = time.time(), start_step
+    gs = start_step
+    for batch in prefetch_to_device(loader, device):
+        if gs >= max_steps:
+            break
+        state, metrics = step_fn(state, batch, drop_gen)
+        gs = state.step
+        if gs % args.log_every == 0:
+            loss = float(metrics["loss"])
+            now = time.time()
+            sps = (gs - n_last) / max(now - t_last, 1e-9)
+            t_last, n_last = now, gs
+            logger.log(gs, {**{k: float(v) for k, v in metrics.items()},
+                            "steps_per_sec": sps})
+            print(f"step {gs}  loss {loss:.4f}  {sps:.2f} steps/s")
+        if gs % args.ckpt_every == 0:
+            checkpoint.save_train_state(logdir, state.params, state.opt_state,
+                                        gs, keep=args.keep_ckpts)
+            _plots(args.num, cfg, state.params, batch, gs,
+                   checkpoint.step_name(gs)[9:], logdir, logger)
+    loader.stop()
+    checkpoint.save_train_state(logdir, state.params, state.opt_state,
+                                state.step, keep=args.keep_ckpts)
+    logger.close()
+    print("Done")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,105 @@
+"""Training steps of Text2Mel and SSRN, the port of
+``dc_tts_tpu/train/steps.py``.
+
+Each network trains on its own with its own parameters and optimizer state.
+A step is ``(state, batch, gen) -> (state, metrics)``: the forward with
+dropout drawn from ``gen`` (reseeded from the seed and the step, the role of
+``jax.random.fold_in``), the loss, the gradients by autograd (through K4's
+hand-written backward under ``cfg.use_pallas``), and one optimizer update.
+The update runs in place on the state's tensors, as the JAX step donates
+its state. ``metrics`` are 0-d tensors on the device; nothing waits for the
+device inside a step.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..models.ssrn import SSRN
+from ..models.text2mel import Text2Mel
+from ..params import requires_grad
+from .losses import attention_diagonality, ssrn_loss, text2mel_loss
+from .optimizer import apply_updates, init_opt_state, tree_leaves
+
+
+class TrainState(NamedTuple):
+    params: dict
+    opt_state: list
+    step: int  # global step, on the host
+
+
+def _init_state(params) -> TrainState:
+    requires_grad(params)
+    return TrainState(params, init_opt_state(params), 0)
+
+
+def init_text2mel_state(cfg: Config, gen: torch.Generator,
+                        device="cpu") -> TrainState:
+    return _init_state(Text2Mel(cfg).init(gen, device))
+
+
+def init_ssrn_state(cfg: Config, gen: torch.Generator,
+                    device="cpu") -> TrainState:
+    return _init_state(SSRN(cfg).init(gen, device))
+
+
+def teacher_forcing_shift(mels: torch.Tensor) -> torch.Tensor:
+    """S = [0; mels[:, :-1]], the decoder's input."""
+    return torch.cat([torch.zeros_like(mels[:, :1]), mels[:, :-1]], dim=1)
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The dropout seed of one step: a function of the run's seed and the
+    step alone, so a resumed run draws the masks it would have drawn."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+
+
+def text2mel_grads(cfg: Config, params, batch: dict, gen=None):
+    """(metrics, gradients as a leaf list) of the Text2Mel loss."""
+    mels = batch["mels"]
+    S = teacher_forcing_shift(mels)
+    logits, Y, align, _ = Text2Mel(cfg).apply(params, batch["texts"], S,
+                                              gen=gen, train=True)
+    loss, metrics = text2mel_loss(logits, Y, align, mels, cfg,
+                                  batch.get("text_lens"),
+                                  batch.get("mel_lens"))
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["attention_diagonality"] = attention_diagonality(
+        align.detach(), batch.get("text_lens"), batch.get("mel_lens"))
+    return metrics, list(grads)
+
+
+def ssrn_grads(cfg: Config, params, batch: dict, gen=None):
+    """(metrics, gradients as a leaf list) of the SSRN loss."""
+    logits, Z = SSRN(cfg).apply(params, batch["mels"], gen=gen, train=True)
+    loss, metrics = ssrn_loss(logits, Z, batch["mags"], cfg)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    return {k: v.detach() for k, v in metrics.items()}, list(grads)
+
+
+def _make_step(cfg: Config, grads_fn, seed: int):
+    def step(state: TrainState, batch: dict,
+             gen: Optional[torch.Generator] = None):
+        if gen is not None:
+            gen.manual_seed(step_seed(seed, state.step))
+        metrics, grads = grads_fn(cfg, state.params, batch, gen)
+        opt_state = apply_updates(state.params, grads, state.opt_state, cfg)
+        return TrainState(state.params, opt_state, state.step + 1), metrics
+
+    return step
+
+
+def make_text2mel_step(cfg: Config, seed: int = 0):
+    """The Text2Mel step. batch: texts (B, N) int, mels (B, T, n_mels),
+    and optionally text_lens, mel_lens (B,)."""
+    return _make_step(cfg, text2mel_grads, seed)
+
+
+def make_ssrn_step(cfg: Config, seed: int = 0):
+    """The SSRN step. batch: mels (B, T/r, n_mels), mags (B, T, n_freq);
+    SSRN trains on the ground-truth coarse mels."""
+    return _make_step(cfg, ssrn_grads, seed)

@@ -89,3 +89,74 @@ def test_synthesizer_on_cuda_matches_cpu(cuda):
     torch.testing.assert_close(Z, cpu[2], atol=1e-4, rtol=0)
     ref = spectrogram_to_wav(Z.double(), cfg.replace(stft_method="fft"))
     torch.testing.assert_close(wav.double(), ref, atol=1e-4, rtol=0)
+
+
+# ------------------------------------------------------------------ K4
+
+
+def _hc_inputs(B, T, C, size, seed, dev):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, C))
+    w = rng.standard_normal((size, C, 2 * C)) * (2.0 / (size * C)) ** 0.5
+    vecs = [rng.standard_normal(n) * 0.3 + (1.0 if i in (1, 3) else 0.0)
+            for i, n in enumerate([2 * C, C, C, C, C])]
+    dy = rng.standard_normal((B, T, C))
+    return [torch.tensor(a, dtype=torch.float32, device=dev)
+            for a in (x, w, *vecs, dy)]
+
+
+@pytest.mark.parametrize("B,T,C,size,rate,causal", [
+    (2, 100, 64, 3, 27, True), (2, 50, 512, 3, 3, False)])
+def test_hc_kernels_match_plain(cuda, B, T, C, size, rate, causal):
+    """Forward and all 7 gradients against the plain versions run in
+    float64: each within max(2e-5 x its max |value|, 2 x the float32 plain
+    version's own distance)."""
+    from dc_tts_tpu_torch.ops import hc_vjp as K4
+    *args, dy = _hc_inputs(B, T, C, size, 7, cuda)
+    geo = (size, rate, causal, 1e-5)
+    n_f, n_b = K4.hc_block_fwd.launches, K4.hc_block_bwd.launches
+    outs = (K4.hc_block_fwd(*args, *geo), *K4.hc_block_bwd(*args, dy, *geo))
+    torch.cuda.synchronize()
+    assert (K4.hc_block_fwd.launches, K4.hc_block_bwd.launches) == \
+        (n_f + 1, n_b + 1)
+    a64 = [a.double() for a in args]
+    ref = (K4.hc_block_fwd_plain(*a64, *geo),
+           *K4.hc_block_bwd_plain(*a64, dy.double(), *geo))
+    p32 = (K4.hc_block_fwd_plain(*args, *geo),
+           *K4.hc_block_bwd_plain(*args, dy, *geo))
+    for name, o, r, p in zip(("y", "dx", "dw", "db", "dg1", "db1", "dg2",
+                              "db2"), outs, ref, p32):
+        assert o.shape == r.shape, name
+        err = float((o.double() - r).abs().max())
+        tol = max(2e-5 * float(r.abs().max()),
+                  2 * float((p.double() - r).abs().max()))
+        assert err <= tol, (name, err, tol)
+
+
+def test_hc_backward_is_deterministic(cuda):
+    from dc_tts_tpu_torch.ops import hc_vjp as K4
+    *args, dy = _hc_inputs(4, 90, 128, 3, 9, cuda)
+    g1 = K4.hc_block_bwd(*args, dy, 3, 9, False, 1e-5)
+    g2 = K4.hc_block_bwd(*args, dy, 3, 9, False, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def test_hc_autograd_uses_kernels_and_raises_on_bad_input(cuda):
+    from dc_tts_tpu_torch.ops import hc_vjp as K4
+    *args, dy = _hc_inputs(2, 40, 32, 3, 11, cuda)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    n_f, n_b = K4.hc_block_fwd.launches, K4.hc_block_bwd.launches
+    y = K4.hc_block_trainable(*leaves, 3, 1, True, 1e-5)
+    grads = torch.autograd.grad(y, leaves, dy)
+    assert (K4.hc_block_fwd.launches, K4.hc_block_bwd.launches) == \
+        (n_f + 1, n_b + 1)
+    direct = K4.hc_block_bwd(*args, dy, 3, 1, True, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(grads, direct))
+    # a float64 input or a weight of the wrong shape raises on the card
+    # (never the plain version)
+    with pytest.raises(ValueError):
+        K4.hc_block_trainable(*[a.double() for a in args], 3, 1, True, 1e-5)
+    with pytest.raises(ValueError):
+        K4.hc_block_trainable(args[0], args[1][:2], *args[2:], 3, 1, True,
+                              1e-5)
+    assert K4.hc_block_fwd.launches == n_f + 1
