@@ -29,15 +29,49 @@ line:
              then the tiny config on the card against the CPU (Y 2e-5, Z
              1e-4) and the float64 plain vocoder (waveform 1e-4); and
              CUDA-event times of each stage of one chunk, whose output is
-             held equal to synthesize_ids' on the same chunk.
-6. K4      - the HC block's forward and backward kernels against their
+             held equal to synthesize_ids' on the same chunk. Every launch
+             count is set to 0 before and read after the 40 sentences: K3's
+             must stay 0 on this default (dft_pallas2) path.
+6. K3      - the Griffin-Lim round kernels K3a (inverse rDFT GEMM +
+             overlap-add) and K3b (re-frame + forward rDFT GEMM + phase) at
+             the production geometry (n_fft 2048, hop 275, win 1102, F=840,
+             fp1=896, B=20), in each pass mode (1 and 3): K3a's signal
+             within 1e-5 x its max of the plain version; K3b on the plain
+             K3a's signal within max 2e-2 and mean 1e-5 of the plain
+             version; the whole round within mean 1e-5 of the plain
+             version, rows >= F exactly 0, and within max 2e-2 of it on
+             every bin whose phase K3a's rounding cannot move by more than
+             1e-2 (_k3_conditioned: a 1-ulp difference in K3a's signal can
+             flip a bf16 rounding of K3b's operands, which the phase
+             normalisation of a near-zero bin amplifies); the other bins,
+             and those over 2e-2, are counted, and the distances of both
+             rounds to the plain version run with float64 sums printed.
+             CUDA-event ms of each kernel and of its plain version, the
+             bound, and cuBLAS's time for the round's two GEMMs in bf16 as a
+             yardstick (the port never calls it). Then the 50-round
+             griffin_lim("dft_pallas") on K2's two-tone probe: spectral
+             convergence <= 1.10 x the plain dft_mixed schedule's + 0.01 on
+             the card, and the loop's ms beside its bound.
+7. e2e-dft_pallas - the same 40 sentences through Synthesizer(base_config()
+             .replace(stft_method="dft_pallas"), pcm16=True), counts set to
+             0 just before and read just after: K1, K3a and K3b launched,
+             K2 not; int16 (40, 230725); wall time and audio-s/s. Then for
+             each utterance the Griffin-Lim of its Z under dft_pallas within
+             1.10 x the default dft_pallas2's spectral convergence + 0.01,
+             and the Synthesizer's pcm16 equal to that direct call's.
+             CUDA-event times of each stage of one chunk (line
+             e2e-dft_pallas-stages), and torch.profiler's device time by
+             kernel over that chunk's Griffin-Lim (utils/profiling.trace;
+             the Chrome trace goes to chiprun_out/trace_dft_pallas/): the
+             kernels' summed time (device busy) beside the host clock.
+8. K4      - the HC block's forward and backward kernels against their
              plain versions run in float64, at three full-width shapes of
              the trainer (TextEnc HC(3,9) B=32 T=180 C=512; AudioEnc
              HC(3,27) causal T=210 C=256; SSRN HC(3,1) T=840 C=1024): y and
              all 7 gradients for a seeded cotangent, each within max(2e-5 x
              its max |value|, 2 x the float32 plain version's own
              distance); gradients bitwise equal across two calls.
-7. train-t2m  - a seeded synthetic corpus (64 utterances of 2-9 s at
+9. train-t2m  - a seeded synthetic corpus (64 utterances of 2-9 s at
              22050 Hz, the Harvard sentences as texts) through prepro on
              the card and TrainLoader with two length buckets (one holds
              the full 180x210 grid); 30 Text2Mel steps at base_config()
@@ -60,22 +94,31 @@ line:
              many decisions each switched, are printed beside it); and K4 at
              each of the 28 HC blocks, at the input and output cotangent of
              the float64 run, within phase K4's tolerance.
-8. train-ssrn - the same for SSRN: 8 steps, 8 + 8 K4 launches a step, its
+10. train-ssrn - the same for SSRN: 8 steps, 8 + 8 K4 launches a step, its
              losses finite and printed (at the warm-up learning rate a few
              steps move them less than dropout does, so no descent check),
              the same equivalence with its 8 HC blocks.
-9. train-cli  - python -m dc_tts_tpu_torch.train 1 and 2 on that corpus
+11. train-cli  - python -m dc_tts_tpu_torch.train 1 and 2 on that corpus
              (--max-steps 4 --ckpt-every 2 --buckets 2) as
              subprocesses: exit 0, model_gs_000k.npz in the JAX package's
              key layout; a restart resumes at step 4 and ends at 6; then
              python -m dc_tts_tpu_torch.synthesize from both logdirs writes
              two wavs.
-10. the kernels line, the nvidia-smi line, and the ``ok`` line.
+12. the kernels line, the nvidia-smi line, and the ``ok`` line.
 
 Kernel times are CUDA-event means over repeated calls on the same inputs.
 ``bound_ms`` is the larger of (bytes each input read once + each output
 written once) / 3.35 TB/s and (float32 operations) / 67 TFLOP/s, the
-H100 SXM's published peaks at 700 W. K2's operations count each 2048-point
+H100 SXM's published peaks at 700 W; K3's operations are those its
+function needs, over 989 TFLOP/s of dense bf16: passes x 2*(B*F)*
+win_length*(2*n_freq) per GEMM (griffin_lim_flops at the F frames that
+carry data, times win_length/n_fft: the window is zero outside its
+win_length samples of K3a's N and K3b's K; the dense GEMMs the kernels
+run are printed beside it). K3a's and K3b's ``ms``, ``plain_ms`` and
+``bound_ms`` in the kernels line are single-pass (the schedule's 40
+middle rounds of 50), their ``launches`` both pass modes' in
+e2e-dft_pallas, K3a's ``max_abs_err`` that of its signal. K2's
+operations count each 2048-point
 transform as a real FFT (2.5 N log2 N): every frame is real and every
 spectrum Hermitian. K4's operations are its tap matmuls, 2*B*T*K*C*2C for
 the forward and three times that for the backward (h recomputed, dx, dW);
@@ -99,6 +142,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
 PEAK_FP32 = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s
+PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor cores, FLOP/s
 B_MAIN, CHUNK = 20, 20
 # the training phases' device and batch (a rehearsal on the CPU sets them)
 DEV, B_TRAIN = "cuda", 32
@@ -126,9 +170,33 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, n_flops: float):
-    tb, tf = n_bytes / PEAK_BYTES * 1e3, n_flops / PEAK_FP32 * 1e3
+def bound(n_bytes: float, n_flops: float, peak: float = PEAK_FP32):
+    tb, tf = n_bytes / PEAK_BYTES * 1e3, n_flops / peak * 1e3
     return (tf, "operations") if tf >= tb else (tb, "bytes")
+
+
+def reset_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from dc_tts_tpu_torch.ops import decode as K1
+    from dc_tts_tpu_torch.ops import gl as K3
+    from dc_tts_tpu_torch.ops import gl2 as K2
+    from dc_tts_tpu_torch.ops import hc_vjp as K4
+    K1.fused_decode.launches = K2.gl2_run.launches = 0
+    K3.k3a.launches, K3.k3b.launches = {1: 0, 3: 0}, {1: 0, 3: 0}
+    K4.hc_block_fwd.launches = K4.hc_block_bwd.launches = 0
+
+
+def counts() -> dict:
+    """Every kernel wrapper's launch count (K3's over both pass modes)."""
+    from dc_tts_tpu_torch.ops import decode as K1
+    from dc_tts_tpu_torch.ops import gl as K3
+    from dc_tts_tpu_torch.ops import gl2 as K2
+    from dc_tts_tpu_torch.ops import hc_vjp as K4
+    return {"K1": K1.fused_decode.launches, "K2": K2.gl2_run.launches,
+            "K3a": sum(K3.k3a.launches.values()),
+            "K3b": sum(K3.k3b.launches.values()),
+            "hc_block_fwd": K4.hc_block_fwd.launches,
+            "hc_block_bwd": K4.hc_block_bwd.launches}
 
 
 def nbytes(*ts) -> int:
@@ -280,10 +348,7 @@ def phase_k2(results):
     err1 = max(errs[1][0], errs[3][0])
 
     # two-tone probe, tiled to the main path's batch
-    t = torch.arange(hop * (F - 1) + n_fft, dtype=torch.float64) / cfg.sr
-    probe = (0.6 * torch.sin(2 * np.pi * 440 * t)
-             + 0.4 * torch.sin(2 * np.pi * 660 * t)).float().to(dev)
-    pmag = stft(probe, n_fft, hop, win).abs()[:F]
+    pmag = _two_tone(cfg, dev)
     pscr = K2.scramble_mag(pmag.expand(B_MAIN, F, cfg.n_freq), g)
 
     def sc(wav):
@@ -323,6 +388,212 @@ def phase_k2(results):
                          bound_ms=b_ms, bound_by=b_by)
 
 
+def _two_tone(cfg, dev):
+    """The Griffin-Lim probe of phases K2 and K3: |stft| of 440 + 660 Hz
+    at the production geometry, (F, n_freq)."""
+    from dc_tts_tpu_torch.dsp.stft import stft
+    F = cfg.max_T_full
+    t = torch.arange(cfg.hop_length * (F - 1) + cfg.n_fft,
+                     dtype=torch.float64) / cfg.sr
+    probe = (0.6 * torch.sin(2 * np.pi * 440 * t)
+             + 0.4 * torch.sin(2 * np.pi * 660 * t)).float().to(dev)
+    return stft(probe, cfg.n_fft, cfg.hop_length, cfg.win_length).abs()[:F]
+
+
+def spectral_convergence(wav, mag, cfg):
+    """Per row: || |stft(wav)| - mag || / || mag || over (F, n_freq)."""
+    from dc_tts_tpu_torch.dsp.stft import stft
+    m = stft(wav, cfg.n_fft, cfg.hop_length, cfg.win_length).abs()
+    m = m[..., : mag.shape[-2], :]
+    return (torch.linalg.norm((m - mag).flatten(-2), dim=-1)
+            / torch.linalg.norm(mag.expand_as(m).flatten(-2), dim=-1))
+
+
+def _diff(got, want):
+    """(max, mean) of |got - want| over a pair of tensors (Xr, Xi)."""
+    d = torch.cat([(a.double() - b.double()).abs().flatten()
+                   for a, b in zip(got, want)])
+    return float(d.max()), float(d.mean())
+
+
+def _k3_conditioned(yk, yp, mag, consts, g, three):
+    """The bins (B, F, n_freq) of a K3 round whose phase the kernel's K3a
+    rounding cannot move by more than 1e-2. K3b's operands are the windowed
+    frames of K3a's signal rounded to bf16 (hi, and lo with three_pass); a
+    1-ulp difference between the kernel's signal yk and the plain version's
+    yp can flip such a rounding, which moves each bin E of that frame by at
+    most delta = sum over the frame of |d hi| + |d lo| (every C, S entry is
+    at most 1 in size), and the phase E/|E| times mag by at most 2 mag
+    delta / |E|. Those bins with 2 mag delta <= 1e-2 |E| (E: the plain
+    version's spectrum before the phase normalisation)."""
+    from dc_tts_tpu_torch.ops.gl import k3b_spectrum_plain
+
+    def parts(y):
+        x = y.unfold(-1, g.n_fft, g.hop) * consts["win"]
+        hi = x.bfloat16().float()
+        return hi, ((x - hi).bfloat16().float() if three
+                    else torch.zeros_like(hi))
+    (hk, lk), (hp, lp) = parts(yk), parts(yp)
+    delta = ((hk - hp).abs() + (lk - lp).abs()).sum(-1, keepdim=True)
+    del hk, lk, hp, lp
+    er, ei = k3b_spectrum_plain(yp, consts, g, three)
+    return 2 * mag[:, : g.F] * delta <= 1e-2 * torch.sqrt(er * er + ei * ei)
+
+
+def phase_k3(results):
+    from dc_tts_tpu_torch.config import base_config
+    from dc_tts_tpu_torch.dsp.griffin_lim import griffin_lim, gl_schedule
+    from dc_tts_tpu_torch.ops import gl as K3
+    from dc_tts_tpu_torch.utils.profiling import griffin_lim_flops
+
+    cfg = base_config()
+    dev = torch.device("cuda")
+    n_fft, hop, win = cfg.n_fft, cfg.hop_length, cfg.win_length
+    F = cfg.max_T_full
+    g = K3.gl_geometry(n_fft, hop, win, F)
+    consts = {k: v.to(dev) for k, v in
+              K3.gl_fused_consts(n_fft, hop, win, F).items()}
+    gen = torch.Generator().manual_seed(6)
+    rows = (0, 0, 0, g.f2 - F)
+    pad = torch.nn.functional.pad
+    mag = pad(torch.rand(B_MAIN, F, g.n_freq, generator=gen), rows).to(dev)
+    Xr, Xi = (pad(torch.randn(B_MAIN, F, g.n_freq, generator=gen), rows
+                  ).to(dev) for _ in range(2))
+    # one GEMM's operations per pass, from the JAX package's count of a
+    # round's four real matmuls: dense, 2*M*N*K at M = B*F frames and N*K =
+    # n_fft * 2*n_freq, as the kernels run it; and what the function needs,
+    # the window's win_length samples of K3a's N and K3b's K
+    dense1 = griffin_lim_flops(B_MAIN, F, n_fft, 0, "dft") / 2
+    flops1 = dense1 * win / n_fft
+    modes = {}
+    for three in (False, True):
+        npass = 3 if three else 1
+        # each kernel against its plain version on the same inputs (K3b on
+        # the plain K3a's signal), then the whole round against the plain
+        # version (and the plain version run with float64 sums)
+        yk = K3.k3a(Xr, Xi, consts, g, three)
+        yp = K3.k3a_plain(Xr, Xi, consts, g, three)
+        d_a = float((yk - yp).abs().max())
+        e_a = d_a / float(yp.abs().max())
+        e_b = _diff(K3.k3b(yp, mag, consts, g, three),
+                    K3.k3b_plain(yp, mag, consts, g, three))
+        rk = K3.fused_gl_round(Xr, Xi, mag, consts, g, three)
+        rp = K3.fused_gl_round_plain(Xr, Xi, mag, consts, g, three)
+        r64 = K3.fused_gl_round_plain(Xr.double(), Xi.double(),
+                                      mag.double(), consts, g, three)
+        e_r, e_k64, e_p64 = _diff(rk, rp), _diff(rk, r64), _diff(rp, r64)
+        # the round's max, bin by bin, where K3a's rounding cannot move the
+        # phase by more than 1e-2 (_k3_conditioned); elsewhere it is a
+        # chance event at near-zero bins, counted
+        d = torch.maximum((rk[0] - rp[0]).abs(), (rk[1] - rp[1]).abs())[:, :F]
+        cond = _k3_conditioned(yk, yp, mag, consts, g, three)
+        d_cond = float(d[cond].max())
+        n_ill, n_over = int((~cond).sum()), int((d > 2e-2).sum())
+        pad_rows = max(float(rk[0][:, F:].abs().max()),
+                       float(rk[1][:, F:].abs().max()))
+        finite = bool(torch.isfinite(rk[0]).all() and torch.isfinite(
+            rk[1]).all())
+        del yk, rk, rp, r64, d, cond
+        ms_a = cuda_ms(lambda: K3.k3a(Xr, Xi, consts, g, three), 10)
+        ms_b = cuda_ms(lambda: K3.k3b(yp, mag, consts, g, three), 10)
+        plain_a = cuda_ms(lambda: K3.k3a_plain(Xr, Xi, consts, g, three), 3)
+        plain_b = cuda_ms(lambda: K3.k3b_plain(yp, mag, consts, g, three), 3)
+        lo = ("_lo",) if three else ()
+        # bytes: the F rows of spectrum and magnitude the kernels read, the
+        # whole output they write
+        b_a = bound(nbytes(Xr[:, :F], Xi[:, :F], consts["win"],
+                           consts["wsq_seg"], yp,
+                           *(consts["k3a" + s] for s in ("_hi",) + lo)),
+                    npass * flops1, PEAK_BF16)
+        b_b = bound(nbytes(yp, mag[:, :F], consts["win"], Xr, Xi,
+                           *(consts["k3b" + s] for s in ("_hi",) + lo)),
+                    npass * flops1, PEAK_BF16)
+        ok = (finite and e_a <= 1e-5 and e_b[0] <= 2e-2 and e_b[1] <= 1e-5
+              and d_cond <= 2e-2 and e_r[1] <= 1e-5 and pad_rows == 0.0)
+        line("K3", ok=ok, passes=npass, B=B_MAIN, F=F, fp1=g.fp1,
+             n_fft=n_fft, k3a_max=f"{d_a:.3e}", k3a_max_rel=f"{e_a:.3e}",
+             k3b_max=f"{e_b[0]:.3e}", k3b_mean=f"{e_b[1]:.3e}",
+             round_max_conditioned=f"{d_cond:.3e}",
+             round_max=f"{e_r[0]:.3e}", round_mean=f"{e_r[1]:.3e}",
+             bins_unconditioned=n_ill, bins_over_2e_2=n_over,
+             bins=2 * B_MAIN * F * g.n_freq,
+             round_vs_f64_max=f"{e_k64[0]:.3e}",
+             round_vs_f64_mean=f"{e_k64[1]:.3e}",
+             plain_f32_vs_f64_max=f"{e_p64[0]:.3e}",
+             plain_f32_vs_f64_mean=f"{e_p64[1]:.3e}", pad_rows=pad_rows,
+             tol="k3a 1e-5 x max|y|; k3b max 2e-2, mean 1e-5; round max "
+                 "2e-2 on the conditioned bins, mean 1e-5 on all",
+             k3a_ms=f"{ms_a:.3f}", k3b_ms=f"{ms_b:.3f}",
+             k3a_plain_ms=f"{plain_a:.3f}", k3b_plain_ms=f"{plain_b:.3f}",
+             k3a_bound_ms=f"{b_a[0]:.4f}", k3b_bound_ms=f"{b_b[0]:.4f}",
+             bound_by=b_a[1], gflop_each=f"{npass * flops1 / 1e9:.1f}",
+             dense_gemm_gflop_each=f"{npass * dense1 / 1e9:.1f}")
+        if not ok:
+            raise AssertionError(f"K3 ({npass}-pass) disagrees with its "
+                                 f"plain version: k3a {e_a}, k3b {e_b}, "
+                                 f"round {e_r}, conditioned {d_cond}, pad "
+                                 f"rows {pad_rows}")
+        modes[npass] = dict(k3a_ms=ms_a, k3b_ms=ms_b, k3a_plain_ms=plain_a,
+                            k3b_plain_ms=plain_b, k3a_bound_ms=b_a[0],
+                            k3b_bound_ms=b_b[0], bound_by=b_a[1],
+                            k3a_max_abs=d_a, k3a_max_rel=e_a, k3b_err=e_b,
+                            round_err=e_r, round_max_conditioned=d_cond,
+                            bins_unconditioned=n_ill, bins_over_2e_2=n_over,
+                            round_vs_f64=e_k64, plain_vs_f64=e_p64)
+
+    # a yardstick only, never called by the port: cuBLAS's time for the
+    # round's two GEMMs with bf16 operands (and a bf16 output)
+    # on the kernels' B*F rows
+    xa = torch.cat([Xr, Xi], -1)[:, :F].reshape(-1, 2 * g.n_freq).bfloat16()
+    wa = consts["k3a_hi"][:n_fft, : 2 * g.n_freq].T
+    fr = yp.unfold(-1, n_fft, hop).reshape(-1, n_fft).bfloat16()
+    wb = consts["k3b_hi"][: 2 * g.n_freq, :n_fft].T
+    cublas_ms = cuda_ms(lambda: (xa @ wa, fr @ wb), 10)
+    del xa, fr, yp
+
+    # the 50-round schedule on the two-tone probe, against the plain
+    # dft_mixed schedule on the card
+    pmag = _two_tone(cfg, dev).expand(B_MAIN, F, g.n_freq).contiguous()
+    n_iter = cfg.n_iter
+    w = griffin_lim(pmag, n_fft, hop, win, n_iter, method="dft_pallas")
+    wm = griffin_lim(pmag, n_fft, hop, win, n_iter, method="dft_mixed")
+    s_k = float(spectral_convergence(w, pmag[0], cfg).max())
+    s_m = float(spectral_convergence(wm, pmag[0], cfg).max())
+    loop_ms = cuda_ms(lambda: griffin_lim(pmag, n_fft, hop, win, n_iter,
+                                          method="dft_pallas"), 3)
+    mixed_ms = cuda_ms(lambda: griffin_lim(pmag, n_fft, hop, win, n_iter,
+                                           method="dft_mixed"), 1)
+    head, mid, tail = gl_schedule(n_iter)
+    loop_bound = bound(nbytes(pmag, w), (mid + 3 * (head + tail)) * 2
+                       * flops1, PEAK_BF16)
+    ok = (bool(torch.isfinite(w).all()) and s_k <= 1.10 * s_m + 0.01
+          and w.shape == (B_MAIN, g.L_sig))
+    line("K3-loop", ok=ok, n_iter=n_iter, schedule=f"{head},{mid},{tail}",
+         sc_dft_pallas=f"{s_k:.5f}", sc_dft_mixed_plain=f"{s_m:.5f}",
+         tol="sc <= 1.10 x plain dft_mixed + 0.01", loop_ms=f"{loop_ms:.3f}",
+         dft_mixed_plain_ms=f"{mixed_ms:.1f}",
+         loop_bound_ms=f"{loop_bound[0]:.3f}", bound_by=loop_bound[1],
+         cublas_bf16_round_gemms_ms=f"{cublas_ms:.3f}")
+    if not ok:
+        raise AssertionError(f"dft_pallas loop: sc {s_k} vs dft_mixed {s_m}")
+    one = modes[1]
+    results["K3a"] = dict(max_abs_err=max(m["k3a_max_abs"]
+                                          for m in modes.values()),
+                          ms=one["k3a_ms"], plain_ms=one["k3a_plain_ms"],
+                          bound_ms=one["k3a_bound_ms"],
+                          bound_by=one["bound_by"])
+    results["K3b"] = dict(max_abs_err=max(m["k3b_err"][0]
+                                          for m in modes.values()),
+                          ms=one["k3b_ms"], plain_ms=one["k3b_plain_ms"],
+                          bound_ms=one["k3b_bound_ms"],
+                          bound_by=one["bound_by"])
+    results["K3_modes"] = modes
+    results["K3_loop"] = dict(sc_dft_pallas=s_k, sc_dft_mixed=s_m,
+                              loop_ms=loop_ms, dft_mixed_ms=mixed_ms,
+                              bound_ms=loop_bound[0],
+                              cublas_bf16_round_gemms_ms=cublas_ms)
+
+
 def stage_ms(synth, ids):
     """CUDA-event milliseconds of each stage of ``synthesize_ids`` on one
     chunk, run stage by stage as the Synthesizer chains them, and the
@@ -332,7 +603,7 @@ def stage_ms(synth, ids):
     from dc_tts_tpu_torch.ops import decode as K1
 
     cfg, p = synth.cfg, synth.t2m_params
-    names = ("text_enc_ms", "decode_k1_ms", "ssrn_ms", "griffin_lim_k2_ms",
+    names = ("text_enc_ms", "decode_k1_ms", "ssrn_ms", "griffin_lim_ms",
              "deemph_pcm16_ms")
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
     with torch.no_grad():
@@ -362,8 +633,6 @@ def phase_e2e(results, smi):
     from dc_tts_tpu_torch import Synthesizer, base_config, test_config
     from dc_tts_tpu_torch.dsp.griffin_lim import spectrogram_to_wav
     from dc_tts_tpu_torch.models import SSRN, Text2Mel
-    from dc_tts_tpu_torch.ops import decode as K1
-    from dc_tts_tpu_torch.ops import gl2 as K2
 
     cfg = base_config()
     gen = torch.Generator().manual_seed(0)
@@ -371,15 +640,15 @@ def phase_e2e(results, smi):
                         pcm16=True)
     ids = harvard_ids(cfg, 40)
     synth.synthesize_ids_chunked(ids[:CHUNK], CHUNK)      # warm-up
-    K1.fused_decode.launches = 0
-    K2.gl2_run.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     wavs = synth.synthesize_ids_chunked(ids, CHUNK)
     wall = time.perf_counter() - t0
-    launches = {"K1": K1.fused_decode.launches, "K2": K2.gl2_run.launches}
+    launches = counts()
     n_samples = cfg.hop_length * (cfg.max_T_full - 1)
     ok = (wavs.dtype == np.int16 and wavs.shape == (40, n_samples)
           and launches["K1"] > 0 and launches["K2"] > 0
+          and launches["K3a"] == launches["K3b"] == 0
           and int(np.abs(wavs).max()) > 0)
     audio_s = wavs.size / cfg.sr
     line("e2e", ok=ok, shape=wavs.shape, dtype=wavs.dtype,
@@ -424,9 +693,113 @@ def phase_e2e(results, smi):
     if not ok:
         raise AssertionError("tiny synthesis on the card disagrees with the "
                              "CPU")
-    results["launches"] = launches
+    results["launches"] = {k: launches[k] for k in ("K1", "K2")}
     results["e2e"] = dict(wall_s=wall, audio_s=audio_s,
                           audio_s_per_s=audio_s / wall, stages_ms=stages)
+
+
+def phase_e2e_dft_pallas(results, smi):
+    """The synthesis path under stft_method="dft_pallas": every Griffin-Lim
+    round through K3."""
+    from dc_tts_tpu_torch import Synthesizer, base_config
+    from dc_tts_tpu_torch.dsp.features import deemphasis
+    from dc_tts_tpu_torch.dsp.griffin_lim import denormalize_mag, griffin_lim
+    from dc_tts_tpu_torch.models import SSRN, Text2Mel
+    from dc_tts_tpu_torch.utils.profiling import trace
+
+    cfg = base_config().replace(stft_method="dft_pallas")
+    gen = torch.Generator().manual_seed(0)
+    synth = Synthesizer(cfg, Text2Mel(cfg).init(gen), SSRN(cfg).init(gen),
+                        pcm16=True)
+    ids = harvard_ids(cfg, 40)
+    synth.synthesize_ids_chunked(ids[:CHUNK], CHUNK)      # warm-up
+    reset_counts()
+    t0 = time.perf_counter()
+    wavs = synth.synthesize_ids_chunked(ids, CHUNK)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    n_samples = cfg.hop_length * (cfg.max_T_full - 1)
+    audio_s = wavs.size / cfg.sr
+    # quality: each utterance's Griffin-Lim against its own Z, dft_pallas
+    # against the default dft_pallas2; the Synthesizer's pcm16 output is
+    # held equal to the direct call's
+    gl = (cfg.n_fft, cfg.hop_length, cfg.win_length, cfg.n_iter)
+    s3, s2, d_pcm, first = [], [], 0, None
+    for i in range(0, len(ids), CHUNK):
+        wav_sy, _, Z, _ = synth.synthesize_ids(ids[i: i + CHUNK])
+        mag = denormalize_mag(Z, cfg)
+        first = (wav_sy, mag) if first is None else first
+        w3 = griffin_lim(mag, *gl, method="dft_pallas")
+        w2 = griffin_lim(mag, *gl, method="dft_pallas2")
+        pcm = torch.round(torch.clamp(deemphasis(w3, cfg.preemphasis),
+                                      -1.0, 1.0) * 32767.0).to(torch.int16)
+        d_pcm = max(d_pcm, int((pcm.int() - wav_sy.int()).abs().max()))
+        s3.append(spectral_convergence(w3, mag, cfg))
+        s2.append(spectral_convergence(w2, mag, cfg))
+    s3, s2 = torch.cat(s3), torch.cat(s2)
+    ratio = float((s3 - 0.01).div(s2).max())
+    ok = (wavs.dtype == np.int16 and wavs.shape == (40, n_samples)
+          and launches["K1"] > 0 and launches["K2"] == 0
+          and launches["K3a"] > 0 and launches["K3b"] > 0
+          and int(np.abs(wavs).max()) > 0 and d_pcm == 0
+          and bool(torch.isfinite(s3).all())
+          and bool((s3 <= 1.10 * s2 + 0.01).all()))
+    line("e2e-dft_pallas", ok=ok, shape=wavs.shape, dtype=wavs.dtype,
+         launches=json.dumps(launches).replace(" ", ""),
+         wall_s=f"{wall:.3f}", audio_s=f"{audio_s:.1f}",
+         audio_s_per_s=f"{audio_s / wall:.1f}",
+         sc_dft_pallas_mean=f"{float(s3.mean()):.5f}",
+         sc_dft_pallas_max=f"{float(s3.max()):.5f}",
+         sc_dft_pallas2_mean=f"{float(s2.mean()):.5f}",
+         worst_sc_minus_0p01_over_dft_pallas2=f"{ratio:.4f}",
+         tol="each sc <= 1.10 x dft_pallas2's + 0.01",
+         max_dpcm_vs_direct=d_pcm, card=repr(smi))
+    if not ok:
+        raise AssertionError(f"dft_pallas end to end failed: {wavs.shape} "
+                             f"{launches} sc {s3.tolist()} vs {s2.tolist()}"
+                             f" dpcm {d_pcm}")
+
+    # where the time goes: CUDA events per stage of one chunk (held equal to
+    # synthesize_ids' output), and torch.profiler's kernel time by name over
+    # that chunk's Griffin-Lim
+    stages, wav_st = stage_ms(synth, ids[:CHUNK])
+    d_st = int((wav_st.int() - first[0].int()).abs().max())
+    with trace(os.path.join(HERE, "chiprun_out", "trace_dft_pallas")) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        griffin_lim(first[1], *gl, method="dft_pallas")
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}   # kernel -> [ms, launches], from the device's own events
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.replace("void ", "").replace("(anonymous namespace)::",
+                                                   "").split("(")[0][:40]
+        t = by_name.setdefault(name, [0.0, 0])
+        t[0] += e.time_range.elapsed_us() / 1e3
+        t[1] += 1
+    busy_ms = sum(t for t, _ in by_name.values())
+    top = {k: [round(t, 3), n] for k, (t, n) in
+           sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]}
+    dev_s = sum(stages.values()) / 1e3
+    line("e2e-dft_pallas-stages", ok=d_st == 0 and busy_ms > 0, chunk=CHUNK,
+         **{k: f"{v:.3f}" for k, v in stages.items()},
+         device_audio_s_per_s=f"{CHUNK * n_samples / cfg.sr / dev_s:.1f}",
+         max_dpcm_vs_synthesize_ids=d_st,
+         gl_trace_device_busy_ms=f"{busy_ms:.3f}",
+         gl_trace_wall_ms=f"{traced_ms:.3f}",
+         gl_trace_top_kernels=json.dumps(top).replace(" ", ""))
+    if d_st != 0 or busy_ms <= 0:
+        raise AssertionError(f"the stage-timed dft_pallas chain differs from "
+                             f"synthesize_ids by {d_st} pcm steps, or the "
+                             f"trace holds no kernel ({busy_ms} ms)")
+    results["launches"].update(K3a=launches["K3a"], K3b=launches["K3b"])
+    results["e2e-dft_pallas"] = dict(
+        wall_s=wall, audio_s=audio_s, audio_s_per_s=audio_s / wall,
+        sc_mean=float(s3.mean()), sc_dft_pallas2_mean=float(s2.mean()),
+        launches=launches, stages_ms=stages, gl_trace_busy_ms=busy_ms,
+        gl_trace_wall_ms=traced_ms, gl_trace_top=top)
 
 
 # ---------------------------------------------------------------------------
@@ -955,6 +1328,8 @@ def main() -> int:
     phase_k1(results)
     phase_k2(results)
     phase_e2e(results, smi)
+    phase_k3(results)
+    phase_e2e_dft_pallas(results, smi)
     phase_k4(results)
     with tempfile.TemporaryDirectory() as root:
         data, feats = make_corpus_and_features(root)
@@ -970,6 +1345,10 @@ def main() -> int:
              "dc_tts_tpu/ops/pallas_decode.py:274"),
             ("K2", "gl2_run", "dc_tts_tpu_torch/csrc/gl2.cu",
              "dc_tts_tpu/ops/pallas_gl2.py:407"),
+            ("K3a", "k3a", "dc_tts_tpu_torch/csrc/gl.cu",
+             "dc_tts_tpu/ops/pallas_gl.py:141"),
+            ("K3b", "k3b", "dc_tts_tpu_torch/csrc/gl.cu",
+             "dc_tts_tpu/ops/pallas_gl.py:192"),
             ("hc_block_fwd", "hc_block_fwd", "dc_tts_tpu_torch/csrc/hc_vjp.cu",
              "dc_tts_tpu/ops/pallas_hc_vjp.py:236"),
             ("hc_block_bwd", "hc_block_bwd", "dc_tts_tpu_torch/csrc/hc_vjp.cu",
@@ -984,6 +1363,9 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": kernels, "e2e": results["e2e"],
+                   "e2e-dft_pallas": results["e2e-dft_pallas"],
+                   "K3_modes": results["K3_modes"],
+                   "K3_loop": results["K3_loop"],
                    "K4_shapes": results["K4_shapes"],
                    "train": {k: results[k] for k in ("train-t2m",
                                                      "train-ssrn")}},

@@ -8,9 +8,9 @@ test config without editing source.
 
 Fields that select a TPU-only path keep their names and defaults so that a
 config means the same thing in both packages; the port refuses the values it
-has not ported yet where they are read (``stft_method`` in
-``dsp/griffin_lim.py``, ``compute_dtype`` and, in training, ``remat`` in
-``models``).
+has not ported yet where they are read (``compute_dtype`` and, in training,
+``remat`` in ``models``). Every ``stft_method`` of the JAX package is ported
+(``dsp/griffin_lim.py``).
 """
 from __future__ import annotations
 
@@ -59,9 +59,10 @@ class Config:
     # Layer-norm epsilon (see dc_tts_tpu/config.py for why 1e-5, not TF's
     # 1e-12).
     ln_eps: float = 1e-5
-    # Griffin-Lim backend. "dft_pallas2" (the default) is the whole-loop
-    # kernel, on the card ops/gl2.py's CUDA kernel; "fft" is the torch.fft
-    # loop. The JAX package's other methods are not ported.
+    # Griffin-Lim backend. "dft_pallas2" (the default): the whole-loop
+    # kernel K2 (ops/gl2.py); "dft_pallas": the mixed schedule with every
+    # round through kernel K3 (ops/gl.py); "fft", "dft", "dft_3x",
+    # "dft_bf16", "ct", "dft_mixed": plain torch transforms (dsp/stft.py).
     stft_method: str = "dft_pallas2"
     remat: bool = False
     compute_dtype: str = "float32"  # only "float32" is ported

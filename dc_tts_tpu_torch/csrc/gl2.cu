@@ -21,7 +21,8 @@
 
 #include <cuda_runtime.h>
 
-#define GL_NT 256
+#include "gl_ola.cuh"  // gl_ola_kernel, GL_NT
+
 #define N1 16  // the scrambled magnitude's k1 extent: bin k = k1 + 16*k2
 
 namespace {
@@ -176,33 +177,6 @@ gl_frame_kernel(const float* __restrict__ yp, const float* __restrict__ mag,
   float* dst = frames + ((size_t)b * F + f) * n;
   for (int i = threadIdx.x; i < n; i += GL_NT)
     dst[i] = out[i].x * inv_n * win[i];
-}
-
-// One thread per output sample. The overlap-add of the frames covering
-// sample s, summed from the last frame back (the TPU kernel's order), times
-// 1/sum(w^2). Not final: dst is the reflect-padded signal of length ly,
-// whose edges mirror s = 2*pad - j (left) and s = 2*E - j (right, E = pad +
-// L - 1). Final: dst is the trimmed waveform, s = pad + j.
-__global__ void __launch_bounds__(GL_NT)
-gl_ola_kernel(const float* __restrict__ frames, const float* __restrict__ wsq,
-              float* __restrict__ dst, int n, int hop, int F, int pad, int L,
-              int n_out, int final_) {
-  const int b = blockIdx.y;
-  const int j = blockIdx.x * GL_NT + threadIdx.x;
-  if (j >= n_out) return;
-  int s;
-  if (final_) {
-    s = pad + j;
-  } else {
-    const int e = pad + L - 1;
-    s = j < pad ? 2 * pad - j : (j > e ? 2 * e - j : j);
-  }
-  const int f_hi = min(F - 1, s / hop);
-  const int f_lo = s - n + 1 <= 0 ? 0 : (s - n + hop) / hop;
-  const float* fb = frames + (size_t)b * F * n;
-  float acc = 0.f;
-  for (int f = f_hi; f >= f_lo; --f) acc += fb[(size_t)f * n + (s - f * hop)];
-  dst[(size_t)b * n_out + j] = acc * wsq[s];
 }
 
 }  // namespace

@@ -39,6 +39,8 @@ Fl = ctypes.c_float
 _SIGNATURES = {
     "dctts_decode": [P] * 12 + [I] * 8 + [Fl, I, I, P],
     "dctts_gl2": [P] * 7 + [I] * 8 + [P],
+    "dctts_gl_k3a": [P] * 8 + [I] * 10 + [P],
+    "dctts_gl_k3b": [P] * 7 + [I] * 10 + [P],
     "dctts_hc_fwd": [P] * 9 + [I] * 6 + [Fl, P],
     "dctts_hc_bwd": [P] * 15 + [I] * 6 + [Fl, I, I, P],
 }

@@ -2,8 +2,9 @@
 waveform, the port of ``dc_tts_tpu/pipeline.py``'s single-device path.
 
 The chain per batch: TextEnc -> the T-step autoregressive decode (kernel K1
-in the default "fused" mode) -> SSRN -> denormalize -> Griffin-Lim (kernel
-K2 under the default ``stft_method="dft_pallas2"``) -> de-emphasis ->
+in the default "fused" mode) -> SSRN -> denormalize -> Griffin-Lim
+(``cfg.stft_method``: kernel K2 under the default "dft_pallas2", kernel K3
+under "dft_pallas", plain torch transforms otherwise) -> de-emphasis ->
 optional 16-bit PCM quantisation on the device. Every step is enqueued on
 the current CUDA stream; nothing waits for the device until results are
 copied back. The mesh, pipeline and time-sharded modes are not ported.

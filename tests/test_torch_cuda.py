@@ -7,7 +7,11 @@ Tolerances: the decode kernel at the JAX fused-decode test's 2e-5 with an
 identical cursor trajectory. The Griffin-Lim kernel at 1e-5 from its plain
 version run in float64: the phase normalisation of near-zero bins amplifies
 rounding, so the float32 plain version is itself up to ~3e-5 from the
-float64 one at n_fft 2048, more than the kernel is.
+float64 one at n_fft 2048, more than the kernel is. The Griffin-Lim round
+kernels K3a/K3b (bf16 operands, float32 sums) at max 2e-2 and mean 1e-5
+from their plain version on the same operands, the CPU tests' gates
+against JAX (the phase normalisation of near-zero bins amplifies a sum's
+rounding into the max; the mean stays small).
 """
 import numpy as np
 import pytest
@@ -89,6 +93,70 @@ def test_synthesizer_on_cuda_matches_cpu(cuda):
     torch.testing.assert_close(Z, cpu[2], atol=1e-4, rtol=0)
     ref = spectrogram_to_wav(Z.double(), cfg.replace(stft_method="fft"))
     torch.testing.assert_close(wav.double(), ref, atol=1e-4, rtol=0)
+
+
+# ------------------------------------------------------------------ K3
+
+
+def _k3_inputs(dev, B=3, F=160, seed=0):
+    """(g, consts, Xr, Xi, mag_p) at the JAX K3 test's geometry."""
+    from dc_tts_tpu_torch.ops import gl as K3
+    g = K3.gl_geometry(512, 69, 275, F)
+    rng = np.random.default_rng(seed)
+    pad = ((0, 0), (0, g.f2 - F), (0, 0))
+    mag, Xr, Xi = (torch.tensor(np.pad(a, pad), device=dev) for a in (
+        rng.random((B, F, g.n_freq), np.float32),
+        rng.standard_normal((B, F, g.n_freq)).astype(np.float32),
+        rng.standard_normal((B, F, g.n_freq)).astype(np.float32)))
+    consts = {k: v.to(dev) for k, v in
+              K3.gl_fused_consts(512, 69, 275, F).items()}
+    return g, consts, Xr, Xi, mag
+
+
+@pytest.mark.parametrize("three", [False, True])
+def test_k3_matches_plain(cuda, three):
+    """One round against the plain version on the card: max |d| <= 2e-2
+    and mean |d| <= 1e-5 (the CPU tests' gates against JAX); the signal
+    between the kernels within 1e-5 x its max; padded rows exactly 0."""
+    from dc_tts_tpu_torch.ops import gl as K3
+    g, consts, Xr, Xi, mag = _k3_inputs(cuda)
+    npass = 3 if three else 1
+    n_a, n_b = K3.k3a.launches[npass], K3.k3b.launches[npass]
+    got = K3.fused_gl_round(Xr, Xi, mag, consts, g, three)
+    y = K3.k3a(Xr, Xi, consts, g, three)
+    torch.cuda.synchronize()
+    assert (K3.k3a.launches[npass], K3.k3b.launches[npass]) == \
+        (n_a + 2, n_b + 1)
+    want = K3.fused_gl_round_plain(Xr, Xi, mag, consts, g, three)
+    d = torch.cat([(a - b).abs().flatten() for a, b in zip(got, want)])
+    assert float(d.max()) <= 2e-2 and float(d.mean()) <= 1e-5, \
+        (float(d.max()), float(d.mean()))
+    yp = K3.k3a_plain(Xr, Xi, consts, g, three)
+    assert float((y - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
+    assert float(got[0][:, g.F:].abs().max()) == 0.0
+
+
+def test_k3_launch_counts_and_bad_input(cuda):
+    """griffin_lim("dft_pallas") at n_iter=4 runs 3 three-pass and 1
+    single-pass rounds through K3; a float64 input, a wrong shape or
+    constants left on the CPU raise on the card (never the plain
+    version)."""
+    from dc_tts_tpu_torch.dsp.griffin_lim import griffin_lim
+    from dc_tts_tpu_torch.ops import gl as K3
+    g, consts, Xr, Xi, mag = _k3_inputs(cuda, B=2)
+    K3.k3a.launches, K3.k3b.launches = {1: 0, 3: 0}, {1: 0, 3: 0}
+    wav = griffin_lim(mag[:, :g.F], 512, 69, 275, 4, method="dft_pallas")
+    torch.cuda.synchronize()
+    assert K3.k3a.launches == K3.k3b.launches == {1: 1, 3: 3}
+    assert wav.shape == (2, g.L_sig) and bool(torch.isfinite(wav).all())
+    with pytest.raises(ValueError):
+        K3.fused_gl_round(Xr.double(), Xi.double(), mag.double(), consts, g)
+    with pytest.raises(ValueError):
+        K3.fused_gl_round(Xr[:, 1:], Xi[:, 1:], mag[:, 1:], consts, g)
+    with pytest.raises(ValueError):
+        K3.fused_gl_round(Xr, Xi, mag, {k: v.cpu() for k, v in
+                                        consts.items()}, g)
+    assert K3.k3a.launches == K3.k3b.launches == {1: 1, 3: 3}
 
 
 # ------------------------------------------------------------------ K4

@@ -147,7 +147,9 @@ def test_gl2_full_schedule_quality_vs_dft_mixed():
 
 def test_griffin_lim_dispatch_on_cpu():
     """method "dft_pallas2" on CPU tensors is the plain torch.fft loop:
-    equal to method "fft", with no kernel launch counted."""
+    equal to method "fft", with no kernel launch counted; "dft_pallas" on
+    CPU tensors counts no K3 launch; an unknown method raises."""
+    from dc_tts_tpu_torch.ops import gl as K3
     mag = torch.as_tensor(np.random.default_rng(3).random(
         (1, 2, 40, 129)).astype(np.float32)) + 0.1
     before = K2.gl2_run.launches
@@ -156,5 +158,9 @@ def test_griffin_lim_dispatch_on_cpu():
     assert K2.gl2_run.launches == before
     assert a.shape == (1, 2, 8 * 39)
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
-        tgl.griffin_lim(mag, 256, 8, 32, 3, method="dft_mixed")
+    k3 = (dict(K3.k3a.launches), dict(K3.k3b.launches))
+    c = tgl.griffin_lim(mag, 256, 8, 32, 3, method="dft_pallas")
+    assert (K3.k3a.launches, K3.k3b.launches) == k3
+    assert c.shape == a.shape and bool(torch.isfinite(c).all())
+    with pytest.raises(ValueError):
+        tgl.griffin_lim(mag, 256, 8, 32, 3, method="dft_fast")
