@@ -71,7 +71,29 @@ line:
              all 7 gradients for a seeded cotangent, each within max(2e-5 x
              its max |value|, 2 x the float32 plain version's own
              distance); gradients bitwise equal across two calls.
-9. train-t2m  - a seeded synthetic corpus (64 utterances of 2-9 s at
+9. ct-fwd   - the forward-rDFT prototypes X1-X4 of scripts/ct_kernel_exp.py
+             on seeded frames (numpy default_rng(0)), in bf16 and float32:
+             X1 full_fwd and X3 fact_fwd (transpose modes swap and stack)
+             at F=840, X2 fact_fwd_tiled at F=1024 (tiles of 512), X4
+             ablate_fwd at F=840 with tiles of 512 (frames 0..511 covered,
+             the rest exactly 0) for each of the script's 8 stage sets. Each
+             against its plain version on the card (1e-5 of max|FFT|; 1e-3
+             for the factored kernels' bf16 stage C) and, with every stage
+             on, against numpy's float64 FFT (2e-6 float32, 5e-3 bf16). Per
+             kernel: ms a launch inside a CUDA graph of 50 (the script's "in
+             loop"), ms a call from the host, the plain version's graph ms,
+             the bound, and the yardsticks the port never calls: cuFFT
+             (torch.fft.rfft for X1, torch.fft.fft for the factored ones,
+             which give all 2048 bins) and cuBLAS on X1's GEMM (line
+             ct-fwd). Then the main path: python -m
+             dc_tts_tpu_torch.scripts.ct_kernel_exp's main in this process
+             for every variant and precision (iters 5; fact-tiled at
+             CT_F=1024) and ablate, every launch count set to 0 just before
+             and read just after: X1-X4 launched, nothing else (line
+             ct-fwd-main; a CUDA graph's replays are counted apart). Then the
+             same 9 runs as subprocesses: exit 0, the printed rel err within
+             the float64-FFT gate (line ct-fwd-cli).
+10. train-t2m  - a seeded synthetic corpus (64 utterances of 2-9 s at
              22050 Hz, the Harvard sentences as texts) through prepro on
              the card and TrainLoader with two length buckets (one holds
              the full 180x210 grid); 30 Text2Mel steps at base_config()
@@ -94,17 +116,17 @@ line:
              many decisions each switched, are printed beside it); and K4 at
              each of the 28 HC blocks, at the input and output cotangent of
              the float64 run, within phase K4's tolerance.
-10. train-ssrn - the same for SSRN: 8 steps, 8 + 8 K4 launches a step, its
+11. train-ssrn - the same for SSRN: 8 steps, 8 + 8 K4 launches a step, its
              losses finite and printed (at the warm-up learning rate a few
              steps move them less than dropout does, so no descent check),
              the same equivalence with its 8 HC blocks.
-11. train-cli  - python -m dc_tts_tpu_torch.train 1 and 2 on that corpus
+12. train-cli  - python -m dc_tts_tpu_torch.train 1 and 2 on that corpus
              (--max-steps 4 --ckpt-every 2 --buckets 2) as
              subprocesses: exit 0, model_gs_000k.npz in the JAX package's
              key layout; a restart resumes at step 4 and ends at 6; then
              python -m dc_tts_tpu_torch.synthesize from both logdirs writes
              two wavs.
-12. the kernels line, the nvidia-smi line, and the ``ok`` line.
+13. the kernels line, the nvidia-smi line, and the ``ok`` line.
 
 Kernel times are CUDA-event means over repeated calls on the same inputs.
 ``bound_ms`` is the larger of (bytes each input read once + each output
@@ -125,12 +147,22 @@ the forward and three times that for the backward (h recomputed, dx, dW);
 its row passes (layer norms, gate) add under 1 % at these widths. K4's
 ``ms``, ``plain_ms`` and ``bound_ms`` in the kernels line are sums over
 the three shapes, its ``launches`` the train-t2m and train-ssrn runs'.
+X1-X4's operations: X1 2*F*2048*2050 (its GEMM, on the bf16 tensor cores
+in bf16 mode); the factored form per frame 2*2*16*16*128 for stage A and
+6*16*128 for W (float32 in both modes), 4*2*16*128*128 + 2*16*128 for C
+(bf16 tensor cores in bf16 mode), each stage at its own peak; their bytes
+the covered frames of x, the constants the stages read and the whole
+output. Their ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` in the
+kernels line are bf16 (the script's default) graph times: X1 and X3 at
+F=840, X2 at F=1024, X4 its every-stage set at F=840 (the other stage sets
+and float32 are in line ct-fwd); ``launches`` those of the main path.
 A summary also goes to ``chiprun_out/chip_smoke.json`` beside this script.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -149,6 +181,13 @@ DEV, B_TRAIN = "cuda", 32
 # steps per ms/step reading; a training gradient's gate against the other
 # route, each leaf over its max |value|, with ReLU masks and L1 signs frozen
 TIME_STEPS, EQUIV_GRAD_TOL = 10, 1e-4
+# the forward-rDFT prototypes' wrappers (X1, X2, X3, X4), the TPU kernels
+# they replace, and their CLI's variants
+CT_KERNELS = ("full_fwd", "fact_fwd_tiled", "fact_fwd", "ablate_fwd")
+CT_REPLACES = dict(zip(CT_KERNELS, ("scripts/ct_kernel_exp.py:82",
+                                    "scripts/ct_kernel_exp.py:131",
+                                    "scripts/ct_kernel_exp.py:151",
+                                    "scripts/ct_kernel_exp.py:284")))
 
 
 def line(phase: str, **kw) -> None:
@@ -177,6 +216,7 @@ def bound(n_bytes: float, n_flops: float, peak: float = PEAK_FP32):
 
 def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
+    from dc_tts_tpu_torch.ops import ct_fwd as X
     from dc_tts_tpu_torch.ops import decode as K1
     from dc_tts_tpu_torch.ops import gl as K3
     from dc_tts_tpu_torch.ops import gl2 as K2
@@ -184,10 +224,13 @@ def reset_counts() -> None:
     K1.fused_decode.launches = K2.gl2_run.launches = 0
     K3.k3a.launches, K3.k3b.launches = {1: 0, 3: 0}, {1: 0, 3: 0}
     K4.hc_block_fwd.launches = K4.hc_block_bwd.launches = 0
+    for fn in CT_KERNELS:
+        getattr(X, fn).launches = 0
 
 
 def counts() -> dict:
     """Every kernel wrapper's launch count (K3's over both pass modes)."""
+    from dc_tts_tpu_torch.ops import ct_fwd as X
     from dc_tts_tpu_torch.ops import decode as K1
     from dc_tts_tpu_torch.ops import gl as K3
     from dc_tts_tpu_torch.ops import gl2 as K2
@@ -196,7 +239,8 @@ def counts() -> dict:
             "K3a": sum(K3.k3a.launches.values()),
             "K3b": sum(K3.k3b.launches.values()),
             "hc_block_fwd": K4.hc_block_fwd.launches,
-            "hc_block_bwd": K4.hc_block_bwd.launches}
+            "hc_block_bwd": K4.hc_block_bwd.launches,
+            **{fn: getattr(X, fn).launches for fn in CT_KERNELS}}
 
 
 def nbytes(*ts) -> int:
@@ -1258,9 +1302,9 @@ def phase_train(results, net, data, feats, n_steps):
     torch.cuda.empty_cache()
 
 
-def _run(args, timeout=600):
+def _run(args, timeout=600, **env_vars):
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
+               + os.environ.get("PYTHONPATH", ""), **env_vars)
     r = subprocess.run([sys.executable, "-m", *args], cwd=HERE, env=env,
                        capture_output=True, text=True, timeout=timeout)
     if r.returncode != 0:
@@ -1318,6 +1362,247 @@ def phase_train_cli(results, data, feats, root):
         raise AssertionError(f"synthesize wrote {wavs}")
 
 
+# ---------------------------------------------------------------------------
+# X1-X4: the forward-rDFT prototypes of scripts/ct_kernel_exp.py
+
+
+CT_F, CT_F_TILED, CT_TF = 840, 1024, 512
+# operations a frame, by stage: A (the 16-point DFT of the real frame), W
+# (the twiddles: 4 multiplies and 2 adds a complex product), C (four
+# 128-deep products and two adds per output pair); T moves data only
+CT_STAGE_FLOPS = {"A": 2 * 2 * 16 * 16 * 128, "W": 6 * 16 * 128,
+                  "C": 4 * 2 * 16 * 128 * 128 + 2 * 16 * 128}
+CT_STAGE_CONSTS = {"A": ("C16", "S16"), "W": ("Tc", "Ts"),
+                   "C": ("C128", "S128")}
+_CT_ERR = re.compile(r"^\[(\S+)/(\S+)\] rel err (\S+)$", re.M)
+_CT_MS = re.compile(r"^\[(\S+)/(\S+)\] (\S+) ms/call  (\S+) ms/call in-loop$",
+                    re.M)
+_CT_ABLATE = re.compile(r"^stages=(\S+)\s+(\S+) ms/call$", re.M)
+
+
+def _ct_bound(kernel, x, m, outs, bf16, covered, stages):
+    """(ms, by): each input read once (the covered frames of x, the
+    constants the stages read) and each output written once, against the
+    operations of each stage at its own peak (X1's GEMM and stage C on the
+    bf16 tensor cores in bf16 mode, the rest at the float32 rate)."""
+    peak = PEAK_BF16 if bf16 else PEAK_FP32
+    if kernel == "full_fwd":
+        n_bytes = nbytes(x, m["CF"], m["SF"], *outs)
+        t_ops = 2.0 * x.shape[0] * 2048 * 2 * 1025 / peak
+    else:
+        n_bytes = nbytes(x[:covered], *outs, *(
+            m[k] for s in stages for k in CT_STAGE_CONSTS.get(s, ())))
+        t_ops = covered * sum(CT_STAGE_FLOPS[s] / (peak if s == "C" else
+                                                   PEAK_FP32)
+                              for s in stages if s in CT_STAGE_FLOPS)
+    tb, to = n_bytes / PEAK_BYTES * 1e3, t_ops * 1e3
+    return (to, "operations") if to >= tb else (tb, "bytes")
+
+
+def _ct_cli(argv, F):
+    """The CLI's main in this process (CT_F = F); its printed lines."""
+    import contextlib
+    import io
+    from dc_tts_tpu_torch.scripts import ct_kernel_exp as CLI
+    buf, old = io.StringIO(), os.environ.get("CT_F")
+    os.environ["CT_F"] = str(F)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = CLI.main(argv)
+    finally:
+        if old is None:
+            del os.environ["CT_F"]
+        else:
+            os.environ["CT_F"] = old
+    if rc != 0:
+        raise AssertionError(f"ct_kernel_exp {argv} returned {rc}")
+    return buf.getvalue()
+
+
+def _ct_cli_check(out, variant, prec):
+    """The rel err and times a CLI run printed; raises unless it printed
+    them once each, the rel err within the float64-FFT gate."""
+    errs = [e for v, p, e in _CT_ERR.findall(out) if (v, p) == (variant,
+                                                                prec)]
+    ms = [t[2:] for t in _CT_MS.findall(out) if t[:2] == (variant, prec)]
+    gate = 5e-3 if prec == "bf16" else 2e-6
+    if len(errs) != 1 or len(ms) != 1 or float(errs[0]) > gate:
+        raise AssertionError(f"ct_kernel_exp {variant} {prec}: rel err "
+                             f"{errs} (gate {gate}), times {ms}:\n{out}")
+    return float(errs[0]), float(ms[0][0]), float(ms[0][1])
+
+
+def _ct_ablate_check(out):
+    from dc_tts_tpu_torch.ops.ct_fwd import STAGE_SETS
+    got = dict(_CT_ABLATE.findall(out))
+    want = [s or "-" for s in STAGE_SETS]
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"ct_kernel_exp ablate printed {got}:\n{out}")
+    return {s: float(t) for s, t in got.items()}
+
+
+def phase_ct_fwd(results):
+    """X1-X4 against their plain versions and float64 FFT, their times,
+    then the CLI: in this process with the counts reset (the main path),
+    and as subprocesses."""
+    from dc_tts_tpu_torch.ops import ct_fwd as X
+    from dc_tts_tpu_torch.scripts import ct_kernel_exp as CLI
+
+    dev = torch.device(DEV)
+    # milliseconds a launch inside a CUDA graph of 50 (the device's time),
+    # and a call from the host
+    looped = lambda fn, x, m: CLI.timeit_looped(fn, x, m) * 1e3  # noqa
+    call = lambda fn: CLI.timeit(fn, 20) * 1e3  # noqa: E731
+    cases, libs = [], {}
+    for F in (CT_F, CT_F_TILED):
+        x_np = CLI.frames(F)
+        ref = np.fft.fft(x_np.astype(np.float64), axis=-1)
+        x = torch.from_numpy(x_np).to(dev)
+        # yardsticks, never called by the port: cuFFT on these frames (and
+        # on X4's covered ones), cuBLAS on X1's GEMM
+        libs[F] = lib = {
+            "rfft": looped(lambda x_, m_: torch.fft.rfft(x_), x, None),
+            "fft": looped(lambda x_, m_: torch.fft.fft(x_), x, None)}
+        covered = F // CT_TF * CT_TF      # X4's whole tiles
+        if F == CT_F:
+            xc = x[:covered].contiguous()
+            lib["fft_covered"] = looped(lambda x_, m_: torch.fft.fft(x_),
+                                        xc, None)
+        for bf16 in (True, False):
+            m = X.consts(bf16, dev)
+            prec = "bf16" if bf16 else "f32"
+            if F == CT_F:
+                xa = x.bfloat16() if bf16 else x
+                w = m["CS"].T if bf16 else m["CS"]
+                lib["cublas_" + prec] = looped(lambda x_, m_: x_ @ w, xa,
+                                               None)
+                todo = [("full_fwd", "full", F, "TAWC",
+                         lambda x_, m_: X.full_fwd(x_, m_, bf16),
+                         lambda x_, m_: X.full_fwd_plain(x_, m_, bf16))]
+                for mode in ("swap", "stack"):
+                    todo.append(("fact_fwd", mode, F, "TAWC",
+                                 lambda x_, m_, t=mode: X.fact_fwd(
+                                     x_, m_, bf16, t),
+                                 lambda x_, m_: X.fact_fwd_plain(x_, m_,
+                                                                 bf16)))
+                for st in X.STAGE_SETS:
+                    todo.append(("ablate_fwd", st or "-", covered, st,
+                                 lambda x_, m_, s=st: X.ablate_fwd(
+                                     x_, m_, bf16, s, CT_TF),
+                                 lambda x_, m_, s=st: X.ablate_fwd_plain(
+                                     x_, m_, bf16, s, CT_TF)))
+            else:
+                todo = [("fact_fwd_tiled", f"tf{CT_TF}", F, "TAWC",
+                         lambda x_, m_: X.fact_fwd_tiled(x_, m_, bf16,
+                                                         CT_TF),
+                         lambda x_, m_: X.fact_fwd_tiled_plain(
+                             x_, m_, bf16, CT_TF))]
+            for kernel, label, covered, stages, kfn, pfn in todo:
+                got, want = kfn(x, m), pfn(x, m)
+                scale = float(np.abs(ref[:covered]).max())
+                # both outputs, on the covered frames (rows of X1's (F,
+                # 1025), the middle axis of the (16, F, 128) layout)
+                d = max(float((g[..., :covered, :] - w_[..., :covered, :])
+                              .abs().max()) for g, w_ in zip(got, want))
+                gate = 1e-3 if (bf16 and kernel != "full_fwd"
+                                and "C" in stages) else 1e-5
+                # the CLI's rel err, on the covered frames
+                rel_fft = (CLI.rel_err(
+                    "full" if kernel == "full_fwd" else "fact",
+                    [g[..., :covered, :] for g in got], ref[:covered])
+                    if stages == "TAWC" else None)
+                gate_fft = 5e-3 if bf16 else 2e-6
+                zero = kernel != "ablate_fwd" or max(
+                    float(g[:, covered:].abs().max()) for g in got) == 0.0
+                finite = all(bool(torch.isfinite(g).all()) for g in got)
+                b_ms, b_by = _ct_bound(kernel, x, m, got, bf16, covered,
+                                       stages)
+                del got, want
+                row = dict(kernel=kernel, case=label, prec=prec, F=F,
+                           covered=covered, max_abs=d, rel_plain=d / scale,
+                           gate_plain=gate, rel_fft=rel_fft,
+                           gate_fft=gate_fft if rel_fft is not None else None,
+                           ms=looped(kfn, x, m),
+                           ms_call=call(lambda: kfn(x, m)),
+                           plain_ms=looped(pfn, x, m), bound_ms=b_ms,
+                           bound_by=b_by)
+                row["library_ms"] = (lib["rfft"] if kernel == "full_fwd"
+                                     else lib["fft_covered"]
+                                     if kernel == "ablate_fwd"
+                                     else lib["fft"])
+                if kernel == "full_fwd":
+                    row["cublas_ms"] = lib["cublas_" + prec]
+                row["ok"] = ok = (finite and zero and d / scale <= gate and (
+                    rel_fft is None or rel_fft <= gate_fft))
+                line("ct-fwd", **{k: (f"{v:.4g}" if isinstance(v, float)
+                                      else v) for k, v in row.items()})
+                if not ok:
+                    raise AssertionError(f"{kernel} {label} {prec} F={F}: "
+                                         f"{row} (finite {finite}, rows "
+                                         f"past the tiles zero {zero})")
+                cases.append(row)
+        del x
+
+    # the main path: the CLI's main in this process, every launch count set
+    # to 0 just before and read just after
+    reset_counts()
+    cli = {}
+    for variant in CLI.VARIANTS:
+        F = CT_F_TILED if variant == "fact-tiled" else CT_F
+        for prec in ("bf16", "f32"):
+            out = _ct_cli([variant, prec, "5"], F)
+            cli[f"{variant}/{prec}"] = _ct_cli_check(out, variant, prec)
+    out = _ct_cli(["ablate"], CT_F)
+    ablate = _ct_ablate_check(out)
+    launches = counts()
+    # each run's CUDA graph replays its 50 captured launches 6 times, none of
+    # which a wrapper counts
+    replayed = 6 * 50 * (2 * len(CLI.VARIANTS) + len(X.STAGE_SETS))
+    ok = all(launches[k] > 0 for k in CT_KERNELS)
+    line("ct-fwd-main", ok=ok, launches=json.dumps(
+        {k: launches[k] for k in CT_KERNELS}).replace(" ", ""),
+        graph_replayed_launches=replayed,
+        other_kernels=json.dumps({k: v for k, v in launches.items()
+                                  if k not in CT_KERNELS}).replace(" ", ""),
+        **{k.replace("/", "_"): "{:.2e},{:.3f},{:.4f}".format(*v)
+           for k, v in cli.items()},
+        ablate_ms=json.dumps(ablate).replace(" ", ""))
+    if not ok or any(launches[k] for k in launches if k not in CT_KERNELS):
+        raise AssertionError(f"ct_kernel_exp's main path launched {launches}")
+
+    # the CLI as a user runs it: every variant and ablate as subprocesses
+    t0 = time.perf_counter()
+    sub = {}
+    for variant in CLI.VARIANTS:
+        F = CT_F_TILED if variant == "fact-tiled" else CT_F
+        for prec in ("bf16", "f32"):
+            out = _run(["dc_tts_tpu_torch.scripts.ct_kernel_exp", variant,
+                        prec, "5"], timeout=300, CT_F=str(F))
+            sub[f"{variant}/{prec}"] = _ct_cli_check(out, variant, prec)
+    sub["ablate"] = _ct_ablate_check(_run(
+        ["dc_tts_tpu_torch.scripts.ct_kernel_exp", "ablate"], timeout=300,
+        CT_F=str(CT_F)))
+    line("ct-fwd-cli", ok=True, runs=len(sub),
+         seconds=f"{time.perf_counter() - t0:.1f}",
+         **{k.replace("/", "_"): ("{:.2e},{:.3f},{:.4f}".format(*v)
+                                  if k != "ablate" else json.dumps(v)
+                                  .replace(" ", "")) for k, v in sub.items()})
+
+    results["launches"].update({k: launches[k] for k in CT_KERNELS})
+    for kernel in CT_KERNELS:
+        rows = [r for r in cases if r["kernel"] == kernel]
+        head = next(r for r in rows if r["prec"] == "bf16" and (
+            r["case"] in ("full", "swap", f"tf{CT_TF}", "TAWC")))
+        results[kernel] = dict(
+            max_abs_err=max(r["max_abs"] for r in rows), ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=head["library_ms"])
+    results["ct-fwd"] = dict(cases=cases, library=libs, cli_main=cli,
+                             cli_ablate_ms=ablate, cli_subprocess=sub,
+                             launches={k: launches[k] for k in CT_KERNELS},
+                             graph_replayed_launches=replayed)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1331,6 +1616,7 @@ def main() -> int:
     phase_k3(results)
     phase_e2e_dft_pallas(results, smi)
     phase_k4(results)
+    phase_ct_fwd(results)
     with tempfile.TemporaryDirectory() as root:
         data, feats = make_corpus_and_features(root)
         phase_train(results, "t2m", data, feats, 30)
@@ -1352,13 +1638,16 @@ def main() -> int:
             ("hc_block_fwd", "hc_block_fwd", "dc_tts_tpu_torch/csrc/hc_vjp.cu",
              "dc_tts_tpu/ops/pallas_hc_vjp.py:236"),
             ("hc_block_bwd", "hc_block_bwd", "dc_tts_tpu_torch/csrc/hc_vjp.cu",
-             "dc_tts_tpu/ops/pallas_hc_vjp.py:269")):
+             "dc_tts_tpu/ops/pallas_hc_vjp.py:269"),
+            *((k, k, "dc_tts_tpu_torch/csrc/ct_fwd.cu", CT_REPLACES[k])
+              for k in CT_KERNELS)):
         r = results[key]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": results["launches"][key],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+                        "bound_by": r["bound_by"],
+                        "library_ms": r.get("library_ms")})
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -1367,6 +1656,7 @@ def main() -> int:
                    "K3_modes": results["K3_modes"],
                    "K3_loop": results["K3_loop"],
                    "K4_shapes": results["K4_shapes"],
+                   "ct-fwd": results["ct-fwd"],
                    "train": {k: results[k] for k in ("train-t2m",
                                                      "train-ssrn")}},
                   f, indent=1)

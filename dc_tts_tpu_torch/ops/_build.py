@@ -43,6 +43,8 @@ _SIGNATURES = {
     "dctts_gl_k3b": [P] * 7 + [I] * 10 + [P],
     "dctts_hc_fwd": [P] * 9 + [I] * 6 + [Fl, P],
     "dctts_hc_bwd": [P] * 15 + [I] * 6 + [Fl, I, I, P],
+    "dctts_ct_full": [P] * 4 + [I] * 2 + [P],
+    "dctts_ct_fact": [P] * 9 + [I] * 5 + [P],
 }
 
 

@@ -207,11 +207,13 @@ def fused_gl_round_plain(Xr, Xi, mag_p, consts: dict, g: GLGeom,
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, dev) -> None:
+    """Raise unless t is what a kernel reads: contiguous, 16-byte aligned
+    (the kernels load 16 bytes at a time), of this dtype, shape and device."""
     if t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(f"{name}: needs a contiguous {dtype} tensor of shape "
-                         f"{tuple(shape)} on {dev}, got {tuple(t.shape)} "
-                         f"{t.dtype} on {t.device}")
+            or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: needs a contiguous, 16-byte aligned "
+                         f"{dtype} tensor of shape {tuple(shape)} on {dev}, "
+                         f"got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
 def _device(fn: str, t: torch.Tensor) -> bool:

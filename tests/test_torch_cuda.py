@@ -11,7 +11,10 @@ float64 one at n_fft 2048, more than the kernel is. The Griffin-Lim round
 kernels K3a/K3b (bf16 operands, float32 sums) at max 2e-2 and mean 1e-5
 from their plain version on the same operands, the CPU tests' gates
 against JAX (the phase normalisation of near-zero bins amplifies a sum's
-rounding into the max; the mean stays small).
+rounding into the max; the mean stays small). The forward-rDFT prototypes
+X1-X4 at 1e-5 of max |FFT| from their plain versions, 1e-3 for the
+factored kernels in bf16 (stage C rounds float32 sums taken in another
+order to bf16), the CPU tests' gates against JAX.
 """
 import numpy as np
 import pytest
@@ -228,3 +231,89 @@ def test_hc_autograd_uses_kernels_and_raises_on_bad_input(cuda):
         K4.hc_block_trainable(args[0], args[1][:2], *args[2:], 3, 1, True,
                               1e-5)
     assert K4.hc_block_fwd.launches == n_f + 1
+
+
+# ------------------------------------------------------------------ X1-X4
+
+
+def _ct_case(F, bf16, dev):
+    """Seeded frames on the card, the constants, and max |FFT| (float64)."""
+    from dc_tts_tpu_torch.ops import ct_fwd as X
+    x = np.random.default_rng(F).standard_normal((F, 2048)).astype(np.float32)
+    scale = float(np.abs(np.fft.fft(x.astype(np.float64), axis=-1)).max())
+    return torch.from_numpy(x).to(dev), X.consts(bf16, dev), scale
+
+
+def _ct_dist(got, want, scale):
+    return max(float((a - b).abs().max()) for a, b in zip(got, want)) / scale
+
+
+@pytest.mark.parametrize("F", [64, 840])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_ct_full_and_fact_match_plain(cuda, F, bf16):
+    """X1 and X3 (both transpose modes) against their plain versions on the
+    card: 1e-5 of max |FFT|, and 1e-3 for the factored kernel in bf16 (its
+    stage C rounds float32 sums taken in another order to bf16)."""
+    from dc_tts_tpu_torch.ops import ct_fwd as X
+    x, m, scale = _ct_case(F, bf16, cuda)
+    n1, n3 = X.full_fwd.launches, X.fact_fwd.launches
+    got = X.full_fwd(x, m, bf16)
+    assert got[0].shape == (F, 1025)
+    assert _ct_dist(got, X.full_fwd_plain(x, m, bf16), scale) <= 1e-5
+    want = X.fact_fwd_plain(x, m, bf16)
+    for mode in ("swap", "stack"):
+        got = X.fact_fwd(x, m, bf16, mode)
+        assert got[0].shape == (16, F, 128)
+        assert _ct_dist(got, want, scale) <= (1e-3 if bf16 else 1e-5)
+    torch.cuda.synchronize()
+    assert (X.full_fwd.launches, X.fact_fwd.launches) == (n1 + 1, n3 + 2)
+
+
+@pytest.mark.parametrize("F,tf", [(64, 32), (1024, 512)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_ct_tiled_matches_plain(cuda, F, tf, bf16):
+    from dc_tts_tpu_torch.ops import ct_fwd as X
+    x, m, scale = _ct_case(F, bf16, cuda)
+    n = X.fact_fwd_tiled.launches
+    got = X.fact_fwd_tiled(x, m, bf16, tf)
+    assert X.fact_fwd_tiled.launches == n + 1
+    want = X.fact_fwd_tiled_plain(x, m, bf16, tf)
+    assert _ct_dist(got, want, scale) <= (1e-3 if bf16 else 1e-5)
+    with pytest.raises(ValueError):
+        X.fact_fwd_tiled(x[:-1], m, bf16, tf)
+    assert X.fact_fwd_tiled.launches == n + 1
+
+
+@pytest.mark.parametrize("F,tf", [(80, 32), (840, 512)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_ct_ablate_matches_plain(cuda, F, tf, bf16):
+    """X4 at every stage set of the script's ablation: the covered frames
+    against the plain version, the rest exactly 0."""
+    from dc_tts_tpu_torch.ops import ct_fwd as X
+    x, m, scale = _ct_case(F, bf16, cuda)
+    Fc = F // tf * tf
+    for stages in X.STAGE_SETS:
+        n = X.ablate_fwd.launches
+        got = X.ablate_fwd(x, m, bf16, stages, tf)
+        assert X.ablate_fwd.launches == n + 1
+        want = X.ablate_fwd_plain(x, m, bf16, stages, tf)
+        tol = 1e-3 if bf16 and "C" in stages else 1e-5
+        assert _ct_dist(got, want, scale) <= tol, stages
+        assert max(float(g[:, Fc:].abs().max()) for g in got) == 0.0
+
+
+def test_ct_bad_input_raises(cuda):
+    """A float64 or misaligned x, or constants of the other precision or on
+    the CPU, raise on the card (never the plain version)."""
+    from dc_tts_tpu_torch.ops import ct_fwd as X
+    x, m, _ = _ct_case(64, True, cuda)
+    n = (X.full_fwd.launches, X.fact_fwd.launches)
+    with pytest.raises(ValueError):
+        X.full_fwd(x.double(), m, True)
+    with pytest.raises(ValueError):
+        X.full_fwd(x, X.consts(False, cuda), True)
+    with pytest.raises(ValueError):
+        X.fact_fwd(x, {k: v.cpu() for k, v in m.items()}, True)
+    with pytest.raises(ValueError):
+        X.fact_fwd(x.flatten()[1:-2047].view(63, 2048), m, True)
+    assert (X.full_fwd.launches, X.fact_fwd.launches) == n
