@@ -31,7 +31,11 @@ line:
              CUDA-event times of each stage of one chunk, whose output is
              held equal to synthesize_ids' on the same chunk. Every launch
              count is set to 0 before and read after the 40 sentences: K3's
-             must stay 0 on this default (dft_pallas2) path.
+             must stay 0 on this default (dft_pallas2) path. Then (line
+             e2e-ssrn) SSRN on that chunk's decoded mels under each
+             ssrn_precision of the Synthesizer (highest, high - the
+             default - and bf16): CUDA-event ms and Z's max and mean distance
+             from highest; high within 1e-4 x max|Z| of it.
 6. K3      - the Griffin-Lim round kernels K3a (inverse rDFT GEMM +
              overlap-add) and K3b (re-frame + forward rDFT GEMM + phase) at
              the production geometry (n_fft 2048, hop 275, win 1102, F=840,
@@ -71,6 +75,12 @@ line:
              all 7 gradients for a seeded cotangent, each within max(2e-5 x
              its max |value|, 2 x the float32 plain version's own
              distance); gradients bitwise equal across two calls.
+8b. K4-bf16 - the same with bf16 operands (the TPU kernel's bf16 body,
+             taken under compute_dtype="bfloat16"): against the plain
+             version with the same bf16 rounding points run in float64, at
+             the same gate (2 x the float32 plain bf16 version's distance
+             covers the bf16 roundings of dh that float32 rounding flips),
+             bitwise-equal gradients, bounds at 989 TFLOP/s.
 9. ct-fwd   - the forward-rDFT prototypes X1-X4 of scripts/ct_kernel_exp.py
              on seeded frames (numpy default_rng(0)), in bf16 and float32:
              X1 full_fwd and X3 fact_fwd (transpose modes swap and stack)
@@ -120,12 +130,27 @@ line:
              losses finite and printed (at the warm-up learning rate a few
              steps move them less than dropout does, so no descent check),
              the same equivalence with its 8 HC blocks.
+11b. train-float32, train-bfloat16, train-bfloat16_full, train-remat -
+             both networks, float32 on torch matmuls (no K4), then with
+             use_pallas under compute_dtype "bfloat16" (K4's bf16 body:
+             28 / 8 bf16 forward and backward launches a step, no float32
+             ones), "bfloat16_full" (no K4 launch) and float32 with remat
+             (each K4 forward twice, the backward once), 8 Text2Mel and 4
+             SSRN steps on full-grid batches, every count set to 0 just
+             before and read just after, no other kernel launched, every
+             loss finite; ms/step and the losses of those steps on one
+             batch; one more step under torch.profiler (device busy ms and
+             idle share); K4's bf16 time per step; for remat, one step's loss and
+             gradients within 1e-5 x a leaf's max of the step without remat
+             (the leaves that are bitwise equal counted).
 12. train-cli  - python -m dc_tts_tpu_torch.train 1 and 2 on that corpus
              (--max-steps 4 --ckpt-every 2 --buckets 2) as
              subprocesses: exit 0, model_gs_000k.npz in the JAX package's
              key layout; a restart resumes at step 4 and ends at 6; then
              python -m dc_tts_tpu_torch.synthesize from both logdirs writes
-             two wavs.
+             two wavs; train 1 --dtype bfloat16 --max-steps 2 writes a
+             checkpoint and two finite losses, and synthesize
+             --random-weights --ssrn-precision bf16 two wavs.
 13. the kernels line, the nvidia-smi line, and the ``ok`` line.
 
 Kernel times are CUDA-event means over repeated calls on the same inputs.
@@ -146,7 +171,9 @@ spectrum Hermitian. K4's operations are its tap matmuls, 2*B*T*K*C*2C for
 the forward and three times that for the backward (h recomputed, dx, dW);
 its row passes (layer norms, gate) add under 1 % at these widths. K4's
 ``ms``, ``plain_ms`` and ``bound_ms`` in the kernels line are sums over
-the three shapes, its ``launches`` the train-t2m and train-ssrn runs'.
+the three shapes, its ``launches`` the train-t2m and train-ssrn runs'; its
+bf16 body's rows (hc_block_fwd_bf16, hc_block_bwd_bf16) the same at the
+dense bf16 rate, their ``launches`` those of train-bfloat16.
 X1-X4's operations: X1 2*F*2048*2050 (its GEMM, on the bf16 tensor cores
 in bf16 mode); the factored form per frame 2*2*16*16*128 for stage A and
 6*16*128 for W (float32 in both modes), 4*2*16*128*128 + 2*16*128 for C
@@ -224,12 +251,14 @@ def reset_counts() -> None:
     K1.fused_decode.launches = K2.gl2_run.launches = 0
     K3.k3a.launches, K3.k3b.launches = {1: 0, 3: 0}, {1: 0, 3: 0}
     K4.hc_block_fwd.launches = K4.hc_block_bwd.launches = 0
+    K4.hc_block_fwd.launches_bf16 = K4.hc_block_bwd.launches_bf16 = 0
     for fn in CT_KERNELS:
         getattr(X, fn).launches = 0
 
 
 def counts() -> dict:
-    """Every kernel wrapper's launch count (K3's over both pass modes)."""
+    """Every kernel wrapper's launch count (K3's over both pass modes; K4's
+    float32 and bf16-operand launches apart)."""
     from dc_tts_tpu_torch.ops import ct_fwd as X
     from dc_tts_tpu_torch.ops import decode as K1
     from dc_tts_tpu_torch.ops import gl as K3
@@ -240,6 +269,8 @@ def counts() -> dict:
             "K3b": sum(K3.k3b.launches.values()),
             "hc_block_fwd": K4.hc_block_fwd.launches,
             "hc_block_bwd": K4.hc_block_bwd.launches,
+            "hc_block_fwd_bf16": K4.hc_block_fwd.launches_bf16,
+            "hc_block_bwd_bf16": K4.hc_block_bwd.launches_bf16,
             **{fn: getattr(X, fn).launches for fn in CT_KERNELS}}
 
 
@@ -638,6 +669,23 @@ def phase_k3(results):
                               cublas_bf16_round_gemms_ms=cublas_ms)
 
 
+def device_busy(prof, n_top=6):
+    """(summed kernel ms, {kernel: [ms, launches]} of the n_top longest)
+    from a torch.profiler trace's device events."""
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.replace("void ", "").replace("(anonymous namespace)::",
+                                                   "").split("(")[0][:40]
+        t = by_name.setdefault(name, [0.0, 0])
+        t[0] += e.time_range.elapsed_us() / 1e3
+        t[1] += 1
+    top = {k: [round(t, 3), n] for k, (t, n) in
+           sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]}
+    return sum(t for t, _ in by_name.values()), top
+
+
 def stage_ms(synth, ids):
     """CUDA-event milliseconds of each stage of ``synthesize_ids`` on one
     chunk, run stage by stage as the Synthesizer chains them, and the
@@ -739,7 +787,41 @@ def phase_e2e(results, smi):
                              "CPU")
     results["launches"] = {k: launches[k] for k in ("K1", "K2")}
     results["e2e"] = dict(wall_s=wall, audio_s=audio_s,
-                          audio_s_per_s=audio_s / wall, stages_ms=stages)
+                          audio_s_per_s=audio_s / wall, stages_ms=stages,
+                          ssrn_precision=_ssrn_precisions(synth,
+                                                          ids[:CHUNK]))
+
+
+def _ssrn_precisions(synth, ids):
+    """SSRN of synthesis under each ssrn_precision on one chunk's decoded
+    mels: CUDA-event ms and Z's max and mean distance from "highest";
+    "high" must stay within 1e-4 x max|Z| of it (line e2e-ssrn)."""
+    from dc_tts_tpu_torch import Synthesizer
+    from dc_tts_tpu_torch.pipeline import SSRN_PRECISIONS
+
+    with torch.no_grad():
+        Y = synth.synthesize_ids(ids)[1]
+        out, Z = {}, {}
+        for prec in ("highest", "high", "bf16"):
+            s = Synthesizer(synth.cfg, synth.t2m_params, synth.ssrn_params,
+                            decode_mode="incremental", ssrn_precision=prec)
+            Z[prec] = s.ssrn.apply(s.ssrn_params, Y)[1]
+            ms = cuda_ms(lambda: s.ssrn.apply(s.ssrn_params, Y), 5)
+            d = (Z[prec] - Z["highest"]).abs()
+            out[prec] = dict(ms=ms, max_dZ=float(d.max()),
+                             mean_dZ=float(d.mean()),
+                             finite=bool(torch.isfinite(Z[prec]).all()))
+    z_max = float(Z["highest"].abs().max())
+    ok = (out["high"]["max_dZ"] <= 1e-4 * z_max
+          and all(r["finite"] for r in out.values()))
+    line("e2e-ssrn", ok=ok, chunk=len(ids), max_Z=f"{z_max:.4f}",
+         **{f"{p}_{k}": (f"{v:.3f}" if k == "ms" else f"{v:.3e}")
+            for p, r in out.items() for k, v in r.items() if k != "finite"},
+         compute_dtypes=json.dumps(SSRN_PRECISIONS).replace(" ", ""),
+         tol="high within 1e-4 x max|Z| of highest")
+    if not ok:
+        raise AssertionError(f"SSRN precisions: {out}")
+    return out
 
 
 def phase_e2e_dft_pallas(results, smi):
@@ -814,18 +896,7 @@ def phase_e2e_dft_pallas(results, smi):
         griffin_lim(first[1], *gl, method="dft_pallas")
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}   # kernel -> [ms, launches], from the device's own events
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = e.name.replace("void ", "").replace("(anonymous namespace)::",
-                                                   "").split("(")[0][:40]
-        t = by_name.setdefault(name, [0.0, 0])
-        t[0] += e.time_range.elapsed_us() / 1e3
-        t[1] += 1
-    busy_ms = sum(t for t, _ in by_name.values())
-    top = {k: [round(t, 3), n] for k, (t, n) in
-           sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]}
+    busy_ms, top = device_busy(prof)
     dev_s = sum(stages.values()) / 1e3
     line("e2e-dft_pallas-stages", ok=d_st == 0 and busy_ms > 0, chunk=CHUNK,
          **{k: f"{v:.3f}" for k, v in stages.items()},
@@ -870,7 +941,8 @@ def _hc_inputs(B, T, C, size, seed, dev):
 def _k4_distances(args, dy, geo):
     """{name: (kernel's distance, float32 plain version's distance,
     tolerance)} for y and the 7 gradients, each distance the max |.| from
-    the plain version run in float64, the tolerance max(2e-5 x the max
+    the plain version run in float64 (in geo's operand mode: with bf16 the
+    same bf16 rounding points), the tolerance max(2e-5 x the max
     |value|, 2 x the float32 plain version's distance). A non-finite output
     gets an infinite distance."""
     from dc_tts_tpu_torch.ops import hc_vjp as K4
@@ -890,25 +962,30 @@ def _k4_distances(args, dy, geo):
     return dist
 
 
-def _k4_bounds(B, T, C, K):
+def _k4_bounds(B, T, C, K, peak=PEAK_FP32):
     """(forward bound, backward bound, forward operations) of one HC block:
-    the inputs read once and the outputs written once (float32), and the
-    tap matmuls, 2*B*T*K*C*2C operations forward and three times that
-    backward (h recomputed, dx, dW)."""
+    the inputs read once and the outputs written once (float32, in either
+    operand mode), and the tap matmuls, 2*B*T*K*C*2C operations forward and
+    three times that backward (h recomputed, dx, dW), at ``peak``."""
     act, params = 4 * B * T * C, 4 * (K * C * 2 * C + 6 * C)
     flops = 2.0 * B * T * K * C * 2 * C
-    return (bound(act + params + act, flops),
-            bound(2 * act + params + act + params, 3 * flops), flops)
+    return (bound(act + params + act, flops, peak),
+            bound(2 * act + params + act + params, 3 * flops, peak), flops)
 
 
-def phase_k4(results):
+def phase_k4(results, bf16=False):
+    """Phase K4, or with ``bf16`` phase K4-bf16: the kernels' bf16-operand
+    body against the plain version with the same rounding points (run in
+    float64 for the reference), bounded at the dense bf16 rate."""
     from dc_tts_tpu_torch.ops import hc_vjp as K4
 
     dev = torch.device("cuda")
+    phase, suffix = ("K4-bf16", "_bf16") if bf16 else ("K4", "")
+    peak = PEAK_BF16 if bf16 else PEAK_FP32
     per_shape = []
     for label, B, T, C, size, rate, causal in K4_SHAPES:
         args, dy = _hc_inputs(B, T, C, size, 4, dev)
-        geo = (size, rate, causal, 1e-5)
+        geo = (size, rate, causal, 1e-5, bf16)
         grads = K4.hc_block_bwd(*args, dy, *geo)
         again = K4.hc_block_bwd(*args, dy, *geo)
         bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
@@ -919,8 +996,8 @@ def phase_k4(results):
         ms_b = cuda_ms(lambda: K4.hc_block_bwd(*args, dy, *geo), 3)
         plain_f = cuda_ms(lambda: K4.hc_block_fwd_plain(*args, *geo), 3)
         plain_b = cuda_ms(lambda: K4.hc_block_bwd_plain(*args, dy, *geo), 3)
-        bf, bb, flops = _k4_bounds(B, T, C, size)
-        line("K4", ok=ok, shape=repr(label), B=B, T=T, C=C, rate=rate,
+        bf, bb, flops = _k4_bounds(B, T, C, size, peak)
+        line(phase, ok=ok, shape=repr(label), B=B, T=T, C=C, rate=rate,
              causal=causal, bitwise_equal_grads=bitwise,
              **{f"{n}_kernel_vs_f64": f"{d[0]:.3e}" for n, d in dist.items()},
              **{f"{n}_plain_f32_vs_f64": f"{d[1]:.3e}"
@@ -931,8 +1008,8 @@ def phase_k4(results):
              bound_by=bf[1], fwd_gflop=f"{flops / 1e9:.2f}",
              bwd_gflop=f"{3 * flops / 1e9:.2f}")
         if not ok:
-            raise AssertionError(f"K4 disagrees with its plain version at "
-                                 f"{label}: {dist} bitwise={bitwise}")
+            raise AssertionError(f"{phase} disagrees with its plain version "
+                                 f"at {label}: {dist} bitwise={bitwise}")
         per_shape.append(dict(shape=label, fwd_ms=ms_f, bwd_ms=ms_b,
                               plain_fwd_ms=plain_f, plain_bwd_ms=plain_b,
                               fwd_bound_ms=bf[0], bwd_bound_ms=bb[0],
@@ -943,12 +1020,12 @@ def phase_k4(results):
         del args, dy
         torch.cuda.empty_cache()
     s = lambda k: sum(r[k] for r in per_shape)  # noqa: E731
-    results["K4_shapes"] = per_shape
-    results["hc_block_fwd"] = dict(
+    results["K4_shapes" + suffix] = per_shape
+    results["hc_block_fwd" + suffix] = dict(
         max_abs_err=max(r["fwd_err"] for r in per_shape), ms=s("fwd_ms"),
         plain_ms=s("plain_fwd_ms"), bound_ms=s("fwd_bound_ms"),
         bound_by=per_shape[0]["bound_by"])
-    results["hc_block_bwd"] = dict(
+    results["hc_block_bwd" + suffix] = dict(
         max_abs_err=max(r["bwd_err"] for r in per_shape), ms=s("bwd_ms"),
         plain_ms=s("plain_bwd_ms"), bound_ms=s("bwd_bound_ms"),
         bound_by=per_shape[0]["bound_by"])
@@ -982,20 +1059,21 @@ def make_corpus_and_features(root):
     return data, feats
 
 
-def _k4_step_ms(specs_shapes, B):
+def _k4_step_ms(specs_shapes, B, bf16=False):
     """(CUDA-event ms, bound ms, GFLOP) of K4's forward + backward over
     every HC block of one step, replayed at the step's shapes with seeded
-    inputs."""
+    inputs (in bf16 operands with ``bf16``)."""
     from dc_tts_tpu_torch.ops import hc_vjp as K4
 
     dev = torch.device(DEV)
     total = b_ms = gflop = 0.0
     for spec, T, C in specs_shapes:
         args, dy = _hc_inputs(B, T, C, spec.size, 5, dev)
-        geo = (spec.size, spec.rate, spec.causal, 1e-5)
+        geo = (spec.size, spec.rate, spec.causal, 1e-5, bf16)
         total += cuda_ms(lambda: (K4.hc_block_fwd(*args, *geo),
                                   K4.hc_block_bwd(*args, dy, *geo)), 2)
-        bf, bb, flops = _k4_bounds(B, T, C, spec.size)
+        bf, bb, flops = _k4_bounds(B, T, C, spec.size,
+                                   PEAK_BF16 if bf16 else PEAK_FP32)
         b_ms += bf[0] + bb[0]
         gflop += 4 * flops / 1e9
     return total, b_ms, gflop
@@ -1302,6 +1380,148 @@ def phase_train(results, net, data, feats, n_steps):
     torch.cuda.empty_cache()
 
 
+# the training routes: float32 on torch matmuls (the baseline of the trace),
+# then the reduced-precision and remat routes with use_pallas set (K4 takes
+# bf16 operands under "bfloat16", never runs under "bfloat16_full"), and
+# their steps per network
+TRAIN_ROUTES = (("float32", dict(use_pallas=False)),
+                ("bfloat16", dict(compute_dtype="bfloat16")),
+                ("bfloat16_full", dict(compute_dtype="bfloat16_full")),
+                ("remat", dict(remat=True)))
+ROUTE_STEPS = {"t2m": 8, "ssrn": 4}
+
+
+def _grads_close(a, b):
+    """(worst max |a - b| over a leaf's max |b|, leaves bitwise equal)."""
+    worst = max(float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                 1e-30)
+                for x, y in zip(a, b))
+    return worst, sum(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+
+def phase_train_routes(results, data, feats):
+    """Each route of TRAIN_ROUTES for both networks through the trainer's
+    step, loader and prefetch on the full 180x210 grid: every launch count
+    set to 0 just before the route's steps and read just after; every loss
+    finite; ms/step on one batch, and one more step under torch.profiler
+    (traces in chiprun_out/trace_train_*): its summed kernel time, and the
+    device's idle share, 1 - that time over the untraced ms/step (the
+    profiler slows the host, not the kernels); and for remat, one step's
+    loss and gradients against the same step without remat (1e-5 x a
+    leaf's max, the JAX package's bar; the leaves that come out bitwise
+    equal are counted)."""
+    from dc_tts_tpu_torch.config import base_config
+    from dc_tts_tpu_torch.data.dataset import TrainLoader, load_dataset_index
+    from dc_tts_tpu_torch.train import steps as TS
+    from dc_tts_tpu_torch.train.__main__ import prefetch_to_device
+    from dc_tts_tpu_torch.utils.profiling import trace
+
+    dev = torch.device(DEV)
+    base = base_config().replace(data=data, use_pallas=True, B=B_TRAIN)
+    examples = load_dataset_index(base, feats, data)
+    per_block = {"t2m": 28, "ssrn": 8}
+    for route, kw in TRAIN_ROUTES:
+        cfg = base.replace(**kw)
+        for net in ("t2m", "ssrn"):
+            init, make, grads_fn = (
+                (TS.init_text2mel_state, TS.make_text2mel_step,
+                 TS.text2mel_grads) if net == "t2m" else
+                (TS.init_ssrn_state, TS.make_ssrn_step, TS.ssrn_grads))
+            loader = TrainLoader(cfg, examples, feats, seed=0)
+            state = init(cfg, torch.Generator().manual_seed(0), dev)
+            step = make(cfg, seed=1)
+            gen = torch.Generator(device=dev)
+            batches = prefetch_to_device(loader, dev)
+            n = ROUTE_STEPS[net]
+            losses = []
+            torch.cuda.synchronize()
+            reset_counts()
+            for _ in range(n):
+                batch = next(batches)
+                state, metrics = step(state, batch, gen)
+                losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            launches = counts()
+            loader.stop()
+            want = per_block[net] * n
+            k4 = {k: launches.pop(k) for k in (
+                "hc_block_fwd", "hc_block_bwd", "hc_block_fwd_bf16",
+                "hc_block_bwd_bf16")}
+            expect = {"float32": (0, 0, 0, 0),
+                      "bfloat16": (0, 0, want, want),
+                      "bfloat16_full": (0, 0, 0, 0),
+                      # the forward runs again in the recompute
+                      "remat": (2 * want, want, 0, 0)}[route]
+            ok = (tuple(k4.values()) == expect
+                  and not any(launches.values())
+                  and all(np.isfinite(losses)))
+            # ms/step on the last batch, after a warm-up step on it; the
+            # losses of these steps on one batch show whether it descends
+            state, m0 = step(state, batch, gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            same = [m0["loss"]]
+            for _ in range(TIME_STEPS // 2):
+                state, m = step(state, batch, gen)
+                same.append(m["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / (TIME_STEPS // 2) * 1e3
+            same = [float(v) for v in same]
+            ok = ok and all(np.isfinite(same))
+            # one more step under torch.profiler: the device's busy share
+            with trace(os.path.join(HERE, "chiprun_out",
+                                    f"trace_train_{route}_{net}")) as prof:
+                t0 = time.perf_counter()
+                state, _ = step(state, batch, gen)
+                torch.cuda.synchronize()
+                traced_ms = (time.perf_counter() - t0) * 1e3
+            busy_ms, top = device_busy(prof, 4)
+            ok = ok and busy_ms > 0
+            extra = {}
+            if route == "bfloat16":
+                k4_ms, k4_bound = _k4_step_ms(_hc_shapes(net, cfg), cfg.B,
+                                              True)[:2]
+                extra["k4_bf16_ms_per_step"] = f"{k4_ms:.2f}"
+                extra["k4_bf16_bound_ms_per_step"] = f"{k4_bound:.3f}"
+                results.setdefault("k4_bf16_launches", {"fwd": 0, "bwd": 0})
+                results["k4_bf16_launches"]["fwd"] += k4["hc_block_fwd_bf16"]
+                results["k4_bf16_launches"]["bwd"] += k4["hc_block_bwd_bf16"]
+            if route == "remat":
+                params = state.params
+                runs = []
+                for c in (cfg, cfg.replace(remat=False)):
+                    gen.manual_seed(123)
+                    m, g = grads_fn(c, params, batch, gen)
+                    runs.append((float(m["loss"]), g))
+                (l_r, g_r), (l_p, g_p) = runs
+                worst, n_equal = _grads_close(g_r, g_p)
+                ok = ok and abs(l_r - l_p) <= 1e-5 * abs(l_p) and \
+                    worst <= 1e-5
+                extra.update(loss_remat=f"{l_r:.6f}", loss_plain=f"{l_p:.6f}",
+                             grad_remat_vs_plain=f"{worst:.2e}",
+                             leaves_bitwise_equal=f"{n_equal}/{len(g_p)}")
+            line(f"train-{route}", ok=ok, net=net, steps=n, B=cfg.B,
+                 launches=json.dumps(k4).replace(" ", ""),
+                 others_launched=sum(launches.values()),
+                 losses=",".join(f"{v:.5f}" for v in losses),
+                 one_batch_losses=",".join(f"{v:.5f}" for v in same),
+                 one_batch_descending=bool(same[-1] < same[0]),
+                 ms_per_step=f"{ms:.2f}", traced_step_ms=f"{traced_ms:.2f}",
+                 device_busy_ms=f"{busy_ms:.2f}",
+                 idle_share=f"{1 - busy_ms / ms:.3f}",
+                 top_kernels=json.dumps(top).replace(" ", ""), **extra)
+            if not ok:
+                raise AssertionError(f"train-{route} {net}: launches {k4} "
+                                     f"(want {expect}), {launches}, losses "
+                                     f"{losses}, {extra}")
+            results.setdefault("train-routes", {})[f"{route}-{net}"] = dict(
+                losses=losses, one_batch_losses=same, launches=k4,
+                ms_per_step=ms, traced_step_ms=traced_ms,
+                device_busy_ms=busy_ms, top_kernels=top, **extra)
+            del state, batch, batches
+            torch.cuda.empty_cache()
+
+
 def _run(args, timeout=600, **env_vars):
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
                + os.environ.get("PYTHONPATH", ""), **env_vars)
@@ -1355,11 +1575,28 @@ def phase_train_cli(results, data, feats, root):
           logdirs[1], "--logdir2", logdirs[2], "--out", out_dir, "--device",
           DEV])
     wavs = sorted(os.listdir(out_dir))
-    ok = wavs == ["1.wav", "2.wav"]
+    # the reduced precisions through the CLIs: bf16 training, bf16 SSRN
+    bf_log = os.path.join(root, "logdir-bf16")
+    _run(["dc_tts_tpu_torch.train", "1", "--data", data, "--features", feats,
+          "--logdir", bf_log, "--dtype", "bfloat16", "--max-steps", "2",
+          "--ckpt-every", "2", "--log-every", "1", "--buckets", "2",
+          "--device", DEV, "--batch-size", str(B_TRAIN)])
+    with open(os.path.join(bf_log, "metrics.jsonl")) as f:
+        bf_losses = [json.loads(r)["loss"] for r in f if r.strip()]
+    bf_dir = os.path.join(root, "samples-bf16")
+    _run(["dc_tts_tpu_torch.synthesize", "--sentences", sent,
+          "--random-weights", "--ssrn-precision", "bf16", "--out", bf_dir,
+          "--device", DEV])
+    bf_wavs = sorted(os.listdir(bf_dir))
+    ok = (wavs == ["1.wav", "2.wav"] and bf_wavs == wavs
+          and len(bf_losses) == 2 and all(np.isfinite(bf_losses))
+          and os.path.exists(os.path.join(bf_log, "model_gs_000k.npz")))
     line("train-cli", ok=ok, wavs=wavs, keys=len(want),
-         seconds=f"{time.perf_counter() - t0:.1f}")
+         bf16_train_losses=",".join(f"{v:.5f}" for v in bf_losses),
+         bf16_ssrn_wavs=bf_wavs, seconds=f"{time.perf_counter() - t0:.1f}")
     if not ok:
-        raise AssertionError(f"synthesize wrote {wavs}")
+        raise AssertionError(f"synthesize wrote {wavs}, {bf_wavs}; bf16 "
+                             f"train losses {bf_losses}")
 
 
 # ---------------------------------------------------------------------------
@@ -1616,15 +1853,19 @@ def main() -> int:
     phase_k3(results)
     phase_e2e_dft_pallas(results, smi)
     phase_k4(results)
+    phase_k4(results, bf16=True)
     phase_ct_fwd(results)
     with tempfile.TemporaryDirectory() as root:
         data, feats = make_corpus_and_features(root)
         phase_train(results, "t2m", data, feats, 30)
         phase_train(results, "ssrn", data, feats, 8)
+        phase_train_routes(results, data, feats)
         phase_train_cli(results, data, feats, root)
     results["launches"].update(
         {"hc_block_fwd": results["k4_launches"]["fwd"],
-         "hc_block_bwd": results["k4_launches"]["bwd"]})
+         "hc_block_bwd": results["k4_launches"]["bwd"],
+         "hc_block_fwd_bf16": results["k4_bf16_launches"]["fwd"],
+         "hc_block_bwd_bf16": results["k4_bf16_launches"]["bwd"]})
     kernels = []
     for key, name, src, rep in (
             ("K1", "fused_decode", "dc_tts_tpu_torch/csrc/decode.cu",
@@ -1638,6 +1879,12 @@ def main() -> int:
             ("hc_block_fwd", "hc_block_fwd", "dc_tts_tpu_torch/csrc/hc_vjp.cu",
              "dc_tts_tpu/ops/pallas_hc_vjp.py:236"),
             ("hc_block_bwd", "hc_block_bwd", "dc_tts_tpu_torch/csrc/hc_vjp.cu",
+             "dc_tts_tpu/ops/pallas_hc_vjp.py:269"),
+            ("hc_block_fwd_bf16", "hc_block_fwd_bf16",
+             "dc_tts_tpu_torch/csrc/hc_vjp.cu",
+             "dc_tts_tpu/ops/pallas_hc_vjp.py:236"),
+            ("hc_block_bwd_bf16", "hc_block_bwd_bf16",
+             "dc_tts_tpu_torch/csrc/hc_vjp.cu",
              "dc_tts_tpu/ops/pallas_hc_vjp.py:269"),
             *((k, k, "dc_tts_tpu_torch/csrc/ct_fwd.cu", CT_REPLACES[k])
               for k in CT_KERNELS)):
@@ -1656,9 +1903,11 @@ def main() -> int:
                    "K3_modes": results["K3_modes"],
                    "K3_loop": results["K3_loop"],
                    "K4_shapes": results["K4_shapes"],
+                   "K4_shapes_bf16": results["K4_shapes_bf16"],
                    "ct-fwd": results["ct-fwd"],
                    "train": {k: results[k] for k in ("train-t2m",
-                                                     "train-ssrn")}},
+                                                     "train-ssrn",
+                                                     "train-routes")}},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -6,11 +6,10 @@ the JAX package, which tests/test_torch_config_text.py checks field by field.
 A frozen dataclass, so configs are hashable and ``replace`` builds the tiny
 test config without editing source.
 
-Fields that select a TPU-only path keep their names and defaults so that a
-config means the same thing in both packages; the port refuses the values it
-has not ported yet where they are read (``compute_dtype`` and, in training,
-``remat`` in ``models``). Every ``stft_method`` of the JAX package is ported
-(``dsp/griffin_lim.py``).
+Fields keep their names and defaults so that a config means the same thing
+in both packages. Every ``compute_dtype`` and ``remat`` (``models``) and
+every ``stft_method`` (``dsp/griffin_lim.py``) of the JAX package is
+ported.
 """
 from __future__ import annotations
 
@@ -64,8 +63,14 @@ class Config:
     # round through kernel K3 (ops/gl.py); "fft", "dft", "dft_3x",
     # "dft_bf16", "ct", "dft_mixed": plain torch transforms (dsp/stft.py).
     stft_method: str = "dft_pallas2"
+    # training: recompute each block's activations in the backward
+    # (torch.utils.checkpoint) instead of keeping them
     remat: bool = False
-    compute_dtype: str = "float32"  # only "float32" is ported
+    # conv matmul operands (models/blocks.operand_modes): "float32" (true
+    # float32), "float32_high" (the 3-pass bf16 hi/lo split), "bfloat16"
+    # (bf16 operands, float32 sums; with use_pallas, K4's bf16 body),
+    # "bfloat16_full" (also bf16 activations between and inside blocks)
+    compute_dtype: str = "float32"
     # training only: every HC block runs kernel K4 (ops/hc_vjp.py), its CUDA
     # forward and backward on the card
     use_pallas: bool = False

@@ -29,8 +29,25 @@
 // SGEMM: 128x128 output tiles, 8-deep slices, 8x8 outputs per thread.
 // The layer norms, gate and their gradients are a few passes over (B*T, 2C)
 // rows, bound by device memory. No fast math.
+//
+// bf16 mode (the TPU kernel's bf16 operand body, pallas_hc_vjp.py:_make_dot
+// and _make_dotg, taken under compute_dtype="bfloat16"): the same three tap
+// products with every operand rounded to bf16 (nearest even) and products
+// on the tensor cores (mma.sync m16n8k16 bf16 -> float32), sums in float32:
+// h = bf16(taps) @ bf16(W), dx = bf16(dh) @ bf16(W)^T, dW = bf16(taps)^T @
+// bf16(dh). Bound: the same operations at the dense bf16 rate. hc_gemm_bf16
+// keeps hc_gemm's tiles, loaders and split, so the tap gather stays in the
+// loader: each thread fetches float32 elements through load_a / load_b,
+// rounds them and stores them to shared memory with k contiguous (the
+// fragment layout of csrc/bf16_gemm.cuh), the next k-tile's fetch in flight
+// during the products. Each 32-deep k-tile's products are summed on the
+// tensor cores from zero and then added to float32 register sums: a long
+// tensor-core accumulation truncates (Q reaches 3072, dW's depth B*T). The
+// row kernels stay float32, and every sum keeps its fixed order.
 
 #include <cuda_runtime.h>
+
+#include "bf16_gemm.cuh"
 
 namespace {
 
@@ -140,6 +157,119 @@ hc_gemm(const float* __restrict__ A, const float* __restrict__ Bm,
       else o[at] = acc[i][j];
     }
   }
+}
+
+constexpr int HBK = 32;   // k-tile depth of the bf16 GEMM
+constexpr int HLD = 40;   // its shared row pitch in bf16: conflict-free frags
+
+// hc_gemm's product with bf16 operands on the tensor cores (see the top).
+// Warp w holds rows (w/4)*64 + [0, 64) and columns (w%4)*32 + [0, 32) of the
+// block's 128 x 128 tile as 4 x 4 m16n8 fragments.
+template <int MODE>
+__global__ void __launch_bounds__(GT)
+hc_gemm_bf16(const float* __restrict__ A, const float* __restrict__ Bm,
+             float* __restrict__ out, const float* __restrict__ bias, int M,
+             int N, int Q, int q_split, int T, int C, int rate, int left) {
+  __shared__ __align__(16) bf16 As[BM][HLD];  // m rows, k contiguous
+  __shared__ __align__(16) bf16 Bs[BN][HLD];  // n rows, k contiguous
+  constexpr int PER = BM * HBK / GT;          // elements of each per thread
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int m0 = (int)blockIdx.y * BM, n0 = (int)blockIdx.x * BN;
+  const int qb = (int)blockIdx.z * q_split, qe = min(Q, qb + q_split);
+  // neighbouring threads read neighbouring addresses, as in hc_gemm
+  auto a_at = [&](int i, int& mm, int& qq) {
+    const int idx = tid + i * GT;
+    mm = MODE == DW ? idx % BM : idx / HBK;
+    qq = MODE == DW ? idx / BM : idx % HBK;
+  };
+  auto b_at = [&](int i, int& nn, int& qq) {
+    const int idx = tid + i * GT;
+    nn = MODE == DX ? idx / HBK : idx % BN;
+    qq = MODE == DX ? idx % HBK : idx / BN;
+  };
+  float ra[PER], rb[PER];
+  auto load = [&](int q0) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      int mm, nn, qa, qn;
+      a_at(i, mm, qa);
+      b_at(i, nn, qn);
+      const int m = m0 + mm, n = n0 + nn, q = q0 + qa, p = q0 + qn;
+      ra[i] = (m < M && q < qe) ? load_a<MODE>(A, m, q, T, C, rate, left)
+                                : 0.f;
+      rb[i] = (n < N && p < qe) ? load_b<MODE>(Bm, p, n, N, C) : 0.f;
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+
+  if (qb < qe) load(qb);
+  for (int q0 = qb; q0 < qe; q0 += HBK) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      int mm, nn, qa, qn;
+      a_at(i, mm, qa);
+      b_at(i, nn, qn);
+      As[mm][qa] = __float2bfloat16_rn(ra[i]);
+      Bs[nn][qn] = __float2bfloat16_rn(rb[i]);
+    }
+    __syncthreads();
+    if (q0 + HBK < qe) load(q0 + HBK);  // in flight during the products
+
+    float part[4][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[mt][nt][q] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < HBK; ks += 16) {
+      uint32_t bfr[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) frag_b(bfr[nt], Bs, wn + nt * 8 + g,
+                                            ks + t2);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        uint32_t afr[4];
+        frag_a(afr, As, wm + mt * 16 + g, ks + t2);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(part[mt][nt], afr, bfr[nt]);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][nt][q] += part[mt][nt][q];
+    __syncthreads();
+  }
+
+  // fragment element q sits at row g (+8 for q >= 2), column t2 (+1 if odd)
+  float* o = MODE == DW ? out + (size_t)blockIdx.z * M * N : out;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int m = m0 + wm + mt * 16 + g + (q >> 1) * 8;
+        const int n = n0 + wn + nt * 8 + t2 + (q & 1);
+        if (m >= M || n >= N) continue;
+        const size_t at = (size_t)m * N + n;
+        if (MODE == FWD) o[at] = acc[mt][nt][q] + bias[n];
+        else if (MODE == DX) o[at] += acc[mt][nt][q];
+        else o[at] = acc[mt][nt][q];
+      }
 }
 
 // Sum NV values over the block; every thread gets the sums. The order is
@@ -299,15 +429,23 @@ __global__ void hc_col_sum(const float* __restrict__ part, int n_parts,
   out[j] = s;
 }
 
+// the product on the float32 FMA units, or with bf16 operands on the tensor
+// cores; row ranges of q_split a multiple of the k-tile (a range past Q
+// writes a zero partial)
 template <int MODE>
 cudaError_t gemm(const float* A, const float* Bm, float* out,
                  const float* bias, int M, int N, int Q, int splits, int T,
-                 int C, int rate, int left, cudaStream_t st) {
+                 int C, int rate, int left, bool bf16_ops, cudaStream_t st) {
+  const int depth = bf16_ops ? HBK : BK;
   int q_split = (Q + splits - 1) / splits;
-  q_split = (q_split + BK - 1) / BK * BK;
+  q_split = (q_split + depth - 1) / depth * depth;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  hc_gemm<MODE><<<grid, GT, 0, st>>>(A, Bm, out, bias, M, N, Q, q_split, T,
-                                     C, rate, left);
+  if (bf16_ops)
+    hc_gemm_bf16<MODE><<<grid, GT, 0, st>>>(A, Bm, out, bias, M, N, Q,
+                                            q_split, T, C, rate, left);
+  else
+    hc_gemm<MODE><<<grid, GT, 0, st>>>(A, Bm, out, bias, M, N, Q, q_split,
+                                       T, C, rate, left);
   return cudaGetLastError();
 }
 
@@ -318,18 +456,20 @@ bool bad_geometry(int Bn, int T, int C, int K, int rate, int left) {
 
 }  // namespace
 
-// y = HC(x). h: (B*T, 2C) scratch.
+// y = HC(x). h: (B*T, 2C) scratch. bf16_ops: the tap product's operands in
+// bf16 on the tensor cores.
 extern "C" int dctts_hc_fwd(const float* x, const float* w, const float* b,
                             const float* g1, const float* be1,
                             const float* g2, const float* be2, float* h,
                             float* y, int Bn, int T, int C, int K, int rate,
-                            int left, float eps, void* stream) {
+                            int left, float eps, int bf16_ops,
+                            void* stream) {
   if (bad_geometry(Bn, T, C, K, rate, left))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int M = Bn * T;
   cudaError_t e = gemm<FWD>(x, w, h, b, M, 2 * C, K * C, 1, T, C, rate, left,
-                            st);
+                            bf16_ops != 0, st);
   if (e != cudaSuccess) return (int)e;
   hc_fwd_rows<<<M, RT, 0, st>>>(h, x, g1, be1, g2, be2, y, C, eps);
   return (int)cudaGetLastError();
@@ -338,6 +478,7 @@ extern "C" int dctts_hc_fwd(const float* x, const float* w, const float* b,
 // Gradients of HC at (x, params) for the cotangent dy. Scratch: h, dh (B*T,
 // 2C); row_part (ceil(B*T/R), 6C); dw_part (dw_splits, K*C*2C), unused
 // when dw_splits == 1. dparams (6C) = db (2C) | dg1 | dbe1 | dg2 | dbe2.
+// bf16_ops: the three tap products' operands in bf16 on the tensor cores.
 extern "C" int dctts_hc_bwd(const float* x, const float* w, const float* b,
                             const float* g1, const float* be1,
                             const float* g2, const float* be2,
@@ -345,10 +486,11 @@ extern "C" int dctts_hc_bwd(const float* x, const float* w, const float* b,
                             float* dw, float* dparams, float* row_part,
                             float* dw_part, int Bn, int T, int C, int K,
                             int rate, int left, float eps, int R,
-                            int dw_splits, void* stream) {
+                            int dw_splits, int bf16_ops, void* stream) {
   if (bad_geometry(Bn, T, C, K, rate, left) || R < 1 || dw_splits < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const bool lo = bf16_ops != 0;
   const int M = Bn * T, n_chunks = (M + R - 1) / R;
   const size_t smem = sizeof(float) * (10 * (size_t)C + 4 * 32);
   cudaError_t e;
@@ -358,8 +500,8 @@ extern "C" int dctts_hc_bwd(const float* x, const float* w, const float* b,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  if ((e = gemm<FWD>(x, w, h, b, M, 2 * C, K * C, 1, T, C, rate, left, st)) !=
-      cudaSuccess)
+  if ((e = gemm<FWD>(x, w, h, b, M, 2 * C, K * C, 1, T, C, rate, left, lo,
+                     st)) != cudaSuccess)
     return (int)e;
   hc_bwd_rows<<<n_chunks, RT, smem, st>>>(h, x, dy, g1, be1, g2, be2, dh, dx,
                                           row_part, M, C, eps, R);
@@ -370,11 +512,11 @@ extern "C" int dctts_hc_bwd(const float* x, const float* w, const float* b,
                                                            dparams);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   if ((e = gemm<DX>(dh, w, dx, nullptr, M, C, K * 2 * C, 1, T, C, rate, left,
-                    st)) != cudaSuccess)
+                    lo, st)) != cudaSuccess)
     return (int)e;
   float* dw_out = dw_splits == 1 ? dw : dw_part;
   if ((e = gemm<DW>(x, dh, dw_out, nullptr, K * C, 2 * C, M, dw_splits, T, C,
-                    rate, left, st)) != cudaSuccess)
+                    rate, left, lo, st)) != cudaSuccess)
     return (int)e;
   if (dw_splits > 1) {
     const size_t LW = (size_t)K * C * 2 * C;

@@ -1,5 +1,5 @@
 """Conv-block stacks with a batch / one-frame step API, the port of
-``dc_tts_tpu/models/blocks.py`` (eval mode, float32).
+``dc_tts_tpu/models/blocks.py``.
 
 * C  - conv1d -> layer-norm -> optional activation
 * HC - gated highway conv: one conv to 2C channels, split into gate H1 and
@@ -11,11 +11,22 @@ runs the whole sequence (with dropout after every block in training);
 ``step_stack`` runs one causal frame against per-layer history buffers, for
 the incremental decoder.
 
+Operand modes (``operand_modes``): ``dtype`` is each conv's matmul mode
+(``layers.matmul``), ``act_dtype`` (``bfloat16_full``) the type in which
+activations are stored between and inside blocks: conv outputs, layer-norm
+outputs (their statistics stay float32), the gate, the residual, dropout.
+
 With ``use_pallas`` in training every HC block runs kernel K4
 (``ops/hc_vjp.py``): its forward and its hand-written backward, then
-dropout. The JAX package gates that path on the TPU core's VMEM
-(``hc_train_fits``); the CUDA kernels tile time themselves and take every
-HC shape of the trainer, so the port has no gate.
+dropout; in bf16 operands when ``dtype`` is bf16 (``compute_dtype=
+"bfloat16"``), never under ``act_dtype`` (the kernel takes float32
+activations), as in the JAX package. The JAX package also gates that path
+on the TPU core's VMEM (``hc_train_fits``: SSRN's wide HC blocks stay on
+XLA there); the CUDA kernels tile time themselves and take every HC shape
+of the trainer, so the port has no gate.
+
+With ``remat`` each block runs under ``torch.utils.checkpoint``: its
+activations are recomputed in the backward instead of kept.
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 
@@ -53,6 +65,25 @@ class D:
     size: int = 3
     out_ch: Optional[int] = None
     act: Act = None
+
+
+def operand_modes(compute_dtype: str):
+    """(dtype, act_dtype) of a ``compute_dtype``, as the JAX package's
+    Text2Mel and SSRN read it: "float32" (None, None), "float32_high"
+    ("high", None), "bfloat16" (bf16, None), "bfloat16_full" (bf16, bf16)."""
+    modes = {"float32": (None, None), "float32_high": ("high", None),
+             "bfloat16": (torch.bfloat16, None),
+             "bfloat16_full": (torch.bfloat16, torch.bfloat16)}
+    if compute_dtype not in modes:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}; one of "
+                         f"{tuple(modes)}")
+    return modes[compute_dtype]
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """A stack's output back in float32 (a bf16 one; float32 and float64
+    pass unchanged)."""
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 def _act(x, name: Act):
@@ -104,43 +135,83 @@ def _highway(p: dict, h: torch.Tensor, x: torch.Tensor,
     h1, h2 = torch.chunk(h, 2, dim=-1)
     h1 = torch.sigmoid(L.layer_norm(p["ln1"], h1, ln_eps))
     h2 = L.layer_norm(p["ln2"], h2, ln_eps)
-    return h1 * h2 + (1.0 - h1) * x
+    return h1 * h2 + (1.0 - h1) * x.to(h1.dtype)
 
 
 def apply_block(p: dict, spec, x: torch.Tensor, *, ln_eps: float,
                 dropout_rate: float = 0.0, gen=None, train: bool = False,
-                use_pallas: bool = False) -> torch.Tensor:
-    if use_pallas and train and isinstance(spec, HC):
+                use_pallas: bool = False, dtype=None,
+                act_dtype=None) -> torch.Tensor:
+    if use_pallas and train and isinstance(spec, HC) and act_dtype is None:
         from ..ops.hc_vjp import hc_block_trainable
         y = hc_block_trainable(x, p["conv"]["w"], p["conv"]["b"],
                                p["ln1"]["gamma"], p["ln1"]["beta"],
                                p["ln2"]["gamma"], p["ln2"]["beta"],
-                               spec.size, spec.rate, spec.causal, ln_eps)
+                               spec.size, spec.rate, spec.causal, ln_eps,
+                               dtype is torch.bfloat16)
     elif isinstance(spec, C):
         y = L.conv1d(p["conv"], x, size=spec.size, rate=spec.rate,
-                     causal=spec.causal)
+                     causal=spec.causal, dtype=dtype, out_dtype=act_dtype)
         y = _act(L.layer_norm(p["ln"], y, ln_eps), spec.act)
     elif isinstance(spec, HC):
         h = L.conv1d(p["conv"], x, size=spec.size, rate=spec.rate,
-                     causal=spec.causal)
+                     causal=spec.causal, dtype=dtype, out_dtype=act_dtype)
         y = _highway(p, h, x, ln_eps)
     elif isinstance(spec, D):
-        y = L.conv1d_transpose(p["conv"], x)
+        y = L.conv1d_transpose(p["conv"], x, dtype, act_dtype)
         y = _act(L.layer_norm(p["ln"], y, ln_eps), spec.act)
     else:
         raise TypeError(spec)
-    return L.dropout(y, dropout_rate, gen, train)
+    y = L.dropout(y, dropout_rate, gen, train)
+    if act_dtype is not None and y.dtype != act_dtype:
+        y = y.to(act_dtype)
+    return y
+
+
+def _remat_block(p: dict, spec, x: torch.Tensor, gen, **kw) -> torch.Tensor:
+    """``apply_block`` under ``torch.utils.checkpoint``. The checkpoint
+    restores the global RNGs for its recompute, not ``gen``: the block
+    draws its dropout mask from a generator set to ``gen``'s state before
+    the block, in the forward and again in the recompute, and ``gen`` moves
+    on as the forward left it. The masks are those of a run without
+    remat."""
+    state = None if gen is None else gen.get_state()
+    first = True
+
+    def run(p_, x_):
+        nonlocal first
+        g = None
+        if state is not None:
+            g = torch.Generator(device=gen.device)
+            g.set_state(state)
+        y = apply_block(p_, spec, x_, gen=g, **kw)
+        if first and g is not None:
+            gen.set_state(g.get_state())
+        first = False
+        return y
+
+    return checkpoint(run, p, x, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def apply_stack(params: Sequence[dict], specs: Sequence, x: torch.Tensor, *,
                 ln_eps: float, dropout_rate: float = 0.0, gen=None,
-                train: bool = False, use_pallas: bool = False
-                ) -> torch.Tensor:
+                train: bool = False, use_pallas: bool = False, dtype=None,
+                act_dtype=None, remat: bool = False) -> torch.Tensor:
     """Run a stack. In training (``train``) every block is followed by
-    dropout drawn from ``gen``, layer after layer in order."""
+    dropout drawn from ``gen``, layer after layer in order. ``dtype`` and
+    ``act_dtype``: the operand modes (module docstring); with ``act_dtype``
+    the input is narrowed to it first. ``remat``: each block recomputed in
+    the backward (``_remat_block``)."""
+    if act_dtype is not None:
+        x = x.to(act_dtype)
+    kw = dict(ln_eps=ln_eps, dropout_rate=dropout_rate, train=train,
+              use_pallas=use_pallas, dtype=dtype, act_dtype=act_dtype)
     for p, spec in zip(params, specs):
-        x = apply_block(p, spec, x, ln_eps=ln_eps, dropout_rate=dropout_rate,
-                        gen=gen, train=train, use_pallas=use_pallas)
+        if remat and torch.is_grad_enabled():
+            x = _remat_block(p, spec, x, gen, **kw)
+        else:
+            x = apply_block(p, spec, x, gen=gen, **kw)
     return x
 
 

@@ -8,7 +8,20 @@ path and the one-frame decode step share one contraction layout.
   conv:    w (K, C_in, C_out)
   deconv:  w (K, C_in, C_out), see ``conv1d_transpose``
 
-Numerics are float32; the entry points turn TF32 off (``device.py``).
+Numerics are float32 by default; the entry points turn TF32 off
+(``device.py``). The convs take the JAX package's operand modes
+(``dtype``): None is true float32; ``"high"`` is the explicit 3-pass bf16
+hi/lo split xh@Wh + xh@Wl + xl@Wh (what ``Precision.HIGH`` is on the TPU,
+as ``dsp/stft.py``'s ``dft_3x``); ``torch.bfloat16`` rounds both operands
+to bf16 (nearest even) and keeps products and sums in float32. On the card
+these products of bf16 values run on the tensor cores through
+``torch.mm(..., out_dtype=torch.float32)``; on the CPU as float32 products
+of the exact upcasts. ``torch.matmul`` of two bf16 tensors would round the
+result to bf16, so it is not used. ``out_dtype`` narrows only the stored
+result (the ``bfloat16_full`` training mode). Gradients follow JAX's
+transpose rules: ``"high"`` takes the same 3-pass products; in bf16 the
+cotangent meets the other rounded operand in float32 and the product is
+rounded to bf16, the cotangent of JAX's ``astype(bfloat16)``.
 """
 from __future__ import annotations
 
@@ -16,6 +29,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..dsp.stft import split_bf16
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -67,11 +82,78 @@ def init_layer_norm(num_units: int, device="cpu"):
 
 
 def layer_norm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """Normalize over the last axis with the biased variance."""
-    mean = x.mean(dim=-1, keepdim=True)
-    var = (x - mean).square().mean(dim=-1, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + eps) * params["gamma"] \
-        + params["beta"]
+    """Normalize over the last axis with the biased variance. The
+    statistics and the normalisation are computed in float32 (or x's wider
+    type) and the result is cast back to x's dtype."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps) * params["gamma"]
+            + params["beta"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# matmuls in the reduced operand modes
+
+
+def _round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (nearest even), as float32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _bf16_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of two bf16 matrices, products and sums in float32."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _lp_mm(a: torch.Tensor, b: torch.Tensor, mode) -> torch.Tensor:
+    """a @ b (2-D) in a reduced operand mode, float32 out."""
+    if mode == "high":
+        ah, al = split_bf16(a.float())
+        bh, bl = split_bf16(b.float())
+        return _bf16_mm(ah, bh) + _bf16_mm(ah, bl) + _bf16_mm(al, bh)
+    return _bf16_mm(a.to(torch.bfloat16), b.to(torch.bfloat16))
+
+
+class _LowPrecisionMatmul(torch.autograd.Function):
+    """a @ b (2-D) in a reduced operand mode, with JAX's gradients (module
+    docstring)."""
+
+    @staticmethod
+    def forward(ctx, a, b, mode):
+        ctx.save_for_backward(a, b)
+        ctx.mode = mode
+        return _lp_mm(a, b, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.mode == "high":
+            if ctx.needs_input_grad[0]:
+                da = _lp_mm(g, b.T, "high")
+            if ctx.needs_input_grad[1]:
+                db = _lp_mm(a.T, g, "high")
+        else:
+            if ctx.needs_input_grad[0]:
+                da = (g @ _round_bf16(b).T).to(torch.bfloat16)
+            if ctx.needs_input_grad[1]:
+                db = (_round_bf16(a).T @ g).to(torch.bfloat16)
+        return (None if da is None else da.to(a.dtype),
+                None if db is None else db.to(b.dtype), None)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, dtype=None) -> torch.Tensor:
+    """x (..., Q) @ w (Q, N) in operand mode ``dtype`` (module docstring):
+    None in x's precision, ``"high"`` or ``torch.bfloat16`` float32 out."""
+    if dtype is None:
+        return x @ w
+    if dtype != "high" and dtype is not torch.bfloat16:
+        raise ValueError(f"unknown operand mode {dtype!r}")
+    y = _LowPrecisionMatmul.apply(x.reshape(-1, x.shape[-1]), w, dtype)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -99,13 +181,18 @@ def _gather_taps(x: torch.Tensor, size: int, rate: int,
 
 
 def conv1d(params, x: torch.Tensor, *, size: int = 1, rate: int = 1,
-           causal: bool = False) -> torch.Tensor:
-    """Dilated 1-D convolution as one matmul. x (B,T,Cin) -> (B,T,Cout)."""
+           causal: bool = False, dtype=None, out_dtype=None) -> torch.Tensor:
+    """Dilated 1-D convolution as one matmul. x (B,T,Cin) -> (B,T,Cout).
+    ``dtype``: the operand mode (module docstring); ``out_dtype`` narrows
+    the stored result, to which the bias is added in that dtype."""
     w = params["w"]
     K, cin, cout = w.shape
     assert K == size
     taps = _gather_taps(x, size, rate, causal)
-    return taps @ w.reshape(K * cin, cout) + params["b"]
+    y = matmul(taps, w.reshape(K * cin, cout), dtype)
+    if out_dtype is not None:
+        y = y.to(out_dtype)
+    return y + params["b"].to(y.dtype)
 
 
 def conv1d_step(params, frames: torch.Tensor) -> torch.Tensor:
@@ -142,13 +229,19 @@ def init_deconv(gen, in_ch: int, out_ch: int, size: int = 3, device="cpu"):
     return init_conv(gen, in_ch, out_ch, size, device)
 
 
-def conv1d_transpose(params, x: torch.Tensor) -> torch.Tensor:
+def conv1d_transpose(params, x: torch.Tensor, dtype=None,
+                     out_dtype=None) -> torch.Tensor:
     """x (B, T, Cin) -> (B, 2T, Cout): stride-2, kernel-3, SAME deconv,
-        y[2t] = x[t] @ w[0] + x[t-1] @ w[2],   y[2t+1] = x[t] @ w[1]."""
+        y[2t] = x[t] @ w[0] + x[t-1] @ w[2],   y[2t+1] = x[t] @ w[1].
+    ``dtype`` as ``conv1d``; the two even-phase products and the bias are
+    summed in float32 and only then narrowed to ``out_dtype``."""
     w = params["w"]
     B, T, _ = x.shape
     cout = w.shape[-1]
     x_prev = F.pad(x, (0, 0, 1, 0))[:, :T]
-    even = x @ w[0] + x_prev @ w[2] + params["b"]
-    odd = x @ w[1] + params["b"]
+    even = matmul(x, w[0], dtype) + matmul(x_prev, w[2], dtype) \
+        + params["b"]
+    odd = matmul(x, w[1], dtype) + params["b"]
+    if out_dtype is not None:
+        even, odd = even.to(out_dtype), odd.to(out_dtype)
     return torch.stack([even, odd], dim=2).reshape(B, 2 * T, cout)

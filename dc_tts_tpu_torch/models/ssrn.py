@@ -1,11 +1,13 @@
 """SSRN: spectrogram super-resolution network, the port of
-``dc_tts_tpu/models/ssrn.py`` (float32).
+``dc_tts_tpu/models/ssrn.py``.
 
 Coarse mel (B, T/r, n_mels) -> full linear spectrogram (B, T, 1 + n_fft/2):
 C(c,1) -> HC(3,1) -> HC(3,3) -> 2x[ D(stride2) -> HC(3,1) -> HC(3,3) ]
 -> C(2c,1) -> 2x HC(3,1) -> C(1+n_fft/2, 1) -> 2x C(1,relu) -> C(1)
 -> sigmoid. All non-causal. In synthesis every conv is a torch matmul; in
 training under ``cfg.use_pallas`` the eight HC blocks run kernel K4.
+``cfg.compute_dtype`` selects the operand modes (``blocks.operand_modes``);
+the logits are cast back to float32 for the loss.
 """
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ from typing import Tuple
 import torch
 
 from ..config import Config
-from .blocks import C, D, HC, apply_stack, init_stack
-from .text2mel import _check_ported
+from .blocks import (C, D, HC, apply_stack, init_stack, operand_modes,
+                     widen)
 
 
 def ssrn_specs(cfg: Config):
@@ -50,8 +52,10 @@ class SSRN:
         """Y (B, T/r, n_mels) -> (Z_logits, Z) each (B, T, n_freq). In
         training (``train``) dropout draws from ``gen``."""
         cfg = self.cfg
-        _check_ported(cfg, train)
-        logits = apply_stack(params["stack"], ssrn_specs(cfg), Y,
-                             ln_eps=cfg.ln_eps, dropout_rate=cfg.dropout_rate,
-                             gen=gen, train=train, use_pallas=cfg.use_pallas)
+        dtype, act_dtype = operand_modes(cfg.compute_dtype)
+        logits = widen(apply_stack(
+            params["stack"], ssrn_specs(cfg), Y, ln_eps=cfg.ln_eps,
+            dropout_rate=cfg.dropout_rate, gen=gen, train=train,
+            use_pallas=cfg.use_pallas, dtype=dtype, act_dtype=act_dtype,
+            remat=cfg.remat))
         return logits, torch.sigmoid(logits)

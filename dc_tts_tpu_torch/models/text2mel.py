@@ -1,5 +1,5 @@
 """Text2Mel: TextEnc + AudioEnc + Attention + AudioDec, the port of
-``dc_tts_tpu/models/text2mel.py`` (synthesis side, float32).
+``dc_tts_tpu/models/text2mel.py``.
 
 * TextEnc: embed(e) -> C(2d,1,relu) -> C(2d,1) -> 2x[HC(3, 3^j) j=0..3]
   -> 2x HC(3,1) -> 2x HC(1,1); split -> K, V each (B, N, d). Non-causal.
@@ -12,7 +12,10 @@
 
 ``apply`` is the teacher-forced full-sequence forward of training, with
 dropout from a ``torch.Generator`` and, under ``cfg.use_pallas``, kernel K4
-in every HC block (``blocks.apply_block``).
+in every HC block (``blocks.apply_block``). ``cfg.compute_dtype`` selects
+the stacks' operand modes (``blocks.operand_modes``); the stacks' outputs
+are cast back to float32, so attention and the losses stay float32.
+``cfg.remat`` recomputes each block's activations in the backward.
 
 Decode modes: "incremental" (a Python loop of one-frame steps with cached
 conv history) and "fused" (the whole loop in one launch of the decode
@@ -29,7 +32,7 @@ import torch
 from ..config import Config
 from . import layers as L
 from .blocks import (C, HC, apply_stack, init_stack, init_stack_state,
-                     stack_in_channels, step_stack)
+                     operand_modes, stack_in_channels, step_stack, widen)
 
 NEG_INF = -(2.0 ** 32 - 1.0)  # the original graph's mask constant
 
@@ -62,15 +65,6 @@ def audio_dec_specs(cfg: Config):
     return tuple(specs)
 
 
-def _check_ported(cfg: Config, train: bool = False) -> None:
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not ported; only "
-            "float32 is")
-    if train and cfg.remat:
-        raise NotImplementedError("remat=True is not ported")
-
-
 @dataclass(frozen=True)
 class Text2Mel:
     cfg: Config
@@ -91,13 +85,24 @@ class Text2Mel:
         assert out == cfg.n_mels
         return params
 
+    @property
+    def dtype(self):
+        """Matmul operand mode: bf16, "high" or None (float32)."""
+        return operand_modes(self.cfg.compute_dtype)[0]
+
+    @property
+    def act_dtype(self):
+        """Activation dtype between blocks ("bfloat16_full"), or None."""
+        return operand_modes(self.cfg.compute_dtype)[1]
+
     # ------------------------------------------------------------- stacks
     def _stack(self, params, specs, x, gen, train):
         cfg = self.cfg
-        _check_ported(cfg, train)
-        return apply_stack(params, specs, x, ln_eps=cfg.ln_eps,
-                           dropout_rate=cfg.dropout_rate, gen=gen,
-                           train=train, use_pallas=cfg.use_pallas)
+        return widen(apply_stack(
+            params, specs, x, ln_eps=cfg.ln_eps,
+            dropout_rate=cfg.dropout_rate, gen=gen, train=train,
+            use_pallas=cfg.use_pallas, dtype=self.dtype,
+            act_dtype=self.act_dtype, remat=cfg.remat))
 
     def text_encode(self, params, ids: torch.Tensor, *, gen=None,
                     train: bool = False

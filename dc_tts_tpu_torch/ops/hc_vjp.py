@@ -41,8 +41,20 @@ shape of the trainer runs; an input the kernels do not take raises.
 ``hc_block_bwd_plain`` for CPU tensors only. ``hc_block_bwd_plain`` is the
 hand-derived backward above in PyTorch ops, not autograd, so it is an
 independent oracle for the backward kernel. ``hc_block_trainable`` is the
-differentiable entry (``HCBlockTrainable``). The TPU kernel's bf16 operand
-mode is not ported.
+differentiable entry (``HCBlockTrainable``).
+
+``bf16=True`` is the TPU kernel's bf16 operand mode (``_make_dot`` /
+``_make_dotg``, taken under ``compute_dtype="bfloat16"``): the operands of
+the three tap products are rounded to bf16 (nearest even) at the TPU
+kernel's points and nowhere else, products and sums stay float32:
+
+    h    = bf16(taps) @ bf16(W) + b
+    dW   = bf16(taps)^T @ bf16(dh)
+    dx   = dy*(1-g) + scatter_k bf16(dh) @ bf16(W_k)^T
+
+The layer norms, the gate and the residual stay float32. On the card the
+products run on the tensor cores (``hc_gemm_bf16``); the wrappers count
+these launches apart, in ``launches_bf16``.
 """
 from __future__ import annotations
 
@@ -79,15 +91,23 @@ def _ln(v: torch.Tensor, eps: float):
     return (v - mu) * inv, inv
 
 
-def _forward_parts(x, w, b, g1, b1, g2, b2, size, rate, causal, eps):
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (nearest even), kept in t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _forward_parts(x, w, b, g1, b1, g2, b2, size, rate, causal, eps, bf16):
+    """taps and W (rounded to bf16 in bf16 mode) and the forward's parts."""
     K, C, C2 = w.shape
     taps = _taps(x, size, rate, causal)
+    if bf16:
+        taps, w = _bf16(taps), _bf16(w)
     h = taps @ w.reshape(K * C, C2) + b
     n1, inv1 = _ln(h[..., :C], eps)
     n2, inv2 = _ln(h[..., C:], eps)
     g = torch.sigmoid(n1 * g1 + b1)
     h2 = n2 * g2 + b2
-    return taps, n1, inv1, n2, inv2, g, h2
+    return taps, w, n1, inv1, n2, inv2, g, h2
 
 
 # ---------------------------------------------------------------------------
@@ -95,21 +115,24 @@ def _forward_parts(x, w, b, g1, b1, g2, b2, size, rate, causal, eps):
 
 
 def hc_block_fwd_plain(x, w, b, g1, b1, g2, b2, size: int, rate: int,
-                       causal: bool, eps: float) -> torch.Tensor:
-    """K4's forward in PyTorch ops, in the input's precision."""
-    _, _, _, _, _, g, h2 = _forward_parts(x, w, b, g1, b1, g2, b2, size,
-                                          rate, causal, eps)
+                       causal: bool, eps: float,
+                       bf16: bool = False) -> torch.Tensor:
+    """K4's forward in PyTorch ops, in the input's precision (with bf16,
+    the tap product's operands rounded to bf16)."""
+    *_, g, h2 = _forward_parts(x, w, b, g1, b1, g2, b2, size, rate, causal,
+                               eps, bf16)
     return g * h2 + (1.0 - g) * x
 
 
 def hc_block_bwd_plain(x, w, b, g1, b1, g2, b2, dy, size: int, rate: int,
-                       causal: bool, eps: float):
+                       causal: bool, eps: float, bf16: bool = False):
     """K4's backward by the hand derivation (module docstring) in PyTorch
-    ops, without autograd. Returns (dx, dw, db, dg1, db1, dg2, db2)."""
+    ops, without autograd. Returns (dx, dw, db, dg1, db1, dg2, db2). With
+    bf16, taps, W and dh are rounded to bf16 where they enter a product."""
     B, T, C = x.shape
     K = size
-    taps, n1, inv1, n2, inv2, g, h2 = _forward_parts(
-        x, w, b, g1, b1, g2, b2, size, rate, causal, eps)
+    taps, w, n1, inv1, n2, inv2, g, h2 = _forward_parts(
+        x, w, b, g1, b1, g2, b2, size, rate, causal, eps, bf16)
     dg = dy * (h2 - x)
     dh2 = dy * g
     dz1 = dg * g * (1.0 - g)
@@ -124,6 +147,8 @@ def hc_block_bwd_plain(x, w, b, g1, b1, g2, b2, dy, size: int, rate: int,
                   - n2 * (dn2 * n2).mean(-1, keepdim=True))
     dh = torch.cat([da, dbb], dim=-1)                   # (B, T, 2C)
     dbias = dh.sum(rows)
+    if bf16:
+        dh = _bf16(dh)
     dw = (taps.reshape(-1, K * C).T @ dh.reshape(-1, 2 * C)).reshape(
         K, C, 2 * C)
     # scatter the tap gradients back to the padded input, then un-pad
@@ -178,14 +203,22 @@ def _dw_splits(K: int, C: int, M: int) -> int:
     return max(1, min(-(-2 * _SMS // tiles), M // (8 * _GEMM_DEPTH)))
 
 
+def _count(fn, bf16: bool) -> None:
+    if bf16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
+
+
 def hc_block_fwd(x, w, b, g1, b1, g2, b2, size: int, rate: int, causal: bool,
-                 eps: float) -> torch.Tensor:
+                 eps: float, bf16: bool = False) -> torch.Tensor:
     """y = HC(x). x (B, T, C), w (K, C, 2C), b (2C,), g1/b1/g2/b2 (C,).
-    CUDA tensors launch the forward kernels (one counted launch per call);
-    CPU tensors take ``hc_block_fwd_plain``."""
+    CUDA tensors launch the forward kernels (one counted launch per call,
+    in ``launches`` or, with bf16 operands, ``launches_bf16``); CPU tensors
+    take ``hc_block_fwd_plain``."""
     if x.device.type == "cpu":
         return hc_block_fwd_plain(x, w, b, g1, b1, g2, b2, size, rate,
-                                  causal, eps)
+                                  causal, eps, bf16)
     if x.device.type != "cuda":
         raise ValueError(f"hc_block_fwd: unsupported device {x.device}")
     from ._build import check, load_library
@@ -202,20 +235,20 @@ def hc_block_fwd(x, w, b, g1, b1, g2, b2, size: int, rate: int, causal: bool,
     code = lib.dctts_hc_fwd(x.data_ptr(), w.data_ptr(),
                             *(r.data_ptr() for r in rows), h.data_ptr(),
                             y.data_ptr(), B, T, C, size, rate, left,
-                            float(eps), stream)
+                            float(eps), int(bf16), stream)
     check(code, "HC forward kernels")
-    hc_block_fwd.launches += 1
+    _count(hc_block_fwd, bf16)
     return y
 
 
 def hc_block_bwd(x, w, b, g1, b1, g2, b2, dy, size: int, rate: int,
-                 causal: bool, eps: float):
+                 causal: bool, eps: float, bf16: bool = False):
     """(dx, dw, db, dg1, db1, dg2, db2) of HC at x for the cotangent dy.
-    CUDA tensors launch the backward kernels (one counted launch per call);
-    CPU tensors take ``hc_block_bwd_plain``."""
+    CUDA tensors launch the backward kernels (one counted launch per call,
+    as ``hc_block_fwd`` counts); CPU tensors take ``hc_block_bwd_plain``."""
     if x.device.type == "cpu":
         return hc_block_bwd_plain(x, w, b, g1, b1, g2, b2, dy, size, rate,
-                                  causal, eps)
+                                  causal, eps, bf16)
     if x.device.type != "cuda":
         raise ValueError(f"hc_block_bwd: unsupported device {x.device}")
     from ._build import check, load_library
@@ -245,35 +278,39 @@ def hc_block_bwd(x, w, b, g1, b1, g2, b2, dy, size: int, rate: int,
                             h.data_ptr(), dh.data_ptr(), dx.data_ptr(),
                             dw.data_ptr(), dparams.data_ptr(),
                             row_part.data_ptr(), dw_part.data_ptr(), B, T, C,
-                            size, rate, left, float(eps), R, S, stream)
+                            size, rate, left, float(eps), R, S, int(bf16),
+                            stream)
     check(code, "HC backward kernels")
-    hc_block_bwd.launches += 1
+    _count(hc_block_bwd, bf16)
     db, dg1, db1, dg2, db2 = dparams.split([2 * C, C, C, C, C])
     return dx, dw, db, dg1, db1, dg2, db2
 
 
-hc_block_fwd.launches = 0
-hc_block_bwd.launches = 0
+hc_block_fwd.launches = hc_block_fwd.launches_bf16 = 0
+hc_block_bwd.launches = hc_block_bwd.launches_bf16 = 0
 
 
 class HCBlockTrainable(torch.autograd.Function):
     """The HC block with K4's hand-written backward."""
 
     @staticmethod
-    def forward(ctx, x, w, b, g1, b1, g2, b2, size, rate, causal, eps):
+    def forward(ctx, x, w, b, g1, b1, g2, b2, size, rate, causal, eps, bf16):
         ctx.save_for_backward(x, w, b, g1, b1, g2, b2)
-        ctx.geom = (size, rate, causal, eps)
-        return hc_block_fwd(x, w, b, g1, b1, g2, b2, size, rate, causal, eps)
+        ctx.geom = (size, rate, causal, eps, bf16)
+        return hc_block_fwd(x, w, b, g1, b1, g2, b2, size, rate, causal, eps,
+                            bf16)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
         grads = hc_block_bwd(*ctx.saved_tensors, dy, *ctx.geom)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def hc_block_trainable(x, w, b, g1, b1, g2, b2, size: int, rate: int,
-                       causal: bool, eps: float) -> torch.Tensor:
-    """Differentiable HC block. x (B, T, C), w (K, C, 2C) -> (B, T, C)."""
+                       causal: bool, eps: float,
+                       bf16: bool = False) -> torch.Tensor:
+    """Differentiable HC block. x (B, T, C), w (K, C, 2C) -> (B, T, C);
+    bf16: the TPU kernel's bf16 operand mode."""
     return HCBlockTrainable.apply(x, w, b, g1, b1, g2, b2, size, rate,
-                                  causal, eps)
+                                  causal, eps, bool(bf16))

@@ -8,6 +8,12 @@ under "dft_pallas", plain torch transforms otherwise) -> de-emphasis ->
 optional 16-bit PCM quantisation on the device. Every step is enqueued on
 the current CUDA stream; nothing waits for the device until results are
 copied back. The mesh, pipeline and time-sharded modes are not ported.
+
+SSRN's conv matmuls take ``ssrn_precision`` in synthesis, as in the JAX
+package: "high" (the default: the 3-pass bf16 hi/lo split, the config's
+``compute_dtype="float32_high"``), "highest" (the config as given) or
+"bf16" (``compute_dtype="bfloat16"``). Text2Mel and the decode kernel stay
+float32: at lower precision the decode's feedback flips attention cursors.
 """
 from __future__ import annotations
 
@@ -26,6 +32,9 @@ from .models.text2mel import Text2Mel
 from .params import to_device
 
 DECODE_MODES = ("fused", "incremental")
+# ssrn_precision -> the compute_dtype SSRN runs under (None: the config's)
+SSRN_PRECISIONS = {"highest": None, "high": "float32_high",
+                   "bf16": "bfloat16"}
 
 
 class Synthesizer:
@@ -33,13 +42,16 @@ class Synthesizer:
 
     device defaults to "cuda" and raises when there is no CUDA device;
     pass device="cpu" to run the plain PyTorch versions on the CPU.
-    decode_mode "auto" is the fused decode kernel. Only
-    decode_prec="highest" is ported (the JAX package's reduced modes are
-    TPU matmul tricks)."""
+    decode_mode "auto" is the fused decode kernel. ssrn_precision: see the
+    module docstring. Only decode_prec="highest" is ported so far."""
 
     def __init__(self, cfg: Config, t2m_params, ssrn_params, *,
                  device="cuda", decode_mode: str = "auto",
-                 pcm16: bool = False, decode_prec: str = "highest"):
+                 pcm16: bool = False, ssrn_precision: str = "high",
+                 decode_prec: str = "highest"):
+        if ssrn_precision not in SSRN_PRECISIONS:
+            raise ValueError(f"ssrn_precision={ssrn_precision!r}; use one "
+                             f"of {tuple(SSRN_PRECISIONS)}")
         if decode_prec != "highest":
             raise ValueError(f"decode_prec={decode_prec!r} is not ported; "
                              "only 'highest' is")
@@ -51,7 +63,9 @@ class Synthesizer:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.text2mel = Text2Mel(cfg)
-        self.ssrn = SSRN(cfg)
+        ssrn_dtype = SSRN_PRECISIONS[ssrn_precision]
+        self.ssrn = SSRN(cfg if ssrn_dtype is None
+                         else cfg.replace(compute_dtype=ssrn_dtype))
         self.t2m_params = to_device(t2m_params, self.device)
         self.ssrn_params = to_device(ssrn_params, self.device)
         self.decode_mode = decode_mode

@@ -42,6 +42,12 @@ def main(argv=None):
     ap.add_argument("--decode-precision", default="highest",
                     choices=["highest"],
                     help="decode matmul precision; only highest is ported")
+    ap.add_argument("--ssrn-precision", default="high",
+                    choices=["high", "highest", "bf16"],
+                    help="SSRN conv precision for synthesis: high (3-pass "
+                         "bf16 hi/lo products with float32 sums, default), "
+                         "highest (strict parity, true float32), bf16 "
+                         "(one pass of bf16 operands, float32 sums)")
     ap.add_argument("--mesh", action="store_true", help="not ported yet")
     ap.add_argument("--pipeline", action="store_true", help="not ported yet")
     ap.add_argument("--time-shard", type=int, default=0, metavar="N",
@@ -70,7 +76,8 @@ def main(argv=None):
             cfg, args.logdir1 or cfg.logdir + "-1",
             args.logdir2 or cfg.logdir + "-2")
     synth = Synthesizer(cfg, t2m_params, ssrn_params, device=device,
-                        decode_mode=args.mode)
+                        decode_mode=args.mode,
+                        ssrn_precision=args.ssrn_precision)
 
     t0 = time.time()
     wavs = synth.synthesize(sents)

@@ -5,9 +5,10 @@ a checkpoint (the JAX package's npz layout) and alignment/spectrogram plots
 every ``--ckpt-every`` steps, resume from the latest checkpoint on restart,
 stop at ``--max-steps``. The same flags and cadence as
 ``python -m dc_tts_tpu.train``, plus ``--device`` (default cuda; raises
-without a card unless ``--device cpu``). One GPU: the parallel modes, the
-reduced training dtypes and the JAX PRNG choice are refused. As in the JAX
-package, kernel K4 runs only where a caller sets ``cfg.use_pallas``.
+without a card unless ``--device cpu``). ``--dtype`` sets
+``cfg.compute_dtype``. One GPU: the parallel modes and the JAX PRNG choice
+are refused. As in the JAX package, kernel K4 runs only where a caller sets
+``cfg.use_pallas``.
 """
 from __future__ import annotations
 
@@ -108,7 +109,12 @@ def main(argv=None):
     ap.add_argument("--tiny", action="store_true",
                     help="use the tiny test config")
     ap.add_argument("--dtype", default="float32",
-                    help="conv operand dtype; only float32 is ported")
+                    choices=["float32", "bfloat16", "bfloat16_full"],
+                    help="conv matmul operand dtype. bfloat16 rounds the "
+                         "operands to bf16 with float32 accumulation. "
+                         "bfloat16_full also stores activations (conv "
+                         "outputs, LN/gate chains, residuals) in bf16; LN "
+                         "statistics still compute in float32")
     ap.add_argument("--rng", default=None,
                     help="not ported: selects a JAX PRNG implementation; "
                          "the port draws dropout masks from torch.Generator")
@@ -123,15 +129,14 @@ def main(argv=None):
     if args.data_parallel not in (None, 1) or args.model_parallel != 1:
         ap.error("--data-parallel/--model-parallel other than 1 are not "
                  "ported to the PyTorch package: it trains on one GPU")
-    if args.dtype != "float32":
-        ap.error(f"--dtype {args.dtype} is not ported to the PyTorch "
-                 "package; only float32 is")
     if args.rng is not None:
         ap.error("--rng selects a JAX PRNG implementation and is not ported "
                  "to the PyTorch package")
     device = resolve_device(args.device)
 
     cfg = test_config() if args.tiny else base_config()
+    if args.dtype != "float32":
+        cfg = cfg.replace(compute_dtype=args.dtype)
     if args.data:
         cfg = cfg.replace(data=args.data)
     if args.batch_size:

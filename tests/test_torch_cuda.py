@@ -11,7 +11,10 @@ float64 one at n_fft 2048, more than the kernel is. The Griffin-Lim round
 kernels K3a/K3b (bf16 operands, float32 sums) at max 2e-2 and mean 1e-5
 from their plain version on the same operands, the CPU tests' gates
 against JAX (the phase normalisation of near-zero bins amplifies a sum's
-rounding into the max; the mean stays small). The forward-rDFT prototypes
+rounding into the max; the mean stays small). The HC block kernels K4 at
+max(2e-5 x max, 2 x the float32 plain version's distance) from their plain
+versions run in float64, in both operand modes (float32; bf16 at the same
+rounding points). The forward-rDFT prototypes
 X1-X4 at 1e-5 of max |FFT| from their plain versions, 1e-3 for the
 factored kernels in bf16 (stage C rounds float32 sums taken in another
 order to bf16), the CPU tests' gates against JAX.
@@ -202,6 +205,44 @@ def test_hc_kernels_match_plain(cuda, B, T, C, size, rate, causal):
         tol = max(2e-5 * float(r.abs().max()),
                   2 * float((p.double() - r).abs().max()))
         assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.parametrize("B,T,C,size,rate,causal", [
+    (2, 100, 64, 3, 27, True), (2, 50, 512, 3, 3, False)])
+def test_hc_bf16_kernels_match_plain(cuda, B, T, C, size, rate, causal):
+    """The bf16 operand body: forward and all 7 gradients against the plain
+    version with the same bf16 rounding points run in float64, each within
+    max(2e-5 x its max |value|, 2 x the float32 plain version's own
+    distance: float32 rounding flips a bf16 rounding of dh now and then);
+    bitwise-equal repeated gradients; launches counted apart."""
+    from dc_tts_tpu_torch.ops import hc_vjp as K4
+    *args, dy = _hc_inputs(B, T, C, size, 8, cuda)
+    geo = (size, rate, causal, 1e-5, True)
+    n32 = (K4.hc_block_fwd.launches, K4.hc_block_bwd.launches)
+    n16 = (K4.hc_block_fwd.launches_bf16, K4.hc_block_bwd.launches_bf16)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    y = K4.hc_block_trainable(*leaves, *geo)
+    outs = (y.detach(), *torch.autograd.grad(y, leaves, dy))
+    again = K4.hc_block_bwd(*args, dy, *geo)
+    torch.cuda.synchronize()
+    assert (K4.hc_block_fwd.launches, K4.hc_block_bwd.launches) == n32
+    assert (K4.hc_block_fwd.launches_bf16, K4.hc_block_bwd.launches_bf16) \
+        == (n16[0] + 1, n16[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(outs[1:], again))
+    a64 = [a.double() for a in args]
+    ref = (K4.hc_block_fwd_plain(*a64, *geo),
+           *K4.hc_block_bwd_plain(*a64, dy.double(), *geo))
+    p32 = (K4.hc_block_fwd_plain(*args, *geo),
+           *K4.hc_block_bwd_plain(*args, dy, *geo))
+    for name, o, r, p in zip(("y", "dx", "dw", "db", "dg1", "db1", "dg2",
+                              "db2"), outs, ref, p32):
+        err = float((o.double() - r).abs().max())
+        tol = max(2e-5 * float(r.abs().max()),
+                  2 * float((p.double() - r).abs().max()))
+        assert err <= tol, (name, err, tol)
+    # the operands are rounded: the float32 body differs
+    y32 = K4.hc_block_fwd(*args, *geo[:-1])
+    assert float((y32 - outs[0]).abs().max()) > 1e-4
 
 
 def test_hc_backward_is_deterministic(cuda):

@@ -129,6 +129,3 @@ def test_unported_modes_raise(t2m):
     _, tp, ids = t2m
     with pytest.raises(ValueError, match="reference"):
         Text2Mel(CFG).decode(tp, torch.as_tensor(ids), mode="reference")
-    with pytest.raises(NotImplementedError):
-        Text2Mel(CFG.replace(compute_dtype="bfloat16")).text_encode(
-            tp, torch.as_tensor(ids))

@@ -288,15 +288,6 @@ def test_use_pallas_step_matches_default(net):
         np.testing.assert_allclose(b.numpy(), a.numpy(), atol=5e-5)
 
 
-@pytest.mark.parametrize("field", ["remat", "compute_dtype"])
-def test_unported_training_modes_raise(field):
-    cfg = CFG.replace(**{field: True if field == "remat" else "bfloat16"})
-    params = TS.init_ssrn_state(CFG, torch.Generator().manual_seed(0)).params
-    with pytest.raises(NotImplementedError):
-        SSRN(cfg).apply(params, torch.zeros(1, CFG.max_T, CFG.n_mels),
-                        train=True)
-
-
 # ------------------------------------------------------------ checkpoints
 
 
@@ -406,7 +397,7 @@ def test_cli_prepro_train_and_resume_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--data-parallel", "2"],
                                   ["--model-parallel", "2"],
-                                  ["--dtype", "bfloat16"],
+                                  ["--dtype", "float16"],
                                   ["--rng", "threefry"]])
 def test_train_cli_refuses_unported_flags(flag):
     from dc_tts_tpu_torch.train.__main__ import main as train_main
