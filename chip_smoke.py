@@ -14,6 +14,16 @@ line:
              max|dA| <= 2e-5 and the same cursor trajectory. A flip whose
              two largest in-window probabilities differ by < 1e-6 is a tie:
              Y and A are then compared up to and including that step.
+3b. K1-<prec> - K1's reduced-precision bodies (high3, hybrid, default) on
+             phase K1's inputs, each against the plain version of the same
+             mode: max|dY|, max|dA| <= max(2e-5, 2 x the distance between
+             the plain version with float32 sums and with float64 sums),
+             over the steps before the first cursor flip of either pair; a
+             kernel flip whose margin is below max(1e-6, that gate for A)
+             is a tie (the split modes round x - bf16(x) to bf16, which a
+             float32 ulp can flip). CUDA-event ms, plain ms, the bound, and
+             for information each mode's distance from the float32 kernel
+             (max|dY|, first cursor flip, rows flipped).
 4. K2      - the Griffin-Lim kernels against their plain version at the
              production geometry (n_fft 2048, hop 275, win 1102, F=840,
              B=20): n_iter=1 and n_iter=3 waveforms within 1e-5 of the
@@ -36,6 +46,19 @@ line:
              ssrn_precision of the Synthesizer (highest, high - the
              default - and bf16): CUDA-event ms and Z's max and mean distance
              from highest; high within 1e-4 x max|Z| of it.
+5b. e2e-<prec> - the 40 sentences through Synthesizer(base_config(),
+             pcm16=True, decode_prec=p) for high3, hybrid and default, counts
+             set to 0 just before and read just after: K1 launched twice, in
+             that mode only, K2 twice, K3 never; int16 (40, 230725); wall
+             and device audio-s/s and CUDA-event ms of each stage of one
+             chunk (held equal to synthesize_ids' output).
+5c. reference - decode_mode="reference": the TF goldens
+             (tests/goldens/tf_reference_tiny.npz) through the port's own
+             convert on the card at test_config(ln_eps=1e-12), cursors equal,
+             Y rtol 1e-4 / atol 2e-5, Z rtol 1e-4 / atol 5e-5; then
+             Synthesizer(base_config(), decode_mode="reference", pcm16=True)
+             on one chunk of 20: K1 never launched, K2 once, every output
+             finite, int16 (20, 230725), and the decode's CUDA-event ms.
 6. K3      - the Griffin-Lim round kernels K3a (inverse rDFT GEMM +
              overlap-add) and K3b (re-frame + forward rDFT GEMM + phase) at
              the production geometry (n_fft 2048, hop 275, win 1102, F=840,
@@ -151,6 +174,9 @@ line:
              two wavs; train 1 --dtype bfloat16 --max-steps 2 writes a
              checkpoint and two finite losses, and synthesize
              --random-weights --ssrn-precision bf16 two wavs.
+12b. synth-cli - python -m dc_tts_tpu_torch.synthesize --random-weights
+             with --decode-precision hybrid, then with --mode reference: each
+             exits 0 and writes the 40 wavs.
 13. the kernels line, the nvidia-smi line, and the ``ok`` line.
 
 Kernel times are CUDA-event means over repeated calls on the same inputs.
@@ -183,6 +209,11 @@ output. Their ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` in the
 kernels line are bf16 (the script's default) graph times: X1 and X3 at
 F=840, X2 at F=1024, X4 its every-stage set at F=840 (the other stage sets
 and float32 are in line ct-fwd); ``launches`` those of the main path.
+K1's reduced bodies (fused_decode[<prec>]) count their layer products'
+passes (3 for the split, 1 for "default") at the dense bf16 rate and their
+float32 parts (AudioEnc under "hybrid", the attention keys) at the float32
+rate, the two summed; their bytes the arrays each mode reads. Their
+``launches`` are e2e-<prec>'s.
 A summary also goes to ``chiprun_out/chip_smoke.json`` beside this script.
 """
 from __future__ import annotations
@@ -249,6 +280,7 @@ def reset_counts() -> None:
     from dc_tts_tpu_torch.ops import gl2 as K2
     from dc_tts_tpu_torch.ops import hc_vjp as K4
     K1.fused_decode.launches = K2.gl2_run.launches = 0
+    K1.fused_decode.launches_by_prec = {p: 0 for p in K1.PRECS}
     K3.k3a.launches, K3.k3b.launches = {1: 0, 3: 0}, {1: 0, 3: 0}
     K4.hc_block_fwd.launches = K4.hc_block_bwd.launches = 0
     K4.hc_block_fwd.launches_bf16 = K4.hc_block_bwd.launches_bf16 = 0
@@ -257,14 +289,18 @@ def reset_counts() -> None:
 
 
 def counts() -> dict:
-    """Every kernel wrapper's launch count (K3's over both pass modes; K4's
-    float32 and bf16-operand launches apart)."""
+    """Every kernel wrapper's launch count (K1's in all and by precision,
+    K1_<prec>; K3's over both pass modes; K4's float32 and bf16-operand
+    launches apart)."""
     from dc_tts_tpu_torch.ops import ct_fwd as X
     from dc_tts_tpu_torch.ops import decode as K1
     from dc_tts_tpu_torch.ops import gl as K3
     from dc_tts_tpu_torch.ops import gl2 as K2
     from dc_tts_tpu_torch.ops import hc_vjp as K4
-    return {"K1": K1.fused_decode.launches, "K2": K2.gl2_run.launches,
+    return {"K1": K1.fused_decode.launches,
+            **{f"K1_{p}": n
+               for p, n in K1.fused_decode.launches_by_prec.items()},
+            "K2": K2.gl2_run.launches,
             "K3a": sum(K3.k3a.launches.values()),
             "K3b": sum(K3.k3b.launches.values()),
             "hc_block_fwd": K4.hc_block_fwd.launches,
@@ -388,6 +424,115 @@ def phase_k1(results):
                              f"dY={dY} dA={dA}")
     results["K1"] = dict(max_abs_err=max(dY, dA), ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by)
+
+
+def _k1_bound(cfg, prec, B, T, A, tensors):
+    """(ms, by, GFLOP bf16, GFLOP float32) of the decode in ``prec``: the
+    layer products' passes (3 split, 1 for "default") at the dense bf16
+    rate, the float32 products ("highest", AudioEnc under "hybrid") and the
+    unmasked attention keys this run's cursors select at the float32 rate,
+    the two summed; against each input read once and Y, A written once."""
+    from dc_tts_tpu_torch.ops import decode as K1
+    enc, dec = K1._programs(cfg)
+    f_bf16 = f_fp32 = 0.0
+    for is_dec, l in [(False, l) for l in enc] + [(True, l) for l in dec]:
+        macs = l.cin * l.cout if l.kind == "C" else 6 * l.cout ** 2
+        f = 2.0 * macs * B * T
+        if prec == "highest" or (prec == "hybrid" and not is_dec):
+            f_fp32 += f
+        else:
+            f_bf16 += f * (1 if prec == "default" else 3)
+    prev = torch.cat([torch.zeros(B, 1, dtype=torch.long, device=A.device),
+                      A.argmax(1)[:, :-1]], dim=1)
+    keys = int(torch.clamp(cfg.max_N - prev, max=cfg.attention_win_size
+                           ).sum())
+    f_fp32 += 2.0 * keys * 2 * cfg.d
+    t_ops = (f_bf16 / PEAK_BF16 + f_fp32 / PEAK_FP32) * 1e3
+    t_bytes = nbytes(*tensors) / PEAK_BYTES * 1e3
+    by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return (*by, f_bf16 / 1e9, f_fp32 / 1e9)
+
+
+def phase_k1_prec(results):
+    """K1's reduced-precision bodies against the plain version of the same
+    mode, on phase K1's inputs."""
+    from dc_tts_tpu_torch.config import base_config
+    from dc_tts_tpu_torch.models import Text2Mel
+    from dc_tts_tpu_torch.ops import decode as K1
+
+    cfg = base_config()
+    dev = torch.device("cuda")
+    model = Text2Mel(cfg)
+    params = model.init(torch.Generator().manual_seed(1), dev)
+    ids = torch.as_tensor(harvard_ids(cfg, B_MAIN), device=dev)
+    T = cfg.max_T
+    with torch.no_grad():
+        Kt, V = (x.contiguous() for x in model.text_encode(params, ids))
+        Y_hi, A_hi = K1.fused_decode(K1.pack_decode_params(cfg, params), Kt,
+                                     V, T, cfg)
+        for prec in ("high3", "hybrid", "default"):
+            packed = K1.pack_decode_params(cfg, params, prec)
+            Y, A = K1.fused_decode(packed, Kt, V, T, cfg, prec)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Yp, Ap = K1.fused_decode_plain(packed, Kt, V, T, cfg, prec)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            Y64, A64 = K1.fused_decode_plain(packed, Kt, V, T, cfg, prec,
+                                             torch.float64)
+            ms = cuda_ms(lambda: K1.fused_decode(packed, Kt, V, T, cfg, prec),
+                         3)
+            # the float32 plain version against float64: how far float32
+            # rounding moves this mode (it flips bf16 roundings of the
+            # activations), over the steps before their cursors part
+            flip64 = _first_flip(A64, Ap.double())
+            upto64 = T if flip64 is None else flip64[0] + 1
+            flip = _first_flip(A, Ap)
+            upto = T if flip is None else flip[0] + 1
+            upto = min(upto, upto64)
+            dY64 = float((Y64[:, :upto] - Yp[:, :upto].double()).abs().max())
+            dA64 = float((A64[:, :, :upto] - Ap[:, :, :upto].double()
+                          ).abs().max())
+            gate_y, gate_a = max(2e-5, 2 * dY64), max(2e-5, 2 * dA64)
+            tie = max(1e-6, gate_a)
+            if flip is not None and flip[2] >= tie:
+                raise AssertionError(
+                    f"K1[{prec}] cursor flip at step {flip[0]} row {flip[1]} "
+                    f"with margin {flip[2]:.3e} >= {tie:.3e}: a bug")
+            dY = float((Y[:, :upto] - Yp[:, :upto]).abs().max())
+            dA = float((A[:, :, :upto] - Ap[:, :, :upto]).abs().max())
+            ok = (dY <= gate_y and dA <= gate_a
+                  and bool(torch.isfinite(Y).all()))
+            reads = list(packed.values())
+            if prec == "hybrid":  # AudioEnc's float32 slices only
+                nc, nhc = K1._enc_counts(cfg)
+                reads = [packed["cw"][:nc], packed["hcw"][:nhc]] + [
+                    v for k, v in packed.items() if k not in ("cw", "hcw")]
+            b_ms, b_by, g_bf16, g_fp32 = _k1_bound(cfg, prec, B_MAIN, T, A,
+                                                   [Kt, V, *reads, Y, A])
+            # for information: this mode's kernel against the float32 one
+            fh = _first_flip(A, A_hi)
+            rows = int((A.argmax(1) != A_hi.argmax(1)).any(1).sum())
+            line(f"K1-{prec}", ok=ok, B=B_MAIN, N=cfg.max_N, T=T,
+                 max_dY=f"{dY:.3e}", max_dA=f"{dA:.3e}",
+                 gate_Y=f"{gate_y:.3e}", gate_A=f"{gate_a:.3e}",
+                 plain_f32_vs_f64_dY=f"{dY64:.3e}",
+                 plain_f32_vs_f64_dA=f"{dA64:.3e}", compared_steps=upto,
+                 kernel_flip=None if flip is None else
+                 f"step{flip[0]}/row{flip[1]}/margin{flip[2]:.2e}",
+                 ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.1f}",
+                 bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+                 gflop_bf16=f"{g_bf16:.2f}", gflop_fp32=f"{g_fp32:.2f}",
+                 vs_highest_max_dY=f"{float((Y - Y_hi).abs().max()):.3e}",
+                 vs_highest_first_flip_step=None if fh is None else fh[0],
+                 vs_highest_rows_flipped=rows)
+            if not ok:
+                raise AssertionError(f"K1[{prec}] disagrees with its plain "
+                                     f"version: dY={dY} dA={dA} (gates "
+                                     f"{gate_y}, {gate_a})")
+            results[f"K1_{prec}"] = dict(
+                max_abs_err=max(dY, dA), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def phase_k2(results):
@@ -705,7 +850,8 @@ def stage_ms(synth, ids):
         Kt, V = synth.text2mel.text_encode(p, ids)
         ev[1].record()
         Y, _ = K1.fused_decode(synth.packed, Kt.contiguous(),
-                               V.contiguous(), cfg.max_T, cfg)
+                               V.contiguous(), cfg.max_T, cfg,
+                               synth.decode_prec)
         ev[2].record()
         _, Z = synth.ssrn.apply(synth.ssrn_params, Y)
         ev[3].record()
@@ -822,6 +968,125 @@ def _ssrn_precisions(synth, ids):
     if not ok:
         raise AssertionError(f"SSRN precisions: {out}")
     return out
+
+
+def phase_e2e_prec(results, smi):
+    """The 40 sentences through the Synthesizer in each reduced decode
+    precision: K1 launched in that mode only."""
+    from dc_tts_tpu_torch import Synthesizer, base_config
+    from dc_tts_tpu_torch.models import SSRN, Text2Mel
+
+    cfg = base_config()
+    gen = torch.Generator().manual_seed(0)
+    p1, p2 = Text2Mel(cfg).init(gen), SSRN(cfg).init(gen)
+    ids = harvard_ids(cfg, 40)
+    n_samples = cfg.hop_length * (cfg.max_T_full - 1)
+    out = {}
+    for prec in ("high3", "hybrid", "default"):
+        synth = Synthesizer(cfg, p1, p2, pcm16=True, decode_prec=prec)
+        synth.synthesize_ids_chunked(ids[:CHUNK], CHUNK)      # warm-up
+        reset_counts()
+        t0 = time.perf_counter()
+        wavs = synth.synthesize_ids_chunked(ids, CHUNK)
+        wall = time.perf_counter() - t0
+        launches = counts()
+        others = [p for p in ("highest", "high3", "hybrid", "default")
+                  if p != prec]
+        ok = (wavs.dtype == np.int16 and wavs.shape == (40, n_samples)
+              and launches["K1"] == launches[f"K1_{prec}"] == 2
+              and all(launches[f"K1_{p}"] == 0 for p in others)
+              and launches["K2"] == 2
+              and launches["K3a"] == launches["K3b"] == 0
+              and int(np.abs(wavs).max()) > 0)
+        stages, wav_st = stage_ms(synth, ids[:CHUNK])
+        wav_sy = synth.synthesize_ids(ids[:CHUNK])[0]
+        d_st = int((wav_st.int() - wav_sy.int()).abs().max())
+        audio_s = wavs.size / cfg.sr
+        dev_s = sum(stages.values()) / 1e3
+        line(f"e2e-{prec}", ok=ok and d_st == 0, shape=wavs.shape,
+             dtype=wavs.dtype, launches=json.dumps(
+                 {k: v for k, v in launches.items() if v}).replace(" ", ""),
+             wall_s=f"{wall:.3f}", audio_s=f"{audio_s:.1f}",
+             audio_s_per_s=f"{audio_s / wall:.1f}",
+             **{k: f"{v:.3f}" for k, v in stages.items()},
+             device_audio_s_per_s=f"{CHUNK * n_samples / cfg.sr / dev_s:.1f}",
+             max_dpcm_vs_synthesize_ids=d_st, card=repr(smi))
+        if not ok or d_st != 0:
+            raise AssertionError(f"e2e {prec} failed: {wavs.shape} "
+                                 f"{wavs.dtype} {launches} dpcm {d_st}")
+        results["launches"][f"K1_{prec}"] = launches[f"K1_{prec}"]
+        out[prec] = dict(wall_s=wall, audio_s=audio_s,
+                         audio_s_per_s=audio_s / wall, stages_ms=stages,
+                         launches=launches)
+        del synth
+        torch.cuda.empty_cache()
+    results["e2e-prec"] = out
+
+
+def phase_reference(results, smi):
+    """decode_mode="reference": the TF goldens through the port's own
+    converter on the card, then one chunk at full width."""
+    from dc_tts_tpu_torch import Synthesizer, base_config, test_config
+    from dc_tts_tpu_torch.convert import convert
+    from dc_tts_tpu_torch.models import SSRN, Text2Mel
+    from dc_tts_tpu_torch.params import to_device
+
+    dev = torch.device("cuda")
+    with np.load(os.path.join(HERE, "tests", "goldens",
+                              "tf_reference_tiny.npz")) as d:
+        gold = {k: d[k] for k in d.files}
+    tc = test_config().replace(ln_eps=1e-12)
+    t2m_p, ssrn_p = (to_device(t, dev) for t in convert(
+        {k[len("var/"):]: v for k, v in gold.items()
+         if k.startswith("var/")}, tc))
+    with torch.no_grad():
+        Y, A = Text2Mel(tc).decode(t2m_p, torch.as_tensor(
+            gold["in/L"], device=dev), mode="reference")
+        Z = SSRN(tc).apply(ssrn_p, Y)[1]
+    Y, A, Z = Y.cpu().numpy(), A.cpu().numpy(), Z.cpu().numpy()
+    same = bool(np.array_equal(A.argmax(1), gold["synth/max_attentions"]))
+    y_ok = bool(np.allclose(Y, gold["synth/Y"], rtol=1e-4, atol=2e-5))
+    z_ok = bool(np.allclose(Z, gold["synth/Z"], rtol=1e-4, atol=5e-5))
+    line("reference-tf", ok=same and y_ok and z_ok, cursors_equal=same,
+         max_dY=f"{np.abs(Y - gold['synth/Y']).max():.3e}",
+         max_dZ=f"{np.abs(Z - gold['synth/Z']).max():.3e}",
+         tol="Y rtol 1e-4 atol 2e-5, Z rtol 1e-4 atol 5e-5")
+    if not (same and y_ok and z_ok):
+        raise AssertionError("the reference decode on the card misses the "
+                             "TF goldens")
+
+    cfg = base_config()
+    gen = torch.Generator().manual_seed(0)
+    synth = Synthesizer(cfg, Text2Mel(cfg).init(gen), SSRN(cfg).init(gen),
+                        pcm16=True, decode_mode="reference")
+    ids = harvard_ids(cfg, CHUNK)
+    reset_counts()
+    wav, Y, Z, A = synth.synthesize_ids(ids)
+    torch.cuda.synchronize()
+    launches = counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.no_grad():
+        tids = torch.as_tensor(ids, device=dev)
+        ev[0].record()
+        synth.text2mel.decode(synth.t2m_params, tids, mode="reference")
+        ev[1].record()
+        torch.cuda.synchronize()
+    decode_ms = ev[0].elapsed_time(ev[1])
+    n_samples = cfg.hop_length * (cfg.max_T_full - 1)
+    ok = (wav.dtype == torch.int16 and tuple(wav.shape) == (CHUNK, n_samples)
+          and launches["K1"] == 0 and launches["K2"] == 1
+          and launches["K3a"] == launches["K3b"] == 0
+          and all(bool(torch.isfinite(t).all()) for t in (Y, Z, A))
+          and int(wav.abs().max()) > 0)
+    line("reference", ok=ok, shape=tuple(wav.shape), dtype=wav.dtype,
+         launches=json.dumps({k: v for k, v in launches.items() if v}
+                             ).replace(" ", ""),
+         decode_reference_ms=f"{decode_ms:.3f}",
+         note="'decode ms includes TextEnc'", card=repr(smi))
+    if not ok:
+        raise AssertionError(f"reference synthesis failed: {wav.shape} "
+                             f"{wav.dtype} {launches}")
+    results["reference"] = dict(decode_ms=decode_ms, launches=launches)
 
 
 def phase_e2e_dft_pallas(results, smi):
@@ -1599,6 +1864,25 @@ def phase_train_cli(results, data, feats, root):
                              f"train losses {bf_losses}")
 
 
+def phase_synth_cli(root):
+    """The synthesis CLI with the new flags, as subprocesses: each exits 0
+    and writes the 40 wavs."""
+    t0 = time.perf_counter()
+    wrote = {}
+    for name, flags in (("hybrid", ["--decode-precision", "hybrid"]),
+                        ("reference", ["--mode", "reference"])):
+        out_dir = os.path.join(root, f"samples-{name}")
+        _run(["dc_tts_tpu_torch.synthesize", "--random-weights", "--out",
+              out_dir, "--device", DEV, *flags])
+        wrote[name] = len([f for f in os.listdir(out_dir)
+                           if f.endswith(".wav")])
+    ok = all(n == 40 for n in wrote.values())
+    line("synth-cli", ok=ok, wavs=json.dumps(wrote).replace(" ", ""),
+         seconds=f"{time.perf_counter() - t0:.1f}")
+    if not ok:
+        raise AssertionError(f"synthesize wrote {wrote}")
+
+
 # ---------------------------------------------------------------------------
 # X1-X4: the forward-rDFT prototypes of scripts/ct_kernel_exp.py
 
@@ -1848,8 +2132,11 @@ def main() -> int:
     phase_build()
     results = {}
     phase_k1(results)
+    phase_k1_prec(results)
     phase_k2(results)
     phase_e2e(results, smi)
+    phase_e2e_prec(results, smi)
+    phase_reference(results, smi)
     phase_k3(results)
     phase_e2e_dft_pallas(results, smi)
     phase_k4(results)
@@ -1861,6 +2148,7 @@ def main() -> int:
         phase_train(results, "ssrn", data, feats, 8)
         phase_train_routes(results, data, feats)
         phase_train_cli(results, data, feats, root)
+        phase_synth_cli(root)
     results["launches"].update(
         {"hc_block_fwd": results["k4_launches"]["fwd"],
          "hc_block_bwd": results["k4_launches"]["bwd"],
@@ -1870,6 +2158,10 @@ def main() -> int:
     for key, name, src, rep in (
             ("K1", "fused_decode", "dc_tts_tpu_torch/csrc/decode.cu",
              "dc_tts_tpu/ops/pallas_decode.py:274"),
+            *((f"K1_{p}", f"fused_decode[{p}]",
+               "dc_tts_tpu_torch/csrc/decode.cu",
+               f"dc_tts_tpu/ops/pallas_decode.py:274 (prec={p})")
+              for p in ("high3", "hybrid", "default")),
             ("K2", "gl2_run", "dc_tts_tpu_torch/csrc/gl2.cu",
              "dc_tts_tpu/ops/pallas_gl2.py:407"),
             ("K3a", "k3a", "dc_tts_tpu_torch/csrc/gl.cu",
@@ -1899,6 +2191,8 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": kernels, "e2e": results["e2e"],
+                   "e2e-prec": results["e2e-prec"],
+                   "reference": results["reference"],
                    "e2e-dft_pallas": results["e2e-dft_pallas"],
                    "K3_modes": results["K3_modes"],
                    "K3_loop": results["K3_loop"],

@@ -11,7 +11,22 @@
 // Numerics follow the float32 reference: no fast math, sigmoid as
 // 1/(1+expf(-x)), layer norm (x-mu)*rsqrt(var+eps) with the biased
 // variance, the attention cursor the FIRST argmax of the softmax output.
+//
+// The precisions of the JAX kernel's layer products (its mm), one kernel
+// with the mode a launch argument: MODE_HIGHEST float32 FFMA; MODE_HIGH3
+// the bf16 split xh@Wh + xh@Wl + xl@Wh with the weights' hi/lo halves
+// split in Python (same bytes as float32) and the activations split once
+// per layer into shared memory (round to nearest even), three float32
+// accumulators a row summed as (hh + hl) + lh; MODE_HYBRID the split in
+// AudioDec only (its layers' halves in their own arrays, indexed from the
+// first AudioDec layer), float32 in AudioEnc; MODE_DEFAULT one pass over
+// bf16 weights (half the bytes) and rounded activations, float32 sums. A
+// product of two bf16 values is exact in float32, so FFMA on the widened
+// halves gives the tensor core's products; only the order of the sums
+// differs. The tensor cores would waste 12 of mma.sync's 16 rows at 4 rows
+// a block.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -20,7 +35,14 @@
 #define MAX_LAYERS 32
 #define MAX_WIN 8
 
+#define MODE_HIGHEST 0  // PRECS in ops/decode.py, in order
+#define MODE_HIGH3 1
+#define MODE_HYBRID 2
+#define MODE_DEFAULT 3
+
 namespace {
+
+typedef unsigned short bf16_t;  // bf16 bits
 
 struct Layer {
   int kind;  // 0 = C, 1 = HC
@@ -38,16 +60,23 @@ struct Program {
 struct Args {
   const float* kt;    // (B, N, d)
   const float* v;     // (B, N, d)
-  const float* cw;    // (n_c, cmi, cmo)
+  const float* cw;    // (n_c, cmi, cmo); HIGHEST and HYBRID
   const float* cb;    // (n_c, cmo)
   const float* cln;   // (n_c, 2, cmo)
-  const float* hcw;   // (n_hc, 3d, 2d)
+  const float* hcw;   // (n_hc, 3d, 2d); HIGHEST and HYBRID
   const float* hcb;   // (n_hc, 2d)
   const float* hcln;  // (n_hc, 4, d)
+  // bf16 kernels: HIGH3 (2, n_c, cmi, cmo) hi/lo; HYBRID (2, n_c - c_base,
+  // cmi, cmo) hi/lo of AudioDec's layers; DEFAULT (n_c, cmi, cmo). The
+  // same for hcws with (3d, 2d) slots.
+  const bf16_t* cws;
+  const bf16_t* hcws;
   float* y;           // (B, T, n_mels)
   float* a;           // (B, N, T)
   float* ring;        // (B padded to DECODE_ROWS, ring_rows, d)
   int B, N, d, n_mels, T, win, cmi, cmo, ring_rows, xw;
+  int mode, c_base, hc_base;  // first packed index the bf16 arrays hold
+  int c_lo, hc_lo;            // elements from a hi half to its lo half
   float eps, scale;
 };
 
@@ -106,6 +135,131 @@ __device__ void rows_matmul(const float* in, int ldi, int K,
   }
 }
 
+__device__ __forceinline__ float bf2f(unsigned bits16) {
+  return __uint_as_float(bits16 << 16);
+}
+
+// rows_matmul on bf16 operands: the block's input rows are rounded (to
+// nearest even) into xs once, hi at xs and, with THREE, the lo halves
+// bf16(x - hi) at xs + DECODE_ROWS * ldx; thread j streams column j of Wh
+// (and Wl). THREE: out = (xh@Wh + xh@Wl) + xl@Wh, each product summed over
+// k in order in its own float32 accumulator; else out = xh@Wh. xs must be
+// 16-byte aligned; every thread of the block must call this (it
+// synchronises once, after the split).
+template <bool THREE>
+__device__ void rows_matmul_bf16(const float* in, int ldi, int K,
+                                 const bf16_t* __restrict__ Wh,
+                                 const bf16_t* __restrict__ Wl, int ldw,
+                                 const float* __restrict__ bias, int cout,
+                                 float* out, int ldo, bf16_t* xs) {
+  const int ldx = (K + 7) & ~7;  // rows of 16-byte multiples
+  bf16_t* xh = xs;
+  bf16_t* xl = xs + DECODE_ROWS * ldx;
+  for (int i = threadIdx.x; i < DECODE_ROWS * K; i += NT) {
+    const int r = i / K, k = i % K;
+    const float v = in[r * ldi + k];
+    const __nv_bfloat16 h = __float2bfloat16_rn(v);
+    xh[r * ldx + k] = __bfloat16_as_ushort(h);
+    if (THREE)
+      xl[r * ldx + k] = __bfloat16_as_ushort(
+          __float2bfloat16_rn(v - __bfloat162float(h)));
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < cout; j += NT) {
+    float hh[DECODE_ROWS], hl[DECODE_ROWS], lh[DECODE_ROWS];
+#pragma unroll
+    for (int r = 0; r < DECODE_ROWS; ++r) hh[r] = hl[r] = lh[r] = 0.f;
+    const bf16_t* wph = Wh + j;
+    const bf16_t* wpl = Wl + j;
+    int k = 0;
+    for (; k + KU <= K; k += KU) {
+      float wh[KU], wl[KU];
+#pragma unroll
+      for (int u = 0; u < KU; ++u) {
+        wh[u] = bf2f(__ldg(wph + (size_t)(k + u) * ldw));
+        if (THREE) wl[u] = bf2f(__ldg(wpl + (size_t)(k + u) * ldw));
+      }
+#pragma unroll
+      for (int r = 0; r < DECODE_ROWS; ++r) {
+        const uint4* ah = reinterpret_cast<const uint4*>(xh + r * ldx + k);
+        const uint4* al = reinterpret_cast<const uint4*>(xl + r * ldx + k);
+#pragma unroll
+        for (int v8 = 0; v8 < KU / 8; ++v8) {
+          // two bf16 a word, the lower address in the low half
+          const uint4 qh = ah[v8];
+          const unsigned xh2[4] = {qh.x, qh.y, qh.z, qh.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int u = 8 * v8 + 2 * e;
+            const float x0 = __uint_as_float(xh2[e] << 16);
+            const float x1 = __uint_as_float(xh2[e] & 0xffff0000u);
+            hh[r] = fmaf(x0, wh[u], hh[r]);
+            hh[r] = fmaf(x1, wh[u + 1], hh[r]);
+            if (THREE) {
+              hl[r] = fmaf(x0, wl[u], hl[r]);
+              hl[r] = fmaf(x1, wl[u + 1], hl[r]);
+            }
+          }
+          if (THREE) {
+            const uint4 ql = al[v8];
+            const unsigned xl2[4] = {ql.x, ql.y, ql.z, ql.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int u = 8 * v8 + 2 * e;
+              lh[r] = fmaf(__uint_as_float(xl2[e] << 16), wh[u], lh[r]);
+              lh[r] = fmaf(__uint_as_float(xl2[e] & 0xffff0000u), wh[u + 1],
+                           lh[r]);
+            }
+          }
+        }
+      }
+    }
+    for (; k < K; ++k) {
+      const float wh = bf2f(__ldg(wph + (size_t)k * ldw));
+      const float wl = THREE ? bf2f(__ldg(wpl + (size_t)k * ldw)) : 0.f;
+#pragma unroll
+      for (int r = 0; r < DECODE_ROWS; ++r) {
+        const float x0 = bf2f(xh[r * ldx + k]);
+        hh[r] = fmaf(x0, wh, hh[r]);
+        if (THREE) {
+          hl[r] = fmaf(x0, wl, hl[r]);
+          lh[r] = fmaf(bf2f(xl[r * ldx + k]), wh, lh[r]);
+        }
+      }
+    }
+    const float b = __ldg(bias + j);
+#pragma unroll
+    for (int r = 0; r < DECODE_ROWS; ++r)
+      out[r * ldo + j] = (THREE ? (hh[r] + hl[r]) + lh[r] : hh[r]) + b;
+  }
+}
+
+// The product of packed layer idx of kind (0 C, 1 HC), in the launch's
+// mode; dec: the layer is AudioDec's. in (rows of K) -> out (cout columns)
+// + bias.
+__device__ void layer_mm(const Args& p, int kind, int idx, bool dec,
+                         const float* in, int ldi, int K, int cout,
+                         float* out, int ldo, bf16_t* xs) {
+  const size_t slot =
+      kind == 0 ? (size_t)p.cmi * p.cmo : (size_t)6 * p.d * p.d;
+  const int ldw = kind == 0 ? p.cmo : 2 * p.d;
+  const float* bias = (kind == 0 ? p.cb + (size_t)idx * p.cmo
+                                 : p.hcb + (size_t)idx * 2 * p.d);
+  if (p.mode == MODE_HIGHEST || (p.mode == MODE_HYBRID && !dec)) {
+    const float* w = (kind == 0 ? p.cw : p.hcw) + idx * slot;
+    rows_matmul(in, ldi, K, w, ldw, bias, cout, out, ldo);
+  } else if (p.mode == MODE_DEFAULT) {
+    const bf16_t* w = (kind == 0 ? p.cws : p.hcws) + idx * slot;
+    rows_matmul_bf16<false>(in, ldi, K, w, w, ldw, bias, cout, out, ldo, xs);
+  } else {
+    const int base =
+        p.mode == MODE_HYBRID ? (kind == 0 ? p.c_base : p.hc_base) : 0;
+    const bf16_t* wh = (kind == 0 ? p.cws : p.hcws) + (idx - base) * slot;
+    const bf16_t* wl = wh + (kind == 0 ? p.c_lo : p.hc_lo);
+    rows_matmul_bf16<true>(in, ldi, K, wh, wl, ldw, bias, cout, out, ldo, xs);
+  }
+}
+
 // Layer-norm statistics of nseg segments of `width` columns per row:
 // stats[(r*nseg + s)*2] = mean, [+1] = rsqrt(var + eps). One warp a segment.
 __device__ void ln_stats(const float* buf, int ld, int width, int nseg,
@@ -130,10 +284,9 @@ __device__ void ln_stats(const float* buf, int ld, int width, int nseg,
 }
 
 // C layer: x <- act(LN(x @ W + b)); tmp is scratch of the same shape.
-__device__ void run_c(const Args& p, const Layer& L, float* x, float* tmp,
-                      float* stats) {
-  rows_matmul(x, p.xw, L.cin, p.cw + (size_t)L.idx * p.cmi * p.cmo, p.cmo,
-              p.cb + (size_t)L.idx * p.cmo, L.cout, tmp, p.xw);
+__device__ void run_c(const Args& p, const Layer& L, bool dec, float* x,
+                      float* tmp, float* stats, bf16_t* xs) {
+  layer_mm(p, 0, L.idx, dec, x, p.xw, L.cin, L.cout, tmp, p.xw, xs);
   __syncthreads();
   ln_stats(tmp, p.xw, L.cout, 1, p.eps, stats);
   __syncthreads();
@@ -152,8 +305,9 @@ __device__ void run_c(const Args& p, const Layer& L, float* x, float* tmp,
 
 // HC layer at step t: ring row t mod R <- x; taps = [x_{t-2r}, x_{t-r}, x];
 // h = taps @ W + b; x <- sigmoid(LN1(h1)) * LN2(h2) + (1 - sigmoid) * x.
-__device__ void run_hc(const Args& p, const Layer& L, int t, int b0,
-                       float* x, float* taps, float* hs, float* stats) {
+__device__ void run_hc(const Args& p, const Layer& L, bool dec, int t,
+                       int b0, float* x, float* taps, float* hs, float* stats,
+                       bf16_t* xs) {
   const int C = L.cout, R = 2 * L.rate + 1;
   const int wi = t % R, i0 = (t + 1) % R, i1 = (t + L.rate + 1) % R;
   for (int i = threadIdx.x; i < DECODE_ROWS * C; i += NT) {
@@ -167,8 +321,7 @@ __device__ void run_hc(const Args& p, const Layer& L, int t, int b0,
     tp[2 * C + c] = xv;
   }
   __syncthreads();
-  rows_matmul(taps, 3 * C, 3 * C, p.hcw + (size_t)L.idx * 6 * C * C, 2 * C,
-              p.hcb + (size_t)L.idx * 2 * C, 2 * C, hs, 2 * C);
+  layer_mm(p, 1, L.idx, dec, taps, 3 * C, 3 * C, 2 * C, hs, 2 * C, xs);
   __syncthreads();
   ln_stats(hs, 2 * C, C, 2, p.eps, stats);
   __syncthreads();
@@ -186,12 +339,13 @@ __device__ void run_hc(const Args& p, const Layer& L, int t, int b0,
 }
 
 __device__ void run_stack(const Args& p, const Program& prog, int first,
-                          int count, int t, int b0, float* x, float* tmp,
-                          float* taps, float* hs, float* stats) {
+                          int count, bool dec, int t, int b0, float* x,
+                          float* tmp, float* taps, float* hs, float* stats,
+                          bf16_t* xs) {
   for (int li = first; li < first + count; ++li) {
     const Layer& L = prog.l[li];
-    if (L.kind == 0) run_c(p, L, x, tmp, stats);
-    else run_hc(p, L, t, b0, x, taps, hs, stats);
+    if (L.kind == 0) run_c(p, L, dec, x, tmp, stats, xs);
+    else run_hc(p, L, dec, t, b0, x, taps, hs, stats, xs);
   }
 }
 
@@ -268,6 +422,9 @@ decode_kernel(const __grid_constant__ Args p,
   float* taps = alt + DECODE_ROWS * p.xw;         // ROWS x 3d
   float* hs = taps + DECODE_ROWS * 3 * p.d;       // ROWS x 2d
   float* stats = hs + DECODE_ROWS * 2 * p.d;      // ROWS x 4
+  // the bf16 split of a layer's input rows: 2 x ROWS x ldx_max, 16-byte
+  // aligned (every region above is a multiple of 4 floats)
+  bf16_t* xs = reinterpret_cast<bf16_t*>(stats + DECODE_ROWS * 4);
   const int b0 = blockIdx.x * DECODE_ROWS;
 
   // the ring buffers start at zero: the causal left padding
@@ -280,12 +437,13 @@ decode_kernel(const __grid_constant__ Args p,
 
   for (int t = 0; t < p.T; ++t) {
     // AudioEnc on the previous frame (cur) -> q in cur
-    run_stack(p, prog, 0, prog.n_enc, t, b0, cur, alt, taps, hs, stats);
+    run_stack(p, prog, 0, prog.n_enc, false, t, b0, cur, alt, taps, hs,
+              stats, xs);
     // [ctx; q] -> alt
     attention(p, t, b0, cur, alt, prev);
     // AudioDec on alt -> logits in alt
-    run_stack(p, prog, prog.n_enc, prog.n_dec, t, b0, alt, cur, taps, hs,
-              stats);
+    run_stack(p, prog, prog.n_enc, prog.n_dec, true, t, b0, alt, cur, taps,
+              hs, stats, xs);
     for (int i = threadIdx.x; i < DECODE_ROWS * p.n_mels; i += NT) {
       const int r = i / p.n_mels, c = i % p.n_mels;
       const float yv = sigmoidf(alt[r * p.xw + c]);
@@ -302,12 +460,18 @@ decode_kernel(const __grid_constant__ Args p,
 extern "C" int dctts_decode(const float* kt, const float* v, const float* cw,
                             const float* cb, const float* cln,
                             const float* hcw, const float* hcb,
-                            const float* hcln, const int* prog_flat,
+                            const float* hcln, const void* cws,
+                            const void* hcws, const int* prog_flat,
                             float* y, float* a, float* ring, int n_enc,
                             int n_dec, int B, int N, int d, int n_mels, int T,
-                            int win, float eps, int cmi, int cmo,
+                            int win, float eps, int cmi, int cmo, int mode,
+                            int c_base, int hc_base, int c_lo, int hc_lo,
                             void* stream) {
-  if (n_enc + n_dec > MAX_LAYERS || win < 1 || win > MAX_WIN || B < 1)
+  if (n_enc + n_dec > MAX_LAYERS || win < 1 || win > MAX_WIN || B < 1 ||
+      mode < MODE_HIGHEST || mode > MODE_DEFAULT)
+    return (int)cudaErrorInvalidValue;
+  const bool f32 = mode == MODE_HIGHEST || mode == MODE_HYBRID;
+  if ((f32 && (!cw || !hcw)) || (mode != MODE_HIGHEST && (!cws || !hcws)))
     return (int)cudaErrorInvalidValue;
   Program prog;
   prog.n_enc = n_enc;
@@ -329,14 +493,21 @@ extern "C" int dctts_decode(const float* kt, const float* v, const float* cw,
   Args p;
   p.kt = kt; p.v = v; p.cw = cw; p.cb = cb; p.cln = cln;
   p.hcw = hcw; p.hcb = hcb; p.hcln = hcln;
+  p.cws = static_cast<const bf16_t*>(cws);
+  p.hcws = static_cast<const bf16_t*>(hcws);
+  p.mode = mode; p.c_base = c_base; p.hc_base = hc_base;
+  p.c_lo = c_lo; p.hc_lo = hc_lo;
   p.y = y; p.a = a; p.ring = ring;
   p.B = B; p.N = N; p.d = d; p.n_mels = n_mels; p.T = T; p.win = win;
   p.cmi = cmi; p.cmo = cmo; p.ring_rows = rows;
   p.xw = 2 * d > n_mels ? 2 * d : n_mels;
   p.eps = eps;
   p.scale = (float)(1.0 / sqrt((double)d));
+  // the split rows: the widest product's K (3d taps or a C layer's cin)
+  const int ldx_max = ((3 * d > cmi ? 3 * d : cmi) + 7) & ~7;
   const size_t smem =
-      sizeof(float) * (size_t)DECODE_ROWS * (2 * p.xw + 5 * d + 4);
+      sizeof(float) * (size_t)DECODE_ROWS * (2 * p.xw + 5 * d + 4) +
+      sizeof(bf16_t) * 2 * (size_t)DECODE_ROWS * ldx_max;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

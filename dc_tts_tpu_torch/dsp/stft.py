@@ -51,6 +51,13 @@ def num_frames(n_samples: int, n_fft: int, hop: int) -> int:
 
 
 @functools.lru_cache(maxsize=8)
+def frame_indices(n_frames: int, n_fft: int, hop: int) -> np.ndarray:
+    """(n_frames, n_fft) int32 indices into the padded signal (for tests
+    and oracles; the transforms here never gather)."""
+    return (np.arange(n_frames)[:, None] * hop
+            + np.arange(n_fft)[None, :]).astype(np.int32)
+
+
 def _ola_window_sq(n_frames: int, n_fft: int, hop: int,
                    win_length: int) -> np.ndarray:
     """1 / summed squared window (NOLA), with sums <= 1e-11 read as 1."""

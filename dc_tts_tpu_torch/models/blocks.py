@@ -23,7 +23,14 @@ dropout; in bf16 operands when ``dtype`` is bf16 (``compute_dtype=
 activations), as in the JAX package. The JAX package also gates that path
 on the TPU core's VMEM (``hc_train_fits``: SSRN's wide HC blocks stay on
 XLA there); the CUDA kernels tile time themselves and take every HC shape
-of the trainer, so the port has no gate.
+of the trainer, so the port has no gate. Under ``bfloat16`` that leaves
+those blocks' dW (and dx's conv part) in float32 where XLA's transpose of
+the bf16 conv rounds them to bf16: at the smallest shape JAX keeps off its
+kernel, 3.8e-3 x max|dW| from JAX against 1.1e-3 for the port's XLA-like
+route, both within bf16 noise (tests/test_torch_precision.py pins them).
+
+Under ``bfloat16_full`` the sigmoids round as the JAX program does
+(``_sigmoid``: after exp, the add and the divide).
 
 With ``remat`` each block runs under ``torch.utils.checkpoint``: its
 activations are recomputed in the backward instead of kept.
@@ -86,13 +93,22 @@ def widen(x: torch.Tensor) -> torch.Tensor:
     return x.float() if x.dtype == torch.bfloat16 else x
 
 
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """sigmoid as the JAX package's program computes it: for bf16, 1 / (1 +
+    exp(-x)) with each op rounded to bf16, as jax.nn.sigmoid lowers (three
+    roundings where torch.sigmoid rounds once); float32 unchanged."""
+    if x.dtype == torch.bfloat16:
+        return 1.0 / (1.0 + torch.exp(-x))
+    return torch.sigmoid(x)
+
+
 def _act(x, name: Act):
     if name is None:
         return x
     if name == "relu":
         return torch.relu(x)
     if name == "sigmoid":
-        return torch.sigmoid(x)
+        return _sigmoid(x)
     raise ValueError(name)
 
 
@@ -133,7 +149,7 @@ def init_stack(gen: torch.Generator, in_ch: int, specs: Sequence,
 def _highway(p: dict, h: torch.Tensor, x: torch.Tensor,
              ln_eps: float) -> torch.Tensor:
     h1, h2 = torch.chunk(h, 2, dim=-1)
-    h1 = torch.sigmoid(L.layer_norm(p["ln1"], h1, ln_eps))
+    h1 = _sigmoid(L.layer_norm(p["ln1"], h1, ln_eps))
     h2 = L.layer_norm(p["ln2"], h2, ln_eps)
     return h1 * h2 + (1.0 - h1) * x.to(h1.dtype)
 

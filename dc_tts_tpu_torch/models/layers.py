@@ -205,6 +205,32 @@ def conv1d_step(params, frames: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# classic highway net (in the original modules but called by none of its
+# networks; kept as part of the primitive set)
+
+
+def init_highway(gen, num_units: int, device="cpu"):
+    """Glorot-uniform kernels (TF dense's default) and a -1 gate bias, so
+    the gates start mostly closed."""
+    lim = math.sqrt(6.0 / (2 * num_units))
+
+    def uniform():
+        return torch.empty(num_units, num_units).uniform_(
+            -lim, lim, generator=gen).to(device)
+
+    return {"h": {"w": uniform(), "b": torch.zeros(num_units, device=device)},
+            "t": {"w": uniform(),
+                  "b": torch.full((num_units,), -1.0, device=device)}}
+
+
+def highway(params, x: torch.Tensor) -> torch.Tensor:
+    """relu(x W_h + b_h) * T + x * (1 - T), T = sigmoid(x W_t + b_t)."""
+    H = torch.relu(x @ params["h"]["w"] + params["h"]["b"])
+    T = torch.sigmoid(x @ params["t"]["w"] + params["t"]["b"])
+    return H * T + x * (1.0 - T)
+
+
+# ---------------------------------------------------------------------------
 # dropout (inverted)
 
 

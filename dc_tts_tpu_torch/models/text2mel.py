@@ -17,15 +17,16 @@ the stacks' operand modes (``blocks.operand_modes``); the stacks' outputs
 are cast back to float32, so attention and the losses stay float32.
 ``cfg.remat`` recomputes each block's activations in the backward.
 
-Decode modes: "incremental" (a Python loop of one-frame steps with cached
-conv history) and "fused" (the whole loop in one launch of the decode
-kernel, ops/decode.py). The JAX package's O(T^2) "reference" mode is not
-ported yet.
+Decode modes, as in the JAX package: "incremental" (a loop of one-frame
+steps, ``decode_step``, with cached conv history), "fused" (the whole loop
+in one launch of the decode kernel K1, ops/decode.py, in any of its
+precisions ``prec``) and "reference" (the O(T^2) recompute loop of the
+original synthesize.py, plain torch).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -63,6 +64,15 @@ def audio_dec_specs(cfg: Config):
     specs += [C(1, 1, None, "relu", True)] * 3
     specs += [C(1, 1, cfg.n_mels, None, True)]
     return tuple(specs)
+
+
+class DecodeState(NamedTuple):
+    """Carried through the autoregressive loop (on the decode's device).
+    The history buffers are updated in place by ``Text2Mel.decode_step``."""
+    enc_bufs: List[Optional[torch.Tensor]]  # AudioEnc per-layer histories
+    dec_bufs: List[Optional[torch.Tensor]]  # AudioDec per-layer histories
+    prev_max_attention: torch.Tensor        # (B,) long attention cursor
+    prev_y: torch.Tensor                    # (B, n_mels) last mel frame
 
 
 @dataclass(frozen=True)
@@ -135,19 +145,22 @@ class Text2Mel:
         Kt, V = self.text_encode(params, ids, gen=gen, train=train)
         Q = self.audio_encode(params, S, gen=gen, train=train)
         R, alignments, max_attentions = self.attention(
-            Q, Kt, V,
-            prev_max_attentions=prev_max_attentions if monotonic else None)
+            params, Q, Kt, V, monotonic=monotonic,
+            prev_max_attentions=prev_max_attentions)
         logits = self.audio_decode(params, R, gen=gen, train=train)
         return logits, torch.sigmoid(logits), alignments, max_attentions
 
     # ------------------------------------------------------------- attention
-    def attention(self, Q, Kt, V, *, prev_max_attentions=None):
+    def attention(self, params, Q, Kt, V, *, monotonic: bool = False,
+                  prev_max_attentions=None):
         """Q (B,T,d), Kt/V (B,N,d) -> R (B,T,2d), alignments (B,N,T),
-        max_attentions (B,T). With ``prev_max_attentions`` (B,) every query
-        row may only attend to keys in [prev, prev + attention_win_size)."""
+        max_attentions (B,T). With ``monotonic`` every query row may only
+        attend to keys in [prev, prev + attention_win_size) of
+        ``prev_max_attentions`` (B,): the same cursor for every row, as in
+        the original graph. ``params`` is unused (the JAX signature)."""
         cfg = self.cfg
         A = torch.einsum("btd,bnd->btn", Q, Kt) * (cfg.d ** -0.5)
-        if prev_max_attentions is not None:
+        if monotonic:
             A = torch.where(self._disallowed(prev_max_attentions,
                                              Kt.shape[1])[:, None, :],
                             NEG_INF, A)
@@ -162,56 +175,121 @@ class Text2Mel:
         return (pos < p) | (pos >= p + self.cfg.attention_win_size)
 
     # ------------------------------------------------------------- decode
+    def init_decode_state(self, batch: int, max_t: Optional[int] = None,
+                          device="cpu") -> DecodeState:
+        """Zero history buffers (the causal left padding), cursor 0 and a
+        zero first input frame for ``batch`` rows and up to ``max_t``
+        steps."""
+        cfg = self.cfg
+        max_t = max_t or cfg.max_T
+        enc_specs, dec_specs = audio_enc_specs(cfg), audio_dec_specs(cfg)
+        enc_bufs = init_stack_state(
+            enc_specs, stack_in_channels(enc_specs, cfg.n_mels), batch,
+            max_t, device)
+        dec_bufs = init_stack_state(
+            dec_specs, stack_in_channels(dec_specs, 2 * cfg.d), batch, max_t,
+            device)
+        return DecodeState(enc_bufs, dec_bufs,
+                           torch.zeros(batch, dtype=torch.long, device=device),
+                           torch.zeros(batch, cfg.n_mels, device=device))
+
+    def decode_step(self, params, Kt, V, state: DecodeState, t: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, DecodeState]:
+        """Advance the autoregressive decoder by one frame: one causal step
+        of AudioEnc on ``state.prev_y`` (zero at t=0), one attention row
+        masked to the window at the cursor, one causal step of AudioDec.
+        Returns (y_t (B, n_mels), align_t (B, N), new_state). Unlike the
+        JAX package, whose state is immutable, the history buffers are
+        written in place: the returned state shares them, and a state must
+        not be used again once it has been stepped."""
+        cfg = self.cfg
+        q_t = step_stack(params["audio_enc"], audio_enc_specs(cfg),
+                         state.prev_y, state.enc_bufs, t, ln_eps=cfg.ln_eps)
+        a = torch.einsum("bd,bnd->bn", q_t, Kt) * (cfg.d ** -0.5)
+        a = torch.softmax(torch.where(
+            self._disallowed(state.prev_max_attention, Kt.shape[1]),
+            NEG_INF, a), dim=-1)
+        r_t = torch.cat([torch.einsum("bn,bnd->bd", a, V), q_t], dim=-1)
+        logits = step_stack(params["audio_dec"], audio_dec_specs(cfg), r_t,
+                            state.dec_bufs, t, ln_eps=cfg.ln_eps)
+        y_t = torch.sigmoid(logits)
+        return y_t, a, DecodeState(state.enc_bufs, state.dec_bufs,
+                                   torch.argmax(a, dim=-1), y_t)
+
     def decode(self, params, ids: torch.Tensor, max_t: Optional[int] = None,
-               *, mode: str = "incremental", packed: Optional[dict] = None
+               *, mode: str = "incremental", prec: str = "highest",
+               packed: Optional[dict] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Autoregressive synthesis of ids (B,N) -> (Y (B, max_T, n_mels),
         alignments (B, N, max_T)).
 
-        Both modes mask each attention row by the cursor of its own step,
-        feed back the sigmoid output as the next input frame, and take the
-        first argmax of the attention row as the next cursor. ``packed``
-        (mode "fused" only) is ``pack_decode_params(cfg, params)`` made once
-        by a caller that decodes many batches with the same params."""
+        "incremental" and "fused" mask each attention row by the cursor of
+        its own step, feed back the sigmoid output as the next input frame,
+        and take the first argmax of the attention row as the next cursor.
+        "fused" runs the decode kernel in precision ``prec`` (``ops.decode.
+        PRECS``; the other modes are float32 and ignore it, as in the JAX
+        package); ``packed`` is ``pack_decode_params(cfg, params, prec)``
+        made once by a caller that decodes many batches with the same
+        params. "reference" is the original synthesize.py loop: at step t
+        the CURRENT cursor re-masks every earlier query row too, and those
+        rows feed AudioDec's causal history for frame t, so attention and
+        AudioDec run again over the whole prefix each step (O(T^2)); Q is
+        cached frame by frame, since AudioEnc never sees the mask."""
+        from ..ops.decode import check_prec
+        check_prec(prec)
         max_t = max_t or self.cfg.max_T
         if mode == "incremental":
             return self._decode_incremental(params, ids, max_t)
+        if mode == "reference":
+            return self._decode_reference(params, ids, max_t)
         if mode == "fused":
             from ..ops.decode import fused_decode, pack_decode_params
             if packed is None:
-                packed = pack_decode_params(self.cfg, params)
+                packed = pack_decode_params(self.cfg, params, prec)
             Kt, V = self.text_encode(params, ids)
             return fused_decode(packed, Kt.contiguous(), V.contiguous(),
-                                max_t, self.cfg)
-        raise ValueError(f"unknown or unported decode mode {mode!r}")
+                                max_t, self.cfg, prec)
+        raise ValueError(f"unknown decode mode {mode!r}; one of "
+                         "('incremental', 'fused', 'reference')")
 
     def _decode_incremental(self, params, ids, max_t: int):
+        B, N = ids.shape
+        Kt, V = self.text_encode(params, ids)
+        state = self.init_decode_state(B, max_t, ids.device)
+        Y = torch.empty(B, max_t, self.cfg.n_mels, device=ids.device)
+        A = torch.empty(B, N, max_t, device=ids.device)
+        for t in range(max_t):
+            Y[:, t], A[:, :, t], state = self.decode_step(params, Kt, V,
+                                                          state, t)
+        return Y, A
+
+    def _decode_reference(self, params, ids, max_t: int):
         cfg = self.cfg
         B, N = ids.shape
         dev = ids.device
         Kt, V = self.text_encode(params, ids)
-        enc_specs, dec_specs = audio_enc_specs(cfg), audio_dec_specs(cfg)
+        enc_specs = audio_enc_specs(cfg)
         enc_bufs = init_stack_state(
             enc_specs, stack_in_channels(enc_specs, cfg.n_mels), B, max_t,
             dev)
-        dec_bufs = init_stack_state(
-            dec_specs, stack_in_channels(dec_specs, 2 * cfg.d), B, max_t,
-            dev)
-        prev = torch.zeros(B, dtype=torch.long, device=dev)
-        y_t = torch.zeros(B, cfg.n_mels, device=dev)
+        Q = torch.zeros(B, max_t, cfg.d, device=dev)
         Y = torch.empty(B, max_t, cfg.n_mels, device=dev)
         A = torch.empty(B, N, max_t, device=dev)
+        prev = torch.zeros(B, dtype=torch.long, device=dev)
+        y_t = torch.zeros(B, cfg.n_mels, device=dev)
         for t in range(max_t):
-            q_t = step_stack(params["audio_enc"], enc_specs, y_t, enc_bufs,
-                             t, ln_eps=cfg.ln_eps)
-            a = torch.einsum("bd,bnd->bn", q_t, Kt) * (cfg.d ** -0.5)
-            a = torch.softmax(torch.where(self._disallowed(prev, N),
-                                          NEG_INF, a), dim=-1)
-            prev = torch.argmax(a, dim=-1)
-            r_t = torch.cat([torch.einsum("bn,bnd->bd", a, V), q_t], dim=-1)
-            logits = step_stack(params["audio_dec"], dec_specs, r_t,
-                                dec_bufs, t, ln_eps=cfg.ln_eps)
-            y_t = torch.sigmoid(logits)
+            Q[:, t] = step_stack(params["audio_enc"], enc_specs, y_t,
+                                 enc_bufs, t, ln_eps=cfg.ln_eps)
+            # attention and AudioDec over the prefix under the current
+            # cursor. The JAX package runs all max_t columns (those after t
+            # hold zeros); AudioDec is causal and each attention row is
+            # independent, so columns 0..t come out the same either way.
+            R, align, maxatt = self.attention(
+                params, Q[:, : t + 1], Kt, V, monotonic=True,
+                prev_max_attentions=prev)
+            logits = self.audio_decode(params, R)
+            y_t = torch.sigmoid(logits[:, t])
             Y[:, t] = y_t
-            A[:, :, t] = a
+            A[:, :, t] = align[:, :, t]
+            prev = maxatt[:, t]
         return Y, A

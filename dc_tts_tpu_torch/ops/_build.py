@@ -37,7 +37,7 @@ Fl = ctypes.c_float
 
 # argument types of each C entry, in order (see the sources)
 _SIGNATURES = {
-    "dctts_decode": [P] * 12 + [I] * 8 + [Fl, I, I, P],
+    "dctts_decode": [P] * 14 + [I] * 8 + [Fl] + [I] * 7 + [P],
     "dctts_gl2": [P] * 7 + [I] * 8 + [P],
     "dctts_gl_k3a": [P] * 8 + [I] * 10 + [P],
     "dctts_gl_k3b": [P] * 7 + [I] * 10 + [P],

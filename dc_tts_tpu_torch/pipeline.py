@@ -2,7 +2,8 @@
 waveform, the port of ``dc_tts_tpu/pipeline.py``'s single-device path.
 
 The chain per batch: TextEnc -> the T-step autoregressive decode (kernel K1
-in the default "fused" mode) -> SSRN -> denormalize -> Griffin-Lim
+in the default "fused" mode, in precision ``decode_prec``; "incremental"
+and "reference" are plain torch) -> SSRN -> denormalize -> Griffin-Lim
 (``cfg.stft_method``: kernel K2 under the default "dft_pallas2", kernel K3
 under "dft_pallas", plain torch transforms otherwise) -> de-emphasis ->
 optional 16-bit PCM quantisation on the device. Every step is enqueued on
@@ -12,8 +13,12 @@ copied back. The mesh, pipeline and time-sharded modes are not ported.
 SSRN's conv matmuls take ``ssrn_precision`` in synthesis, as in the JAX
 package: "high" (the default: the 3-pass bf16 hi/lo split, the config's
 ``compute_dtype="float32_high"``), "highest" (the config as given) or
-"bf16" (``compute_dtype="bfloat16"``). Text2Mel and the decode kernel stay
-float32: at lower precision the decode's feedback flips attention cursors.
+"bf16" (``compute_dtype="bfloat16"``). The decode kernel's layer products
+take ``decode_prec`` (``ops.decode.PRECS``): "highest" (the default, float32),
+"hybrid" (AudioEnc float32, AudioDec the 3-pass split), "high3" (the split
+everywhere) or "default" (one bf16 pass). The reduced ones are opt-in: at
+random init their rounding flips attention cursors (argmax ties of a
+diffuse attention), as the JAX package measured; TextEnc stays float32.
 """
 from __future__ import annotations
 
@@ -29,9 +34,10 @@ from .dsp.features import trim_silence
 from .dsp.griffin_lim import spectrogram_to_wav
 from .models.ssrn import SSRN
 from .models.text2mel import Text2Mel
+from .ops.decode import check_prec, pack_decode_params
 from .params import to_device
 
-DECODE_MODES = ("fused", "incremental")
+DECODE_MODES = ("fused", "incremental", "reference")
 # ssrn_precision -> the compute_dtype SSRN runs under (None: the config's)
 SSRN_PRECISIONS = {"highest": None, "high": "float32_high",
                    "bf16": "bfloat16"}
@@ -42,8 +48,9 @@ class Synthesizer:
 
     device defaults to "cuda" and raises when there is no CUDA device;
     pass device="cpu" to run the plain PyTorch versions on the CPU.
-    decode_mode "auto" is the fused decode kernel. ssrn_precision: see the
-    module docstring. Only decode_prec="highest" is ported so far."""
+    decode_mode "auto" is the fused decode kernel. ssrn_precision and
+    decode_prec: see the module docstring; decode_prec is read by the fused
+    mode only, as in the JAX package."""
 
     def __init__(self, cfg: Config, t2m_params, ssrn_params, *,
                  device="cuda", decode_mode: str = "auto",
@@ -52,14 +59,12 @@ class Synthesizer:
         if ssrn_precision not in SSRN_PRECISIONS:
             raise ValueError(f"ssrn_precision={ssrn_precision!r}; use one "
                              f"of {tuple(SSRN_PRECISIONS)}")
-        if decode_prec != "highest":
-            raise ValueError(f"decode_prec={decode_prec!r} is not ported; "
-                             "only 'highest' is")
+        check_prec(decode_prec)
         if decode_mode == "auto":
             decode_mode = "fused"
         if decode_mode not in DECODE_MODES:
-            raise ValueError(f"decode_mode={decode_mode!r} is not ported; "
-                             f"use one of {('auto',) + DECODE_MODES}")
+            raise ValueError(f"decode_mode={decode_mode!r}; use one of "
+                             f"{('auto',) + DECODE_MODES}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.text2mel = Text2Mel(cfg)
@@ -69,13 +74,23 @@ class Synthesizer:
         self.t2m_params = to_device(t2m_params, self.device)
         self.ssrn_params = to_device(ssrn_params, self.device)
         self.decode_mode = decode_mode
+        self.decode_prec = decode_prec
         self.pcm16 = pcm16
-        # the decode kernel's packed weights (~29 MB at base_config), made
-        # once here rather than on every batch
+        # the decode kernel's weights packed for decode_prec (~29 MB at
+        # base_config), made once here rather than on every batch
         self.packed = None
         if decode_mode == "fused":
-            from .ops.decode import pack_decode_params
-            self.packed = pack_decode_params(cfg, self.t2m_params)
+            self.packed = pack_decode_params(cfg, self.t2m_params,
+                                             decode_prec)
+
+    @classmethod
+    def from_checkpoints(cls, cfg: Config, logdir1: str, logdir2: str,
+                         **kw) -> "Synthesizer":
+        """Text2Mel from logdir1 and SSRN from logdir2 (either package's
+        checkpoints); ``kw`` as the constructor's."""
+        t2m_params, ssrn_params = restore_synthesis_params(cfg, logdir1,
+                                                           logdir2)
+        return cls(cfg, t2m_params, ssrn_params, **kw)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -86,6 +101,7 @@ class Synthesizer:
                               device=self.device)
         Y, align = self.text2mel.decode(self.t2m_params, ids,
                                         mode=self.decode_mode,
+                                        prec=self.decode_prec,
                                         packed=self.packed)
         _, Z = self.ssrn.apply(self.ssrn_params, Y)
         wav = spectrogram_to_wav(Z, self.cfg)

@@ -2,8 +2,10 @@
 
 Reads a Harvard-sentences style file, restores Text2Mel from logdir-1 and
 SSRN from logdir-2 (or makes random weights), synthesizes every sentence
-on one GPU and writes ``<out>/{i}.wav``. Runs on CUDA unless
-``--device cpu`` is given.
+on one GPU and writes ``<out>/{i}.wav`` (with ``--plots``, an attention
+alignment plot per sentence beside them). Runs on CUDA unless ``--device
+cpu`` is given. The JAX CLI's ``--mesh``, ``--pipeline`` and
+``--time-shard`` are not ported.
 """
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ from . import text as text_mod
 from .config import base_config, test_config
 from .device import resolve_device
 from .dsp.audio import save_wav
+from .dsp.features import trim_silence
 from .pipeline import Synthesizer, restore_synthesis_params
+from .utils.plotting import plot_alignment
 
 _NOT_PORTED = ("mesh", "pipeline", "time_shard")
 
@@ -31,8 +35,9 @@ def main(argv=None):
     ap.add_argument("--logdir2", default=None, help="SSRN checkpoint dir")
     ap.add_argument("--out", default=None, help="output dir (cfg.sampledir)")
     ap.add_argument("--mode", default="auto",
-                    choices=["auto", "fused", "incremental"],
-                    help="decode path; auto = the fused decode kernel")
+                    choices=["auto", "fused", "incremental", "reference"],
+                    help="decode path (see Text2Mel.decode); auto = the "
+                         "fused decode kernel")
     ap.add_argument("--random-weights", action="store_true",
                     help="skip checkpoint restore (smoke tests)")
     ap.add_argument("--tiny", action="store_true",
@@ -40,19 +45,31 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (default cuda; no CPU fallback)")
     ap.add_argument("--decode-precision", default="highest",
-                    choices=["highest"],
-                    help="decode matmul precision; only highest is ported")
+                    choices=["highest", "hybrid", "high3"],
+                    help="fused decode kernel's layer products: highest "
+                         "(default, float32), hybrid (AudioEnc float32, "
+                         "AudioDec the 3-pass bf16 split) or high3 (the "
+                         "split everywhere). The reduced ones are for "
+                         "trained checkpoints: at random init they flip "
+                         "attention cursors")
     ap.add_argument("--ssrn-precision", default="high",
                     choices=["high", "highest", "bf16"],
                     help="SSRN conv precision for synthesis: high (3-pass "
                          "bf16 hi/lo products with float32 sums, default), "
                          "highest (strict parity, true float32), bf16 "
                          "(one pass of bf16 operands, float32 sums)")
+    ap.add_argument("--plots", action="store_true",
+                    help="save each sentence's attention alignment plot")
     ap.add_argument("--mesh", action="store_true", help="not ported yet")
     ap.add_argument("--pipeline", action="store_true", help="not ported yet")
     ap.add_argument("--time-shard", type=int, default=0, metavar="N",
                     help="not ported yet")
     args = ap.parse_args(argv)
+    if args.decode_precision != "highest" and args.mode in (
+            "incremental", "reference"):
+        ap.error("--decode-precision only applies to the fused decode "
+                 "kernel; --mode incremental/reference always run at "
+                 "float32 (the flag would be silently ignored)")
     for name in _NOT_PORTED:
         if getattr(args, name):
             ap.error(f"--{name.replace('_', '-')} is not ported to the "
@@ -77,10 +94,21 @@ def main(argv=None):
             args.logdir2 or cfg.logdir + "-2")
     synth = Synthesizer(cfg, t2m_params, ssrn_params, device=device,
                         decode_mode=args.mode,
-                        ssrn_precision=args.ssrn_precision)
+                        ssrn_precision=args.ssrn_precision,
+                        decode_prec=args.decode_precision)
 
     t0 = time.time()
-    wavs = synth.synthesize(sents)
+    if args.plots:
+        wav_arr, _, _, align = synth.synthesize_ids(
+            text_mod.encode_batch(sents, cfg))
+        wav_arr = wav_arr.cpu().numpy()
+        if wav_arr.dtype == np.int16:
+            wav_arr = wav_arr.astype(np.float32) / 32767.0
+        wavs = [trim_silence(w) for w in wav_arr]
+        for i, a in enumerate(align.cpu().numpy()):
+            plot_alignment(a, f"utt{i + 1}", out_dir)
+    else:
+        wavs = synth.synthesize(sents)
     dt = time.time() - t0
     audio_s = sum(len(w) for w in wavs) / cfg.sr
     print(f"synthesized {audio_s:.1f}s of audio in {dt:.1f}s "

@@ -118,6 +118,15 @@ def restore(logdir: str, template: Any) -> Tuple[Any, int]:
     return _unflatten_into(template, flat), step
 
 
+def restore_or_init(logdir: str, template: Any) -> Tuple[Any, int]:
+    """Restore the latest checkpoint if there is one, else keep the
+    template at step 0 (the original trainer's crash-and-resume)."""
+    try:
+        return restore(logdir, template)
+    except FileNotFoundError:
+        return template, 0
+
+
 def _fast_forward_counts(opt_state: Any, step: int) -> Any:
     """The optimizer state with every scalar ``count`` set to ``step``: a
     legacy params-only checkpoint resumes the schedule where it stopped

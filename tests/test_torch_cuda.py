@@ -4,10 +4,12 @@ Marked ``cuda``; every test skips where no CUDA device is present. Run them
 on a machine with an H100:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 Tolerances: the decode kernel at the JAX fused-decode test's 2e-5 with an
-identical cursor trajectory. The Griffin-Lim kernel at 1e-5 from its plain
-version run in float64: the phase normalisation of near-zero bins amplifies
-rounding, so the float32 plain version is itself up to ~3e-5 from the
-float64 one at n_fft 2048, more than the kernel is. The Griffin-Lim round
+identical cursor trajectory; its reduced-precision bodies at chip_smoke.py's
+gate (max(2e-5, 2 x the plain version's float32-vs-float64 distance)). The
+Griffin-Lim kernel at 1e-5 from its plain version run in float64: the
+phase normalisation of near-zero bins amplifies rounding, so the float32
+plain version is itself up to ~3e-5 from the float64 one at n_fft 2048,
+more than the kernel is. The Griffin-Lim round
 kernels K3a/K3b (bf16 operands, float32 sums) at max 2e-2 and mean 1e-5
 from their plain version on the same operands, the CPU tests' gates
 against JAX (the phase normalisation of near-zero bins amplifies a sum's
@@ -51,21 +53,71 @@ def _ids(cfg, B, seed=0):
     return torch.as_tensor(ids)
 
 
+def _first_flip(A_k, A_p):
+    """(step, margin) of the first cursor flip, or None; margin: the gap
+    between the two largest probabilities of the plain version's row."""
+    diff = A_k.argmax(1) != A_p.argmax(1)
+    if not bool(diff.any()):
+        return None
+    t = int(diff.any(0).nonzero()[0])
+    b = int(diff[:, t].nonzero()[0])
+    top = A_p[b, :, t].topk(2).values
+    return t, float(top[0] - top[1])
+
+
+@pytest.mark.parametrize("prec", K1.PRECS)
 @pytest.mark.parametrize("B", [1, 5])
-def test_decode_kernel_matches_plain(cuda, B):
+def test_decode_kernel_matches_plain(cuda, B, prec):
+    """"highest" at 2e-5 with identical cursors; the reduced bodies at
+    chip_smoke.py's gate: max(2e-5, 2 x the plain version's float32-vs-
+    float64 distance), over the steps before the first cursor flip, a
+    flip counting as a tie below max(1e-6, the gate for A)."""
     cfg = test_config()
     p = Text2Mel(cfg).init(torch.Generator().manual_seed(B), cuda)
     Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, B).to(cuda))
-    packed = K1.pack_decode_params(cfg, p)
-    n = K1.fused_decode.launches
+    packed = K1.pack_decode_params(cfg, p, prec)
+    n, n_p = K1.fused_decode.launches, K1.fused_decode.launches_by_prec[prec]
     Y, A = K1.fused_decode(packed, Kt.contiguous(), V.contiguous(),
-                           cfg.max_T, cfg)
+                           cfg.max_T, cfg, prec)
     torch.cuda.synchronize()
     assert K1.fused_decode.launches == n + 1
-    Yp, Ap = K1.fused_decode_plain(packed, Kt, V, cfg.max_T, cfg)
-    assert torch.equal(A.argmax(1), Ap.argmax(1))
-    torch.testing.assert_close(Y, Yp, atol=2e-5, rtol=0)
-    torch.testing.assert_close(A, Ap, atol=2e-5, rtol=0)
+    assert K1.fused_decode.launches_by_prec[prec] == n_p + 1
+    Yp, Ap = K1.fused_decode_plain(packed, Kt, V, cfg.max_T, cfg, prec)
+    if prec == "highest":
+        assert torch.equal(A.argmax(1), Ap.argmax(1))
+        torch.testing.assert_close(Y, Yp, atol=2e-5, rtol=0)
+        torch.testing.assert_close(A, Ap, atol=2e-5, rtol=0)
+        return
+    Y64, A64 = K1.fused_decode_plain(packed, Kt, V, cfg.max_T, cfg, prec,
+                                     torch.float64)
+    upto = cfg.max_T
+    f64 = _first_flip(A64, Ap.double())
+    if f64 is not None:
+        upto = f64[0] + 1
+    flip = _first_flip(A, Ap)
+    if flip is not None:
+        upto = min(upto, flip[0] + 1)
+    gate_y = max(2e-5, 2 * float((Y64 - Yp.double())[:, :upto].abs().max()))
+    gate_a = max(2e-5, 2 * float((A64 - Ap.double())[..., :upto].abs().max()))
+    assert flip is None or flip[1] < max(1e-6, gate_a)
+    assert float((Y - Yp)[:, :upto].abs().max()) <= gate_y
+    assert float((A - Ap)[..., :upto].abs().max()) <= gate_a
+    assert bool(torch.isfinite(Y).all())
+
+
+def test_decode_kernel_refuses_bad_packing(cuda):
+    """Another precision's packing raises before any launch: no quiet
+    conversion."""
+    cfg = test_config()
+    p = Text2Mel(cfg).init(torch.Generator().manual_seed(0), cuda)
+    Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, 2).to(cuda))
+    n = K1.fused_decode.launches
+    for prec, other in (("high3", "highest"), ("hybrid", "high3"),
+                        ("default", "hybrid")):
+        with pytest.raises(ValueError, match="packed"):
+            K1.fused_decode(K1.pack_decode_params(cfg, p, other),
+                            Kt.contiguous(), V.contiguous(), 4, cfg, prec)
+    assert K1.fused_decode.launches == n
 
 
 @pytest.mark.parametrize("n_iter", [0, 1, 3])

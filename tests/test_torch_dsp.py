@@ -58,6 +58,24 @@ def test_stft_istft_match_jax():
                                   jstft.hann_window(WIN_L, N_FFT))
 
 
+def test_frame_indices_match_jax():
+    from dc_tts_tpu_torch import dsp
+    for n_frames, n_fft, hop in ((5, 16, 4), (41, N_FFT, HOP)):
+        got = dsp.frame_indices(n_frames, n_fft, hop)
+        want = jstft.frame_indices(n_frames, n_fft, hop)
+        assert got.dtype == want.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+    # the package exports the JAX package's dsp functions, but for stft and
+    # griffin_lim: there those names stay the modules'
+    import dc_tts_tpu.dsp as jdsp
+    for name in ("mel_filterbank", "istft", "hann_window", "frame_indices",
+                 "spectrogram_to_wav", "wav_to_spectrograms", "reduce_mel",
+                 "preemphasis", "deemphasis"):
+        assert callable(getattr(jdsp, name)), name
+        assert callable(getattr(dsp, name)), name
+    assert dsp.stft is tstft and dsp.griffin_lim is tgl
+
+
 @pytest.mark.parametrize("n", [1, 511, 512, 5000])
 def test_emphasis_filters_match_jax(n):
     x = _signal(n, seed=n)

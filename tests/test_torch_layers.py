@@ -132,3 +132,24 @@ def test_init_distribution_matches_jax():
         assert abs(e.std() / (0.1 * 0.87962566103423978) - 1) < 0.05
     ln = TL.init_layer_norm(4)
     assert ln["gamma"].tolist() == [1.0] * 4 and not ln["beta"].any()
+
+
+def test_highway_matches_jax():
+    """The classic highway net on JAX's parameters at 1e-6, and the port's
+    init as JAX's (Glorot-uniform kernels, -1 gate bias)."""
+    key = jax.random.PRNGKey(0)
+    jp = JL.init_highway(key, 8)
+    x = np.random.default_rng(0).standard_normal((2, 5, 8)).astype(np.float32)
+    want = np.asarray(JL.highway(jp, jnp.asarray(x)))
+    got = TL.highway(from_jax_params(jp), torch.as_tensor(x))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    tp = TL.init_highway(torch.Generator().manual_seed(0), 8)
+    lim = math.sqrt(6.0 / 16)
+    for k in ("h", "t"):
+        assert tp[k]["w"].shape == (8, 8)
+        assert float(tp[k]["w"].abs().max()) <= lim
+    assert torch.equal(tp["t"]["b"], torch.full((8,), -1.0))
+    assert torch.equal(tp["h"]["b"], torch.zeros(8))
+    y = TL.highway(tp, torch.as_tensor(x))
+    assert y.shape == x.shape
+    assert float((y - torch.as_tensor(x)).abs().mean()) < 1.0

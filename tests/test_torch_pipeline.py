@@ -83,12 +83,63 @@ def test_chunked_and_pcm16(params):
 
 
 def test_constructor_refuses_unported_options(params):
+    """Every decode mode and precision of the JAX package is ported: only
+    an unknown name raises."""
     p1, p2, _ = params
     t1, t2 = from_jax_params(p1), from_jax_params(p2)
-    for kw in ({"decode_prec": "hybrid"}, {"decode_prec": "high3"},
-               {"decode_mode": "reference"}):
+    for kw in ({"decode_prec": "high"}, {"decode_prec": "bf16"},
+               {"decode_mode": "pipelined"}, {"ssrn_precision": "high3"}):
         with pytest.raises(ValueError):
             Synthesizer(test_config(), t1, t2, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("mode,prec", [("fused", "hybrid"),
+                                       ("fused", "high3"),
+                                       ("fused", "default"),
+                                       ("reference", "highest")])
+def test_synthesizer_decode_modes_and_precisions(params, mode, prec):
+    """The Synthesizer packs the decode weights once for its decode_prec
+    and decodes as Text2Mel.decode does in that mode and precision."""
+    from dc_tts_tpu_torch.models import Text2Mel
+    p1, p2, ids = params
+    t1 = from_jax_params(p1)
+    synth = Synthesizer(test_config(), t1, from_jax_params(p2),
+                        device="cpu", decode_mode=mode, decode_prec=prec,
+                        pcm16=True)
+    if mode == "fused":
+        assert synth.packed.keys() == K1.pack_decode_params(
+            test_config(), t1, prec).keys()
+        assert synth.packed["hcw" if prec != "hybrid" else "hcw2"].dtype \
+            == (torch.float32 if prec == "highest" else torch.bfloat16)
+    else:
+        assert synth.packed is None
+    n = K1.fused_decode.launches
+    wav, Y, Z, A = synth.synthesize_ids(ids)
+    assert K1.fused_decode.launches == n
+    Yd, Ad = Text2Mel(test_config()).decode(t1, torch.as_tensor(ids),
+                                            mode=mode, prec=prec)
+    assert torch.equal(Y, Yd) and torch.equal(A, Ad)
+    assert wav.dtype == torch.int16 and wav.shape[0] == ids.shape[0]
+    assert bool(torch.isfinite(Z).all())
+
+
+def test_from_checkpoints(params, tmp_path):
+    """Text2Mel from logdir1 and SSRN from logdir2, with the constructor's
+    options."""
+    from dc_tts_tpu_torch.train import checkpoint
+    p1, p2, ids = params
+    t1, t2 = from_jax_params(p1), from_jax_params(p2)
+    checkpoint.save(str(tmp_path / "l1"), t1, 1000)
+    checkpoint.save(str(tmp_path / "l2"), t2, 2000)
+    synth = Synthesizer.from_checkpoints(
+        test_config(), str(tmp_path / "l1"), str(tmp_path / "l2"),
+        device="cpu", decode_prec="hybrid")
+    assert synth.decode_prec == "hybrid" and "cw2" in synth.packed
+    direct = Synthesizer(test_config(), t1, t2, device="cpu",
+                         decode_prec="hybrid")
+    for got, want in zip(synth.synthesize_ids(ids),
+                         direct.synthesize_ids(ids)):
+        assert torch.equal(got, want)
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(params, tmp_path):
@@ -107,15 +158,40 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(params, tmp_path):
 
 
 def test_cli_on_cpu_and_refused_flags(tmp_path):
+    """The parallel modes stay refused; a reduced --decode-precision with
+    --mode incremental or reference is a usage error, as in the JAX CLI."""
     out = tmp_path / "wavs"
     cli.main(["--tiny", "--random-weights", "--device", "cpu",
               "--sentences", SENTS, "--out", str(out)])
     assert len(list(out.glob("*.wav"))) == 40
     for flag in (["--mesh"], ["--pipeline"], ["--time-shard", "2"],
-                 ["--decode-precision", "hybrid"]):
-        with pytest.raises(SystemExit):
+                 ["--mode", "incremental", "--decode-precision", "hybrid"],
+                 ["--mode", "reference", "--decode-precision", "high3"]):
+        with pytest.raises(SystemExit) as e:
             cli.main(["--tiny", "--random-weights", "--device", "cpu",
-                      *flag])
+                      "--out", str(tmp_path / "no"), *flag])
+        assert e.value.code == 2
+    assert not (tmp_path / "no").exists()
+
+
+@pytest.mark.parametrize("flags", [["--mode", "reference"],
+                                   ["--decode-precision", "high3"],
+                                   ["--decode-precision", "hybrid",
+                                    "--plots"]])
+def test_cli_decode_modes_and_plots(tmp_path, flags):
+    sents = tmp_path / "three.txt"
+    sents.write_text("header\n1. The birch canoe slid on the smooth planks."
+                     "\n2. Glue the sheet to the dark blue background.\n"
+                     "3. It is easy to tell the depth of a well.\n")
+    out = tmp_path / "wavs"
+    cli.main(["--tiny", "--random-weights", "--device", "cpu",
+              "--sentences", str(sents), "--out", str(out), *flags])
+    assert sorted(p.name for p in out.glob("*.wav")) == [
+        "1.wav", "2.wav", "3.wav"]
+    if "--plots" in flags:
+        pytest.importorskip("matplotlib")
+        assert sorted(p.name for p in out.glob("*.png")) == [
+            f"alignment_utt{i}.png" for i in (1, 2, 3)]
 
 
 def test_restore_synthesis_params_from_jax_checkpoints(params, tmp_path):

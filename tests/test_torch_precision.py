@@ -60,12 +60,13 @@ DTYPES = ("float32_high", "bfloat16", "bfloat16_full")
 # whole-network tolerances by compute_dtype: loss (relative), outputs (x
 # each output's max |value|), gradients (relative L2 distance over all
 # leaves). Measured here: "high" 2.4e-7 / 1.5e-4 / 4.0e-5; bfloat16 6.0e-6
-# / 9.3e-3 / 2.5e-2; bfloat16_full 5.3e-4 / 9.9e-2 / 6.2e-2 (Text2Mel, the
-# deeper of the two; XLA on the CPU also keeps some of the block's
-# elementwise chain in float32 where the port rounds each op to bf16).
+# / 9.3e-3 / 2.5e-2; bfloat16_full 8.9e-5 / 2.4e-2 / 9.7e-3 (Text2Mel, the
+# deeper of the two; 5.3e-4 / 9.9e-2 / 6.2e-2 while the port's bf16
+# sigmoid rounded once where JAX's program rounds after exp, the add and
+# the divide, blocks._sigmoid).
 TOL = {"float32_high": (1e-5, 1e-3, 5e-4),
        "bfloat16": (1e-4, 3e-2, 0.1),
-       "bfloat16_full": (3e-3, 0.25, 0.2)}
+       "bfloat16_full": (3e-4, 6e-2, 3e-2)}
 _RNG = np.random.default_rng(15)
 IDS = _RNG.integers(1, CFG.vocab_size, (2, CFG.max_N)).astype(np.int32)
 MELS = _RNG.uniform(0, 1, (2, CFG.max_T, CFG.n_mels)).astype(np.float32)
@@ -154,10 +155,15 @@ def _jax_spec(spec):
 # (forward, gradients). "high": the split's ~1e-5 (measured 8e-6 / 3e-5);
 # bfloat16: float32 rounding forward (3e-7), and the bf16-rounded cotangent
 # products, one of which flips by 2^-8 now and then (2.4e-3); bfloat16_full:
-# a bf16 ulp or two where XLA and torch round the block's elementwise chain
-# at other points (1.3e-2 / 3.9e-2)
+# bf16 roundings that a float32 sum taken in another order flips, through
+# the gate's three roundings and the layer norms' backward (3.0e-3 /
+# 4.7e-2; 1.3e-2 forward with the once-rounded sigmoid). XLA on the CPU
+# also keeps the C block's bias add in float32 into its layer norm (a
+# convert pair its CPU pipeline drops) where it rounds the HC block's; the
+# port rounds both: a choice of that backend, worth nothing measurable
+# here (the C blocks' forward reads 2.4e-4 either way).
 BLOCK_TOL = {"float32_high": (5e-5, 2e-4), "bfloat16": (1e-5, 1e-2),
-             "bfloat16_full": (3e-2, 8e-2)}
+             "bfloat16_full": (1e-2, 8e-2)}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -264,6 +270,69 @@ def test_k4_bf16_plain_matches_jax_kernel(size, rate, causal, T):
     # bf16 operands really are rounded: the float32 mode differs
     y32 = K4.hc_block_fwd_plain(*t, size, rate, causal, 1e-5)
     assert float((y32 - torch.tensor(jy)).abs().max()) > 1e-4
+
+
+# the smallest HC width at which the JAX package's VMEM gate keeps a block
+# off its K4 whatever T is (the weights alone bust the budget), one block
+# of SSRN's HC(3, 1) at T=8; SSRN's C=512 blocks of the trainer (T >= 104)
+# are off it too
+WIDE_T, WIDE_C = 8, 568
+# distances from JAX's XLA route, x each tensor's max |value|, measured
+# here: K4's bf16 route y 3.8e-7, dx 2.1e-3, dW 3.8e-3 (its dW and the conv
+# part of dx stay float32, where XLA's transpose of the bf16 conv rounds
+# them to bf16); the port's own XLA-like route dx 2.9e-4, dW 1.1e-3 (bf16
+# roundings flipped by float32 sums taken in another order)
+WIDE_PIN = {True: (1e-6, 5e-3, 6e-3), False: (1e-6, 1e-3, 2.5e-3)}
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_k4_bf16_on_a_block_jax_keeps_off_k4(use_pallas):
+    """Under compute_dtype="bfloat16" + use_pallas the port runs K4's bf16
+    body on every HC block, where JAX's hc_train_fits sends the wide ones
+    to XLA. Both of the port's routes against JAX's there: y, dx, dW, each
+    pinned at its measured distance (WIDE_PIN) and within the bfloat16
+    block tolerance. K4's dW is float32 where JAX's is bf16-rounded: no
+    more than bf16 noise apart, so the port keeps one route for all
+    shapes (models/blocks.py)."""
+    from dc_tts_tpu.ops.pallas_hc_vjp import hc_train_fits
+    assert not hc_train_fits(WIDE_T, WIDE_C, 3, 1)
+    assert hc_train_fits(WIDE_T, WIDE_C - 8, 3, 1)
+    jspec, spec = JB.HC(3, 1), TB.HC(3, 1)
+    params, _ = JB.init_stack(jax.random.PRNGKey(4), WIDE_C, [jspec])
+    p = params[0]
+    rng = np.random.default_rng(5)
+    for k in ("ln1", "ln2"):
+        p[k] = {"gamma": jnp.asarray(1 + 0.3 * rng.standard_normal(WIDE_C),
+                                     jnp.float32),
+                "beta": jnp.asarray(0.2 * rng.standard_normal(WIDE_C),
+                                    jnp.float32)}
+    x = rng.standard_normal((2, WIDE_T, WIDE_C)).astype(np.float32)
+    cot = rng.standard_normal((2, WIDE_T, WIDE_C)).astype(np.float32)
+    jy, vjp = jax.vjp(lambda p_, x_: JB.apply_block(
+        p_, jspec, x_, ln_eps=1e-5, dropout_rate=0.0, rng=None, train=True,
+        dtype=jnp.bfloat16, use_pallas=True), p, jnp.asarray(x))
+    jgp, jgx = vjp(jnp.asarray(cot))
+    want = [np.asarray(a) for a in (jy, jgx, jgp["conv"]["w"])]
+    tp = from_jax_params(p)
+    w = tp["conv"]["w"].requires_grad_(True)
+    xt = torch.tensor(x, requires_grad=True)
+    n_f = K4.hc_block_fwd.launches_bf16
+    y = TB.apply_block(tp, spec, xt, ln_eps=1e-5, train=True,
+                       dtype=torch.bfloat16, use_pallas=use_pallas)
+    gx, gw = torch.autograd.grad(y, [xt, w], torch.as_tensor(cot))
+    assert K4.hc_block_fwd.launches_bf16 == n_f  # plain versions on the CPU
+    # JAX's dW is bf16-rounded, and so is the port's XLA-like route's
+    assert torch.equal(gw, gw.to(torch.bfloat16).float()) != use_pallas
+    tf, tg = BLOCK_TOL["bfloat16"]
+    dist = []
+    for got, ref, pin, tol in zip((y, gx, gw), want, WIDE_PIN[use_pallas],
+                                  (tf, tg, tg)):
+        d = float(np.abs(got.detach().numpy() - ref).max()
+                  / np.abs(ref).max())
+        dist.append(d)
+        assert d <= min(pin, tol)
+    print(f"use_pallas={use_pallas}: y {dist[0]:.2e} dx {dist[1]:.2e} "
+          f"dW {dist[2]:.2e} (x max)")
 
 
 # ----------------------------------------------------------------- (c)

@@ -126,6 +126,12 @@ def test_decode_wrapper_takes_plain_version_on_cpu(t2m):
 
 
 def test_unported_modes_raise(t2m):
+    """Every decode mode and precision of the JAX package is ported
+    (tests/test_torch_decode_modes.py): an unknown one still raises."""
     _, tp, ids = t2m
-    with pytest.raises(ValueError, match="reference"):
-        Text2Mel(CFG).decode(tp, torch.as_tensor(ids), mode="reference")
+    with pytest.raises(ValueError, match="decode mode"):
+        Text2Mel(CFG).decode(tp, torch.as_tensor(ids), mode="pipelined")
+    for mode in ("fused", "incremental", "reference"):
+        with pytest.raises(ValueError, match="precision"):
+            Text2Mel(CFG).decode(tp, torch.as_tensor(ids), mode=mode,
+                                 prec="high")

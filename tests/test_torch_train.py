@@ -8,7 +8,8 @@ the CPU at ``test_config()``:
   ``loss/t2m/*``, ``loss/ssrn/*`` in tests/goldens/tf_reference_tiny.npz
   (rtol 1e-5, atol 1e-6, ``ln_eps=1e-12`` as tests/test_tf_goldens.py);
 * the clipped gradients of both networks against TF's ``grad/*`` (all 289,
-  rtol 1e-3, atol 1e-4), names mapped by ``convert.export_tf_names``;
+  rtol 1e-3, atol 1e-4), names mapped by ``convert.export_tf_names``; the
+  TF variables reach the port through its own ``convert``, no JAX;
 * three optimizer steps on identical gradients against the optax chain
   (rtol 1e-6);
 * three full train steps of each network against the JAX step from the
@@ -29,7 +30,6 @@ import optax
 import pytest
 import torch
 
-from dc_tts_tpu import convert
 from dc_tts_tpu.config import test_config as jax_test_config
 from dc_tts_tpu.train import checkpoint as jckpt
 from dc_tts_tpu.train import losses as jlosses
@@ -37,6 +37,7 @@ from dc_tts_tpu.train.optimizer import make_optimizer
 from dc_tts_tpu.train.steps import (init_ssrn_state, init_text2mel_state,
                                     make_ssrn_step, make_text2mel_step)
 
+from dc_tts_tpu_torch import convert
 from dc_tts_tpu_torch.config import test_config
 from dc_tts_tpu_torch.models import SSRN, Text2Mel
 from dc_tts_tpu_torch.models.layers import dropout
@@ -147,11 +148,10 @@ def test_losses_match_jax(lens):
 def gold():
     with np.load(GOLD) as d:
         g = {k: d[k] for k in d.files}
-    tcfg = jax_test_config().replace(ln_eps=1e-12)
     t2m, ssrn = convert.convert({k[len("var/"):]: v for k, v in g.items()
-                                 if k.startswith("var/")}, tcfg)
-    return g, from_jax_params(jax.device_get(t2m)), \
-        from_jax_params(jax.device_get(ssrn))
+                                 if k.startswith("var/")},
+                                CFG.replace(ln_eps=1e-12))
+    return g, t2m, ssrn
 
 
 def _tf_loss(net, gold):
@@ -184,7 +184,7 @@ def test_clipped_grads_match_tf_goldens(gold, net):
     params, (loss, _) = _tf_loss(net, gold)
     grads = torch.autograd.grad(loss, tree_leaves(params))
     tree = _grad_tree(params, [torch.clamp(x, -1.0, 1.0) for x in grads])
-    cfg = jax_test_config().replace(ln_eps=1e-12)
+    cfg = CFG.replace(ln_eps=1e-12)
     if net == "t2m":
         named = convert.export_tf_names(tree, {"stack": []}, cfg)
         prefix = "Text2Mel/"
@@ -354,6 +354,24 @@ def test_legacy_params_only_restore_fast_forwards_counts(tmp_path, writer,
     assert int(s[1]["count"]) == int(s[2]["count"]) == 5000
     assert all(float(m.abs().max()) == 0.0 for m in tree_leaves(s[1]["mu"]))
     _flat_equal(tckpt._flatten(p), jckpt._flatten(jp))
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_restore_or_init(tmp_path, writer, jax_state):
+    """A fresh logdir keeps the template at step 0; a saved one (either
+    package's) is restored, as the JAX restore_or_init does."""
+    jp = jax_state[0]
+    tmpl = from_jax_params(jax.tree.map(np.zeros_like, jp))
+    got, step = tckpt.restore_or_init(str(tmp_path / "fresh"), tmpl)
+    assert step == 0 and got is tmpl
+    if writer == "jax":
+        jckpt.save(str(tmp_path), jp, 3000)
+    else:
+        tckpt.save(str(tmp_path), from_jax_params(jp), 3000)
+    got, step = tckpt.restore_or_init(str(tmp_path), tmpl)
+    want, jstep = jckpt.restore_or_init(str(tmp_path), jp)
+    assert step == jstep == 3000
+    _flat_equal(tckpt._flatten(got), jckpt._flatten(want))
 
 
 def test_save_keeps_newest(tmp_path):
