@@ -97,7 +97,14 @@ line:
              HC(3,27) causal T=210 C=256; SSRN HC(3,1) T=840 C=1024): y and
              all 7 gradients for a seeded cotangent, each within max(2e-5 x
              its max |value|, 2 x the float32 plain version's own
-             distance); gradients bitwise equal across two calls.
+             distance); gradients bitwise equal across two calls. Beside
+             the CUDA-event ms: the cuBLAS yardstick (the same products as
+             single torch.matmul calls on materialised taps, TF32 off:
+             taps @ W forward; that, dh @ W^T and taps^T @ dh backward),
+             the bound at the 3xTF32 rate the kernels use (3 x the float32
+             operations at 495 TFLOP/s) and at the float32 FMA rate, and
+             torch.profiler's device ms of one call by kernel kind: the
+             GEMMs, the TF32 split copies and the row kernels.
 8b. K4-bf16 - the same with bf16 operands (the TPU kernel's bf16 body,
              taken under compute_dtype="bfloat16"): against the plain
              version with the same bf16 rounding points run in float64, at
@@ -138,7 +145,8 @@ line:
              the two buckets' losses differ by more than 30 steps of
              warm-up learning move them). Then ms/step with use_pallas on
              and off on one full-grid batch (three readings each of
-             TIME_STEPS steps, alternated), K4's summed kernel time per
+             TIME_STEPS steps, alternated; the peak device memory each
+             route allocates over its readings), K4's summed kernel time per
              step (every HC shape of a step replayed), and, on the first
              full-grid batch of the seeded shuffle (its ids, teacher-forced
              mels and zero pads) with fresh seeded parameters at dropout 0,
@@ -233,6 +241,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
 PEAK_FP32 = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor cores, FLOP/s
+PEAK_TF32 = 495e12     # H100 SXM dense TF32 tensor cores, FLOP/s
 B_MAIN, CHUNK = 20, 20
 # the training phases' device and batch (a rehearsal on the CPU sets them)
 DEV, B_TRAIN = "cuda", 32
@@ -815,8 +824,9 @@ def phase_k3(results):
 
 
 def device_busy(prof, n_top=6):
-    """(summed kernel ms, {kernel: [ms, launches]} of the n_top longest)
-    from a torch.profiler trace's device events."""
+    """(summed kernel ms, {kernel: [ms, launches]} of the n_top longest, or
+    of every kernel with n_top=None) from a torch.profiler trace's device
+    events."""
     by_name = {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -826,6 +836,8 @@ def device_busy(prof, n_top=6):
         t = by_name.setdefault(name, [0.0, 0])
         t[0] += e.time_range.elapsed_us() / 1e3
         t[1] += 1
+    if n_top is None:
+        return sum(t for t, _ in by_name.values()), by_name
     top = {k: [round(t, 3), n] for k, (t, n) in
            sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]}
     return sum(t for t, _ in by_name.values()), top
@@ -1227,15 +1239,68 @@ def _k4_distances(args, dy, geo):
     return dist
 
 
-def _k4_bounds(B, T, C, K, peak=PEAK_FP32):
+def _k4_bounds(B, T, C, K, peak=PEAK_FP32, passes=1):
     """(forward bound, backward bound, forward operations) of one HC block:
     the inputs read once and the outputs written once (float32, in either
     operand mode), and the tap matmuls, 2*B*T*K*C*2C operations forward and
-    three times that backward (h recomputed, dx, dW), at ``peak``."""
+    three times that backward (h recomputed, dx, dW), each done ``passes``
+    times (3 for the 3xTF32 split) at ``peak``."""
     act, params = 4 * B * T * C, 4 * (K * C * 2 * C + 6 * C)
     flops = 2.0 * B * T * K * C * 2 * C
-    return (bound(act + params + act, flops, peak),
-            bound(2 * act + params + act + params, 3 * flops, peak), flops)
+    return (bound(act + params + act, passes * flops, peak),
+            bound(2 * act + params + act + params, 3 * passes * flops, peak),
+            flops)
+
+
+def _k4_kernel_bounds(B, T, C, K, bf16):
+    """_k4_bounds at the rate the kernels use: dense bf16 for the bf16
+    operand body, 3xTF32 (three TF32 passes) for the float32 one."""
+    return (_k4_bounds(B, T, C, K, PEAK_BF16) if bf16 else
+            _k4_bounds(B, T, C, K, PEAK_TF32, passes=3))
+
+
+def _k4_library(args, dy, size, rate, causal):
+    """CUDA-event ms of the tap products as single cuBLAS calls on
+    materialised operands (float32, TF32 off): (forward: taps @ W,
+    backward: that, dh @ W^T and taps^T @ dh). dh is the cotangent's shape
+    widened to 2C, seeded."""
+    from dc_tts_tpu_torch.ops import hc_vjp as K4
+
+    x, w = args[0], args[1]
+    B, T, C = x.shape
+    taps = K4._taps(x, size, rate, causal).reshape(B * T, size * C)
+    wm = w.reshape(size * C, 2 * C)
+    dh = torch.cat([dy, dy.flip(-1)], -1).reshape(B * T, 2 * C)
+
+    def bwd():
+        torch.matmul(taps, wm)
+        torch.matmul(dh, wm.T)
+        torch.matmul(taps.T, dh)
+
+    return (cuda_ms(lambda: torch.matmul(taps, wm), 5), cuda_ms(bwd, 3))
+
+
+def _k4_kinds(fn):
+    """torch.profiler's device ms of one fn() call by kernel kind: the GEMMs
+    (tc_gemm, hc_gemm_bf16), the TF32 split copies (tf32_parts*) and the row
+    kernels (hc_*_rows, hc_col_sum); None where the trace holds no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kinds = {"gemm": 0.0, "split": 0.0, "rows": 0.0}
+    for name, (ms, _) in device_busy(prof, None)[1].items():
+        kind = ("gemm" if "gemm" in name else
+                "split" if "tf32_parts" in name else
+                "rows" if "_rows" in name or "col_sum" in name else None)
+        if kind:
+            kinds[kind] += ms
+    return kinds if sum(kinds.values()) > 0 else None
 
 
 def phase_k4(results, bf16=False):
@@ -1246,7 +1311,7 @@ def phase_k4(results, bf16=False):
 
     dev = torch.device("cuda")
     phase, suffix = ("K4-bf16", "_bf16") if bf16 else ("K4", "")
-    peak = PEAK_BF16 if bf16 else PEAK_FP32
+    fmt = lambda v: "None" if v is None else f"{v:.3f}"  # noqa: E731
     per_shape = []
     for label, B, T, C, size, rate, causal in K4_SHAPES:
         args, dy = _hc_inputs(B, T, C, size, 4, dev)
@@ -1261,7 +1326,12 @@ def phase_k4(results, bf16=False):
         ms_b = cuda_ms(lambda: K4.hc_block_bwd(*args, dy, *geo), 3)
         plain_f = cuda_ms(lambda: K4.hc_block_fwd_plain(*args, *geo), 3)
         plain_b = cuda_ms(lambda: K4.hc_block_bwd_plain(*args, dy, *geo), 3)
-        bf, bb, flops = _k4_bounds(B, T, C, size, peak)
+        bf, bb, flops = _k4_kernel_bounds(B, T, C, size, bf16)
+        fma_f, fma_b, _ = _k4_bounds(B, T, C, size, PEAK_FP32)
+        lib_f, lib_b = ((None, None) if bf16 else
+                        _k4_library(args, dy, size, rate, causal))
+        kinds_f = _k4_kinds(lambda: K4.hc_block_fwd(*args, *geo))
+        kinds_b = _k4_kinds(lambda: K4.hc_block_bwd(*args, dy, *geo))
         line(phase, ok=ok, shape=repr(label), B=B, T=T, C=C, rate=rate,
              causal=causal, bitwise_equal_grads=bitwise,
              **{f"{n}_kernel_vs_f64": f"{d[0]:.3e}" for n, d in dist.items()},
@@ -1269,31 +1339,51 @@ def phase_k4(results, bf16=False):
                 for n, d in dist.items()},
              fwd_ms=f"{ms_f:.3f}", bwd_ms=f"{ms_b:.3f}",
              plain_fwd_ms=f"{plain_f:.3f}", plain_bwd_ms=f"{plain_b:.3f}",
+             library_fwd_ms=fmt(lib_f), library_bwd_ms=fmt(lib_b),
              fwd_bound_ms=f"{bf[0]:.4f}", bwd_bound_ms=f"{bb[0]:.4f}",
-             bound_by=bf[1], fwd_gflop=f"{flops / 1e9:.2f}",
-             bwd_gflop=f"{3 * flops / 1e9:.2f}")
+             bound_by=bf[1], fma_fwd_bound_ms=f"{fma_f[0]:.4f}",
+             fma_bwd_bound_ms=f"{fma_b[0]:.4f}",
+             fwd_gflop=f"{flops / 1e9:.2f}",
+             bwd_gflop=f"{3 * flops / 1e9:.2f}",
+             fwd_kinds_ms=kinds_f and {k: round(v, 4)
+                                       for k, v in kinds_f.items()},
+             bwd_kinds_ms=kinds_b and {k: round(v, 4)
+                                       for k, v in kinds_b.items()})
         if not ok:
             raise AssertionError(f"{phase} disagrees with its plain version "
                                  f"at {label}: {dist} bitwise={bitwise}")
         per_shape.append(dict(shape=label, fwd_ms=ms_f, bwd_ms=ms_b,
                               plain_fwd_ms=plain_f, plain_bwd_ms=plain_b,
+                              library_fwd_ms=lib_f, library_bwd_ms=lib_b,
                               fwd_bound_ms=bf[0], bwd_bound_ms=bb[0],
+                              fma_fwd_bound_ms=fma_f[0],
+                              fma_bwd_bound_ms=fma_b[0],
+                              fwd_kinds_ms=kinds_f, bwd_kinds_ms=kinds_b,
                               bound_by=bf[1],
                               fwd_err=dist["y"][0],
                               bwd_err=max(d[0] for n, d in dist.items()
                                           if n != "y")))
         del args, dy
         torch.cuda.empty_cache()
-    s = lambda k: sum(r[k] for r in per_shape)  # noqa: E731
+    s = lambda k: (None if per_shape[0][k] is None  # noqa: E731
+                   else sum(r[k] for r in per_shape))
     results["K4_shapes" + suffix] = per_shape
     results["hc_block_fwd" + suffix] = dict(
         max_abs_err=max(r["fwd_err"] for r in per_shape), ms=s("fwd_ms"),
         plain_ms=s("plain_fwd_ms"), bound_ms=s("fwd_bound_ms"),
-        bound_by=per_shape[0]["bound_by"])
+        bound_by=per_shape[0]["bound_by"], library_ms=s("library_fwd_ms"))
     results["hc_block_bwd" + suffix] = dict(
         max_abs_err=max(r["bwd_err"] for r in per_shape), ms=s("bwd_ms"),
         plain_ms=s("plain_bwd_ms"), bound_ms=s("bwd_bound_ms"),
-        bound_by=per_shape[0]["bound_by"])
+        bound_by=per_shape[0]["bound_by"], library_ms=s("library_bwd_ms"))
+    line(phase + "-sum", fwd_ms=f"{s('fwd_ms'):.3f}",
+         bwd_ms=f"{s('bwd_ms'):.3f}",
+         library_fwd_ms=fmt(s("library_fwd_ms")),
+         library_bwd_ms=fmt(s("library_bwd_ms")),
+         fwd_bound_ms=f"{s('fwd_bound_ms'):.4f}",
+         bwd_bound_ms=f"{s('bwd_bound_ms'):.4f}",
+         fma_fwd_bound_ms=f"{s('fma_fwd_bound_ms'):.4f}",
+         fma_bwd_bound_ms=f"{s('fma_bwd_bound_ms'):.4f}")
 
 
 def make_corpus_and_features(root):
@@ -1337,8 +1427,7 @@ def _k4_step_ms(specs_shapes, B, bf16=False):
         geo = (spec.size, spec.rate, spec.causal, 1e-5, bf16)
         total += cuda_ms(lambda: (K4.hc_block_fwd(*args, *geo),
                                   K4.hc_block_bwd(*args, dy, *geo)), 2)
-        bf, bb, flops = _k4_bounds(B, T, C, spec.size,
-                                   PEAK_BF16 if bf16 else PEAK_FP32)
+        bf, bb, flops = _k4_kernel_bounds(B, T, C, spec.size, bf16)
         b_ms += bf[0] + bb[0]
         gflop += 4 * flops / 1e9
     return total, b_ms, gflop
@@ -1564,17 +1653,21 @@ def phase_train(results, net, data, feats, n_steps):
 
     # ms/step on one full-grid batch, each reading the mean of TIME_STEPS
     # steps after one warm-up step, in the order on, off, off, on, on, off
-    times = {True: [], False: []}
+    # and the peak device memory allocated over a reading's steps (MiB)
+    times, peak = {True: [], False: []}, {True: 0.0, False: 0.0}
     for use_pallas in (True, False, False, True, True, False):
         s_ = make(cfg.replace(use_pallas=use_pallas), seed=1)
         state, _ = s_(state, full, gen)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
         for _ in range(TIME_STEPS):
             state, _ = s_(state, full, gen)
         torch.cuda.synchronize()
         times[use_pallas].append((time.perf_counter() - t1) / TIME_STEPS
                                  * 1e3)
+        peak[use_pallas] = max(peak[use_pallas],
+                               torch.cuda.max_memory_allocated() / 2 ** 20)
     k4_ms, k4_bound, k4_gflop = _k4_step_ms(_hc_shapes(net, cfg), cfg.B)
     # the equivalence's batch and parameters follow from the seeds alone (one
     # loader thread hands batches out in the shuffle's order), so every run
@@ -1607,6 +1700,8 @@ def phase_train(results, net, data, feats, n_steps):
          ms_per_step_plain=f"{ms_off:.2f}",
          ms_pallas_readings=",".join(f"{t:.2f}" for t in times[True]),
          ms_plain_readings=",".join(f"{t:.2f}" for t in times[False]),
+         peak_mib_pallas=f"{peak[True]:.1f}",
+         peak_mib_plain=f"{peak[False]:.1f}",
          k4_ms_per_step=f"{k4_ms:.2f}",
          k4_bound_ms_per_step=f"{k4_bound:.2f}",
          k4_gflop_per_step=f"{k4_gflop:.1f}",
@@ -1632,7 +1727,8 @@ def phase_train(results, net, data, feats, n_steps):
                              f" blocks={b_ratio}")
     results[f"train-{net}"] = dict(
         losses=losses, launches=launches, ms_per_step_pallas=ms_on,
-        ms_per_step_plain=ms_off, k4_ms_per_step=k4_ms,
+        ms_per_step_plain=ms_off, peak_mib_pallas=peak[True],
+        peak_mib_plain=peak[False], k4_ms_per_step=k4_ms,
         k4_bound_ms_per_step=k4_bound,
         ms_pallas_readings=times[True], ms_plain_readings=times[False],
         equiv_loss_rel=eq["loss"], frozen_grad_on_vs_off=d_grad,

@@ -11,22 +11,67 @@
 // parameter gradients.
 //
 // Launches (all on the caller's stream; nothing here allocates):
-//   hc_gemm<FWD>   h = taps(x) @ W + b, the tap gather done in the tile load
+//   tf32_parts_t   W^T per tap, (2C, K*C), as TF32 hi and lo parts
+//   tc_gemm<FWD>   h = taps(x) @ W + b, the tap gather done by the loader
 //   hc_fwd_rows    one block per row: both layer norms, the gate, y
+// and backward
+//   tf32_parts_t, tf32_parts   W^T as above, and W's parts in W's layout
+//   tc_gemm<FWD>   h recomputed
 //   hc_bwd_rows    a chunk of rows per block: dh, the residual part of dx,
 //                  and per-chunk column partials of db, dgamma, dbeta
 //   hc_col_sum     the partials summed over chunks in a fixed order
-//   hc_gemm<DX>    dx += sum_k dh[t - k*rate + left] @ W[k]^T, a gather:
+//   tc_gemm<DX>    dx += sum_k dh[t - k*rate + left] @ W[k]^T, a gather:
 //                  each output row sums the K taps that read it (no atomics)
-//   hc_gemm<DW>    dW = taps(x)^T @ dh over all B*T rows, split over row
+//   tf32_parts_t   dh^T, (2C, B*T padded to the k-tile), hi and lo
+//   tc_gemm<DW>    dW = taps(x)^T @ dh over all B*T rows, split over row
 //                  ranges into partials, then hc_col_sum in a fixed order
 // Every sum is taken in an order fixed by the shapes alone, so two calls on
 // the same inputs give bitwise-equal results. No float atomics.
 //
-// Bound on the H100: the three tap matmuls (forward; backward recompute, dx
-// and dW), 2*B*T*K*C*2C operations each, on the float32 FMA units (the
-// tensor cores would round to TF32). The GEMM is a classic shared-memory
-// SGEMM: 128x128 output tiles, 8-deep slices, 8x8 outputs per thread.
+// Float32 products (tc_gemm): float32 on the tensor cores by a three-term
+// TF32 split, the Hopper form of the TPU kernel's Precision.HIGHEST. Each
+// operand value a = a_hi + a_lo, a_hi = tf32(a), a_lo = tf32(a - a_hi), both
+// rounded to nearest (cvt.rna: the tensor cores would drop the low 13 bits
+// of an unrounded value), and a*b = a_hi*b_hi + a_hi*b_lo + a_lo*b_hi with
+// float32 sums (a_lo*b_lo, ~2^-22 relative, is dropped). Bound on the H100:
+// 3 x 2*B*T*K*C*2C TF32 operations a product at 495 TFLOP/s, one product
+// forward and three backward (h recomputed, dx, dW); 2.05 ms forward and
+// 6.15 ms backward at SSRN's HC(3,1), C = 1024, B*T = 26880, against 5.05
+// and 15.1 ms for the same float32 work on the FMA units (67 TFLOP/s).
+// What the design does about what held the SIMT SGEMM it replaces at
+// 22-31 % of the FMA bound:
+//  1. Scalar tap gather. The loader copies 16 bytes a thread with cp.async:
+//     an A row's source address is computed once a k-tile from a table of
+//     (b*T, t) per row, and the tap (k, c) of the thread's column is
+//     advanced, not divided. The conv's zero padding (rows outside [0, T)
+//     of their own batch row, which a tile may cross) is zero fill
+//     (src-size 0).
+//  2. Exposed latency. A ring of STAGES shared-memory stages; one producer
+//     warpgroup keeps up to STAGES k-tiles in flight, each stage's copies
+//     arriving on its `full` mbarrier (cp.async.mbarrier.arrive.noinc), and
+//     the two consumer warpgroups release a stage on its `empty` mbarrier
+//     when their products have read it. setmaxnreg hands the producer's
+//     registers to the consumers. No TMA: the shifted activation rows need
+//     zero fill per row at batch-row edges inside a tile, which a tensor
+//     map's box does not give, so one cp.async loader serves every operand
+//     (TMA would serve only B, through cuTensorMapEncodeTiled).
+//  3. FMA units. wgmma m64n128k8 .tf32, A (split in registers) from
+//     registers, B's hi and lo K-major in shared memory (128-byte swizzle,
+//     written by cp.async in that pattern): 12 wgmmas a 32-deep k-tile.
+//     Block tile 128 x 128, each consumer warpgroup 64 x 128.
+//  4. Shape. SSRN's HC(3,1) is 3,360 output tiles forward; a block holds
+//     one SM (the ring is 200 KB), so the grid runs ~25 waves there.
+// Layouts. tf32 wgmma takes B K-major only, so each product's B is a split
+// copy made by the prep kernels, K-major: forward W^T per tap (2C, K*C);
+// dx W[k, c, j] read as (c, (k, j)), K-major as it lies (split in place);
+// dW dh^T (2C, B*T). A is read from shared memory into registers, so any
+// staged layout serves: taps(x) rows for the forward, shifted dh rows for
+// dx, and for dW x rows staged (q, m), q = (b, t), m = (k, c). dW splits dh
+// and not x: dh^T's rows stay 16-byte aligned at any T, where an x^T of
+// padded batch rows would put the shift k*rate inside a 16-byte copy.
+// Accumulation. The tensor cores' float32 sums truncate over long depths
+// (dW's is B*T), so every PROMOTE k-tiles the wgmma accumulators are added
+// into separate float32 register sums and restart from zero.
 // The layer norms, gate and their gradients are a few passes over (B*T, 2C)
 // rows, bound by device memory. No fast math.
 //
@@ -36,22 +81,23 @@
 // on the tensor cores (mma.sync m16n8k16 bf16 -> float32), sums in float32:
 // h = bf16(taps) @ bf16(W), dx = bf16(dh) @ bf16(W)^T, dW = bf16(taps)^T @
 // bf16(dh). Bound: the same operations at the dense bf16 rate. hc_gemm_bf16
-// keeps hc_gemm's tiles, loaders and split, so the tap gather stays in the
-// loader: each thread fetches float32 elements through load_a / load_b,
-// rounds them and stores them to shared memory with k contiguous (the
-// fragment layout of csrc/bf16_gemm.cuh), the next k-tile's fetch in flight
-// during the products. Each 32-deep k-tile's products are summed on the
-// tensor cores from zero and then added to float32 register sums: a long
-// tensor-core accumulation truncates (Q reaches 3072, dW's depth B*T). The
-// row kernels stay float32, and every sum keeps its fixed order.
+// has 128x128 tiles and a scalar loader: each thread fetches float32
+// elements through load_a / load_b, rounds them and stores them to shared
+// memory with k contiguous (the fragment layout of csrc/bf16_gemm.cuh), the
+// next k-tile's fetch in flight during the products. Each 32-deep k-tile's
+// products are summed on the tensor cores from zero and then added to
+// float32 register sums: a long tensor-core accumulation truncates (Q
+// reaches 3072, dW's depth B*T). The row kernels stay float32, and every
+// sum keeps its fixed order.
 
 #include <cuda_runtime.h>
 
 #include "bf16_gemm.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8, GT = 256;
+constexpr int BM = 128, BN = 128, GT = 256;  // the bf16 body's tiles
 constexpr int RT = 256;  // threads of the row kernels
 constexpr int FWD = 0, DX = 1, DW = 2;
 
@@ -87,82 +133,259 @@ __device__ __forceinline__ float load_b(const float* __restrict__ Bm, int q,
   return Bm[(size_t)q * N + n];  // FWD: W as (K*C, 2C); DW: dh as (B*T, 2C)
 }
 
-// out (M, N) = A (M, Q) @ B (Q, N) over q in [z*q_split, (z+1)*q_split):
-//   FWD: out = acc + bias;  DX: out += acc;  DW: out[z] = acc (partials)
+// ---------------------------------------------------------------------------
+// The float32 products on the tensor cores (3xTF32; see the top)
+
+constexpr int TBM = 128, TBN = 128;  // block tile
+constexpr int TBK = 32;              // k-tile: 32 floats, one 128-byte row
+constexpr int STAGES = 4;            // shared-memory ring
+// k-tiles summed on the tensor cores between promotions to the float32
+// register sums: fixed at 4, chosen on the card against K4's gate at SSRN's
+// shape (without promotion dW fails it; PERF.md)
+constexpr int PROMOTE = 4;
+constexpr int TC_THREADS = 384;      // consumer warpgroups 0, 1; producer 2
+constexpr int A_PITCH = TBK + 4;     // FWD/DX A tile [m][k]: conflict-free
+constexpr int AT_PITCH = TBM + 8;    // DW A tile [q][m]: conflict-free
+constexpr int B_BYTES = TBN * TBK * 4;             // one of B's parts
+constexpr int A_BYTES = TBM * A_PITCH * 4;         // >= TBK * AT_PITCH * 4
+constexpr int STAGE_BYTES = 2 * B_BYTES + A_BYTES; // B hi | B lo | A
+constexpr size_t TC_SMEM = 1024 + (size_t)STAGES * STAGE_BYTES +
+                           2 * STAGES * sizeof(uint64_t) + TBM * sizeof(int2);
+static_assert(STAGE_BYTES % 1024 == 0, "B tiles must stay 1024-aligned");
+static_assert(TBK * AT_PITCH * 4 <= A_BYTES, "DW's A tile must fit");
+
+// out (M, N) = A (M, Q) @ B (Q, N) over q in [z*q_split, (z+1)*q_split),
+// z = blockIdx.z:  FWD: out = acc + bias;  DX: out += acc;
+// DW: out[z] = acc (partials). A is read through the tap gather of MODE
+// (load_a's indexing); B as its split parts Bhi, Blo:
+//   FWD, DW: row n of ldb floats, q contiguous (W^T per tap; dh^T)
+//   DX:      W[k, n, j] at q = (k, j), in W's own layout
+struct TcArgs {
+  const float* A;
+  const float* Bhi;
+  const float* Blo;
+  float* out;
+  const float* bias;
+  int M, N, Q, q_split, ldb;
+  int T, C, rate, left;
+};
+
 template <int MODE>
-__global__ void __launch_bounds__(GT)
-hc_gemm(const float* __restrict__ A, const float* __restrict__ Bm,
-        float* __restrict__ out, const float* __restrict__ bias, int M, int N,
-        int Q, int q_split, int T, int C, int rate, int left) {
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN + 4];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = (int)blockIdx.y * BM, n0 = (int)blockIdx.x * BN;
-  const int qb = (int)blockIdx.z * q_split, qe = min(Q, qb + q_split);
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+__global__ void __launch_bounds__(TC_THREADS, 1) tc_gemm(const TcArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  // the B tiles start on 1024-byte boundaries of the shared window
+  uint8_t* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = (uint64_t*)(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  int2* rows = (int2*)(empty + STAGES);  // FWD/DX: (b*T, t) of each A row
+  const int tid = threadIdx.x;
+  const int m0 = (int)blockIdx.y * TBM, n0 = (int)blockIdx.x * TBN;
+  const int qb = (int)blockIdx.z * p.q_split;
+  const int qe = min(p.Q, qb + p.q_split);
+  const int nk = qe > qb ? (qe - qb + TBK - 1) / TBK : 0;
+  const int T = p.T;
 
-  for (int q0 = qb; q0 < qe; q0 += BK) {
-    // neighbouring threads read neighbouring addresses: along q where the
-    // source is contiguous in q, along m (DW's x) or n otherwise
+  if (tid == 0) {
 #pragma unroll
-    for (int i = 0; i < BM * BK / GT; ++i) {
-      const int idx = tid + i * GT;
-      const int mm = MODE == DW ? idx % BM : idx / BK;
-      const int qq = MODE == DW ? idx / BM : idx % BK;
-      const int m = m0 + mm, q = q0 + qq;
-      As[qq][mm] = (m < M && q < qe)
-                       ? load_a<MODE>(A, m, q, T, C, rate, left) : 0.f;
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 128);  // one cp.async arrival a producer
+      sm90::mbar_init(&empty[s], 256); // one arrival a consumer thread
     }
-#pragma unroll
-    for (int i = 0; i < BN * BK / GT; ++i) {
-      const int idx = tid + i * GT;
-      const int nn = MODE == DX ? idx / BK : idx % BN;
-      const int qq = MODE == DX ? idx % BK : idx / BN;
-      const int n = n0 + nn, q = q0 + qq;
-      Bs[qq][nn] = (n < N && q < qe) ? load_b<MODE>(Bm, q, n, N, C) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN + 4]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    sm90::mbar_fence_init();
   }
-
-  float* o = MODE == DW ? out + (size_t)blockIdx.z * M * N : out;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (n >= N) continue;
-      const size_t at = (size_t)m * N + n;
-      if (MODE == FWD) o[at] = acc[i][j] + bias[n];
-      else if (MODE == DX) o[at] += acc[i][j];
-      else o[at] = acc[i][j];
+  if (MODE != DW)
+    for (int r = tid; r < TBM; r += TC_THREADS) {
+      const int m = m0 + r, b = m / T;
+      rows[r] = m < p.M ? make_int2(b * T, m - b * T) : make_int2(-1, 0);
     }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // ---------------- producer warpgroup: cp.async into the ring
+    sm90::regs_dec<56>();
+    const int pt = tid - 256;
+    const int col = pt & 7, row0 = pt >> 3;  // A (FWD/DX) and B: rows
+                                             // row0 + 16i, 16-byte chunk col
+    const int swz = (col ^ (row0 & 7)) * 16; // its place in a B row
+    // FWD/DX: the tap (k, c) of this thread's chunk q = q0 + 4*col, c over
+    // Cq = C (x) or 2C (dh)
+    const int Cq = MODE == DX ? 2 * p.C : p.C;
+    int k = 0, c = 0;
+    if (MODE != DW) {
+      const int q = qb + 4 * col;
+      k = q / Cq;
+      c = q - k * Cq;
+    }
+    // DW: this thread's A column m = m0 + 4*mc, q rows pt/32 + 4i
+    const int mc = pt & 31;
+    const int mw = m0 + 4 * mc, km = mw / p.C, cm = mw - km * p.C;
+    const int shift_m = km * p.rate - p.left;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % STAGES;
+      if (kt >= STAGES) sm90::mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
+      uint8_t* st = smem + s * STAGE_BYTES;
+      const uint32_t bhi = sm90::smem_u32(st), blo = bhi + B_BYTES;
+      const uint32_t as = bhi + 2 * B_BYTES;
+      const int q0 = qb + kt * TBK;
+      const int q = q0 + 4 * col;
+      const bool qok = q < qe;
+      // B: 128 rows x 8 chunks, hi and lo
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = row0 + 16 * i, n = n0 + r;
+        const bool ok = qok && n < p.N;
+        size_t off = 0;
+        if (ok)
+          off = MODE == DX ? ((size_t)k * p.C + n) * Cq + c
+                           : (size_t)n * p.ldb + q;
+        const uint32_t d = r * 128 + swz;
+        sm90::cp_async16(bhi + d, p.Bhi + off, ok ? 16 : 0);
+        sm90::cp_async16(blo + d, p.Blo + off, ok ? 16 : 0);
+      }
+      if (MODE != DW) {
+        // A: 128 rows x 8 chunks; row m reads row s of its own batch row
+        const int shift = MODE == DX ? p.left - k * p.rate
+                                     : k * p.rate - p.left;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = row0 + 16 * i;
+          const int2 bt = rows[r];
+          const int sr = bt.y + shift;
+          const bool ok = qok && bt.x >= 0 && sr >= 0 && sr < T;
+          const size_t off = ok ? (size_t)(bt.x + sr) * Cq + c : 0;
+          sm90::cp_async16(as + (r * A_PITCH + 4 * col) * 4, p.A + off,
+                           ok ? 16 : 0);
+        }
+        c += TBK;  // the next k-tile's tap
+        while (c >= Cq) {
+          c -= Cq;
+          ++k;
+        }
+      } else {
+        // A: 32 q rows x 32 chunks of m; x[b, t + k*rate - left, c]
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = (pt >> 5) + 4 * i, qr = q0 + r;
+          const int b = qr / T, sr = qr - b * T + shift_m;
+          const bool ok = qr < qe && mw < p.M && sr >= 0 && sr < T;
+          const size_t off = ok ? ((size_t)b * T + sr) * p.C + cm : 0;
+          sm90::cp_async16(as + (r * AT_PITCH + 4 * mc) * 4, p.A + off,
+                           ok ? 16 : 0);
+        }
+      }
+      sm90::cp_async_arrive(&full[s]);
+    }
+    sm90::cp_async_wait_all();
+  } else {
+    // ---------------- consumer warpgroups: 64 rows x 128 columns each
+    sm90::regs_inc<224>();
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int ra = wg * 64 + warp * 16 + g;  // A rows ra, ra + 8 of the tile
+    float acc[64], sum[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = sum[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % STAGES;
+      sm90::mbar_wait(&full[s], (kt / STAGES) & 1);
+      sm90::fence_proxy_async();
+      const uint8_t* st = smem + s * STAGE_BYTES;
+      const float* as = (const float*)(st + 2 * B_BYTES);
+      uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int r = ra + 8 * (v & 1), kk = ks * 8 + t4 + 4 * (v >> 1);
+          const float a = MODE == DW ? as[kk * AT_PITCH + r]
+                                     : as[r * A_PITCH + kk];
+          sm90::tf32_split(a, ahi[ks][v], alo[ks][v]);
+        }
+      const uint32_t bhi = sm90::smem_u32(st), blo = bhi + B_BYTES;
+      const int keep = kt % PROMOTE != 0;  // 0: restart the tensor-core sum
+      sm90::fence_regs(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        sm90::wgmma_m64n128k8_tf32(acc, ahi[ks],
+                                   sm90::desc_sw128(bhi + 32 * ks),
+                                   ks == 0 ? keep : 1);
+        sm90::wgmma_m64n128k8_tf32(acc, ahi[ks],
+                                   sm90::desc_sw128(blo + 32 * ks), 1);
+        sm90::wgmma_m64n128k8_tf32(acc, alo[ks],
+                                   sm90::desc_sw128(bhi + 32 * ks), 1);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      sm90::mbar_arrive(&empty[s]);
+      if (kt % PROMOTE == PROMOTE - 1 || kt == nk - 1)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sum[i] += acc[i];
+    }
+    float* o = MODE == DW ? p.out + (size_t)blockIdx.z * p.M * p.N : p.out;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + ra + 8 * h, n = n0 + 8 * i + 2 * t4;
+        if (m >= p.M || n >= p.N) continue;  // N is even
+        float2* at = reinterpret_cast<float2*>(o + (size_t)m * p.N + n);
+        float2 v = make_float2(sum[4 * i + 2 * h], sum[4 * i + 2 * h + 1]);
+        if (MODE == FWD) {
+          v.x += p.bias[n];
+          v.y += p.bias[n + 1];
+        } else if (MODE == DX) {
+          const float2 r = *at;
+          v.x += r.x;
+          v.y += r.y;
+        }
+        *at = v;
+      }
+  }
+}
+
+// hi, lo = the TF32 split of src's n floats, in src's layout
+__global__ void tf32_parts(const float* __restrict__ src,
+                           float* __restrict__ hi, float* __restrict__ lo,
+                           size_t n) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    uint32_t h, l;
+    sm90::tf32_split(src[i], h, l);
+    hi[i] = __uint_as_float(h);
+    lo[i] = __uint_as_float(l);
+  }
+}
+
+// src (R, Cc) row-major -> hi, lo (Cc, ld): the TF32 split of src^T, zero in
+// columns [R, ld). 32 x 32 tiles through shared memory; block (32, 8).
+__global__ void tf32_parts_t(const float* __restrict__ src,
+                             float* __restrict__ hi, float* __restrict__ lo,
+                             int R, int Cc, int ld) {
+  __shared__ float tile[32][33];
+  const int c0 = (int)blockIdx.x * 32, r0 = (int)blockIdx.y * 32;
+  const int tx = threadIdx.x;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int r = r0 + i, c = c0 + tx;
+    tile[i][tx] = (r < R && c < Cc) ? src[(size_t)r * Cc + c] : 0.f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int c = c0 + i, r = r0 + tx;
+    if (c >= Cc || r >= ld) continue;
+    uint32_t h, l;
+    sm90::tf32_split(tile[tx][i], h, l);
+    hi[(size_t)c * ld + r] = __uint_as_float(h);
+    lo[(size_t)c * ld + r] = __uint_as_float(l);
   }
 }
 
 constexpr int HBK = 32;   // k-tile depth of the bf16 GEMM
 constexpr int HLD = 40;   // its shared row pitch in bf16: conflict-free frags
 
-// hc_gemm's product with bf16 operands on the tensor cores (see the top).
+// The tap products with bf16 operands on the tensor cores (see the top).
 // Warp w holds rows (w/4)*64 + [0, 64) and columns (w%4)*32 + [0, 32) of the
 // block's 128 x 128 tile as 4 x 4 m16n8 fragments.
 template <int MODE>
@@ -178,7 +401,8 @@ hc_gemm_bf16(const float* __restrict__ A, const float* __restrict__ Bm,
   const int g = lane >> 2, t2 = (lane & 3) * 2;
   const int m0 = (int)blockIdx.y * BM, n0 = (int)blockIdx.x * BN;
   const int qb = (int)blockIdx.z * q_split, qe = min(Q, qb + q_split);
-  // neighbouring threads read neighbouring addresses, as in hc_gemm
+  // neighbouring threads read neighbouring addresses: along q where the
+  // source is contiguous in q, along m (DW's x) or n otherwise
   auto a_at = [&](int i, int& mm, int& qq) {
     const int idx = tid + i * GT;
     mm = MODE == DW ? idx % BM : idx / HBK;
@@ -429,24 +653,49 @@ __global__ void hc_col_sum(const float* __restrict__ part, int n_parts,
   out[j] = s;
 }
 
-// the product on the float32 FMA units, or with bf16 operands on the tensor
-// cores; row ranges of q_split a multiple of the k-tile (a range past Q
-// writes a zero partial)
+// the float32 product on the tensor cores: out = A @ B from B's split parts
 template <int MODE>
-cudaError_t gemm(const float* A, const float* Bm, float* out,
-                 const float* bias, int M, int N, int Q, int splits, int T,
-                 int C, int rate, int left, bool bf16_ops, cudaStream_t st) {
-  const int depth = bf16_ops ? HBK : BK;
-  int q_split = (Q + splits - 1) / splits;
-  q_split = (q_split + depth - 1) / depth * depth;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  if (bf16_ops)
-    hc_gemm_bf16<MODE><<<grid, GT, 0, st>>>(A, Bm, out, bias, M, N, Q,
-                                            q_split, T, C, rate, left);
-  else
-    hc_gemm<MODE><<<grid, GT, 0, st>>>(A, Bm, out, bias, M, N, Q, q_split,
-                                       T, C, rate, left);
+cudaError_t gemm_tc(const TcArgs& a, int splits, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      tc_gemm<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)TC_SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.N + TBN - 1) / TBN, (a.M + TBM - 1) / TBM, splits);
+  tc_gemm<MODE><<<grid, TC_THREADS, TC_SMEM, st>>>(a);
   return cudaGetLastError();
+}
+
+// the product with bf16 operands on the tensor cores; row ranges of q_split
+// a multiple of the k-tile (a range past Q writes a zero partial)
+template <int MODE>
+cudaError_t gemm_bf16(const float* A, const float* Bm, float* out,
+                      const float* bias, int M, int N, int Q, int splits,
+                      int T, int C, int rate, int left, cudaStream_t st) {
+  int q_split = (Q + splits - 1) / splits;
+  q_split = (q_split + HBK - 1) / HBK * HBK;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  hc_gemm_bf16<MODE><<<grid, GT, 0, st>>>(A, Bm, out, bias, M, N, Q, q_split,
+                                          T, C, rate, left);
+  return cudaGetLastError();
+}
+
+// W (K*C, 2C) -> W^T's split parts (2C, K*C) at wt, wt + K*C*2C
+cudaError_t split_wt(const float* w, float* wt, int KC, int C2,
+                     cudaStream_t st) {
+  const dim3 grid((C2 + 31) / 32, (KC + 31) / 32);
+  tf32_parts_t<<<grid, dim3(32, 8), 0, st>>>(w, wt, wt + (size_t)KC * C2, KC,
+                                             C2, KC);
+  return cudaGetLastError();
+}
+
+// h = taps(x) @ W + b from W^T's split parts wt
+cudaError_t fwd_tc(const float* x, const float* wt, const float* b, float* h,
+                   int M, int T, int C, int K, int rate, int left,
+                   cudaStream_t st) {
+  const int KC = K * C;
+  const TcArgs a{x, wt, wt + (size_t)KC * 2 * C, h, b, M, 2 * C, KC,
+                 (KC + TBK - 1) / TBK * TBK, KC, T, C, rate, left};
+  return gemm_tc<FWD>(a, 1, st);
 }
 
 bool bad_geometry(int Bn, int T, int C, int K, int rate, int left) {
@@ -454,22 +703,34 @@ bool bad_geometry(int Bn, int T, int C, int K, int rate, int left) {
          left > (K - 1) * rate || (size_t)Bn * T * 2 * C >= (1u << 31);
 }
 
+// the float32 products' 16-byte copies need C % 4 == 0; dh^T's padded rows
+// must stay addressable in int
+bool bad_tc_geometry(int Bn, int T, int C) {
+  const size_t ldq = ((size_t)Bn * T + TBK - 1) / TBK * TBK;
+  return C % 4 != 0 || ldq * 2 * C >= (1u << 31);
+}
+
 }  // namespace
 
 // y = HC(x). h: (B*T, 2C) scratch. bf16_ops: the tap product's operands in
-// bf16 on the tensor cores.
+// bf16 on the tensor cores; otherwise wsplit (2 * K*C*2C floats) holds W^T's
+// TF32 parts for the float32 product.
 extern "C" int dctts_hc_fwd(const float* x, const float* w, const float* b,
                             const float* g1, const float* be1,
                             const float* g2, const float* be2, float* h,
-                            float* y, int Bn, int T, int C, int K, int rate,
-                            int left, float eps, int bf16_ops,
-                            void* stream) {
-  if (bad_geometry(Bn, T, C, K, rate, left))
+                            float* y, float* wsplit, int Bn, int T, int C,
+                            int K, int rate, int left, float eps,
+                            int bf16_ops, void* stream) {
+  if (bad_geometry(Bn, T, C, K, rate, left) ||
+      (!bf16_ops && bad_tc_geometry(Bn, T, C)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int M = Bn * T;
-  cudaError_t e = gemm<FWD>(x, w, h, b, M, 2 * C, K * C, 1, T, C, rate, left,
-                            bf16_ops != 0, st);
+  cudaError_t e;
+  if (bf16_ops)
+    e = gemm_bf16<FWD>(x, w, h, b, M, 2 * C, K * C, 1, T, C, rate, left, st);
+  else if ((e = split_wt(w, wsplit, K * C, 2 * C, st)) == cudaSuccess)
+    e = fwd_tc(x, wsplit, b, h, M, T, C, K, rate, left, st);
   if (e != cudaSuccess) return (int)e;
   hc_fwd_rows<<<M, RT, 0, st>>>(h, x, g1, be1, g2, be2, y, C, eps);
   return (int)cudaGetLastError();
@@ -478,20 +739,27 @@ extern "C" int dctts_hc_fwd(const float* x, const float* w, const float* b,
 // Gradients of HC at (x, params) for the cotangent dy. Scratch: h, dh (B*T,
 // 2C); row_part (ceil(B*T/R), 6C); dw_part (dw_splits, K*C*2C), unused
 // when dw_splits == 1. dparams (6C) = db (2C) | dg1 | dbe1 | dg2 | dbe2.
-// bf16_ops: the three tap products' operands in bf16 on the tensor cores.
+// bf16_ops: the three tap products' operands in bf16 on the tensor cores;
+// otherwise the float32 products' TF32 parts: wsplit (4 * K*C*2C floats) =
+// W^T hi | W^T lo | W hi | W lo, dhsplit (2 * 2C * ldq floats, ldq = B*T
+// rounded up to 32) = dh^T hi | dh^T lo.
 extern "C" int dctts_hc_bwd(const float* x, const float* w, const float* b,
                             const float* g1, const float* be1,
                             const float* g2, const float* be2,
                             const float* dy, float* h, float* dh, float* dx,
                             float* dw, float* dparams, float* row_part,
-                            float* dw_part, int Bn, int T, int C, int K,
-                            int rate, int left, float eps, int R,
-                            int dw_splits, int bf16_ops, void* stream) {
-  if (bad_geometry(Bn, T, C, K, rate, left) || R < 1 || dw_splits < 1)
+                            float* dw_part, float* wsplit, float* dhsplit,
+                            int Bn, int T, int C, int K, int rate, int left,
+                            float eps, int R, int dw_splits, int bf16_ops,
+                            void* stream) {
+  if (bad_geometry(Bn, T, C, K, rate, left) || R < 1 || dw_splits < 1 ||
+      (!bf16_ops && bad_tc_geometry(Bn, T, C)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const bool lo = bf16_ops != 0;
   const int M = Bn * T, n_chunks = (M + R - 1) / R;
+  const int KC = K * C, C2 = 2 * C;
+  const size_t LW = (size_t)KC * C2;
   const size_t smem = sizeof(float) * (10 * (size_t)C + 4 * 32);
   cudaError_t e;
   if (smem > 48 * 1024) {
@@ -500,9 +768,18 @@ extern "C" int dctts_hc_bwd(const float* x, const float* w, const float* b,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  if ((e = gemm<FWD>(x, w, h, b, M, 2 * C, K * C, 1, T, C, rate, left, lo,
-                     st)) != cudaSuccess)
-    return (int)e;
+  if (lo) {
+    e = gemm_bf16<FWD>(x, w, h, b, M, C2, KC, 1, T, C, rate, left, st);
+  } else {
+    float* whi = wsplit + 2 * LW;
+    if ((e = split_wt(w, wsplit, KC, C2, st)) != cudaSuccess) return (int)e;
+    const unsigned nb =
+        (unsigned)(LW < 4096 * 256 ? (LW + 255) / 256 : 4096);
+    tf32_parts<<<nb, 256, 0, st>>>(w, whi, whi + LW, LW);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    e = fwd_tc(x, wsplit, b, h, M, T, C, K, rate, left, st);
+  }
+  if (e != cudaSuccess) return (int)e;
   hc_bwd_rows<<<n_chunks, RT, smem, st>>>(h, x, dy, g1, be1, g2, be2, dh, dx,
                                           row_part, M, C, eps, R);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -511,18 +788,32 @@ extern "C" int dctts_hc_bwd(const float* x, const float* w, const float* b,
                                                            n_chunks, L6,
                                                            dparams);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if ((e = gemm<DX>(dh, w, dx, nullptr, M, C, K * 2 * C, 1, T, C, rate, left,
-                    lo, st)) != cudaSuccess)
-    return (int)e;
   float* dw_out = dw_splits == 1 ? dw : dw_part;
-  if ((e = gemm<DW>(x, dh, dw_out, nullptr, K * C, 2 * C, M, dw_splits, T, C,
-                    rate, left, lo, st)) != cudaSuccess)
-    return (int)e;
-  if (dw_splits > 1) {
-    const size_t LW = (size_t)K * C * 2 * C;
+  if (lo) {
+    if ((e = gemm_bf16<DX>(dh, w, dx, nullptr, M, C, K * C2, 1, T, C, rate,
+                           left, st)) != cudaSuccess ||
+        (e = gemm_bf16<DW>(x, dh, dw_out, nullptr, KC, C2, M, dw_splits, T,
+                           C, rate, left, st)) != cudaSuccess)
+      return (int)e;
+  } else {
+    const float* whi = wsplit + 2 * LW;
+    const TcArgs adx{dh, whi, whi + LW, dx, nullptr, M, C, K * C2,
+                     (K * C2 + TBK - 1) / TBK * TBK, 0, T, C, rate, left};
+    if ((e = gemm_tc<DX>(adx, 1, st)) != cudaSuccess) return (int)e;
+    const int ldq = (M + TBK - 1) / TBK * TBK;
+    const dim3 grid((C2 + 31) / 32, ldq / 32);
+    tf32_parts_t<<<grid, dim3(32, 8), 0, st>>>(
+        dh, dhsplit, dhsplit + (size_t)C2 * ldq, M, C2, ldq);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    int q_split = (M + dw_splits - 1) / dw_splits;
+    q_split = (q_split + TBK - 1) / TBK * TBK;
+    const TcArgs adw{x, dhsplit, dhsplit + (size_t)C2 * ldq, dw_out, nullptr,
+                     KC, C2, M, q_split, ldq, T, C, rate, left};
+    if ((e = gemm_tc<DW>(adw, dw_splits, st)) != cudaSuccess) return (int)e;
+  }
+  if (dw_splits > 1)
     hc_col_sum<<<(unsigned)((LW + 255) / 256), 256, 0, st>>>(dw_part,
                                                              dw_splits, LW,
                                                              dw);
-  }
   return (int)cudaGetLastError();
 }

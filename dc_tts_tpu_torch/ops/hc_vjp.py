@@ -27,14 +27,35 @@ float32 operations each, ~1 TFLOP per SSRN step at full width. The TPU
 kernel holds a batch row and the weights in VMEM and accumulates the
 weight gradients across its sequential grid; the GPU runs blocks in
 parallel with 227 KB of shared memory at most, so the port splits the work:
-a tiled SGEMM whose tile loader does the tap gather (x is never copied into
+a tensor-core GEMM whose loader does the tap gather (x is never copied into
 a taps matrix), then row kernels for the layer norms and the gate. The
 backward recomputes h as the TPU kernel does, gathers dx (each output row
 sums the K taps that read it, so there are no atomics), and sums dW, db and
-the layer-norm gradients over B*T rows in two stages: partials per tile or
-row chunk, then a fixed-order sum. Gradients are therefore bitwise
+the layer-norm gradients over B*T rows in two stages: partials per row range
+or row chunk, then a fixed-order sum. Gradients are therefore bitwise
 reproducible. There is no time tiling to choose and no VMEM gate: every HC
 shape of the trainer runs; an input the kernels do not take raises.
+
+The float32 products are float32 on the tensor cores by a three-term TF32
+split (3xTF32), the Hopper form of the TPU kernel's ``Precision.HIGHEST``
+(a split into bf16 parts on its matrix unit): each operand value is
+``hi + lo`` with both parts rounded to TF32 (``tf32_split``: to nearest, ties
+away, the low 13 mantissa bits cleared), and each product is
+``hi*hi + hi*lo + lo*hi`` with float32 sums (wgmma m64n128k8 .tf32, 128 x
+128 block tiles, 32-deep k-tiles). Its bound is 3 x the float32 operations
+at 495 TFLOP/s, 2.5 times less time than the same work on the FMA units
+(67 TFLOP/s). What it does about what held the SIMT SGEMM before it:
+
+- the tap gather is 16-byte ``cp.async`` copies, each row's source address
+  computed once a k-tile, the conv's padding zero fill;
+- the copies are asynchronous: a ring of 4 shared-memory stages fed by a
+  producer warpgroup, completion on ``mbarrier``s, two consumer warpgroups
+  on the tensor cores;
+- tf32 ``wgmma`` takes both operands K-major, so each product's B is a TF32
+  split copy made once a call (W^T per tap for h, W in its layout for dx,
+  dh^T for dW) and A, split in registers, may be staged in any layout;
+- the tensor cores' float32 sums truncate over long depths (dW's is B*T),
+  so every few k-tiles they are added into separate float32 register sums.
 
 ``hc_block_fwd`` and ``hc_block_bwd`` launch the kernels for CUDA tensors
 (each counts its launches) and run ``hc_block_fwd_plain`` /
@@ -62,8 +83,9 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-_GEMM_TILE = 128          # csrc/hc_vjp.cu BM = BN
-_GEMM_DEPTH = 8           # csrc/hc_vjp.cu BK
+_GEMM_TILE = 128          # csrc/hc_vjp.cu TBM = TBN, and the bf16 BM = BN
+_GEMM_DEPTH = 32          # csrc/hc_vjp.cu TBK, the float32 core's k-tile
+_BF16_MIN_ROWS = 64       # the bf16 body's dW row ranges: at least 64 rows
 _SMS = 132                # H100 SXM streaming multiprocessors
 _MAX_C = 5600             # hc_bwd_rows keeps 10*C floats in shared memory
 
@@ -89,6 +111,19 @@ def _ln(v: torch.Tensor, eps: float):
     mu = v.mean(dim=-1, keepdim=True)
     inv = torch.rsqrt((v - mu).square().mean(dim=-1, keepdim=True) + eps)
     return (v - mu) * inv, inv
+
+
+def tf32_split(t: torch.Tensor):
+    """(hi, lo) of float32 t, both TF32 values kept in float32: hi = t
+    rounded to nearest with ties away from zero and the low 13 mantissa
+    bits cleared (csrc/sm90.cuh's cvt.rna.tf32.f32), lo = the same rounding
+    of t - hi. hi + lo is t to within ~2^-22 |t|."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(t)
+    return hi, rna(t - hi)
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -165,7 +200,7 @@ def hc_block_bwd_plain(x, w, b, g1, b1, g2, b2, dy, size: int, rate: int,
 # wrappers
 
 
-def _check(name: str, x, w, rows, size: int, extra=()):
+def _check(name: str, x, w, rows, size: int, bf16: bool, extra=()):
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be (B, T, C), got {tuple(x.shape)}")
     B, T, C = x.shape
@@ -186,6 +221,23 @@ def _check(name: str, x, w, rows, size: int, extra=()):
                          "kernel's shared memory")
     if B * T * 2 * C >= 2 ** 31:
         raise ValueError(f"{name}: B*T*2C must be < 2**31")
+    if not bf16 and C % 4:
+        raise ValueError(f"{name}: the float32 products copy 16 bytes at a "
+                         f"time and take C % 4 == 0, got C={C}")
+    if not bf16 and _pad_rows(B * T) * 2 * C >= 2 ** 31:
+        raise ValueError(f"{name}: dh^T's padded rows need "
+                         "ceil(B*T/32)*32*2C < 2**31")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it, at a 16-byte-aligned address (the kernels' copies
+    move 16 bytes)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _pad_rows(M: int) -> int:
+    """dh^T's row pitch: B*T rounded up to the k-tile (csrc/hc_vjp.cu)."""
+    return -(-M // _GEMM_DEPTH) * _GEMM_DEPTH
 
 
 def _row_chunk(M: int) -> int:
@@ -195,12 +247,14 @@ def _row_chunk(M: int) -> int:
     return max(8, -(-M // (4 * _SMS)))
 
 
-def _dw_splits(K: int, C: int, M: int) -> int:
-    """Row ranges the dW product is split over: enough blocks for two per
-    SM, each range at least 8 slices deep."""
+def _dw_splits(K: int, C: int, M: int, bf16: bool = False) -> int:
+    """Row ranges the dW product is split over: enough blocks for two waves
+    of one block per SM, each range at least 8 k-tiles deep (the bf16 body:
+    at least _BF16_MIN_ROWS rows)."""
     t = _GEMM_TILE
     tiles = -(-(K * C) // t) * -(-(2 * C) // t)
-    return max(1, min(-(-2 * _SMS // tiles), M // (8 * _GEMM_DEPTH)))
+    min_rows = _BF16_MIN_ROWS if bf16 else 8 * _GEMM_DEPTH
+    return max(1, min(-(-2 * _SMS // tiles), M // min_rows))
 
 
 def _count(fn, bf16: bool) -> None:
@@ -224,18 +278,20 @@ def hc_block_fwd(x, w, b, g1, b1, g2, b2, size: int, rate: int, causal: bool,
     from ._build import check, load_library
 
     rows = [t.contiguous() for t in (b, g1, b1, g2, b2)]
-    x, w = x.contiguous(), w.contiguous()
-    _check("hc_block_fwd", x, w, rows, size)
+    x, w = _aligned(x.contiguous()), w.contiguous()
+    _check("hc_block_fwd", x, w, rows, size, bf16)
     B, T, C = x.shape
     left, _ = _pads(size, rate, causal)
     lib = load_library()
     h = torch.empty(B, T, 2 * C, device=x.device)
     y = torch.empty_like(x)
+    # W^T's TF32 parts for the float32 product
+    wsplit = torch.empty(0 if bf16 else 2 * w.numel(), device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.dctts_hc_fwd(x.data_ptr(), w.data_ptr(),
                             *(r.data_ptr() for r in rows), h.data_ptr(),
-                            y.data_ptr(), B, T, C, size, rate, left,
-                            float(eps), int(bf16), stream)
+                            y.data_ptr(), wsplit.data_ptr(), B, T, C, size,
+                            rate, left, float(eps), int(bf16), stream)
     check(code, "HC forward kernels")
     _count(hc_block_fwd, bf16)
     return y
@@ -254,15 +310,16 @@ def hc_block_bwd(x, w, b, g1, b1, g2, b2, dy, size: int, rate: int,
     from ._build import check, load_library
 
     rows = [t.contiguous() for t in (b, g1, b1, g2, b2)]
-    x, w, dy = x.contiguous(), w.contiguous(), dy.contiguous()
-    _check("hc_block_bwd", x, w, rows, size, (dy,))
+    x, w = _aligned(x.contiguous()), w.contiguous()
+    dy = dy.contiguous()
+    _check("hc_block_bwd", x, w, rows, size, bf16, (dy,))
     if dy.shape != x.shape:
         raise ValueError(f"hc_block_bwd: dy {tuple(dy.shape)} != x "
                          f"{tuple(x.shape)}")
     B, T, C = x.shape
     M = B * T
     left, _ = _pads(size, rate, causal)
-    R, S = _row_chunk(M), _dw_splits(size, C, M)
+    R, S = _row_chunk(M), _dw_splits(size, C, M, bf16)
     lib = load_library()
     dev = x.device
     h = torch.empty(B, T, 2 * C, device=dev)
@@ -272,12 +329,17 @@ def hc_block_bwd(x, w, b, g1, b1, g2, b2, dy, size: int, rate: int,
     dparams = torch.empty(6 * C, device=dev)
     row_part = torch.empty(-(-M // R), 6 * C, device=dev)
     dw_part = torch.empty(S if S > 1 else 0, *w.shape, device=dev)
+    # the float32 products' TF32 parts: W^T and W (hi, lo each), and dh^T
+    wsplit = torch.empty(0 if bf16 else 4 * w.numel(), device=dev)
+    dhsplit = torch.empty(0 if bf16 else 2 * 2 * C * _pad_rows(M),
+                          device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.dctts_hc_bwd(x.data_ptr(), w.data_ptr(),
                             *(r.data_ptr() for r in rows), dy.data_ptr(),
                             h.data_ptr(), dh.data_ptr(), dx.data_ptr(),
                             dw.data_ptr(), dparams.data_ptr(),
-                            row_part.data_ptr(), dw_part.data_ptr(), B, T, C,
+                            row_part.data_ptr(), dw_part.data_ptr(),
+                            wsplit.data_ptr(), dhsplit.data_ptr(), B, T, C,
                             size, rate, left, float(eps), R, S, int(bf16),
                             stream)
     check(code, "HC backward kernels")

@@ -232,7 +232,13 @@ def _hc_inputs(B, T, C, size, seed, dev):
 
 
 @pytest.mark.parametrize("B,T,C,size,rate,causal", [
-    (2, 100, 64, 3, 27, True), (2, 50, 512, 3, 3, False)])
+    (2, 100, 64, 3, 27, True), (2, 50, 512, 3, 3, False),
+    # the tensor-core core's edges: B*T not a multiple of the 128-row tile,
+    # tiles spanning two batch rows (centred padding); T shorter than a
+    # tile (causal, C = 32); K = 1 with C not a multiple of the k-tile;
+    # C = 1024
+    (3, 100, 64, 3, 9, False), (5, 20, 32, 3, 2, True),
+    (4, 37, 48, 1, 1, False), (2, 300, 1024, 3, 1, False)])
 def test_hc_kernels_match_plain(cuda, B, T, C, size, rate, causal):
     """Forward and all 7 gradients against the plain versions run in
     float64: each within max(2e-5 x its max |value|, 2 x the float32 plain
@@ -297,9 +303,14 @@ def test_hc_bf16_kernels_match_plain(cuda, B, T, C, size, rate, causal):
     assert float((y32 - outs[0]).abs().max()) > 1e-4
 
 
-def test_hc_backward_is_deterministic(cuda):
+@pytest.mark.parametrize("B,T", [(4, 90), (4, 300)])
+def test_hc_backward_is_deterministic(cuda, B, T):
+    """Repeated gradients are bitwise equal; at T=300 dW's depth B*T is
+    split over several row ranges, summed in a fixed order."""
     from dc_tts_tpu_torch.ops import hc_vjp as K4
-    *args, dy = _hc_inputs(4, 90, 128, 3, 9, cuda)
+    *args, dy = _hc_inputs(B, T, 128, 3, 9, cuda)
+    if T == 300:
+        assert K4._dw_splits(3, 128, B * T) > 1
     g1 = K4.hc_block_bwd(*args, dy, 3, 9, False, 1e-5)
     g2 = K4.hc_block_bwd(*args, dy, 3, 9, False, 1e-5)
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))

@@ -4,8 +4,13 @@ against ``hc_block_trainable`` run interpreted, as tests/test_pallas.py
 runs it, with its four (size, rate, causal) cases and a T=100 case.
 Forward at rtol 1e-5 and all 7 gradients at atol 2e-4 (the JAX test's
 bars). The plain backward is also held to torch.autograd of the plain
-forward in float64 (1e-10). The CUDA kernels themselves are checked on the
-card (tests/test_torch_cuda.py, chip_smoke.py)."""
+forward in float64 (1e-10). The float32 core's arithmetic, a three-term
+TF32 split (3xTF32), is checked here without the card: ``tf32_split``'s
+rounding (cvt.rna.tf32.f32 in torch bit operations), and the emulated
+3xTF32 product with float32 sums at SSRN HC(3,1)'s depths within K4's gate,
+max(2e-5 x max |value|, 2 x the float32 product's distance), of float64.
+The CUDA kernels themselves are checked on the card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -100,5 +105,99 @@ def test_wrapper_splits_and_pads():
     # full-width trainer shapes: dW splits and backward row chunks
     assert K4._dw_splits(3, 256, 32 * 210) == 11
     assert K4._dw_splits(3, 1024, 32 * 840) == 1
+    assert K4._dw_splits(3, 512, 32 * 180) == 3
+    assert K4._dw_splits(3, 256, 32 * 210, bf16=True) == 11
     assert K4._row_chunk(32 * 840) == 51
     assert K4._row_chunk(10) == 8
+    # dh^T's rows, padded to the 32-deep k-tile
+    assert K4._pad_rows(32 * 210) == 6720
+    assert K4._pad_rows(10) == 32
+
+
+def test_float32_core_shape_rules():
+    """The float32 products copy 16 bytes at a time: C % 4 != 0 raises in
+    the wrapper's check (never a quiet fallback); the bf16 body takes it."""
+    x, w = torch.zeros(2, 5, 6), torch.zeros(3, 6, 12)
+    rows = [torch.zeros(12)] + [torch.zeros(6)] * 4
+    with pytest.raises(ValueError, match="C % 4"):
+        K4._check("hc", x, w, rows, 3, False)
+    K4._check("hc", x, w, rows, 3, True)
+    x, w = torch.zeros(2, 5, 8), torch.zeros(3, 8, 16)
+    K4._check("hc", x, w, [torch.zeros(16)] + [torch.zeros(8)] * 4, 3, False)
+
+
+# ---------------------------------------------------------------------------
+# the 3xTF32 split of the float32 products (csrc/hc_vjp.cu, csrc/sm90.cuh)
+
+
+def test_tf32_split_parts():
+    """hi and lo are TF32 values (low 13 mantissa bits zero) and hi + lo is
+    t within 2^-22 |t|, over magnitudes from 1e-30 to 1e30."""
+    rng = np.random.default_rng(0)
+    t = (rng.standard_normal(20000)
+         * 10.0 ** rng.uniform(-30, 30, 20000)).astype(np.float32)
+    hi, lo = K4.tf32_split(torch.as_tensor(t))
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    t64 = t.astype(np.float64)
+    err = np.abs(hi.double().numpy() + lo.double().numpy() - t64)
+    assert np.all(err <= 2.0 ** -22 * np.abs(t64))
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    """cvt.rna's rounding: a value halfway between two TF32 values goes away
+    from zero, either sign; just below halfway goes to the nearer."""
+    bits = np.array([0x3F801000, 0xBF801000, 0x3F800FFF, 0x3F803000,
+                     0x3F8FF000], np.uint32).view(np.int32)
+    want = np.array([0x3F802000, 0xBF802000, 0x3F800000, 0x3F804000,
+                     0x3F900000], np.uint32).view(np.int32)
+    hi, _ = K4.tf32_split(torch.as_tensor(bits).view(torch.float32))
+    np.testing.assert_array_equal(hi.view(torch.int32).numpy(), want)
+
+
+PROMOTE = 4  # csrc/hc_vjp.cu PROMOTE, fixed: k-tiles a tensor-core sum
+
+
+def _three_tf32(a, b, promote_every):
+    """a (R, Q) @ b (Q, N) as the tensor-core core computes it: per 8-deep
+    step the three products hi*hi + hi*lo + lo*hi (exact, float64) added to
+    a float32 accumulator, which is added to a float32 sum and restarted
+    every ``promote_every`` 32-deep k-tiles."""
+    ah, al = (p.double().numpy() for p in K4.tf32_split(torch.as_tensor(a)))
+    bh, bl = (p.double().numpy() for p in K4.tf32_split(torch.as_tensor(b)))
+    R, Q = a.shape
+    steps = Q // 8
+    def per_step(x, y):
+        return np.einsum("rsk,skn->srn", x.reshape(R, steps, 8),
+                         y.reshape(steps, 8, -1))
+    parts = per_step(ah, bh) + per_step(ah, bl) + per_step(al, bh)
+    acc = np.zeros(parts.shape[1:], np.float32)
+    total = np.zeros_like(acc)
+    window = 4 * promote_every
+    for s in range(steps):
+        acc = (acc + parts[s]).astype(np.float32)
+        if s % window == window - 1 or s == steps - 1:
+            total = (total + acc).astype(np.float32)
+            acc[:] = 0
+    return total
+
+
+@pytest.mark.parametrize("Q", [3072, 6144, 26880],
+                         ids=["fwd-Q3072", "dx-Q6144", "dw-Q26880"])
+def test_three_tf32_product_within_k4_gate(Q):
+    """The design's numerics at SSRN HC(3,1)'s depths (forward K*C, dx K*2C,
+    dW B*T): the emulated 3xTF32 product with float32 sums sits within K4's
+    gate, max(2e-5 x max |value|, 2 x the float32 product's distance), of
+    the float64 product."""
+    rng = np.random.default_rng(Q)
+    a = rng.standard_normal((4, Q)).astype(np.float32)
+    b = (rng.standard_normal((Q, 6)) * (2.0 / Q) ** 0.5).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    got = _three_tf32(a, b, PROMOTE)
+    plain = (torch.as_tensor(a) @ torch.as_tensor(b)).double().numpy()
+    err = float(np.abs(got - ref).max())
+    gate = max(2e-5 * float(np.abs(ref).max()),
+               2 * float(np.abs(plain - ref).max()))
+    print(f"Q={Q}: 3xTF32 {err:.3e}, gate {gate:.3e}, margin "
+          f"{gate / max(err, 1e-30):.1f}x")
+    assert err <= gate
