@@ -75,7 +75,12 @@ line:
              rounds to the plain version run with float64 sums printed.
              CUDA-event ms of each kernel and of its plain version, the
              bound, and cuBLAS's time for the round's two GEMMs in bf16 as a
-             yardstick (the port never calls it). Then the 50-round
+             yardstick (the port never calls it); beside them the tiles the
+             kernels run (K3a's N tiles and K3b's k-tiles that meet the
+             window's span, of all of them), the operations those tiles
+             take against the dense GEMMs' and the function's, and
+             torch.profiler's device ms of one call by kernel kind (the
+             bf16 prep passes, the GEMMs, the overlap-add). Then the 50-round
              griffin_lim("dft_pallas") on K2's two-tone probe: spectral
              convergence <= 1.10 x the plain dft_mixed schedule's + 0.01 on
              the card, and the loop's ms beside its bound.
@@ -110,7 +115,12 @@ line:
              version with the same bf16 rounding points run in float64, at
              the same gate (2 x the float32 plain bf16 version's distance
              covers the bf16 roundings of dh that float32 rounding flips),
-             bitwise-equal gradients, bounds at 989 TFLOP/s.
+             bitwise-equal gradients, bounds at 989 TFLOP/s. Its cuBLAS
+             yardstick: the same three products as single torch.mm calls on
+             operands already rounded to bf16, float32 outputs
+             (out_dtype=torch.float32), only the products timed; its kinds
+             the GEMMs, the bf16 copies of x and W (to_bf16) and the row
+             kernels.
 9. ct-fwd   - the forward-rDFT prototypes X1-X4 of scripts/ct_kernel_exp.py
              on seeded frames (numpy default_rng(0)), in bf16 and float32:
              X1 full_fwd and X3 fact_fwd (transpose modes swap and stack)
@@ -187,6 +197,12 @@ line:
              exits 0 and writes the 40 wavs.
 13. the kernels line, the nvidia-smi line, and the ``ok`` line.
 
+``python3 chip_smoke.py --only K3,K4-bf16 [--package DIR]`` runs the named
+phases alone (after device and build) and prints their results as one JSON
+line instead of the kernels and ``ok`` lines; with ``--package`` the
+kernels and wrappers come from DIR's dc_tts_tpu_torch (a ``git archive`` of
+another commit), so two commits are timed in one call on one card.
+
 Kernel times are CUDA-event means over repeated calls on the same inputs.
 ``bound_ms`` is the larger of (bytes each input read once + each output
 written once) / 3.35 TB/s and (float32 operations) / 67 TFLOP/s, the
@@ -207,7 +223,8 @@ its row passes (layer norms, gate) add under 1 % at these widths. K4's
 ``ms``, ``plain_ms`` and ``bound_ms`` in the kernels line are sums over
 the three shapes, its ``launches`` the train-t2m and train-ssrn runs'; its
 bf16 body's rows (hc_block_fwd_bf16, hc_block_bwd_bf16) the same at the
-dense bf16 rate, their ``launches`` those of train-bfloat16.
+dense bf16 rate, their ``library_ms`` the bf16 cuBLAS yardstick, their
+``launches`` those of train-bfloat16.
 X1-X4's operations: X1 2*F*2048*2050 (its GEMM, on the bf16 tensor cores
 in bf16 mode); the factored form per frame 2*2*16*16*128 for stage A and
 6*16*128 for W (float32 in both modes), 4*2*16*128*128 + 2*16*128 for C
@@ -694,6 +711,17 @@ def phase_k3(results):
     # the window's win_length samples of K3a's N and K3b's K
     dense1 = griffin_lim_flops(B_MAIN, F, n_fft, 0, "dft") / 2
     flops1 = dense1 * win / n_fft
+    # the tiles the kernels run: K3a's N tiles of 128 and K3b's k-tiles of
+    # 64 that meet the window's span (all of them on a package without
+    # window_span), and the operations those tiles take a pass
+    M = B_MAIN * F
+    (na, ka), (nb, kb) = (tuple(consts[k].shape) for k in ("k3a_hi",
+                                                          "k3b_hi"))
+    span = getattr(K3, "window_span", None)
+    ta = span(g, 128) if span else (0, na // 128)
+    tb = span(g, 64) if span else (0, kb // 64)
+    run_a = 2.0 * M * (ta[1] - ta[0]) * 128 * ka
+    run_b = 2.0 * M * nb * (tb[1] - tb[0]) * 64
     modes = {}
     for three in (False, True):
         npass = 3 if three else 1
@@ -725,6 +753,8 @@ def phase_k3(results):
         del yk, rk, rp, r64, d, cond
         ms_a = cuda_ms(lambda: K3.k3a(Xr, Xi, consts, g, three), 10)
         ms_b = cuda_ms(lambda: K3.k3b(yp, mag, consts, g, three), 10)
+        kinds_a = _kinds(lambda: K3.k3a(Xr, Xi, consts, g, three), K3_KINDS)
+        kinds_b = _kinds(lambda: K3.k3b(yp, mag, consts, g, three), K3_KINDS)
         plain_a = cuda_ms(lambda: K3.k3a_plain(Xr, Xi, consts, g, three), 3)
         plain_b = cuda_ms(lambda: K3.k3b_plain(yp, mag, consts, g, three), 3)
         lo = ("_lo",) if three else ()
@@ -756,7 +786,15 @@ def phase_k3(results):
              k3a_plain_ms=f"{plain_a:.3f}", k3b_plain_ms=f"{plain_b:.3f}",
              k3a_bound_ms=f"{b_a[0]:.4f}", k3b_bound_ms=f"{b_b[0]:.4f}",
              bound_by=b_a[1], gflop_each=f"{npass * flops1 / 1e9:.1f}",
-             dense_gemm_gflop_each=f"{npass * dense1 / 1e9:.1f}")
+             dense_gemm_gflop_each=f"{npass * dense1 / 1e9:.1f}",
+             k3a_n_tiles_run=f"{ta[0]}-{ta[1] - 1}/{na // 128}",
+             k3b_k_tiles_run=f"{tb[0]}-{tb[1] - 1}/{kb // 64}",
+             k3a_run_gflop=f"{npass * run_a / 1e9:.1f}",
+             k3b_run_gflop=f"{npass * run_b / 1e9:.1f}",
+             k3a_kinds_ms=kinds_a and {k: round(v, 4)
+                                       for k, v in kinds_a.items()},
+             k3b_kinds_ms=kinds_b and {k: round(v, 4)
+                                       for k, v in kinds_b.items()})
         if not ok:
             raise AssertionError(f"K3 ({npass}-pass) disagrees with its "
                                  f"plain version: k3a {e_a}, k3b {e_b}, "
@@ -768,7 +806,10 @@ def phase_k3(results):
                             k3a_max_abs=d_a, k3a_max_rel=e_a, k3b_err=e_b,
                             round_err=e_r, round_max_conditioned=d_cond,
                             bins_unconditioned=n_ill, bins_over_2e_2=n_over,
-                            round_vs_f64=e_k64, plain_vs_f64=e_p64)
+                            round_vs_f64=e_k64, plain_vs_f64=e_p64,
+                            k3a_kinds_ms=kinds_a, k3b_kinds_ms=kinds_b,
+                            k3a_run_gflop=npass * run_a / 1e9,
+                            k3b_run_gflop=npass * run_b / 1e9)
 
     # a yardstick only, never called by the port: cuBLAS's time for the
     # round's two GEMMs with bf16 operands (and a bf16 output)
@@ -1186,7 +1227,8 @@ def phase_e2e_dft_pallas(results, smi):
         raise AssertionError(f"the stage-timed dft_pallas chain differs from "
                              f"synthesize_ids by {d_st} pcm steps, or the "
                              f"trace holds no kernel ({busy_ms} ms)")
-    results["launches"].update(K3a=launches["K3a"], K3b=launches["K3b"])
+    results.setdefault("launches", {}).update(K3a=launches["K3a"],
+                                              K3b=launches["K3b"])
     results["e2e-dft_pallas"] = dict(
         wall_s=wall, audio_s=audio_s, audio_s_per_s=audio_s / wall,
         sc_mean=float(s3.mean()), sc_dft_pallas2_mean=float(s2.mean()),
@@ -1259,11 +1301,13 @@ def _k4_kernel_bounds(B, T, C, K, bf16):
             _k4_bounds(B, T, C, K, PEAK_TF32, passes=3))
 
 
-def _k4_library(args, dy, size, rate, causal):
+def _k4_library(args, dy, size, rate, causal, bf16=False):
     """CUDA-event ms of the tap products as single cuBLAS calls on
-    materialised operands (float32, TF32 off): (forward: taps @ W,
-    backward: that, dh @ W^T and taps^T @ dh). dh is the cotangent's shape
-    widened to 2C, seeded."""
+    materialised operands: (forward: taps @ W, backward: that, dh @ W^T and
+    taps^T @ dh). float32 with TF32 off, or with ``bf16`` operands already
+    rounded to bf16 and float32 outputs (torch.mm(..., out_dtype=float32),
+    the bf16 tensor cores). Only the products are timed. dh is the
+    cotangent's shape widened to 2C, seeded."""
     from dc_tts_tpu_torch.ops import hc_vjp as K4
 
     x, w = args[0], args[1]
@@ -1271,20 +1315,26 @@ def _k4_library(args, dy, size, rate, causal):
     taps = K4._taps(x, size, rate, causal).reshape(B * T, size * C)
     wm = w.reshape(size * C, 2 * C)
     dh = torch.cat([dy, dy.flip(-1)], -1).reshape(B * T, 2 * C)
+    if bf16:
+        taps, wm, dh = (t.bfloat16().contiguous() for t in (taps, wm, dh))
+
+        def mm(a, b):
+            return torch.mm(a, b, out_dtype=torch.float32)
+    else:
+        mm = torch.matmul
 
     def bwd():
-        torch.matmul(taps, wm)
-        torch.matmul(dh, wm.T)
-        torch.matmul(taps.T, dh)
+        mm(taps, wm)
+        mm(dh, wm.T)
+        mm(taps.T, dh)
 
-    return (cuda_ms(lambda: torch.matmul(taps, wm), 5), cuda_ms(bwd, 3))
+    return (cuda_ms(lambda: mm(taps, wm), 5), cuda_ms(bwd, 3))
 
 
-def _k4_kinds(fn):
-    """torch.profiler's device ms of one fn() call by kernel kind: the GEMMs
-    (tc_gemm, hc_gemm_bf16), the TF32 split copies (tf32_parts*) and the row
-    kernels (hc_*_rows, hc_col_sum); None where the trace holds no device
-    time."""
+def _kinds(fn, table):
+    """torch.profiler's device ms of one fn() call by kernel kind: table
+    maps each kind to the substrings of its kernels' names; None where the
+    trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1293,14 +1343,22 @@ def _k4_kinds(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kinds = {"gemm": 0.0, "split": 0.0, "rows": 0.0}
+    kinds = dict.fromkeys(table, 0.0)
     for name, (ms, _) in device_busy(prof, None)[1].items():
-        kind = ("gemm" if "gemm" in name else
-                "split" if "tf32_parts" in name else
-                "rows" if "_rows" in name or "col_sum" in name else None)
-        if kind:
-            kinds[kind] += ms
+        for kind, keys in table.items():
+            if any(k in name for k in keys):
+                kinds[kind] += ms
+                break
     return kinds if sum(kinds.values()) > 0 else None
+
+
+# K4's kernels by kind: the GEMMs (tc_gemm, the bf16 core's wg::gemm), the
+# TF32 split copies, the bf16 copies of x and W (to_bf16) and the row
+# kernels
+K4_KINDS = {"gemm": ("gemm",), "split": ("tf32_parts",), "bf16": ("to_bf16",),
+            "rows": ("_rows", "col_sum")}
+# K3's: the bf16 prep passes, the GEMMs, the overlap-add
+K3_KINDS = {"prep": ("_prep",), "gemm": ("gemm",), "ola": ("gl_ola",)}
 
 
 def phase_k4(results, bf16=False):
@@ -1328,10 +1386,9 @@ def phase_k4(results, bf16=False):
         plain_b = cuda_ms(lambda: K4.hc_block_bwd_plain(*args, dy, *geo), 3)
         bf, bb, flops = _k4_kernel_bounds(B, T, C, size, bf16)
         fma_f, fma_b, _ = _k4_bounds(B, T, C, size, PEAK_FP32)
-        lib_f, lib_b = ((None, None) if bf16 else
-                        _k4_library(args, dy, size, rate, causal))
-        kinds_f = _k4_kinds(lambda: K4.hc_block_fwd(*args, *geo))
-        kinds_b = _k4_kinds(lambda: K4.hc_block_bwd(*args, dy, *geo))
+        lib_f, lib_b = _k4_library(args, dy, size, rate, causal, bf16)
+        kinds_f = _kinds(lambda: K4.hc_block_fwd(*args, *geo), K4_KINDS)
+        kinds_b = _kinds(lambda: K4.hc_block_bwd(*args, dy, *geo), K4_KINDS)
         line(phase, ok=ok, shape=repr(label), B=B, T=T, C=C, rate=rate,
              causal=causal, bitwise_equal_grads=bitwise,
              **{f"{n}_kernel_vs_f64": f"{d[0]:.3e}" for n, d in dist.items()},
@@ -2220,12 +2277,54 @@ def phase_ct_fwd(results):
                              graph_replayed_launches=replayed)
 
 
-def main() -> int:
+def _only(names, smi) -> int:
+    """Run the named phases alone after device and build (``--only``):
+    their lines, then their results as one JSON line (no ``ok`` line)."""
+    results = {}
+    phases = {"K1": phase_k1, "K1-prec": phase_k1_prec, "K2": phase_k2,
+              "K3": phase_k3,
+              "e2e-dft_pallas": lambda r: phase_e2e_dft_pallas(r, smi),
+              "K4": phase_k4, "K4-bf16": lambda r: phase_k4(r, bf16=True),
+              "ct-fwd": phase_ct_fwd}
+    unknown = [n for n in names if n not in phases and n != "train-routes"]
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {unknown}; known: "
+                         f"{sorted(phases) + ['train-routes']}")
+    for name in names:
+        if name in phases:
+            phases[name](results)
+    if "train-routes" in names:
+        with tempfile.TemporaryDirectory() as root:
+            data, feats = make_corpus_and_features(root)
+            phase_train_routes(results, data, feats)
+    print(json.dumps({"card": smi, "only": names, "results": results},
+                     default=str), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default="", help="comma-separated phases to "
+                    "run alone (K1, K1-prec, K2, K3, e2e-dft_pallas, K4, "
+                    "K4-bf16, ct-fwd, train-routes), e.g. to time them "
+                    "on another commit's package in the same call")
+    ap.add_argument("--package", default="", help="import dc_tts_tpu_torch "
+                    "from this directory (a checkout of another commit, "
+                    "e.g. from git archive) instead of this one's")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.package:
+        sys.path.insert(0, os.path.abspath(args.package))
+    import dc_tts_tpu_torch
+    line("package", path=os.path.dirname(dc_tts_tpu_torch.__file__))
     smi = phase_device()
     phase_build()
+    if args.only:
+        return _only(args.only.split(","), smi)
     results = {}
     phase_k1(results)
     phase_k1_prec(results)

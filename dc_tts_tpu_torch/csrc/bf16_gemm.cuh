@@ -1,5 +1,6 @@
-// The bf16 tensor-core GEMM block shared by K3 (csrc/gl.cu) and X1
-// (csrc/ct_fwd.cu): mma.sync.m16n8k16 with float32 sums on 128 x 128 x 32
+// The bf16 tensor-core GEMM block of X1 (csrc/ct_fwd.cu; its tile sizes
+// keep the K3_ names of the round kernel that first used it):
+// mma.sync.m16n8k16 with float32 sums on 128 x 128 x 32
 // block tiles, 8 warps of 64 x 32, one shared-memory stage refilled from
 // registers that were loaded during the previous stage's products. The A
 // tile loader reads float32 through a caller's fetch and rounds it to bf16

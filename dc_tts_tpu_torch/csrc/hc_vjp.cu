@@ -25,6 +25,9 @@
 //   tf32_parts_t   dh^T, (2C, B*T padded to the k-tile), hi and lo
 //   tc_gemm<DW>    dW = taps(x)^T @ dh over all B*T rows, split over row
 //                  ranges into partials, then hc_col_sum in a fixed order
+// With bf16 operands (bf16 mode, below) the TF32 copies are replaced by
+// to_bf16 (W and x, once a call), hc_bwd_rows writes dh in bf16, and the
+// products are wg::gemm<HcOp<FWD|DX|DW>> (csrc/bf16_wgmma.cuh).
 // Every sum is taken in an order fixed by the shapes alone, so two calls on
 // the same inputs give bitwise-equal results. No float atomics.
 //
@@ -77,61 +80,41 @@
 //
 // bf16 mode (the TPU kernel's bf16 operand body, pallas_hc_vjp.py:_make_dot
 // and _make_dotg, taken under compute_dtype="bfloat16"): the same three tap
-// products with every operand rounded to bf16 (nearest even) and products
-// on the tensor cores (mma.sync m16n8k16 bf16 -> float32), sums in float32:
-// h = bf16(taps) @ bf16(W), dx = bf16(dh) @ bf16(W)^T, dW = bf16(taps)^T @
-// bf16(dh). Bound: the same operations at the dense bf16 rate. hc_gemm_bf16
-// has 128x128 tiles and a scalar loader: each thread fetches float32
-// elements through load_a / load_b, rounds them and stores them to shared
-// memory with k contiguous (the fragment layout of csrc/bf16_gemm.cuh), the
-// next k-tile's fetch in flight during the products. Each 32-deep k-tile's
-// products are summed on the tensor cores from zero and then added to
-// float32 register sums: a long tensor-core accumulation truncates (Q
-// reaches 3072, dW's depth B*T). The row kernels stay float32, and every
-// sum keeps its fixed order.
+// products with every operand rounded to bf16 (nearest even) and float32
+// sums: h = bf16(taps) @ bf16(W), dx = bf16(dh) @ bf16(W)^T, dW = bf16(taps)^T
+// @ bf16(dh). Bound: the same operations at the dense bf16 rate, 989 TFLOP/s
+// (0.366 ms forward, 1.10 backward at SSRN's HC(3,1)). The products run on
+// the pipelined bf16 wgmma core of csrc/bf16_wgmma.cuh (128 x 128 block
+// tiles, 64-deep k-tiles, a 6-stage cp.async ring on mbarriers, promotion
+// to float32 register sums every 2 k-tiles). What it does about what held
+// the scalar-loader mma.sync GEMM it replaces at ~3 % of the bound:
+//  1. Rounding is elementwise, so bf16(taps(x)) = taps(bf16(x)): x and W are
+//     rounded once a call (to_bf16) and hc_bwd_rows writes dh in bf16, where
+//     only the products read it. The loader then gathers bf16 with 16-byte
+//     cp.async as the float32 core's does (the (b*T, t) row table, the tap
+//     (k, c) advanced by 64 a k-tile, the conv's padding as zero fill), with
+//     half the L2 bytes and no split in registers. The copies need C % 8 ==
+//     0. The single producer warp of each SM sub-partition paces the core
+//     (its address arithmetic is one dependent chain a k-tile), so each
+//     thread computes its 8 A rows' source offsets once a tap, not once a
+//     k-tile, and every other operand's rows from one base a k-tile.
+//  2. bf16 wgmma reads either operand from shared memory K-major or
+//     MN-major, so nothing is transposed in device memory: forward A =
+//     taps(x) rows K-major, B = W (K*C, 2C) MN-major as it lies; dx A =
+//     shifted dh rows K-major, B = W[k] read as (c, (k, j)) K-major; dW A =
+//     x rows staged (q, m) MN-major, B = dh (B*T, 2C) MN-major as it lies.
+//  3. dW keeps its split over row ranges and hc_col_sum's fixed-order sum.
+// The row kernels stay float32, and every sum keeps its fixed order.
 
 #include <cuda_runtime.h>
 
-#include "bf16_gemm.cuh"
+#include "bf16_wgmma.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, GT = 256;  // the bf16 body's tiles
 constexpr int RT = 256;  // threads of the row kernels
 constexpr int FWD = 0, DX = 1, DW = 2;
-
-// A[m, q] of each product (zero outside [0, T): the conv's padding)
-template <int MODE>
-__device__ __forceinline__ float load_a(const float* __restrict__ A, int m,
-                                        int q, int T, int C, int rate,
-                                        int left) {
-  if (MODE == FWD) {  // m = (b, t), q = (k, c): x[b, t + k*rate - left, c]
-    const int b = m / T, t = m - b * T, k = q / C, c = q - k * C;
-    const int s = t + k * rate - left;
-    return (s >= 0 && s < T) ? A[((size_t)b * T + s) * C + c] : 0.f;
-  } else if (MODE == DX) {  // m = (b, t), q = (k, j): dh[b, t - k*rate + left, j]
-    const int C2 = 2 * C;
-    const int b = m / T, t = m - b * T, k = q / C2, j = q - k * C2;
-    const int s = t - k * rate + left;
-    return (s >= 0 && s < T) ? A[((size_t)b * T + s) * C2 + j] : 0.f;
-  } else {  // m = (k, c), q = (b, t): x[b, t + k*rate - left, c]
-    const int k = m / C, c = m - k * C, b = q / T, t = q - b * T;
-    const int s = t + k * rate - left;
-    return (s >= 0 && s < T) ? A[((size_t)b * T + s) * C + c] : 0.f;
-  }
-}
-
-// B[q, n] of each product
-template <int MODE>
-__device__ __forceinline__ float load_b(const float* __restrict__ Bm, int q,
-                                        int n, int N, int C) {
-  if (MODE == DX) {  // q = (k, j), n = c: W[k, c, j]
-    const int C2 = 2 * C, k = q / C2, j = q - k * C2;
-    return Bm[((size_t)k * C + n) * C2 + j];
-  }
-  return Bm[(size_t)q * N + n];  // FWD: W as (K*C, 2C); DW: dh as (B*T, 2C)
-}
 
 // ---------------------------------------------------------------------------
 // The float32 products on the tensor cores (3xTF32; see the top)
@@ -382,119 +365,197 @@ __global__ void tf32_parts_t(const float* __restrict__ src,
   }
 }
 
-constexpr int HBK = 32;   // k-tile depth of the bf16 GEMM
-constexpr int HLD = 40;   // its shared row pitch in bf16: conflict-free frags
+// ---------------------------------------------------------------------------
+// The bf16 products on the bf16 wgmma core (see the top)
 
-// The tap products with bf16 operands on the tensor cores (see the top).
-// Warp w holds rows (w/4)*64 + [0, 64) and columns (w%4)*32 + [0, 32) of the
-// block's 128 x 128 tile as 4 x 4 m16n8 fragments.
+// bf16(src) of n floats, rounded to nearest even
+__global__ void to_bf16(const float* __restrict__ src, bf16* __restrict__ dst,
+                        size_t n) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    dst[i] = __float2bfloat16_rn(src[i]);
+}
+
+// out (M, N) = A (M, Q) @ B (Q, N) over q in [z*q_split, (z+1)*q_split),
+// z = blockIdx.z, from the bf16 copies:  FWD: out = acc + bias, A = taps of
+// x (B*T, C), B = W (K*C, 2C);  DX: out += acc, A = taps of dh (B*T, 2C), B
+// = W[k, n, j] at q = (k, j);  DW: out[z] = acc (partials), A[m, q] = x at
+// the tap m = (k, c) of row q, B = dh (B*T, 2C).
+struct HcArgs {
+  const bf16* A;
+  const bf16* B;
+  float* out;
+  const float* bias;
+  int M, N, Q, q_split;
+  int T, C, rate, left;
+};
+
 template <int MODE>
-__global__ void __launch_bounds__(GT)
-hc_gemm_bf16(const float* __restrict__ A, const float* __restrict__ Bm,
-             float* __restrict__ out, const float* __restrict__ bias, int M,
-             int N, int Q, int q_split, int T, int C, int rate, int left) {
-  __shared__ __align__(16) bf16 As[BM][HLD];  // m rows, k contiguous
-  __shared__ __align__(16) bf16 Bs[BN][HLD];  // n rows, k contiguous
-  constexpr int PER = BM * HBK / GT;          // elements of each per thread
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int m0 = (int)blockIdx.y * BM, n0 = (int)blockIdx.x * BN;
-  const int qb = (int)blockIdx.z * q_split, qe = min(Q, qb + q_split);
-  // neighbouring threads read neighbouring addresses: along q where the
-  // source is contiguous in q, along m (DW's x) or n otherwise
-  auto a_at = [&](int i, int& mm, int& qq) {
-    const int idx = tid + i * GT;
-    mm = MODE == DW ? idx % BM : idx / HBK;
-    qq = MODE == DW ? idx / BM : idx % HBK;
+struct HcOp {
+  typedef HcArgs Args;
+  static constexpr int PARTS = 1;
+  static constexpr bool A_MN = MODE == DW, B_MN = MODE != DX;
+  struct Shared {
+    int2 rows[wg::BM];  // FWD/DX: (b*T, t) of each A row
   };
-  auto b_at = [&](int i, int& nn, int& qq) {
-    const int idx = tid + i * GT;
-    nn = MODE == DX ? idx / HBK : idx % BN;
-    qq = MODE == DX ? idx % HBK : idx / BN;
-  };
-  float ra[PER], rb[PER];
-  auto load = [&](int q0) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      int mm, nn, qa, qn;
-      a_at(i, mm, qa);
-      b_at(i, nn, qn);
-      const int m = m0 + mm, n = n0 + nn, q = q0 + qa, p = q0 + qn;
-      ra[i] = (m < M && q < qe) ? load_a<MODE>(A, m, q, T, C, rate, left)
-                                : 0.f;
-      rb[i] = (n < N && p < qe) ? load_b<MODE>(Bm, p, n, N, C) : 0.f;
-    }
-  };
+  const Args p;
+  int m0, n0, qb, qe, nk;
+  bool skip = false;
+  // producer state: FWD/DX the tap (k, c) of this thread's q chunk; DW its
+  // m chunk's tap and the t of its 8 q rows
+  int k = 0, c = 0, shift_m = 0, cm = 0;
+  // FWD/DX: the tap whose rows rowoff holds, and the element offset of the
+  // source row of each of this thread's 8 A rows at that tap (-1: padding)
+  int kcur = -1;
+  int rowoff[8];
+  bool mok = false;
+  int tq[8];
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-
-  if (qb < qe) load(qb);
-  for (int q0 = qb; q0 < qe; q0 += HBK) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      int mm, nn, qa, qn;
-      a_at(i, mm, qa);
-      b_at(i, nn, qn);
-      As[mm][qa] = __float2bfloat16_rn(ra[i]);
-      Bs[nn][qn] = __float2bfloat16_rn(rb[i]);
-    }
-    __syncthreads();
-    if (q0 + HBK < qe) load(q0 + HBK);  // in flight during the products
-
-    float part[4][4][4];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) part[mt][nt][q] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < HBK; ks += 16) {
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) frag_b(bfr[nt], Bs, wn + nt * 8 + g,
-                                            ks + t2);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        uint32_t afr[4];
-        frag_a(afr, As, wm + mt * 16 + g, ks + t2);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16(part[mt][nt], afr, bfr[nt]);
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mt][nt][q] += part[mt][nt][q];
-    __syncthreads();
+  __device__ HcOp(const Args& a) : p(a) {
+    m0 = (int)blockIdx.y * wg::BM;
+    n0 = (int)blockIdx.x * wg::BN;
+    qb = (int)blockIdx.z * p.q_split;
+    qe = min(p.Q, qb + p.q_split);
+    nk = qe > qb ? (qe - qb + wg::BK - 1) / wg::BK : 0;
   }
 
-  // fragment element q sits at row g (+8 for q >= 2), column t2 (+1 if odd)
-  float* o = MODE == DW ? out + (size_t)blockIdx.z * M * N : out;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int m = m0 + wm + mt * 16 + g + (q >> 1) * 8;
-        const int n = n0 + wn + nt * 8 + t2 + (q & 1);
-        if (m >= M || n >= N) continue;
-        const size_t at = (size_t)m * N + n;
-        if (MODE == FWD) o[at] = acc[mt][nt][q] + bias[n];
-        else if (MODE == DX) o[at] += acc[mt][nt][q];
-        else o[at] = acc[mt][nt][q];
+  __device__ void zero_tile(int) {}
+
+  __device__ void init_shared(Shared& sh, int tid) {
+    if (MODE != DW)
+      for (int r = tid; r < wg::BM; r += wg::THREADS) {
+        const int m = m0 + r, b = m / p.T;
+        sh.rows[r] = m < p.M ? make_int2(b * p.T, m - b * p.T)
+                             : make_int2(-1, 0);
       }
-}
+  }
+
+  __device__ void producer_init(const Shared&, int pt) {
+    if (MODE != DW) {
+      const int Cq = MODE == DX ? 2 * p.C : p.C;
+      const int q = qb + 8 * (pt & 7);
+      k = q / Cq;
+      c = q - k * Cq;
+    } else {
+      const int m = m0 + 8 * (pt & 15);
+      mok = m < p.M;
+      const int km = m / p.C;
+      cm = m - km * p.C;
+      shift_m = km * p.rate - p.left;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) tq[i] = (qb + (pt >> 4) + 8 * i) % p.T;
+    }
+  }
+
+  // B rows q0 + r (r = pt/16 + 8i) of a (Q, N) matrix, MN-major
+  __device__ void load_b_rows(uint32_t b, int pt, int q0) const {
+    const int j = pt & 15, n = n0 + 8 * j, rr0 = pt >> 4;
+    const size_t base = (size_t)(q0 + rr0) * p.N + n;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = rr0 + 8 * i;
+      const bool ok = q0 + r < qe && n < p.N;
+      const size_t off = ok ? base + (size_t)(8 * i) * p.N : 0;
+      sm90::cp_async16(b + wg::mnmaj(r, j), p.B + off, ok ? 16 : 0);
+    }
+  }
+
+  __device__ void load(const Shared& sh, int kt, uint32_t a, uint32_t b) {
+    const int pt = threadIdx.x - 256;
+    const int q0 = qb + kt * wg::BK;
+    if (MODE != DW) {
+      // A: 128 rows x 8 chunks; row m reads row s of its own batch row
+      const int col = pt & 7, row0 = pt >> 3;
+      const int Cq = MODE == DX ? 2 * p.C : p.C;
+      const bool qok = q0 + 8 * col < qe;
+      if (k != kcur) {  // a new tap: its source rows
+        const int shift = MODE == DX ? p.left - k * p.rate
+                                     : k * p.rate - p.left;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int2 bt = sh.rows[row0 + 16 * i];
+          const int sr = bt.y + shift;
+          rowoff[i] = bt.x >= 0 && sr >= 0 && sr < p.T ? (bt.x + sr) * Cq
+                                                       : -1;
+        }
+        kcur = k;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const bool ok = qok && rowoff[i] >= 0;
+        const size_t off = ok ? (size_t)rowoff[i] + c : 0;
+        sm90::cp_async16(a + wg::kmaj(row0 + 16 * i, col), p.A + off,
+                         ok ? 16 : 0);
+      }
+      if (MODE == DX) {
+        // B: W[k, n, j] for the same (k, j) chunk, n rows, K-major
+        const size_t base = ((size_t)k * p.C + n0 + row0) * Cq + c;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = row0 + 16 * i;
+          const bool ok = qok && n0 + r < p.N;
+          const size_t off = ok ? base + (size_t)(16 * i) * Cq : 0;
+          sm90::cp_async16(b + wg::kmaj(r, col), p.B + off, ok ? 16 : 0);
+        }
+      } else {
+        load_b_rows(b, pt, q0);
+      }
+      c += wg::BK;  // the next k-tile's tap
+      while (c >= Cq) {
+        c -= Cq;
+        ++k;
+      }
+    } else {
+      // A: 64 q rows x 16 chunks of m; x[b, t + k*rate - left, c], i.e.
+      // x row q + shift_m while t + shift_m stays inside the batch row
+      const int j = pt & 15, rr0 = pt >> 4;
+      const size_t base = (size_t)(q0 + rr0) * p.C + cm;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = rr0 + 8 * i;
+        const int sr = tq[i] + shift_m;
+        const bool ok = mok && q0 + r < qe && sr >= 0 && sr < p.T;
+        const size_t off =
+            ok ? base + (ptrdiff_t)(8 * i + shift_m) * p.C : 0;
+        sm90::cp_async16(a + wg::mnmaj(r, j), p.A + off, ok ? 16 : 0);
+        tq[i] += wg::BK;  // the row 64 further on
+        while (tq[i] >= p.T) tq[i] -= p.T;
+      }
+      load_b_rows(b, pt, q0);
+    }
+  }
+
+  // every value the tile reads back (bias, or dx for DX) is loaded before
+  // the first store: loads after a store to memory they might alias would
+  // each wait their turn
+  __device__ void epilogue(const float (&sum)[64], int r, int t) const {
+    float* o = MODE == DW ? p.out + (size_t)blockIdx.z * p.M * p.N : p.out;
+    float2 add[16][2];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + r + 8 * h, n = n0 + 8 * i + 2 * t;
+        const bool in = m < p.M && n < p.N;  // N is even
+        add[i][h] = make_float2(0.f, 0.f);
+        if (MODE == FWD && in)
+          add[i][h] = make_float2(p.bias[n], p.bias[n + 1]);
+        else if (MODE == DX && in)
+          add[i][h] = *reinterpret_cast<const float2*>(o + (size_t)m * p.N
+                                                       + n);
+      }
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + r + 8 * h, n = n0 + 8 * i + 2 * t;
+        if (m >= p.M || n >= p.N) continue;
+        *reinterpret_cast<float2*>(o + (size_t)m * p.N + n) =
+            make_float2(sum[4 * i + 2 * h] + add[i][h].x,
+                        sum[4 * i + 2 * h + 1] + add[i][h].y);
+      }
+  }
+};
 
 // Sum NV values over the block; every thread gets the sums. The order is
 // fixed (butterfly within warps, then warps in index order).
@@ -569,12 +630,15 @@ hc_fwd_rows(const float* __restrict__ h, const float* __restrict__ x,
 // memory: the chunk's column sums acc[6C] = db (2C) | dgamma1 | dbeta1 |
 // dgamma2 | dbeta2, then one row's n1, n2, dn1, dn2 (C each). A thread owns
 // the columns c = threadIdx.x + i*blockDim.x in every array, so only the
-// row reductions synchronise.
+// row reductions synchronise. dh is written as DH: float, or bf16 (rounded
+// to nearest even) where only the bf16 products read it; db sums the
+// float32 values either way.
+template <class DH>
 __global__ void __launch_bounds__(RT)
 hc_bwd_rows(const float* __restrict__ h, const float* __restrict__ x,
             const float* __restrict__ dy, const float* __restrict__ g1,
             const float* __restrict__ be1, const float* __restrict__ g2,
-            const float* __restrict__ be2, float* __restrict__ dh,
+            const float* __restrict__ be2, DH* __restrict__ dh,
             float* __restrict__ dx, float* __restrict__ part, int M, int C,
             float eps, int R) {
   extern __shared__ float sm[];
@@ -624,8 +688,8 @@ hc_bwd_rows(const float* __restrict__ h, const float* __restrict__ x,
     for (int c = threadIdx.x; c < C; c += blockDim.x) {
       const float da = inv1 * (dn1s[c] - m1 - n1s[c] * m1n);
       const float db = inv2 * (dn2s[c] - m2 - n2s[c] * m2n);
-      dh[row * 2 * C + c] = da;
-      dh[row * 2 * C + C + c] = db;
+      dh[row * 2 * C + c] = (DH)da;
+      dh[row * 2 * C + C + c] = (DH)db;
       acc[c] += da;
       acc[C + c] += db;
     }
@@ -665,17 +729,25 @@ cudaError_t gemm_tc(const TcArgs& a, int splits, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// the product with bf16 operands on the tensor cores; row ranges of q_split
-// a multiple of the k-tile (a range past Q writes a zero partial)
+// the bf16 product on the bf16 wgmma core; row ranges of q_split a
+// multiple of the k-tile (a range past Q writes a zero partial)
 template <int MODE>
-cudaError_t gemm_bf16(const float* A, const float* Bm, float* out,
+cudaError_t gemm_bf16(const bf16* A, const bf16* Bm, float* out,
                       const float* bias, int M, int N, int Q, int splits,
                       int T, int C, int rate, int left, cudaStream_t st) {
   int q_split = (Q + splits - 1) / splits;
-  q_split = (q_split + HBK - 1) / HBK * HBK;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  hc_gemm_bf16<MODE><<<grid, GT, 0, st>>>(A, Bm, out, bias, M, N, Q, q_split,
-                                          T, C, rate, left);
+  q_split = (q_split + wg::BK - 1) / wg::BK * wg::BK;
+  const HcArgs a{A, Bm, out, bias, M, N, Q, q_split, T, C, rate, left};
+  return wg::launch<HcOp<MODE>>(
+      a, dim3((N + wg::BN - 1) / wg::BN, (M + wg::BM - 1) / wg::BM, splits),
+      st);
+}
+
+// dst = bf16(src), n floats
+cudaError_t round_bf16(const float* src, bf16* dst, size_t n,
+                       cudaStream_t st) {
+  const unsigned nb = (unsigned)(n < 4096 * 256 ? (n + 255) / 256 : 4096);
+  to_bf16<<<nb, 256, 0, st>>>(src, dst, n);
   return cudaGetLastError();
 }
 
@@ -704,8 +776,9 @@ bool bad_geometry(int Bn, int T, int C, int K, int rate, int left) {
 }
 
 // the float32 products' 16-byte copies need C % 4 == 0; dh^T's padded rows
-// must stay addressable in int
-bool bad_tc_geometry(int Bn, int T, int C) {
+// must stay addressable in int. The bf16 products' copies need C % 8 == 0.
+bool bad_tc_geometry(int Bn, int T, int C, bool bf16_ops) {
+  if (bf16_ops) return C % 8 != 0;
   const size_t ldq = ((size_t)Bn * T + TBK - 1) / TBK * TBK;
   return C % 4 != 0 || ldq * 2 * C >= (1u << 31);
 }
@@ -713,75 +786,99 @@ bool bad_tc_geometry(int Bn, int T, int C) {
 }  // namespace
 
 // y = HC(x). h: (B*T, 2C) scratch. bf16_ops: the tap product's operands in
-// bf16 on the tensor cores; otherwise wsplit (2 * K*C*2C floats) holds W^T's
-// TF32 parts for the float32 product.
+// bf16 on the bf16 core, wsplit then holding bf16(W) (K*C*2C) | bf16(x)
+// (B*T*C); otherwise wsplit (2 * K*C*2C floats) holds W^T's TF32 parts for
+// the float32 product.
 extern "C" int dctts_hc_fwd(const float* x, const float* w, const float* b,
                             const float* g1, const float* be1,
                             const float* g2, const float* be2, float* h,
-                            float* y, float* wsplit, int Bn, int T, int C,
+                            float* y, void* wsplit, int Bn, int T, int C,
                             int K, int rate, int left, float eps,
                             int bf16_ops, void* stream) {
   if (bad_geometry(Bn, T, C, K, rate, left) ||
-      (!bf16_ops && bad_tc_geometry(Bn, T, C)))
+      bad_tc_geometry(Bn, T, C, bf16_ops != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int M = Bn * T;
   cudaError_t e;
-  if (bf16_ops)
-    e = gemm_bf16<FWD>(x, w, h, b, M, 2 * C, K * C, 1, T, C, rate, left, st);
-  else if ((e = split_wt(w, wsplit, K * C, 2 * C, st)) == cudaSuccess)
-    e = fwd_tc(x, wsplit, b, h, M, T, C, K, rate, left, st);
+  if (bf16_ops) {
+    bf16* wb = static_cast<bf16*>(wsplit);
+    bf16* xb = wb + (size_t)K * C * 2 * C;
+    if ((e = round_bf16(w, wb, (size_t)K * C * 2 * C, st)) == cudaSuccess &&
+        (e = round_bf16(x, xb, (size_t)M * C, st)) == cudaSuccess)
+      e = gemm_bf16<FWD>(xb, wb, h, b, M, 2 * C, K * C, 1, T, C, rate, left,
+                         st);
+  } else {
+    float* ws = static_cast<float*>(wsplit);
+    if ((e = split_wt(w, ws, K * C, 2 * C, st)) == cudaSuccess)
+      e = fwd_tc(x, ws, b, h, M, T, C, K, rate, left, st);
+  }
   if (e != cudaSuccess) return (int)e;
   hc_fwd_rows<<<M, RT, 0, st>>>(h, x, g1, be1, g2, be2, y, C, eps);
   return (int)cudaGetLastError();
 }
 
-// Gradients of HC at (x, params) for the cotangent dy. Scratch: h, dh (B*T,
+// Gradients of HC at (x, params) for the cotangent dy. Scratch: h (B*T,
 // 2C); row_part (ceil(B*T/R), 6C); dw_part (dw_splits, K*C*2C), unused
 // when dw_splits == 1. dparams (6C) = db (2C) | dg1 | dbe1 | dg2 | dbe2.
-// bf16_ops: the three tap products' operands in bf16 on the tensor cores;
-// otherwise the float32 products' TF32 parts: wsplit (4 * K*C*2C floats) =
-// W^T hi | W^T lo | W hi | W lo, dhsplit (2 * 2C * ldq floats, ldq = B*T
-// rounded up to 32) = dh^T hi | dh^T lo.
+// bf16_ops: the three tap products' operands in bf16 on the bf16 core:
+// wsplit = bf16(W) (K*C*2C) | bf16(x) (B*T*C), dhsplit = bf16(dh) (B*T,
+// 2C), dh unused. Otherwise the float32 products: dh (B*T, 2C) float32, and
+// their TF32 parts: wsplit (4 * K*C*2C floats) = W^T hi | W^T lo | W hi | W
+// lo, dhsplit (2 * 2C * ldq floats, ldq = B*T rounded up to 32) = dh^T hi |
+// dh^T lo.
 extern "C" int dctts_hc_bwd(const float* x, const float* w, const float* b,
                             const float* g1, const float* be1,
                             const float* g2, const float* be2,
                             const float* dy, float* h, float* dh, float* dx,
                             float* dw, float* dparams, float* row_part,
-                            float* dw_part, float* wsplit, float* dhsplit,
+                            float* dw_part, void* wsplit, void* dhsplit,
                             int Bn, int T, int C, int K, int rate, int left,
                             float eps, int R, int dw_splits, int bf16_ops,
                             void* stream) {
+  const bool lo = bf16_ops != 0;
   if (bad_geometry(Bn, T, C, K, rate, left) || R < 1 || dw_splits < 1 ||
-      (!bf16_ops && bad_tc_geometry(Bn, T, C)))
+      bad_tc_geometry(Bn, T, C, lo))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool lo = bf16_ops != 0;
   const int M = Bn * T, n_chunks = (M + R - 1) / R;
   const int KC = K * C, C2 = 2 * C;
   const size_t LW = (size_t)KC * C2;
   const size_t smem = sizeof(float) * (10 * (size_t)C + 4 * 32);
   cudaError_t e;
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(hc_bwd_rows,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+    e = lo ? cudaFuncSetAttribute(hc_bwd_rows<bf16>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)
+           : cudaFuncSetAttribute(hc_bwd_rows<float>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
+  bf16* wb = static_cast<bf16*>(wsplit);
+  bf16* xb = wb + LW;
+  bf16* dhb = static_cast<bf16*>(dhsplit);
+  float* ws = static_cast<float*>(wsplit);
   if (lo) {
-    e = gemm_bf16<FWD>(x, w, h, b, M, C2, KC, 1, T, C, rate, left, st);
+    if ((e = round_bf16(w, wb, LW, st)) == cudaSuccess &&
+        (e = round_bf16(x, xb, (size_t)M * C, st)) == cudaSuccess)
+      e = gemm_bf16<FWD>(xb, wb, h, b, M, C2, KC, 1, T, C, rate, left, st);
   } else {
-    float* whi = wsplit + 2 * LW;
-    if ((e = split_wt(w, wsplit, KC, C2, st)) != cudaSuccess) return (int)e;
+    float* whi = ws + 2 * LW;
+    if ((e = split_wt(w, ws, KC, C2, st)) != cudaSuccess) return (int)e;
     const unsigned nb =
         (unsigned)(LW < 4096 * 256 ? (LW + 255) / 256 : 4096);
     tf32_parts<<<nb, 256, 0, st>>>(w, whi, whi + LW, LW);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    e = fwd_tc(x, wsplit, b, h, M, T, C, K, rate, left, st);
+    e = fwd_tc(x, ws, b, h, M, T, C, K, rate, left, st);
   }
   if (e != cudaSuccess) return (int)e;
-  hc_bwd_rows<<<n_chunks, RT, smem, st>>>(h, x, dy, g1, be1, g2, be2, dh, dx,
-                                          row_part, M, C, eps, R);
+  if (lo)
+    hc_bwd_rows<bf16><<<n_chunks, RT, smem, st>>>(
+        h, x, dy, g1, be1, g2, be2, dhb, dx, row_part, M, C, eps, R);
+  else
+    hc_bwd_rows<float><<<n_chunks, RT, smem, st>>>(
+        h, x, dy, g1, be1, g2, be2, dh, dx, row_part, M, C, eps, R);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const size_t L6 = 6 * (size_t)C;
   hc_col_sum<<<(unsigned)((L6 + 255) / 256), 256, 0, st>>>(row_part,
@@ -790,24 +887,25 @@ extern "C" int dctts_hc_bwd(const float* x, const float* w, const float* b,
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   float* dw_out = dw_splits == 1 ? dw : dw_part;
   if (lo) {
-    if ((e = gemm_bf16<DX>(dh, w, dx, nullptr, M, C, K * C2, 1, T, C, rate,
+    if ((e = gemm_bf16<DX>(dhb, wb, dx, nullptr, M, C, K * C2, 1, T, C, rate,
                            left, st)) != cudaSuccess ||
-        (e = gemm_bf16<DW>(x, dh, dw_out, nullptr, KC, C2, M, dw_splits, T,
+        (e = gemm_bf16<DW>(xb, dhb, dw_out, nullptr, KC, C2, M, dw_splits, T,
                            C, rate, left, st)) != cudaSuccess)
       return (int)e;
   } else {
-    const float* whi = wsplit + 2 * LW;
+    const float* whi = ws + 2 * LW;
+    float* dhs = static_cast<float*>(dhsplit);
     const TcArgs adx{dh, whi, whi + LW, dx, nullptr, M, C, K * C2,
                      (K * C2 + TBK - 1) / TBK * TBK, 0, T, C, rate, left};
     if ((e = gemm_tc<DX>(adx, 1, st)) != cudaSuccess) return (int)e;
     const int ldq = (M + TBK - 1) / TBK * TBK;
     const dim3 grid((C2 + 31) / 32, ldq / 32);
     tf32_parts_t<<<grid, dim3(32, 8), 0, st>>>(
-        dh, dhsplit, dhsplit + (size_t)C2 * ldq, M, C2, ldq);
+        dh, dhs, dhs + (size_t)C2 * ldq, M, C2, ldq);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     int q_split = (M + dw_splits - 1) / dw_splits;
     q_split = (q_split + TBK - 1) / TBK * TBK;
-    const TcArgs adw{x, dhsplit, dhsplit + (size_t)C2 * ldq, dw_out, nullptr,
+    const TcArgs adw{x, dhs, dhs + (size_t)C2 * ldq, dw_out, nullptr,
                      KC, C2, M, q_split, ldq, T, C, rate, left};
     if ((e = gemm_tc<DW>(adw, dw_splits, st)) != cudaSuccess) return (int)e;
   }

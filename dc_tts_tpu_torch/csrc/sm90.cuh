@@ -1,9 +1,12 @@
 // Hopper (sm_90a) building blocks as inline PTX, for pipelined tensor-core
 // GEMMs: mbarriers, 16-byte cp.async with zero fill whose completion
 // arrives on an mbarrier, the TF32 hi/lo split, shared-memory matrix
-// descriptors for K-major tiles in the 128-byte swizzle, and wgmma
-// m64n128k8 .f32.tf32.tf32 with A in registers. Used by K4
-// (csrc/hc_vjp.cu); nothing here depends on the kernel that uses it.
+// descriptors for K-major and MN-major tiles in the 128-byte swizzle,
+// wgmma m64n128k8 .f32.tf32.tf32 with A in registers and wgmma
+// m64n128k16 .f32.bf16.bf16 with both operands in shared memory. Used by
+// K4's float32 core (csrc/hc_vjp.cu tc_gemm) and by the bf16 core of
+// csrc/bf16_wgmma.cuh (K4's bf16 body, K3 in csrc/gl.cu); nothing here
+// depends on the kernel that uses it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -116,11 +119,26 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
 // ---------------------------------------------------------------- wgmma
 
 // Descriptor of a K-major tile in the 128-byte swizzle: rows of 128 bytes
-// (32 float32 of k), 16-byte chunk c of row r stored at chunk c ^ (r % 8),
-// 8-row atoms 1024 bytes apart (the stride byte offset); the tile starts on
-// a 1024-byte boundary. Adding 32 bytes to addr steps 8 tf32 along k.
+// (32 float32 or 64 bf16 of k), 16-byte chunk c of row r stored at chunk
+// c ^ (r % 8), 8-row atoms 1024 bytes apart (the stride byte offset); the
+// tile starts on a 1024-byte boundary. Adding 32 bytes to addr steps 8 tf32
+// or 16 bf16 along k.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Descriptor of an MN-major 16-bit tile in the 128-byte swizzle (the
+// canonical layout ((8,8,m),(8,k)) : ((1,8,LBO),(64,SBO)) in elements): one
+// 128-byte row holds 64 consecutive M (or N) elements at one k, 16-byte
+// chunk c of k-row r stored at chunk c ^ (r % 8); 8 k-rows form a
+// 1024-byte atom, atoms along k 1024 bytes apart (the stride byte offset),
+// blocks of 64 along M/N `lbo` bytes apart (the leading byte offset); the
+// tile starts on a 1024-byte boundary. Adding 2048 bytes to addr steps 16
+// along k.
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr,
+                                                  uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
@@ -186,6 +204,50 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
+}
+
+// d (64 x 128, float32) = A (64 x 16, bf16) @ B (16 x 128, bf16) + (scale_d
+// ? d : 0), both operands in shared memory (descriptors), issued by one
+// warpgroup. TA / TB: 0 for a K-major operand, 1 for an MN-major one (the
+// instruction's transpose immediates). d's layout is that of
+// wgmma_m64n128k8_tf32.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
+                                                      uint64_t desc_a,
+                                                      uint64_t desc_b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // ---------------------------------------------------------------- registers

@@ -39,8 +39,8 @@ Fl = ctypes.c_float
 _SIGNATURES = {
     "dctts_decode": [P] * 14 + [I] * 8 + [Fl] + [I] * 7 + [P],
     "dctts_gl2": [P] * 7 + [I] * 8 + [P],
-    "dctts_gl_k3a": [P] * 8 + [I] * 10 + [P],
-    "dctts_gl_k3b": [P] * 7 + [I] * 10 + [P],
+    "dctts_gl_k3a": [P] * 9 + [I] * 12 + [P],
+    "dctts_gl_k3b": [P] * 8 + [I] * 12 + [P],
     "dctts_hc_fwd": [P] * 10 + [I] * 6 + [Fl, I, P],
     "dctts_hc_bwd": [P] * 17 + [I] * 6 + [Fl, I, I, I, P],
     "dctts_ct_full": [P] * 4 + [I] * 2 + [P],

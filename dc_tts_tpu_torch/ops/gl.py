@@ -19,33 +19,38 @@ needs 2*(B*F)*win_length*(2*n_freq) operations per GEMM and pass: at B=20,
 F=840, win 1102, n_freq 1025, 75.9 GFLOP, 0.077 ms at 989 TFLOP/s of bf16
 tensor cores, against 0.05 ms (K3a) and 0.07 ms (K3b) for their inputs and
 outputs at 3.35 TB/s. So the design keeps every product on the tensor cores
-(csrc/gl.cu):
-  * K3a is a tiled GEMM, M = B*F frames, K = 2*n_freq zero-padded to a
-    multiple of 32, N = n_fft: its A loader reads the float32 spectrum rows
-    and splits them into bf16 hi/lo in registers on their way to shared
-    memory (no bf16 copy of X in device memory); the epilogue windows and
-    writes the frames in float32. An overlap-add pass (one thread per sample
-    of the reflect-padded signal, shared with K2: csrc/gl_ola.cuh) sums the
-    <= P frames over each sample, scales by 1/sum(w^2) and mirrors the
-    n_fft/2 edges: the trim and reflect-pad the JAX package does between its
-    two kernels.
-  * K3b is a tiled GEMM, M = B*F, K = n_fft, N = 2*n_freq: its A loader
-    gathers frame j straight from the signal at j*hop (no framed copy),
-    windows and splits it; C and S are interleaved as columns, so each
-    thread's m16n8 accumulator pair is one bin's (Re, Im), and the epilogue
-    normalises the phase and multiplies by mag. Rows F..f2 of the output
-    are zeroed apart.
+(csrc/gl.cu), on the pipelined bf16 ``wgmma`` core it shares with K4's bf16
+body (csrc/bf16_wgmma.cuh: 128 x 128 block tiles, 64-deep k-tiles, a ring of
+shared-memory stages filled by 16-byte ``cp.async`` on ``mbarrier``s,
+both operands K-major in shared memory):
+  * K3a: a prep pass writes [Xr | Xi]'s B*F rows as aligned bf16 hi (and
+    lo) rows, zero-padded to a multiple of 64 (the spectrum's rows of 1025
+    floats are not 16-byte aligned, so no 16-byte copy can read them); the
+    GEMM, M = B*F frames, K = 2*n_freq padded, N = n_fft, runs only the N
+    tiles that meet the window's span (``window_span``: the others are acc
+    * 0 = 0 and are written as zeros), and its epilogue windows and writes
+    the frames in float32. An overlap-add pass (one thread per sample of the
+    reflect-padded signal, shared with K2: csrc/gl_ola.cuh) sums the <= P
+    frames over each sample, scales by 1/sum(w^2) and mirrors the n_fft/2
+    edges: the trim and reflect-pad the JAX package does between its two
+    kernels.
+  * K3b: a prep pass gathers frame j from the signal at j*hop over the
+    k-tiles of the window's span only, windows it (yp*win in float32, the
+    JAX kernel's rounding point) and writes it as bf16 hi (and lo); the
+    GEMM, M = B*F, K = the span's k-tiles, N = 2*n_freq, reads C and S
+    interleaved as columns, so each accumulator pair is one bin's (Re, Im),
+    and the epilogue normalises the phase and multiplies by mag. Rows
+    F..f2 of the output are zeroed apart.
+Skipping the window's zero tails is exact: those products are exactly 0.
 The TPU kernels' padded row tiles and halos exist to fit VMEM: the GEMMs
 run over the F frames only, and fp1 is just the public layout's row count.
-Not yet done: wgmma/TMA pipelines, and skipping the window's zero tails
-(46 % of K3a's N and of K3b's K at win 1102 / n_fft 2048, which the dense
-GEMMs still run).
 
 ``fused_gl_round`` (and ``k3a``/``k3b``) launch the kernels for CUDA tensors
 and run the plain versions for CPU tensors only.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -55,8 +60,9 @@ import torch.nn.functional as F
 from ..dsp.stft import (_dft_mats, _idft_mats, _ola_window_sq, _overlap_add,
                         hann_window, split_bf16)
 
-# csrc/gl.cu's block tile: its constant matrices are padded to these
-_BN, _BK = 128, 32
+# csrc/bf16_wgmma.cuh's block tile (N) and k-tile: the constant matrices
+# are padded to these
+_BN, _BK = 128, 64
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -103,14 +109,26 @@ def gl_geometry(n_fft: int, hop: int, win_length: int, F: int) -> GLGeom:
                   fp1, halo2, tf1, fp1, fp1 + halo2, L_sig)
 
 
+@functools.lru_cache(maxsize=None)
+def window_span(g: GLGeom, tile: int) -> tuple[int, int]:
+    """[t0, t1): the tiles of ``tile`` samples of an n_fft frame that meet
+    the window's nonzero samples (``hann_window(win_length, n_fft)``, the
+    constants' "win"). Outside them the window is exactly 0, so K3a's frame
+    columns there are acc * 0 = 0 and K3b's operands there are 0: the kernels
+    run K3a's N tiles (``_BN``) and K3b's k-tiles (``_BK``) in this range
+    only, with the same result."""
+    nz = np.flatnonzero(hann_window(g.win_length, g.n_fft))
+    return int(nz[0]) // tile, -(-(int(nz[-1]) + 1) // tile)
+
+
 def gl_fused_consts(n_fft: int, hop: int, win_length: int, F: int) -> dict:
     """CPU tensors: "win" (1, n_fft); "wsq_seg" (fp1, hop), the NOLA factor
     truncated to fp1*hop samples and padded with ones; "F_tag" (F, 0) (all
     three the JAX package's entries); and the bf16 hi/lo splits of the
     float32 DFT matrices in the CUDA kernels' layouts, n rows with k
     contiguous, zero-padded: "k3a_hi"/"k3a_lo" ([A ; B] transposed:
-    (ceil128(n_fft), ceil32(2 n_freq))) and "k3b_hi"/"k3b_lo" (row 2k = C[:,
-    k], 2k+1 = S[:, k]: (ceil128(2 n_freq), ceil32(n_fft))). The JAX
+    (ceil128(n_fft), ceil64(2 n_freq))) and "k3b_hi"/"k3b_lo" (row 2k = C[:,
+    k], 2k+1 = S[:, k]: (ceil128(2 n_freq), ceil64(n_fft))). The JAX
     package's "Ab", "Ab_lo", ..., "Sb_lo" are slices of these
     (``_plain_mats``)."""
     g = gl_geometry(n_fft, hop, win_length, F)
@@ -248,11 +266,15 @@ def k3a(Xr, Xi, consts: dict, g: GLGeom, three_pass: bool = False):
            dev)
     frames = torch.empty(B * g.F, n, device=dev)
     yp = torch.empty(B, g.ly, device=dev)
+    # the bf16 rows of [Xr | Xi] (hi, and lo with three_pass)
+    a = torch.empty((2 if three_pass else 1) * B * g.F * hi.shape[1],
+                    dtype=torch.bfloat16, device=dev)
     code = load_library().dctts_gl_k3a(
         Xr.data_ptr(), Xi.data_ptr(), hi.data_ptr(), lo.data_ptr(),
         consts["win"].data_ptr(), consts["wsq_seg"].data_ptr(),
-        frames.data_ptr(), yp.data_ptr(), B, n, g.n_freq, g.F, g.fp1,
-        g.hop, n // 2, g.L_sig, hi.shape[1], int(three_pass),
+        frames.data_ptr(), yp.data_ptr(), a.data_ptr(), B, n, g.n_freq,
+        g.F, g.fp1, g.hop, n // 2, g.L_sig, hi.shape[1],
+        *window_span(g, _BN), int(three_pass),
         torch.cuda.current_stream(dev).cuda_stream)
     check(code, "Griffin-Lim round kernel K3a")
     k3a.launches[3 if three_pass else 1] += 1
@@ -274,11 +296,15 @@ def k3b(yp, mag_p, consts: dict, g: GLGeom, three_pass: bool = False):
     Xr = torch.empty(B, g.f2, g.n_freq, device=dev)
     Xi = torch.empty_like(Xr)
     Xr[:, g.F:], Xi[:, g.F:] = 0.0, 0.0     # the kernel writes rows < F
+    kt0, kt1 = window_span(g, _BK)
+    # the windowed frames over the span's k-tiles in bf16 (hi, and lo)
+    a = torch.empty((2 if three_pass else 1) * B * g.F * (kt1 - kt0) * _BK,
+                    dtype=torch.bfloat16, device=dev)
     code = load_library().dctts_gl_k3b(
         yp.data_ptr(), mag_p.data_ptr(), hi.data_ptr(), lo.data_ptr(),
-        consts["win"].data_ptr(), Xr.data_ptr(), Xi.data_ptr(), B, n,
-        g.n_freq, g.F, g.f2, g.hop, g.ly, hi.shape[1], hi.shape[0],
-        int(three_pass), torch.cuda.current_stream(dev).cuda_stream)
+        consts["win"].data_ptr(), Xr.data_ptr(), Xi.data_ptr(), a.data_ptr(),
+        B, n, g.n_freq, g.F, g.f2, g.hop, g.ly, hi.shape[1], hi.shape[0],
+        kt0, kt1, int(three_pass), torch.cuda.current_stream(dev).cuda_stream)
     check(code, "Griffin-Lim round kernel K3b")
     k3b.launches[3 if three_pass else 1] += 1
     return Xr, Xi

@@ -74,8 +74,16 @@ kernel's points and nowhere else, products and sums stay float32:
     dx   = dy*(1-g) + scatter_k bf16(dh) @ bf16(W_k)^T
 
 The layer norms, the gate and the residual stay float32. On the card the
-products run on the tensor cores (``hc_gemm_bf16``); the wrappers count
-these launches apart, in ``launches_bf16``.
+products run on the pipelined bf16 ``wgmma`` core of csrc/bf16_wgmma.cuh
+(shared with K3): rounding is elementwise, so ``bf16(taps(x)) ==
+taps(bf16(x))`` and x, W and dh are rounded once a call into bf16 copies
+(dh by the backward's row kernel), which the same 16-byte ``cp.async`` tap
+gather as the float32 core's feeds to shared memory; bf16 ``wgmma`` reads
+each operand K-major or MN-major, so W (forward B), dh (dW's B) and x (dW's
+A) are read as they lie, with no transposed copy. 64-deep k-tiles, float32
+register sums promoted every 2 k-tiles. The copies need C % 8 == 0; any
+other C raises. The wrappers count these launches apart, in
+``launches_bf16``.
 """
 from __future__ import annotations
 
@@ -85,7 +93,7 @@ from torch.autograd.function import once_differentiable
 
 _GEMM_TILE = 128          # csrc/hc_vjp.cu TBM = TBN, and the bf16 BM = BN
 _GEMM_DEPTH = 32          # csrc/hc_vjp.cu TBK, the float32 core's k-tile
-_BF16_MIN_ROWS = 64       # the bf16 body's dW row ranges: at least 64 rows
+_BF16_DEPTH = 64          # csrc/bf16_wgmma.cuh BK, the bf16 core's k-tile
 _SMS = 132                # H100 SXM streaming multiprocessors
 _MAX_C = 5600             # hc_bwd_rows keeps 10*C floats in shared memory
 
@@ -224,6 +232,9 @@ def _check(name: str, x, w, rows, size: int, bf16: bool, extra=()):
     if not bf16 and C % 4:
         raise ValueError(f"{name}: the float32 products copy 16 bytes at a "
                          f"time and take C % 4 == 0, got C={C}")
+    if bf16 and C % 8:
+        raise ValueError(f"{name}: the bf16 products copy 16 bytes at a "
+                         f"time and take C % 8 == 0, got C={C}")
     if not bf16 and _pad_rows(B * T) * 2 * C >= 2 ** 31:
         raise ValueError(f"{name}: dh^T's padded rows need "
                          "ceil(B*T/32)*32*2C < 2**31")
@@ -249,11 +260,11 @@ def _row_chunk(M: int) -> int:
 
 def _dw_splits(K: int, C: int, M: int, bf16: bool = False) -> int:
     """Row ranges the dW product is split over: enough blocks for two waves
-    of one block per SM, each range at least 8 k-tiles deep (the bf16 body:
-    at least _BF16_MIN_ROWS rows)."""
+    of one block per SM, each range at least 8 k-tiles deep (32 rows a
+    k-tile float32, 64 bf16)."""
     t = _GEMM_TILE
     tiles = -(-(K * C) // t) * -(-(2 * C) // t)
-    min_rows = _BF16_MIN_ROWS if bf16 else 8 * _GEMM_DEPTH
+    min_rows = 8 * (_BF16_DEPTH if bf16 else _GEMM_DEPTH)
     return max(1, min(-(-2 * _SMS // tiles), M // min_rows))
 
 
@@ -285,8 +296,11 @@ def hc_block_fwd(x, w, b, g1, b1, g2, b2, size: int, rate: int, causal: bool,
     lib = load_library()
     h = torch.empty(B, T, 2 * C, device=x.device)
     y = torch.empty_like(x)
-    # W^T's TF32 parts for the float32 product
-    wsplit = torch.empty(0 if bf16 else 2 * w.numel(), device=x.device)
+    # bf16(W) and bf16(x) for the bf16 product, W^T's TF32 parts for the
+    # float32 one
+    wsplit = (torch.empty(w.numel() + x.numel(), dtype=torch.bfloat16,
+                          device=x.device) if bf16 else
+              torch.empty(2 * w.numel(), device=x.device))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.dctts_hc_fwd(x.data_ptr(), w.data_ptr(),
                             *(r.data_ptr() for r in rows), h.data_ptr(),
@@ -323,16 +337,19 @@ def hc_block_bwd(x, w, b, g1, b1, g2, b2, dy, size: int, rate: int,
     lib = load_library()
     dev = x.device
     h = torch.empty(B, T, 2 * C, device=dev)
-    dh = torch.empty_like(h)
+    dh = torch.empty(0 if bf16 else h.numel(), device=dev)
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
     dparams = torch.empty(6 * C, device=dev)
     row_part = torch.empty(-(-M // R), 6 * C, device=dev)
     dw_part = torch.empty(S if S > 1 else 0, *w.shape, device=dev)
-    # the float32 products' TF32 parts: W^T and W (hi, lo each), and dh^T
-    wsplit = torch.empty(0 if bf16 else 4 * w.numel(), device=dev)
-    dhsplit = torch.empty(0 if bf16 else 2 * 2 * C * _pad_rows(M),
-                          device=dev)
+    if bf16:  # bf16(W) | bf16(x), and bf16(dh)
+        wsplit = torch.empty(w.numel() + x.numel(), dtype=torch.bfloat16,
+                             device=dev)
+        dhsplit = torch.empty(h.numel(), dtype=torch.bfloat16, device=dev)
+    else:  # the TF32 parts: W^T and W (hi, lo each), and dh^T
+        wsplit = torch.empty(4 * w.numel(), device=dev)
+        dhsplit = torch.empty(2 * 2 * C * _pad_rows(M), device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.dctts_hc_bwd(x.data_ptr(), w.data_ptr(),
                             *(r.data_ptr() for r in rows), dy.data_ptr(),

@@ -156,10 +156,11 @@ def test_synthesizer_on_cuda_matches_cpu(cuda):
 # ------------------------------------------------------------------ K3
 
 
-def _k3_inputs(dev, B=3, F=160, seed=0):
-    """(g, consts, Xr, Xi, mag_p) at the JAX K3 test's geometry."""
+def _k3_inputs(dev, B=3, F=160, seed=0, geom=(512, 69, 275)):
+    """(g, consts, Xr, Xi, mag_p) at the JAX K3 test's geometry (or
+    another n_fft, hop, win_length)."""
     from dc_tts_tpu_torch.ops import gl as K3
-    g = K3.gl_geometry(512, 69, 275, F)
+    g = K3.gl_geometry(*geom, F)
     rng = np.random.default_rng(seed)
     pad = ((0, 0), (0, g.f2 - F), (0, 0))
     mag, Xr, Xi = (torch.tensor(np.pad(a, pad), device=dev) for a in (
@@ -167,17 +168,17 @@ def _k3_inputs(dev, B=3, F=160, seed=0):
         rng.standard_normal((B, F, g.n_freq)).astype(np.float32),
         rng.standard_normal((B, F, g.n_freq)).astype(np.float32)))
     consts = {k: v.to(dev) for k, v in
-              K3.gl_fused_consts(512, 69, 275, F).items()}
+              K3.gl_fused_consts(*geom, F).items()}
     return g, consts, Xr, Xi, mag
 
 
 @pytest.mark.parametrize("three", [False, True])
-def test_k3_matches_plain(cuda, three):
+def test_k3_matches_plain(cuda, three, geom=(512, 69, 275), F=160):
     """One round against the plain version on the card: max |d| <= 2e-2
     and mean |d| <= 1e-5 (the CPU tests' gates against JAX); the signal
     between the kernels within 1e-5 x its max; padded rows exactly 0."""
     from dc_tts_tpu_torch.ops import gl as K3
-    g, consts, Xr, Xi, mag = _k3_inputs(cuda)
+    g, consts, Xr, Xi, mag = _k3_inputs(cuda, F=F, geom=geom)
     npass = 3 if three else 1
     n_a, n_b = K3.k3a.launches[npass], K3.k3b.launches[npass]
     got = K3.fused_gl_round(Xr, Xi, mag, consts, g, three)
@@ -192,6 +193,21 @@ def test_k3_matches_plain(cuda, three):
     yp = K3.k3a_plain(Xr, Xi, consts, g, three)
     assert float((y - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
     assert float(got[0][:, g.F:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("three", [False, True])
+@pytest.mark.parametrize("geom,F", [((2048, 275, 1102), 90),
+                                    ((1024, 128, 400), 70)])
+def test_k3_window_span_edges_match_plain(cuda, three, geom, F):
+    """test_k3_matches_plain at geometries whose window span starts and
+    ends inside a tile: the production one (nonzero samples [474, 1575) of
+    2048: K3a runs N tiles 3-12 of 16, K3b k-tiles 7-24 of 32) and 1024 /
+    400 ([313, 712): N tiles 2-5 of 8, k-tiles 4-11 of 16)."""
+    from dc_tts_tpu_torch.ops import gl as K3
+    nz = np.flatnonzero(K3.hann_window(geom[2], geom[0]))
+    for tile in (K3._BN, K3._BK):
+        assert nz[0] % tile and (nz[-1] + 1) % tile
+    test_k3_matches_plain(cuda, three, geom, F)
 
 
 def test_k3_launch_counts_and_bad_input(cuda):
@@ -266,7 +282,12 @@ def test_hc_kernels_match_plain(cuda, B, T, C, size, rate, causal):
 
 
 @pytest.mark.parametrize("B,T,C,size,rate,causal", [
-    (2, 100, 64, 3, 27, True), (2, 50, 512, 3, 3, False)])
+    (2, 100, 64, 3, 27, True), (2, 50, 512, 3, 3, False),
+    # the float32 test's edges for the bf16 core: B*T not a multiple of the
+    # 128-row tile, tiles spanning two batch rows; T shorter than a tile; K
+    # = 1 with C not a multiple of the 64-deep k-tile; C = 1024
+    (3, 100, 64, 3, 9, False), (5, 20, 32, 3, 2, True),
+    (4, 37, 48, 1, 1, False), (2, 300, 1024, 3, 1, False)])
 def test_hc_bf16_kernels_match_plain(cuda, B, T, C, size, rate, causal):
     """The bf16 operand body: forward and all 7 gradients against the plain
     version with the same bf16 rounding points run in float64, each within
@@ -301,6 +322,22 @@ def test_hc_bf16_kernels_match_plain(cuda, B, T, C, size, rate, causal):
     # the operands are rounded: the float32 body differs
     y32 = K4.hc_block_fwd(*args, *geo[:-1])
     assert float((y32 - outs[0]).abs().max()) > 1e-4
+
+
+def test_hc_bf16_core_refuses_c_not_multiple_of_8(cuda):
+    """The bf16 core copies 16 bytes (8 bf16) at a time: C = 12 raises on
+    the card in both directions (never the plain version), while the
+    float32 core takes it."""
+    from dc_tts_tpu_torch.ops import hc_vjp as K4
+    *args, dy = _hc_inputs(2, 30, 12, 3, 12, cuda)
+    n16 = (K4.hc_block_fwd.launches_bf16, K4.hc_block_bwd.launches_bf16)
+    with pytest.raises(ValueError, match="C % 8"):
+        K4.hc_block_fwd(*args, 3, 1, False, 1e-5, True)
+    with pytest.raises(ValueError, match="C % 8"):
+        K4.hc_block_bwd(*args, dy, 3, 1, False, 1e-5, True)
+    assert (K4.hc_block_fwd.launches_bf16,
+            K4.hc_block_bwd.launches_bf16) == n16
+    assert K4.hc_block_fwd(*args, 3, 1, False, 1e-5).shape == args[0].shape
 
 
 @pytest.mark.parametrize("B,T", [(4, 90), (4, 300)])

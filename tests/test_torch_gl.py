@@ -11,6 +11,9 @@ the CPU:
   padded rows exactly 0; the tight-fp1 and no-leak geometries of
   tests/test_pallas_gl.py, and consts built for another F in one fp1
   bucket rebuilt;
+* ``window_span``: the kernels' tiles it keeps cover every nonzero window
+  sample, and the round taken tile by tile over those tiles only equals the
+  round over every tile bitwise (the skipped work is exactly zero);
 * the mixed schedule's (head, mid, tail), and ``griffin_lim`` at n_iter=1
   for fft, dft and ct within 1e-4 of JAX's waveform;
 * full schedules on tests/test_dsp.py's bistable two-tone probe, under the
@@ -69,8 +72,8 @@ def test_geometry_and_consts_match_jax(geom):
     n, nf = geom[0], geom[0] // 2 + 1
     for part in ("hi", "lo"):
         w1, w2 = got["k3a_" + part], got["k3b_" + part]
-        assert w1.shape[0] % 128 == 0 and w1.shape[1] % 32 == 0
-        assert w2.shape[0] % 128 == 0 and w2.shape[1] % 32 == 0
+        assert w1.shape[0] % 128 == 0 and w1.shape[1] % 64 == 0
+        assert w2.shape[0] % 128 == 0 and w2.shape[1] % 64 == 0
         assert float(w1[n:].float().abs().sum() + w1[:, 2 * nf:].float().abs()
                      .sum() + w2[2 * nf:].float().abs().sum()
                      + w2[:, n:].float().abs().sum()) == 0.0
@@ -138,6 +141,65 @@ def test_tight_fp1_round_matches_xla_bf16_round():
     ref = jnp.asarray(mag) * est / jnp.maximum(1e-8, jnp.abs(est))
     _gate([got[0][:, :F_t], got[1][:, :F_t]],
           [np.asarray(ref.real), np.asarray(ref.imag)])
+
+
+def _round_by_tiles(Xr, Xi, mag_p, consts, g, three, span):
+    """The plain round with K3a's N and K3b's K taken tile by tile, as the
+    kernels take them (N tiles of ``_BN`` columns, k-tiles of ``_BK``
+    summed in order): the window span's tiles only, or every tile."""
+    n, hop, pad = g.n_fft, g.hop, g.n_fft // 2
+    hi, lo = (K3._plain_mats(consts, g, p) for p in ("_hi", "_lo"))
+
+    def tiles(tile):
+        return (range(*K3.window_span(g, tile)) if span
+                else range(-(-n // tile)))
+
+    z = torch.zeros(Xr.shape[0], g.F, n)
+    for t in tiles(K3._BN):
+        c = slice(t * K3._BN, (t + 1) * K3._BN)
+        z[..., c] = (K3._mm(Xr[:, : g.F], hi["A"][:, c], lo["A"][:, c], three)
+                     + K3._mm(Xi[:, : g.F], hi["B"][:, c], lo["B"][:, c],
+                              three))
+    y = tstft._overlap_add(z * consts["win"], hop)[:, pad: pad + g.L_sig] \
+        * consts["wsq_seg"].reshape(-1)[pad: pad + g.L_sig]
+    yp = torch.nn.functional.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
+    fw = yp.unfold(-1, n, hop) * consts["win"]
+    er = ei = 0.0
+    for t in tiles(K3._BK):
+        k = slice(t * K3._BK, (t + 1) * K3._BK)
+        er = er + K3._mm(fw[..., k], hi["C"][k], lo["C"][k], three)
+        ei = ei + K3._mm(fw[..., k], hi["S"][k], lo["S"][k], three)
+    s = mag_p[:, : g.F] / torch.clamp(torch.sqrt(er * er + ei * ei), min=1e-8)
+    return er * s, ei * s
+
+
+@pytest.mark.parametrize("three", [False, True])
+@pytest.mark.parametrize("geom,batch", [((512, 69, 275, F), 2),
+                                        ((2048, 275, 1102, 840), 1)])
+def test_window_span_skips_only_zeros(geom, batch, three):
+    """The span's tiles (K3a's N tiles of 128, K3b's k-tiles of 64) cover
+    every nonzero window sample and each of them meets one; the round over
+    those tiles only equals the round over every tile bitwise, and that is
+    the plain round up to float32 sums taken in another order."""
+    g = K3.gl_geometry(*geom)
+    win = tstft.hann_window(g.win_length, g.n_fft)
+    nz = np.flatnonzero(win)
+    for tile in (K3._BN, K3._BK):
+        t0, t1 = K3.window_span(g, tile)
+        assert t0 * tile <= nz[0] and nz[-1] < t1 * tile
+        assert t1 <= -(-g.n_fft // tile)
+        assert all(win[t * tile: (t + 1) * tile].any() for t in range(t0, t1))
+    rng = np.random.default_rng(5)
+    mag, Xr, Xi = (torch.from_numpy(a) for a in _padded(
+        g, rng.random((batch, g.F, g.n_freq), np.float32),
+        *rng.standard_normal((2, batch, g.F, g.n_freq)).astype(np.float32)))
+    consts = K3.gl_fused_consts(*geom)
+    got = _round_by_tiles(Xr, Xi, mag, consts, g, three, span=True)
+    full = _round_by_tiles(Xr, Xi, mag, consts, g, three, span=False)
+    for a, b in zip(got, full):
+        assert torch.equal(a, b)
+    plain = K3.fused_gl_round_plain(Xr, Xi, mag, consts, g, three)
+    _gate([t.numpy() for t in got], [t[:, : g.F].numpy() for t in plain])
 
 
 def test_padded_rows_do_not_leak():

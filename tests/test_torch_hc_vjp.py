@@ -9,8 +9,12 @@ TF32 split (3xTF32), is checked here without the card: ``tf32_split``'s
 rounding (cvt.rna.tf32.f32 in torch bit operations), and the emulated
 3xTF32 product with float32 sums at SSRN HC(3,1)'s depths within K4's gate,
 max(2e-5 x max |value|, 2 x the float32 product's distance), of float64.
-The CUDA kernels themselves are checked on the card
-(tests/test_torch_cuda.py, chip_smoke.py)."""
+The bf16 body's core is checked the same way: rounding commutes with the
+tap gather (bf16(taps(x)) == taps(bf16(x)) bitwise, which lets the kernels
+round x once a call), and its emulated arithmetic (exact bf16 products,
+float32 sums per 16-deep step, promotion every 2 64-deep k-tiles) at SSRN
+HC(3,1)'s depths within K4's gate. The CUDA kernels themselves are checked
+on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -115,15 +119,21 @@ def test_wrapper_splits_and_pads():
 
 
 def test_float32_core_shape_rules():
-    """The float32 products copy 16 bytes at a time: C % 4 != 0 raises in
-    the wrapper's check (never a quiet fallback); the bf16 body takes it."""
-    x, w = torch.zeros(2, 5, 6), torch.zeros(3, 6, 12)
-    rows = [torch.zeros(12)] + [torch.zeros(6)] * 4
+    """Both cores copy 16 bytes at a time: C % 4 != 0 raises in the
+    wrapper's check for the float32 products, C % 8 != 0 for the bf16 ones
+    (never a quiet fallback); C = 12 takes the float32 core only, C = 8
+    both."""
+    def check(C, bf16):
+        K4._check("hc", torch.zeros(2, 5, C), torch.zeros(3, C, 2 * C),
+                  [torch.zeros(2 * C)] + [torch.zeros(C)] * 4, 3, bf16)
     with pytest.raises(ValueError, match="C % 4"):
-        K4._check("hc", x, w, rows, 3, False)
-    K4._check("hc", x, w, rows, 3, True)
-    x, w = torch.zeros(2, 5, 8), torch.zeros(3, 8, 16)
-    K4._check("hc", x, w, [torch.zeros(16)] + [torch.zeros(8)] * 4, 3, False)
+        check(6, False)
+    for C in (6, 12):
+        with pytest.raises(ValueError, match="C % 8"):
+            check(C, True)
+    check(12, False)
+    check(8, False)
+    check(8, True)
 
 
 # ---------------------------------------------------------------------------
@@ -199,5 +209,71 @@ def test_three_tf32_product_within_k4_gate(Q):
     gate = max(2e-5 * float(np.abs(ref).max()),
                2 * float(np.abs(plain - ref).max()))
     print(f"Q={Q}: 3xTF32 {err:.3e}, gate {gate:.3e}, margin "
+          f"{gate / max(err, 1e-30):.1f}x")
+    assert err <= gate
+
+
+# ---------------------------------------------------------------------------
+# the bf16 body's core (csrc/bf16_wgmma.cuh)
+
+
+@pytest.mark.parametrize("size,rate,causal", [(3, 1, True), (3, 9, False),
+                                              (3, 27, True), (1, 1, False)])
+def test_taps_commute_with_bf16_rounding(size, rate, causal):
+    """taps(bf16(x)) == bf16(taps(x)) bitwise, for causal and centred
+    padding: the bf16 body rounds x once a call and gathers taps of the
+    rounded copy."""
+    rng = np.random.default_rng(size * 100 + rate)
+    x = torch.from_numpy((rng.standard_normal((2, 40, 16)) * 3
+                          ).astype(np.float32))
+    a = K4._taps(K4._bf16(x), size, rate, causal)
+    b = K4._bf16(K4._taps(x, size, rate, causal))
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+BF16_PROMOTE = 2  # csrc/bf16_wgmma.cuh PROMOTE: 64-deep k-tiles a sum
+
+
+def _bf16_core(a, b, promote_every):
+    """a (R, Q) @ b (Q, N) of bf16 values as the bf16 wgmma core computes
+    it: per 16-deep step the exact products (float64) summed and added to a
+    float32 accumulator, which is added to a float32 sum and restarted every
+    ``promote_every`` 64-deep k-tiles."""
+    R, Q = a.shape
+    steps = Q // 16
+    parts = np.einsum("rsk,skn->srn", a.astype(np.float64).reshape(R, steps,
+                                                                  16),
+                      b.astype(np.float64).reshape(steps, 16, -1))
+    acc = np.zeros(parts.shape[1:], np.float32)
+    total = np.zeros_like(acc)
+    window = 4 * promote_every
+    for s in range(steps):
+        acc = (acc + parts[s]).astype(np.float32)
+        if s % window == window - 1 or s == steps - 1:
+            total = (total + acc).astype(np.float32)
+            acc[:] = 0
+    return total
+
+
+@pytest.mark.parametrize("Q", [3072, 6144, 26880],
+                         ids=["fwd-Q3072", "dx-Q6144", "dw-Q26880"])
+def test_bf16_core_product_within_k4_gate(Q):
+    """The bf16 body's numerics at SSRN HC(3,1)'s depths (forward K*C, dx
+    K*2C, dW B*T): the emulated core on bf16-rounded operands sits within
+    K4's gate, max(2e-5 x max |value|, 2 x the float32 product's distance),
+    of the float64 product of the same rounded operands."""
+    rng = np.random.default_rng(Q + 1)
+    a = K4._bf16(torch.from_numpy(rng.standard_normal((4, Q)).astype(
+        np.float32))).numpy()
+    b = K4._bf16(torch.from_numpy((rng.standard_normal((Q, 6))
+                                   * (2.0 / Q) ** 0.5).astype(np.float32))
+                 ).numpy()
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    got = _bf16_core(a, b, BF16_PROMOTE)
+    plain = (torch.as_tensor(a) @ torch.as_tensor(b)).double().numpy()
+    err = float(np.abs(got - ref).max())
+    gate = max(2e-5 * float(np.abs(ref).max()),
+               2 * float(np.abs(plain - ref).max()))
+    print(f"Q={Q}: bf16 core {err:.3e}, gate {gate:.3e}, margin "
           f"{gate / max(err, 1e-30):.1f}x")
     assert err <= gate
