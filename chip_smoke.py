@@ -13,7 +13,12 @@ line:
              sentences, N=180, T=210, seeded random weights): max|dY|,
              max|dA| <= 2e-5 and the same cursor trajectory. A flip whose
              two largest in-window probabilities differ by < 1e-6 is a tie:
-             Y and A are then compared up to and including that step.
+             Y and A are then compared up to and including that step. With
+             the kernel's grid (blocks, grid barriers a step, µs a step) and
+             the barrier floor: the ms of the decode's grid barriers alone
+             (csrc/decode.cu barrier_kernel). Then (line K1-grid) the
+             kernel's ms over 32, 64 and all blocks, for information, and
+             (line K1-B72) bench.py's chunk, B=72, at the same gate.
 3b. K1-<prec> - K1's reduced-precision bodies (high3, hybrid, default) on
              phase K1's inputs, each against the plain version of the same
              mode: max|dY|, max|dA| <= max(2e-5, 2 x the distance between
@@ -21,9 +26,9 @@ line:
              over the steps before the first cursor flip of either pair; a
              kernel flip whose margin is below max(1e-6, that gate for A)
              is a tie (the split modes round x - bf16(x) to bf16, which a
-             float32 ulp can flip). CUDA-event ms, plain ms, the bound, and
-             for information each mode's distance from the float32 kernel
-             (max|dY|, first cursor flip, rows flipped).
+             float32 ulp can flip). CUDA-event ms, plain ms, the bound, the
+             grid, and for information each mode's distance from the
+             float32 kernel (max|dY|, first cursor flip, rows flipped).
 4. K2      - the Griffin-Lim kernels against their plain version at the
              production geometry (n_fft 2048, hop 275, win 1102, F=840,
              B=20): n_iter=1 and n_iter=3 waveforms within 1e-5 of the
@@ -134,7 +139,8 @@ line:
              loop"), ms a call from the host, the plain version's graph ms,
              the bound, and the yardsticks the port never calls: cuFFT
              (torch.fft.rfft for X1, torch.fft.fft for the factored ones,
-             which give all 2048 bins) and cuBLAS on X1's GEMM (line
+             which give all 2048 bins; for X4 also torch.fft.rfft of its
+             covered frames, rfft_ms) and cuBLAS on X1's GEMM (line
              ct-fwd). Then the main path: python -m
              dc_tts_tpu_torch.scripts.ct_kernel_exp's main in this process
              for every variant and precision (iters 5; fact-tiled at
@@ -237,8 +243,11 @@ and float32 are in line ct-fwd); ``launches`` those of the main path.
 K1's reduced bodies (fused_decode[<prec>]) count their layer products'
 passes (3 for the split, 1 for "default") at the dense bf16 rate and their
 float32 parts (AudioEnc under "hybrid", the attention keys) at the float32
-rate, the two summed; their bytes the arrays each mode reads. Their
-``launches`` are e2e-<prec>'s.
+rate, the two summed; their bytes the arrays each mode reads (the
+kernel's transposed copies, not the JAX-layout keys). Their ``launches``
+are e2e-<prec>'s. K1's bound is far below what its dependent chain of 24
+layer products a step, each behind a grid barrier, can reach; the line
+gives the barrier floor beside it and does not replace it.
 A summary also goes to ``chiprun_out/chip_smoke.json`` beside this script.
 """
 from __future__ import annotations
@@ -393,6 +402,56 @@ def _first_flip(A_k, A_p):
     return t, b, float(top[0] - top[1])
 
 
+def _k1_grid(cfg, B, prec, ms, T):
+    """The decode kernel's grid in this run: blocks (one per SM), grid
+    barriers a step, and µs a step from the kernel's ``ms``."""
+    from dc_tts_tpu_torch.ops import decode as K1
+    blocks = K1.decode_blocks(torch.device("cuda", 0))
+    plan = K1.decode_plan(cfg, B, blocks, prec)
+    return dict(blocks=blocks, barriers_per_step=plan.barriers_per_step,
+                us_per_step=f"{ms * 1e3 / T:.2f}")
+
+
+def _barrier_floor_ms(n, blocks):
+    """ms of ``n`` grid barriers over ``blocks`` blocks alone, as the decode
+    kernel runs them (csrc/decode.cu ``barrier_kernel``): the floor that
+    the decode's barriers set."""
+    from dc_tts_tpu_torch.ops._build import check, load_library
+    lib = load_library()
+    bar = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        bar.zero_()
+        check(lib.dctts_decode_barriers(bar.data_ptr(), n, blocks, stream),
+              "barrier probe")
+
+    return cuda_ms(run, 3)
+
+
+def _k1_check(name, A, Ap, Y, Yp):
+    """(max|dY|, max|dA|, note) of the "highest" kernel against its plain
+    version: identical cursors, or a flip within a 1e-6 tie, after which
+    nothing is compared."""
+    T = A.shape[-1]
+    flip = _first_flip(A, Ap)
+    note = "cursor trajectories identical"
+    upto = T
+    if flip is not None:
+        t, b, margin = flip
+        print(f"    {name}: cursor flip at step {t}, row {b}: margin between "
+              f"the two largest in-window probabilities {margin:.3e}",
+              flush=True)
+        if margin >= 1e-6:
+            raise AssertionError(f"{name} cursor flip at step {t} row {b} "
+                                 f"with margin {margin:.3e} >= 1e-6: a bug")
+        upto = t + 1
+        note = f"tie at step {t} row {b}: compared steps 0..{t} only"
+    dY = float((Y[:, :upto] - Yp[:, :upto]).abs().max())
+    dA = float((A[:, :, :upto] - Ap[:, :, :upto]).abs().max())
+    return dY, dA, note
+
+
 def phase_k1(results):
     from dc_tts_tpu_torch.config import base_config
     from dc_tts_tpu_torch.models import Text2Mel
@@ -414,21 +473,7 @@ def phase_k1(results):
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         ms = cuda_ms(lambda: K1.fused_decode(packed, Kt, V, T, cfg), 3)
-    flip = _first_flip(A, Ap)
-    note = "cursor trajectories identical"
-    upto = T
-    if flip is not None:
-        t, b, margin = flip
-        print(f"    cursor flip at step {t}, row {b}: margin between the "
-              f"two largest in-window probabilities {margin:.3e}",
-              flush=True)
-        if margin >= 1e-6:
-            raise AssertionError(f"K1 cursor flip at step {t} row {b} with "
-                                 f"margin {margin:.3e} >= 1e-6: a bug")
-        upto = t + 1
-        note = f"tie at step {t} row {b}: compared steps 0..{t} only"
-    dY = float((Y[:, :upto] - Yp[:, :upto]).abs().max())
-    dA = float((A[:, :, :upto] - Ap[:, :, :upto]).abs().max())
+    dY, dA, note = _k1_check("K1", A, Ap, Y, Yp)
     ok = dY <= 2e-5 and dA <= 2e-5 and bool(torch.isfinite(Y).all())
     # operations: the layer matmuls per row per step plus the unmasked
     # attention keys (scores + context) the cursors of this run select
@@ -440,16 +485,49 @@ def phase_k1(results):
     keys = int(torch.clamp(cfg.max_N - prev, max=cfg.attention_win_size
                            ).sum())
     flops = 2.0 * (mac_layers * B_MAIN * T + keys * 2 * cfg.d)
-    b_ms, b_by = bound(nbytes(Kt, V, *packed.values(), Y, A), flops)
+    # what the kernel reads: the transposed copies and the norms' arrays
+    reads = [v for k, v in packed.items() if k not in ("cw", "hcw")]
+    b_ms, b_by = bound(nbytes(Kt, V, *reads, Y, A), flops)
+    grid = _k1_grid(cfg, B_MAIN, "highest", ms, T)
+    floor = _barrier_floor_ms(grid["barriers_per_step"] * T, grid["blocks"])
     line("K1", ok=ok, B=B_MAIN, N=cfg.max_N, T=T, max_dY=f"{dY:.3e}",
          max_dA=f"{dA:.3e}", tol="2e-5", note=repr(note), ms=f"{ms:.3f}",
          plain_ms=f"{plain_ms:.1f}", bound_ms=f"{b_ms:.4f}",
-         bound_by=b_by, gflop=f"{flops / 1e9:.2f}")
+         bound_by=b_by, gflop=f"{flops / 1e9:.2f}", **grid,
+         barrier_floor_ms=f"{floor:.3f}")
     if not ok:
         raise AssertionError(f"K1 disagrees with its plain version: "
                              f"dY={dY} dA={dA}")
     results["K1"] = dict(max_abs_err=max(dY, dA), ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by)
+                         bound_ms=b_ms, bound_by=b_by,
+                         barrier_floor_ms=floor, **grid)
+    # the grid sizes, for information (B_MAIN, the kernel's own time only)
+    sweep = {g: cuda_ms(lambda: K1.launch_decode(packed, Kt, V, T, cfg,
+                                                 blocks=g), 3)
+             for g in (32, 64, grid["blocks"])}
+    floors = {g: _barrier_floor_ms(grid["barriers_per_step"] * T, g)
+              for g in (32, 64)}
+    line("K1-grid", B=B_MAIN,
+         **{f"ms_{g}_blocks": f"{m:.3f}" for g, m in sweep.items()},
+         **{f"barrier_floor_ms_{g}_blocks": f"{m:.3f}"
+            for g, m in floors.items()})
+    results["K1_grid"] = sweep
+    # bench.py's chunk: B = 72, same gate
+    ids = torch.as_tensor(harvard_ids(cfg, 72), device=dev)
+    with torch.no_grad():
+        Kt, V = (x.contiguous() for x in model.text_encode(params, ids))
+        Y, A = K1.fused_decode(packed, Kt, V, T, cfg)
+        Yp, Ap = K1.fused_decode_plain(packed, Kt, V, T, cfg)
+        ms72 = cuda_ms(lambda: K1.fused_decode(packed, Kt, V, T, cfg), 3)
+    dY, dA, note = _k1_check("K1-B72", A, Ap, Y, Yp)
+    ok = dY <= 2e-5 and dA <= 2e-5 and bool(torch.isfinite(Y).all())
+    line("K1-B72", ok=ok, B=72, T=T, max_dY=f"{dY:.3e}", max_dA=f"{dA:.3e}",
+         tol="2e-5", note=repr(note), ms=f"{ms72:.3f}",
+         **_k1_grid(cfg, 72, "highest", ms72, T))
+    if not ok:
+        raise AssertionError(f"K1 at B=72 disagrees with its plain version: "
+                             f"dY={dY} dA={dA}")
+    results["K1_B72"] = dict(max_abs_err=max(dY, dA), ms=ms72)
 
 
 def _k1_bound(cfg, prec, B, T, A, tensors):
@@ -529,11 +607,15 @@ def phase_k1_prec(results):
             dA = float((A[:, :, :upto] - Ap[:, :, :upto]).abs().max())
             ok = (dY <= gate_y and dA <= gate_a
                   and bool(torch.isfinite(Y).all()))
-            reads = list(packed.values())
-            if prec == "hybrid":  # AudioEnc's float32 slices only
+            # what the kernel reads: the transposed copies (under "hybrid"
+            # AudioEnc's float32 slices only) and the norms' arrays
+            kern = {k: v for k, v in packed.items() if k.endswith("_t")
+                    or k in ("cb", "cln", "hcb", "hcln")}
+            if prec == "hybrid":
                 nc, nhc = K1._enc_counts(cfg)
-                reads = [packed["cw"][:nc], packed["hcw"][:nhc]] + [
-                    v for k, v in packed.items() if k not in ("cw", "hcw")]
+                kern.update(cw_t=packed["cw_t"][:nc],
+                            hcw_t=packed["hcw_t"][:nhc])
+            reads = list(kern.values())
             b_ms, b_by, g_bf16, g_fp32 = _k1_bound(cfg, prec, B_MAIN, T, A,
                                                    [Kt, V, *reads, Y, A])
             # for information: this mode's kernel against the float32 one
@@ -549,6 +631,7 @@ def phase_k1_prec(results):
                  ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.1f}",
                  bound_ms=f"{b_ms:.4f}", bound_by=b_by,
                  gflop_bf16=f"{g_bf16:.2f}", gflop_fp32=f"{g_fp32:.2f}",
+                 **_k1_grid(cfg, B_MAIN, prec, ms, T),
                  vs_highest_max_dY=f"{float((Y - Y_hi).abs().max()):.3e}",
                  vs_highest_first_flip_step=None if fh is None else fh[0],
                  vs_highest_rows_flipped=rows)
@@ -2142,6 +2225,8 @@ def phase_ct_fwd(results):
             xc = x[:covered].contiguous()
             lib["fft_covered"] = looped(lambda x_, m_: torch.fft.fft(x_),
                                         xc, None)
+            lib["rfft_covered"] = looped(lambda x_, m_: torch.fft.rfft(x_),
+                                         xc, None)
         for bf16 in (True, False):
             m = X.consts(bf16, dev)
             prec = "bf16" if bf16 else "f32"
@@ -2206,6 +2291,8 @@ def phase_ct_fwd(results):
                                      else lib["fft"])
                 if kernel == "full_fwd":
                     row["cublas_ms"] = lib["cublas_" + prec]
+                if kernel == "ablate_fwd":  # cuFFT rfft of the same frames
+                    row["rfft_ms"] = lib["rfft_covered"]
                 row["ok"] = ok = (finite and zero and d / scale <= gate and (
                     rel_fft is None or rel_fft <= gate_fft))
                 line("ct-fwd", **{k: (f"{v:.4g}" if isinstance(v, float)

@@ -1,55 +1,95 @@
-// Kernel K1: the whole Text2Mel autoregressive decode in one launch.
+// Kernel K1: the whole Text2Mel autoregressive decode in one cooperative
+// launch, the weights of every layer split over all the blocks.
 //
 // Replaces dc_tts_tpu/ops/pallas_decode.py:fused_decode (body
-// _decode_kernel). The design note is in dc_tts_tpu_torch/ops/decode.py:
-// one 512-thread block owns DECODE_ROWS batch rows and runs all T steps;
-// activations in shared memory, HC ring buffers in a global scratch, each
-// thread owns one output column of a layer and streams that column of the
-// weights once per step. Bound on the H100: every step streams the ~29 MB
-// of packed weights from L2 into each block.
+// _decode_kernel). The design note is in dc_tts_tpu_torch/ops/decode.py.
+// One persistent 512-thread block per SM, in clusters of CL (a cooperative
+// launch, so all are co-resident). Block g owns the output columns
+// [g*W/G, (g+1)*W/G) of every layer of width W and computes them for all B
+// batch rows, so each weight is read once a step on the whole card; its
+// slice of the weights (columns contiguous: the transposed slots of
+// pack_decode_params) sits in shared memory where the host's plan found
+// room and streams from L2 otherwise. A product task is RG rows x 4 columns
+// (2 under the split), one warp; the lanes split k and the task's sums are
+// reduced together. Each block writes its columns of the pre-norm rows h to
+// a global buffer; one grid barrier (a counter in global memory; a wait of
+// more than 10 s traps, so the launch fails instead of hanging); then the
+// block of cluster rank r reads the full rows b = r, r + CL, ... of h,
+// normalises them, and stores the layer's output rows into the copies of
+// every block of its cluster (distributed shared memory), and a cluster
+// barrier closes the layer: 24 grid and 24 cluster barriers a step at
+// base_config. The attention row is computed in every block for every row:
+// the arithmetic is identical, so the cursors agree without a barrier. An
+// HC layer's product x_t @ W is three products, one per tap; the block
+// keeps the two older taps' products of its columns (x_s @ W_tap) in a
+// private ring in global memory and adds them when the lag comes round, so
+// a step reads only x_t. What a phase can load early it loads under the
+// product: the ring's taps and the bias for the combine, the norms'
+// parameters (cp.async).
 //
-// Numerics follow the float32 reference: no fast math, sigmoid as
-// 1/(1+expf(-x)), layer norm (x-mu)*rsqrt(var+eps) with the biased
-// variance, the attention cursor the FIRST argmax of the softmax output.
+// Bound on the H100: the step is a dependent chain of 24 layer products of
+// a few MFLOP each. The card's operation and byte bounds are far below the
+// chain's floor, which the barriers and L2 round trips set; a phase that
+// runs once a layer on a few warps is paced by its latency and by
+// fetching its code, so the per-layer phases are kept short (rolled loops,
+// one sigmoid in the code).
 //
-// The precisions of the JAX kernel's layer products (its mm), one kernel
-// with the mode a launch argument: MODE_HIGHEST float32 FFMA; MODE_HIGH3
-// the bf16 split xh@Wh + xh@Wl + xl@Wh with the weights' hi/lo halves
-// split in Python (same bytes as float32) and the activations split once
-// per layer into shared memory (round to nearest even), three float32
-// accumulators a row summed as (hh + hl) + lh; MODE_HYBRID the split in
-// AudioDec only (its layers' halves in their own arrays, indexed from the
-// first AudioDec layer), float32 in AudioEnc; MODE_DEFAULT one pass over
-// bf16 weights (half the bytes) and rounded activations, float32 sums. A
-// product of two bf16 values is exact in float32, so FFMA on the widened
-// halves gives the tensor core's products; only the order of the sums
-// differs. The tensor cores would waste 12 of mma.sync's 16 rows at 4 rows
-// a block.
+// Numerics: no fast math, sigmoid as 1/(1+expf(-x)), layer norm
+// (x-mu)*rsqrt(var+eps) with the biased variance (two passes), the
+// attention cursor the FIRST argmax of the softmax output. A product
+// column's sum over k: lane l of a warp sums k = 128i + 4l + e (i, then
+// e = 0..3, in order) with FFMA, then the 32 lanes' sums are added over xor
+// distances 16, 8, 4, 2, 1 (a reduce-scatter that pairs them as a
+// butterfly does); an HC column is ((older tap + middle tap) + current tap)
+// + bias. The precisions of the JAX kernel's mm, per layer: WK_F32 float32
+// FFMA ("highest", and AudioEnc under "hybrid"); WK_SPLIT the bf16 split
+// xh@Wh + xh@Wl + xl@Wh, the activations split as they are loaded (round
+// to nearest even), three float32 sums a column added as (hh + hl) + lh
+// ("high3", and AudioDec under "hybrid"); WK_BF16 one pass over bf16
+// weights and rounded activations ("default"). A product of two bf16
+// values is exact in float32, so FFMA on the widened halves gives the
+// tensor core's products; only the order of the sums differs.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-#define DECODE_ROWS 4   // batch rows per block; ROWS in ops/decode.py
+#include "sm90.cuh"
+
+namespace cg = cooperative_groups;
+
 #define NT 512          // threads per block
+#define NW (NT / 32)    // warps per block
+#define RG 4            // batch rows of one product task; RG in ops/decode.py
+#define CL 2            // blocks of a cluster; CLUSTER in ops/decode.py
 #define MAX_LAYERS 32
-#define MAX_WIN 8
+#define MAX_WIN 4       // attention keys a row (the window)
+#define LAYER_INTS 10   // ints per layer in the host's program array
+#define LAYER_PTRS 4    // pointers per layer
 
-#define MODE_HIGHEST 0  // PRECS in ops/decode.py, in order
-#define MODE_HIGH3 1
-#define MODE_HYBRID 2
-#define MODE_DEFAULT 3
+#define WK_F32 0        // WKINDS in ops/decode.py, in order
+#define WK_BF16 1
+#define WK_SPLIT 2
 
 namespace {
 
 typedef unsigned short bf16_t;  // bf16 bits
 
 struct Layer {
-  int kind;  // 0 = C, 1 = HC
-  int idx;   // index into the packed arrays of its kind
-  int cin, cout, rate;
-  int act;   // 0 none, 1 relu, 2 sigmoid
-  int ring_off;  // first ring row of an HC layer
+  const void* w;     // the layer's transposed slot: row c holds column c's
+                     // weights over k (hi halves under WK_SPLIT)
+  const void* wl;    // WK_SPLIT: the lo halves' slot
+  const float* bias;
+  const float* ln;   // C: gamma (cmo), beta (cmo); HC: 4 x C
+  int kind;          // 0 = C, 1 = HC
+  int cin, cout;     // HC: cin = cout = C, the residual width
+  int rate, act;     // act: 0 none, 1 relu, 2 sigmoid
+  int ring_off;      // HC: first ring row
+  int wkind, ldw;    // the slot rows' pitch in elements
+  int woff;          // byte offset of the block's resident slice, or -1
+  int nmax;          // most columns a block owns
 };
 
 struct Program {
@@ -58,25 +98,17 @@ struct Program {
 };
 
 struct Args {
-  const float* kt;    // (B, N, d)
-  const float* v;     // (B, N, d)
-  const float* cw;    // (n_c, cmi, cmo); HIGHEST and HYBRID
-  const float* cb;    // (n_c, cmo)
-  const float* cln;   // (n_c, 2, cmo)
-  const float* hcw;   // (n_hc, 3d, 2d); HIGHEST and HYBRID
-  const float* hcb;   // (n_hc, 2d)
-  const float* hcln;  // (n_hc, 4, d)
-  // bf16 kernels: HIGH3 (2, n_c, cmi, cmo) hi/lo; HYBRID (2, n_c - c_base,
-  // cmi, cmo) hi/lo of AudioDec's layers; DEFAULT (n_c, cmi, cmo). The
-  // same for hcws with (3d, 2d) slots.
-  const bf16_t* cws;
-  const bf16_t* hcws;
-  float* y;           // (B, T, n_mels)
-  float* a;           // (B, N, T)
-  float* ring;        // (B padded to DECODE_ROWS, ring_rows, d)
-  int B, N, d, n_mels, T, win, cmi, cmo, ring_rows, xw;
-  int mode, c_base, hc_base;  // first packed index the bf16 arrays hold
-  int c_lo, hc_lo;            // elements from a hi half to its lo half
+  const float* kt;  // (B, N, d)
+  const float* v;   // (B, N, d)
+  float* y;         // (B, T, n_mels)
+  float* a;         // (B, N, T)
+  float* hbuf;      // 2 x (B, ldh): the pre-norm rows of a layer
+  float* ring;      // blocks x ring_floats: each block's tap products
+  float* spill;     // blocks x spill_floats: activation rows past rows_sh
+  unsigned* bar;    // the grid barrier's counter, 0 at launch
+  int B, N, d, n_mels, T, win, cmo, xw, ldh;
+  int rows_sh, ring_floats, spill_floats, part_off, prev_off, ln_off;
+  int z_off, nv_max;
   float eps, scale;
 };
 
@@ -90,431 +122,643 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// out[r*ldo + j] = sum_k in[r*ldi + k] * W[k*ldw + j] + bias[j] for the
-// block's rows; thread j owns column j (and j + NT, ...). The weights come
-// from L2 in groups of KU independent loads, so that enough are in flight
-// to cover the latency; the sum over k stays in order. in and ldi must be
-// 16-byte aligned (float4 reads of the activations).
-#define KU 16
-__device__ void rows_matmul(const float* in, int ldi, int K,
-                            const float* __restrict__ W, int ldw,
-                            const float* __restrict__ bias, int cout,
-                            float* out, int ldo) {
-  for (int j = threadIdx.x; j < cout; j += NT) {
-    float acc[DECODE_ROWS];
-#pragma unroll
-    for (int r = 0; r < DECODE_ROWS; ++r) acc[r] = 0.f;
-    const float* wp = W + j;
-    int k = 0;
-    for (; k + KU <= K; k += KU) {
-      float w[KU];
-#pragma unroll
-      for (int u = 0; u < KU; ++u) w[u] = __ldg(wp + (size_t)(k + u) * ldw);
-#pragma unroll
-      for (int r = 0; r < DECODE_ROWS; ++r) {
-        const float4* a = reinterpret_cast<const float4*>(in + r * ldi + k);
-#pragma unroll
-        for (int u4 = 0; u4 < KU / 4; ++u4) {
-          const float4 v = a[u4];
-          acc[r] = fmaf(v.x, w[4 * u4], acc[r]);
-          acc[r] = fmaf(v.y, w[4 * u4 + 1], acc[r]);
-          acc[r] = fmaf(v.z, w[4 * u4 + 2], acc[r]);
-          acc[r] = fmaf(v.w, w[4 * u4 + 3], acc[r]);
-        }
-      }
-    }
-    for (; k < K; ++k) {
-      const float w = __ldg(wp + (size_t)k * ldw);
-#pragma unroll
-      for (int r = 0; r < DECODE_ROWS; ++r)
-        acc[r] = fmaf(in[r * ldi + k], w, acc[r]);
-    }
-    const float b = __ldg(bias + j);
-#pragma unroll
-    for (int r = 0; r < DECODE_ROWS; ++r) out[r * ldo + j] = acc[r] + b;
-  }
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ float bf2f(unsigned bits16) {
-  return __uint_as_float(bits16 << 16);
-}
-
-// rows_matmul on bf16 operands: the block's input rows are rounded (to
-// nearest even) into xs once, hi at xs and, with THREE, the lo halves
-// bf16(x - hi) at xs + DECODE_ROWS * ldx; thread j streams column j of Wh
-// (and Wl). THREE: out = (xh@Wh + xh@Wl) + xl@Wh, each product summed over
-// k in order in its own float32 accumulator; else out = xh@Wh. xs must be
-// 16-byte aligned; every thread of the block must call this (it
-// synchronises once, after the split).
-template <bool THREE>
-__device__ void rows_matmul_bf16(const float* in, int ldi, int K,
-                                 const bf16_t* __restrict__ Wh,
-                                 const bf16_t* __restrict__ Wl, int ldw,
-                                 const float* __restrict__ bias, int cout,
-                                 float* out, int ldo, bf16_t* xs) {
-  const int ldx = (K + 7) & ~7;  // rows of 16-byte multiples
-  bf16_t* xh = xs;
-  bf16_t* xl = xs + DECODE_ROWS * ldx;
-  for (int i = threadIdx.x; i < DECODE_ROWS * K; i += NT) {
-    const int r = i / K, k = i % K;
-    const float v = in[r * ldi + k];
-    const __nv_bfloat16 h = __float2bfloat16_rn(v);
-    xh[r * ldx + k] = __bfloat16_as_ushort(h);
-    if (THREE)
-      xl[r * ldx + k] = __bfloat16_as_ushort(
-          __float2bfloat16_rn(v - __bfloat162float(h)));
+// Every block arrives once; the counter only grows, so the k-th barrier of
+// a launch waits for k * gridDim.x arrivals.
+__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
+  __syncthreads();
+  target += gridDim.x;
+  if (threadIdx.x == 0) {
+    // a release: the block's stores, ordered before it by __syncthreads,
+    // are visible to whoever acquires the count
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(bar)
+                 : "memory");
+    const uint64_t t0 = sm90::global_ns();
+    unsigned seen;
+    for (;;) {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen) : "l"(bar) : "memory");
+      if ((int)(seen - target) >= 0) break;
+      if (sm90::global_ns() - t0 > 10000000000ull) __trap();
+    }
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < cout; j += NT) {
-    float hh[DECODE_ROWS], hl[DECODE_ROWS], lh[DECODE_ROWS];
+}
+
+// A batch row of the activations: in shared memory for the first rows_sh
+// rows, in the block's global spill after that.
+__device__ __forceinline__ float* xrow(const Args& p, float* xs, float* xg,
+                                       int b) {
+  return b < p.rows_sh ? xs + (size_t)b * p.xw
+                       : xg + (size_t)(b - p.rows_sh) * p.xw;
+}
+
+// Row b of the activations in cluster member q's copy: its shared memory
+// (through the cluster's distributed shared memory) or its global spill.
+__device__ __forceinline__ float* xrow_in(const Args& p, float* xs, int q,
+                                          int b) {
+  cg::cluster_group cluster = cg::this_cluster();
+  if (b < p.rows_sh)
+    return cluster.map_shared_rank(xs, q) + (size_t)b * p.xw;
+  const int g = blockIdx.x - (int)cluster.block_rank() + q;
+  return p.spill + (size_t)g * p.spill_floats + (size_t)(b - p.rows_sh) * p.xw;
+}
+
+// Four activations of row b from column k: a row in the global spill may
+// have been stored by the cluster peer, so it is read past an L1 that may
+// hold the line from before (volatile: legal on a generic address of
+// either space, should the compiler load it speculatively).
+__device__ __forceinline__ float4 load_x4(const Args& p, const float* row,
+                                          int b, int k) {
+  if (b < p.rows_sh) return *reinterpret_cast<const float4*>(row + k);
+  const volatile float* v = row + k;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void load4(const float* w, float (&o)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(w);
+  o[0] = q.x; o[1] = q.y; o[2] = q.z; o[3] = q.w;
+}
+
+__device__ __forceinline__ void load4(const bf16_t* w, float (&o)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(w);  // lower address low
+  o[0] = __uint_as_float(q.x << 16);
+  o[1] = __uint_as_float(q.x & 0xffff0000u);
+  o[2] = __uint_as_float(q.y << 16);
+  o[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+
+template <int WK> struct WType { typedef bf16_t type; };
+template <> struct WType<WK_F32> { typedef float type; };
+
+// v[0..M) of every lane (M = 8 or 16) -> the sum over the 32 lanes of
+// v[j] lands in lanes j * 32 / M .. (j + 1) * 32 / M - 1: a reduce-scatter
+// over xor distances O = 16, 8, ... while more than one value is left (a
+// compile-time recursion, so that v stays in registers), then butterfly
+// steps over the rest. Each sum is formed by the same pairs, in the same
+// order, as warp_sum's butterfly, so the two give the same bits.
+template <int M, int O = 16>
+__device__ __forceinline__ float reduce_scatter(float* v) {
+  if constexpr (M == 1) {
+    float s = v[0];
 #pragma unroll
-    for (int r = 0; r < DECODE_ROWS; ++r) hh[r] = hl[r] = lh[r] = 0.f;
-    const bf16_t* wph = Wh + j;
-    const bf16_t* wpl = Wl + j;
-    int k = 0;
-    for (; k + KU <= K; k += KU) {
-      float wh[KU], wl[KU];
+    for (int o = O; o >= 1; o >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+    return s;
+  } else {
+    const bool up = threadIdx.x & O;  // keeps the upper half of the values
 #pragma unroll
-      for (int u = 0; u < KU; ++u) {
-        wh[u] = bf2f(__ldg(wph + (size_t)(k + u) * ldw));
-        if (THREE) wl[u] = bf2f(__ldg(wpl + (size_t)(k + u) * ldw));
+    for (int j = 0; j < M / 2; ++j) {
+      const float send = up ? v[j] : v[j + M / 2];
+      const float got = __shfl_xor_sync(0xffffffffu, send, O);
+      v[j] = (up ? v[j + M / 2] : v[j]) + got;
+    }
+    return reduce_scatter<M / 2, O / 2>(v);
+  }
+}
+
+// The block's columns [c0, c0 + n) of the layer's product for all rows.
+// A virtual column is one output column (C) or one tap of one (HC: 3 per
+// column, tap 0 the oldest); a task is RG rows x VG virtual columns, one
+// warp, whose RG * VG sums are reduced together (VG = 4, 2 under WK_SPLIT,
+// whose three sums a value need the registers). The sums land in
+// part[b * nv_max + v].
+template <int WK>
+__device__ void product(const Args& p, const Layer& L, int c0, int n,
+                        float* xs, float* xg, float* part, const char* smem) {
+  typedef typename WType<WK>::type wt;
+  constexpr int VG = WK == WK_SPLIT ? 2 : 4, M = RG * VG;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool hc = L.kind == 1;
+  const int K = hc ? L.cout : L.cin;  // depth of a virtual column
+  const int taps = hc ? 3 : 1;
+  const int nv = taps * n;
+  const int nvg = (nv + VG - 1) / VG;
+  const int nrg = (p.B + RG - 1) / RG;
+  const bool res = L.woff >= 0;
+  const int pitch = res ? taps * K : L.ldw;
+  const wt* wbase = res ? reinterpret_cast<const wt*>(smem + L.woff)
+                        : static_cast<const wt*>(L.w) + (size_t)c0 * L.ldw;
+  const wt* lbase =
+      WK != WK_SPLIT ? wbase
+      : res ? wbase + (size_t)L.nmax * pitch
+            : static_cast<const wt*>(L.wl) + (size_t)c0 * L.ldw;
+  for (int task = warp; task < nrg * nvg; task += NW) {
+    const int v0 = (task % nvg) * VG, r0 = (task / nvg) * RG;
+    const int rows = min(RG, p.B - r0), cols = min(VG, nv - v0);
+    const float* xr[RG];
+    int wo[VG];  // elements from the slice's start to each column's taps
+#pragma unroll
+    for (int r = 0; r < RG; ++r)
+      xr[r] = xrow(p, xs, xg, r0 + min(r, rows - 1));
+#pragma unroll
+    for (int c = 0; c < VG; ++c) {
+      const int v = v0 + min(c, cols - 1);
+      wo[c] = (v / taps) * pitch + (v % taps) * K;
+    }
+    // sums [r * VG + c]: hh, and under WK_SPLIT hl and lh
+    float hh[M], hl[M], lh[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) hh[i] = hl[i] = lh[i] = 0.f;
+#pragma unroll 1
+    for (int k = 4 * lane; k < K; k += 128) {
+      float xa[RG][4], xl[RG][4], w[VG][4], wl[VG][4];
+#pragma unroll
+      for (int r = 0; r < RG; ++r) {
+        const float4 q = load_x4(p, xr[r], r0 + r, k);
+        xa[r][0] = q.x; xa[r][1] = q.y; xa[r][2] = q.z; xa[r][3] = q.w;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (WK != WK_F32) {
+            const float h = bf16_round(xa[r][e]);
+            xl[r][e] = bf16_round(xa[r][e] - h);
+            xa[r][e] = h;
+          }
+        }
       }
 #pragma unroll
-      for (int r = 0; r < DECODE_ROWS; ++r) {
-        const uint4* ah = reinterpret_cast<const uint4*>(xh + r * ldx + k);
-        const uint4* al = reinterpret_cast<const uint4*>(xl + r * ldx + k);
+      for (int c = 0; c < VG; ++c) {
+        load4(wbase + wo[c] + k, w[c]);
+        if (WK == WK_SPLIT) load4(lbase + wo[c] + k, wl[c]);
+      }
 #pragma unroll
-        for (int v8 = 0; v8 < KU / 8; ++v8) {
-          // two bf16 a word, the lower address in the low half
-          const uint4 qh = ah[v8];
-          const unsigned xh2[4] = {qh.x, qh.y, qh.z, qh.w};
+      for (int r = 0; r < RG; ++r)
+#pragma unroll
+        for (int c = 0; c < VG; ++c)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int u = 8 * v8 + 2 * e;
-            const float x0 = __uint_as_float(xh2[e] << 16);
-            const float x1 = __uint_as_float(xh2[e] & 0xffff0000u);
-            hh[r] = fmaf(x0, wh[u], hh[r]);
-            hh[r] = fmaf(x1, wh[u + 1], hh[r]);
-            if (THREE) {
-              hl[r] = fmaf(x0, wl[u], hl[r]);
-              hl[r] = fmaf(x1, wl[u + 1], hl[r]);
+            const int i = r * VG + c;
+            hh[i] = fmaf(xa[r][e], w[c][e], hh[i]);
+            if (WK == WK_SPLIT) {
+              hl[i] = fmaf(xa[r][e], wl[c][e], hl[i]);
+              lh[i] = fmaf(xl[r][e], w[c][e], lh[i]);
             }
           }
-          if (THREE) {
-            const uint4 ql = al[v8];
-            const unsigned xl2[4] = {ql.x, ql.y, ql.z, ql.w};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int u = 8 * v8 + 2 * e;
-              lh[r] = fmaf(__uint_as_float(xl2[e] << 16), wh[u], lh[r]);
-              lh[r] = fmaf(__uint_as_float(xl2[e] & 0xffff0000u), wh[u + 1],
-                           lh[r]);
-            }
-          }
-        }
-      }
     }
-    for (; k < K; ++k) {
-      const float wh = bf2f(__ldg(wph + (size_t)k * ldw));
-      const float wl = THREE ? bf2f(__ldg(wpl + (size_t)k * ldw)) : 0.f;
-#pragma unroll
-      for (int r = 0; r < DECODE_ROWS; ++r) {
-        const float x0 = bf2f(xh[r * ldx + k]);
-        hh[r] = fmaf(x0, wh, hh[r]);
-        if (THREE) {
-          hl[r] = fmaf(x0, wl, hl[r]);
-          lh[r] = fmaf(bf2f(xl[r * ldx + k]), wh, lh[r]);
-        }
-      }
-    }
-    const float b = __ldg(bias + j);
-#pragma unroll
-    for (int r = 0; r < DECODE_ROWS; ++r)
-      out[r * ldo + j] = (THREE ? (hh[r] + hl[r]) + lh[r] : hh[r]) + b;
+    float s = reduce_scatter<M>(hh);
+    if (WK == WK_SPLIT)
+      s = (s + reduce_scatter<M>(hl)) + reduce_scatter<M>(lh);
+    const int i = lane / (32 / M), r = i / VG, c = i % VG;
+    if (lane % (32 / M) == 0 && r < rows && c < cols)
+      part[(r0 + r) * p.nv_max + v0 + c] = s;
   }
 }
 
-// The product of packed layer idx of kind (0 C, 1 HC), in the launch's
-// mode; dec: the layer is AudioDec's. in (rows of K) -> out (cout columns)
-// + bias.
-__device__ void layer_mm(const Args& p, int kind, int idx, bool dec,
-                         const float* in, int ldi, int K, int cout,
-                         float* out, int ldo, bf16_t* xs) {
-  const size_t slot =
-      kind == 0 ? (size_t)p.cmi * p.cmo : (size_t)6 * p.d * p.d;
-  const int ldw = kind == 0 ? p.cmo : 2 * p.d;
-  const float* bias = (kind == 0 ? p.cb + (size_t)idx * p.cmo
-                                 : p.hcb + (size_t)idx * 2 * p.d);
-  if (p.mode == MODE_HIGHEST || (p.mode == MODE_HYBRID && !dec)) {
-    const float* w = (kind == 0 ? p.cw : p.hcw) + idx * slot;
-    rows_matmul(in, ldi, K, w, ldw, bias, cout, out, ldo);
-  } else if (p.mode == MODE_DEFAULT) {
-    const bf16_t* w = (kind == 0 ? p.cws : p.hcws) + idx * slot;
-    rows_matmul_bf16<false>(in, ldi, K, w, w, ldw, bias, cout, out, ldo, xs);
-  } else {
-    const int base =
-        p.mode == MODE_HYBRID ? (kind == 0 ? p.c_base : p.hc_base) : 0;
-    const bf16_t* wh = (kind == 0 ? p.cws : p.hcws) + (idx - base) * slot;
-    const bf16_t* wl = wh + (kind == 0 ? p.c_lo : p.hc_lo);
-    rows_matmul_bf16<true>(in, ldi, K, wh, wl, ldw, bias, cout, out, ldo, xs);
+// The block's columns of the pre-norm rows h (+ bias) into hb; an HC
+// column adds its older taps' products from the ring and stores this step's.
+// What combine adds to element i = (b, j) of the block's columns: the
+// older taps' products from the ring (HC) and the bias. The first element
+// of each thread is loaded before the product, to arrive under it.
+struct Addends {
+  float tap0, tap1, bias;
+};
+
+__device__ __forceinline__ Addends addends(const Args& p, const Layer& L,
+                                           int t, int c0, int n, int i,
+                                           const float* ring) {
+  const int b = i / n, j = i % n;
+  Addends a = {0.f, 0.f, L.bias[c0 + j]};
+  if (L.kind == 1) {
+    const int R = 2 * L.rate + 1;
+    const float* rg =
+        ring + ((size_t)L.ring_off * p.B + b) * L.nmax * 2 + 2 * j;
+    const size_t row = (size_t)p.B * L.nmax * 2;
+    a.tap0 = __ldcg(rg + ((t + 1) % R) * row);
+    a.tap1 = __ldcg(rg + ((t + L.rate + 1) % R) * row + 1);
+  }
+  return a;
+}
+
+__device__ void combine(const Args& p, const Layer& L, int t, int c0, int n,
+                        const float* part, float* ring, float* hb,
+                        Addends first) {
+  const bool hc = L.kind == 1;
+  const int R = 2 * L.rate + 1, wi = t % R;
+  for (int i = threadIdx.x; i < p.B * n; i += NT) {
+    const int b = i / n, j = i % n, c = c0 + j;
+    const Addends a =
+        i == threadIdx.x ? first : addends(p, L, t, c0, n, i, ring);
+    const float* pp = part + b * p.nv_max;
+    float h;
+    if (hc) {
+      pp += 3 * j;
+      float* rg = ring + ((size_t)L.ring_off * p.B + b) * L.nmax * 2 + 2 * j;
+      const size_t row = (size_t)p.B * L.nmax * 2;
+      h = ((a.tap0 + a.tap1) + pp[2]) + a.bias;
+      __stcg(rg + wi * row, pp[0]);
+      __stcg(rg + wi * row + 1, pp[1]);
+    } else {
+      h = pp[j] + a.bias;
+    }
+    __stcg(hb + (size_t)b * p.ldh + c, h);
   }
 }
 
-// Layer-norm statistics of nseg segments of `width` columns per row:
-// stats[(r*nseg + s)*2] = mean, [+1] = rsqrt(var + eps). One warp a segment.
-__device__ void ln_stats(const float* buf, int ld, int width, int nseg,
-                         float eps, float* stats) {
+// The layer norm(s) of rows from the full pre-norm rows hb, one warp a
+// row: C: x <- act(LN(h)) (the last layer: sigmoid, the frame fed back, and
+// Y); HC: x <- sigmoid(LN1(h1)) * LN2(h2) + (1 - sigmoid) * x. A block
+// computes the rows b = rank + CL k of its cluster rank and stores each
+// into the copies of all CL blocks of its cluster. A warp loads its row
+// (lane l holds columns l + 32i), takes the statistics, stages the
+// normalised row z = (h - mean) * rsqrt(var + eps) in shared memory (zs,
+// ldh floats a warp), and then applies the norms' parameters (lnb, staged
+// before the barrier), gates and activations in one rolled loop: the
+// phase runs once a layer, and its code is kept short, because fetching
+// long unrolled code is what paced it.
+template <int PL>  // columns a lane holds: 16 (C, width <= 512), 8 (HC)
+__device__ __forceinline__ void load_row(const float* h, int W,
+                                         float (&a)[PL]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < PL; ++i) {
+    const int c = lane + 32 * i;
+    a[i] = c < W ? __ldcg(h + c) : 0.f;
+  }
+}
+
+// z_j[c] = (a[j][c] - mean_j) * rsqrt(var_j + eps) of N rows of W values
+// held as a[j][i] (0 past W), the biased variance; row j into z + j * W.
+// The N chains run side by side.
+template <int N, int PL>
+__device__ __forceinline__ void normalise(const float (&a)[N][PL], int W,
+                                          float eps, float* z) {
+  const int lane = threadIdx.x & 31;
+  float s[N], mean[N], q[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    s[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < PL; ++i) s[j] += a[j][i];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < N; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    mean[j] = s[j] / (float)W;
+    q[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < PL; ++i)
+      if (lane + 32 * i < W) q[j] += (a[j][i] - mean[j]) * (a[j][i] - mean[j]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < N; ++j) q[j] += __shfl_xor_sync(0xffffffffu, q[j], o);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float rs = rsqrtf(q[j] / (float)W + eps);
+#pragma unroll
+    for (int i = 0; i < PL; ++i)
+      if (lane + 32 * i < W)
+        z[j * W + lane + 32 * i] = (a[j][i] - mean[j]) * rs;
+  }
+}
+
+__device__ void post(const Args& p, const Layer& L, const float* hb,
+                     const float* lnb, float* zs, bool last, int t,
+                     float* xs, float* xg) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int task = warp; task < DECODE_ROWS * nseg; task += NT / 32) {
-    const float* x = buf + (task / nseg) * ld + (task % nseg) * width;
-    float s = 0.f;
-    for (int c = lane; c < width; c += 32) s += x[c];
-    const float mean = warp_sum(s) / (float)width;
-    float q = 0.f;
-    for (int c = lane; c < width; c += 32) {
-      const float dl = x[c] - mean;
-      q += dl * dl;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const bool hc = L.kind == 1;
+  const int W = L.cout;  // output columns (HC: C, of 2C pre-norm ones)
+  float* z = zs + (size_t)warp * p.ldh;
+  for (int k = warp; rank + CL * k < p.B; k += NW) {
+    const int b = rank + CL * k;
+    const float* hr = hb + (size_t)b * p.ldh;
+    if (hc) {  // the gate's half and the other
+      float h[2][8];
+      load_row<8>(hr, W, h[0]);
+      load_row<8>(hr + W, W, h[1]);
+      normalise<2, 8>(h, W, p.eps, z);
+    } else {
+      float h[1][16];
+      load_row<16>(hr, W, h[0]);
+      normalise<1, 16>(h, W, p.eps, z);
     }
-    const float var = warp_sum(q) / (float)width;
-    if (lane == 0) {
-      stats[task * 2] = mean;
-      stats[task * 2 + 1] = rsqrtf(var + eps);
+    __syncwarp();
+    const float* x = xrow(p, xs, xg, b);  // this block's copy: the residual
+    float* dst[CL];
+#pragma unroll
+    for (int q = 0; q < CL; ++q) dst[q] = xrow_in(p, xs, q, b);
+    const bool own = last && b % gridDim.x == blockIdx.x;
+#pragma unroll 2
+    for (int c = lane; c < W; c += 32) {
+      float o;
+      if (hc) {
+        const float gt = sigmoidf(z[c] * lnb[c] + lnb[W + c]);
+        const float v2 = z[W + c] * lnb[2 * W + c] + lnb[3 * W + c];
+        o = gt * v2 + (1.f - gt) * x[c];
+      } else {
+        o = z[c] * lnb[c] + lnb[p.cmo + c];
+        if (L.act == 1) o = fmaxf(o, 0.f);
+#pragma unroll 1
+        for (int s = (L.act == 2) + last; s > 0; --s) o = sigmoidf(o);
+      }
+#pragma unroll
+      for (int q = 0; q < CL; ++q) dst[q][c] = o;
+      if (own) p.y[((size_t)b * p.T + t) * p.n_mels + c] = o;
     }
+    __syncwarp();
   }
 }
 
-// C layer: x <- act(LN(x @ W + b)); tmp is scratch of the same shape.
-__device__ void run_c(const Args& p, const Layer& L, bool dec, float* x,
-                      float* tmp, float* stats, bf16_t* xs) {
-  layer_mm(p, 0, L.idx, dec, x, p.xw, L.cin, L.cout, tmp, p.xw, xs);
-  __syncthreads();
-  ln_stats(tmp, p.xw, L.cout, 1, p.eps, stats);
-  __syncthreads();
-  const float* gamma = p.cln + (size_t)L.idx * 2 * p.cmo;
-  const float* beta = gamma + p.cmo;
-  for (int i = threadIdx.x; i < DECODE_ROWS * L.cout; i += NT) {
-    const int r = i / L.cout, c = i % L.cout;
-    float h = (tmp[r * p.xw + c] - stats[r * 2]) * stats[r * 2 + 1] * gamma[c]
-              + beta[c];
-    if (L.act == 1) h = fmaxf(h, 0.f);
-    else if (L.act == 2) h = sigmoidf(h);
-    x[r * p.xw + c] = h;
-  }
-  __syncthreads();
-}
-
-// HC layer at step t: ring row t mod R <- x; taps = [x_{t-2r}, x_{t-r}, x];
-// h = taps @ W + b; x <- sigmoid(LN1(h1)) * LN2(h2) + (1 - sigmoid) * x.
-__device__ void run_hc(const Args& p, const Layer& L, bool dec, int t,
-                       int b0, float* x, float* taps, float* hs, float* stats,
-                       bf16_t* xs) {
-  const int C = L.cout, R = 2 * L.rate + 1;
-  const int wi = t % R, i0 = (t + 1) % R, i1 = (t + L.rate + 1) % R;
-  for (int i = threadIdx.x; i < DECODE_ROWS * C; i += NT) {
-    const int r = i / C, c = i % C;
-    float* ring = p.ring + ((size_t)(b0 + r) * p.ring_rows + L.ring_off) * C;
-    const float xv = x[r * p.xw + c];
-    ring[wi * C + c] = xv;
-    float* tp = taps + r * 3 * C;
-    tp[c] = ring[i0 * C + c];
-    tp[C + c] = ring[i1 * C + c];
-    tp[2 * C + c] = xv;
-  }
-  __syncthreads();
-  layer_mm(p, 1, L.idx, dec, taps, 3 * C, 3 * C, 2 * C, hs, 2 * C, xs);
-  __syncthreads();
-  ln_stats(hs, 2 * C, C, 2, p.eps, stats);
-  __syncthreads();
-  const float* ln = p.hcln + (size_t)L.idx * 4 * C;
-  for (int i = threadIdx.x; i < DECODE_ROWS * C; i += NT) {
-    const int r = i / C, c = i % C;
-    const float* st = stats + r * 4;
-    const float g = sigmoidf((hs[r * 2 * C + c] - st[0]) * st[1] * ln[c]
-                             + ln[C + c]);
-    const float h2 = (hs[r * 2 * C + C + c] - st[2]) * st[3] * ln[2 * C + c]
-                     + ln[3 * C + c];
-    x[r * p.xw + c] = g * h2 + (1.f - g) * x[r * p.xw + c];
-  }
-  __syncthreads();
-}
-
-__device__ void run_stack(const Args& p, const Program& prog, int first,
-                          int count, bool dec, int t, int b0, float* x,
-                          float* tmp, float* taps, float* hs, float* stats,
-                          bf16_t* xs) {
-  for (int li = first; li < first + count; ++li) {
-    const Layer& L = prog.l[li];
-    if (L.kind == 0) run_c(p, L, dec, x, tmp, stats, xs);
-    else run_hc(p, L, dec, t, b0, x, taps, hs, stats, xs);
-  }
-}
-
-// One attention row per batch row (warp r): scores of the <= win unmasked
-// keys, softmax (the masked keys' exp(NEG_INF - max) is exactly 0),
-// new cursor = first argmax, ctx = a.V. Writes out = [ctx; q] and column t
-// of A.
-__device__ void attention(const Args& p, int t, int b0, const float* q,
-                          float* out, int* prev) {
+// Every row's attention, one warp a row, in every block: scores of the
+// <= win unmasked keys, softmax (the masked keys' exp(NEG_INF - max) is
+// exactly 0), new cursor = first argmax, ctx = a.V; the row [q] becomes
+// [ctx; q]. Lane l holds features l + 32i; a row's keys are loaded at
+// once, then its values. The row's owner block writes column t of A.
+__device__ void attention(const Args& p, int t, float* xs, float* xg,
+                          int* prev) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, d = p.d;
-  if (warp < DECODE_ROWS) {
-    const int r = warp, b = b0 + r;
-    const float* qr = q + r * p.xw;
-    float* o = out + r * p.xw;
-    if (b < p.B) {
-      const int pv = prev[r];
-      const int nw = min(p.win, p.N - pv);
-      float s[MAX_WIN];
-      float m = -INFINITY;
-      for (int w = 0; w < nw; ++w) {
-        const float* k = p.kt + ((size_t)b * p.N + pv + w) * d;
+  for (int b = warp; b < p.B; b += NW) {
+    float* x = xrow(p, xs, xg, b);
+    const int pv = prev[b];
+    const int nw = min(p.win, p.N - pv);
+    float q[8], kk[MAX_WIN][8];
+    const size_t row0 = ((size_t)b * p.N + pv) * d;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = lane + 32 * i;
+      q[i] = c >= d ? 0.f
+             : b < p.rows_sh ? x[c] : *static_cast<volatile float*>(x + c);
+#pragma unroll
+      for (int w = 0; w < MAX_WIN; ++w)
+        kk[w][i] = c < d && w < nw ? __ldg(p.kt + row0 + (size_t)w * d + c)
+                                   : 0.f;
+    }
+    float s[MAX_WIN];
+    float m = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < MAX_WIN; ++w) {
+      if (w < nw) {
         float part = 0.f;
-        for (int c = lane; c < d; c += 32) part = fmaf(k[c], qr[c], part);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (lane + 32 * i < d) part = fmaf(kk[w][i], q[i], part);
         s[w] = warp_sum(part) * p.scale;
         m = fmaxf(m, s[w]);
       }
-      float sum = 0.f;
-      for (int w = 0; w < nw; ++w) {
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < MAX_WIN; ++w)
+      if (w < nw) {
         s[w] = expf(s[w] - m);
         sum += s[w];
       }
-      float best = -1.f;
-      int bi = 0;
-      for (int w = 0; w < nw; ++w) {
+    float best = -1.f;
+    int bi = 0;
+#pragma unroll
+    for (int w = 0; w < MAX_WIN; ++w)
+      if (w < nw) {
         s[w] = s[w] / sum;
         if (s[w] > best) {  // strict: the first maximum wins
           best = s[w];
           bi = w;
         }
       }
-      for (int c = lane; c < d; c += 32) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = lane + 32 * i;
+      if (c < d) {
         float acc = 0.f;
-        for (int w = 0; w < nw; ++w)
-          acc = fmaf(s[w], p.v[((size_t)b * p.N + pv + w) * d + c], acc);
-        o[c] = acc;
-        o[d + c] = qr[c];
+#pragma unroll
+        for (int w = 0; w < MAX_WIN; ++w)
+          if (w < nw)
+            acc = fmaf(s[w], __ldg(p.v + row0 + (size_t)w * d + c), acc);
+        x[d + c] = q[i];
+        x[c] = acc;
       }
+    }
+    if (b % gridDim.x == blockIdx.x) {
       float* acol = p.a + (size_t)b * p.N * p.T + t;
       for (int n = lane; n < p.N; n += 32) {
         const int w = n - pv;
         float v = 0.f;
-        for (int u = 0; u < nw; ++u)
-          if (u == w) v = s[u];
+#pragma unroll
+        for (int u = 0; u < MAX_WIN; ++u)
+          if (u < nw && u == w) v = s[u];
         acol[(size_t)n * p.T] = v;
       }
-      __syncwarp();
-      if (lane == 0) prev[r] = pv + bi;
-    } else {
-      for (int c = lane; c < 2 * d; c += 32) o[c] = 0.f;
     }
+    __syncwarp();
+    if (lane == 0) prev[b] = pv + bi;
   }
-  __syncthreads();
 }
 
-// __grid_constant__: the device functions take these by reference without
-// a per-thread local copy
-__global__ void __launch_bounds__(NT)
+// The block's slice of a resident layer's slot(s) into shared memory, its
+// rows packed at a pitch of the layer's depth, 8 bytes a copy.
+__device__ void load_slice(const Layer& L, int c0, int n, char* smem) {
+  const int esz = L.wkind == WK_F32 ? 4 : 2;
+  const int row_bytes = (L.kind == 1 ? 3 * L.cout : L.cin) * esz;
+  const int units = row_bytes / 8;
+  for (int half = 0; half < (L.wkind == WK_SPLIT ? 2 : 1); ++half) {
+    const char* src = static_cast<const char*>(half ? L.wl : L.w)
+                      + (size_t)c0 * L.ldw * esz;
+    char* dst = smem + L.woff + (size_t)half * L.nmax * row_bytes;
+    for (int i = threadIdx.x; i < n * units; i += NT) {
+      const int j = i / units, u = i % units;
+      *reinterpret_cast<uint2*>(dst + (size_t)j * row_bytes + 8 * u) =
+          *reinterpret_cast<const uint2*>(src + (size_t)j * L.ldw * esz
+                                          + 8 * u);
+    }
+  }
+}
+
+__device__ __forceinline__ void columns(const Layer& L, int& c0, int& n) {
+  const int W = L.kind == 1 ? 2 * L.cout : L.cout;
+  c0 = (int)((long long)blockIdx.x * W / gridDim.x);
+  n = (int)((long long)(blockIdx.x + 1) * W / gridDim.x) - c0;
+}
+
+__global__ void __launch_bounds__(NT, 1)
 decode_kernel(const __grid_constant__ Args p,
               const __grid_constant__ Program prog) {
-  extern __shared__ float smem[];
-  __shared__ int prev[DECODE_ROWS];
-  float* cur = smem;                              // ROWS x xw
-  float* alt = cur + DECODE_ROWS * p.xw;          // ROWS x xw
-  float* taps = alt + DECODE_ROWS * p.xw;         // ROWS x 3d
-  float* hs = taps + DECODE_ROWS * 3 * p.d;       // ROWS x 2d
-  float* stats = hs + DECODE_ROWS * 2 * p.d;      // ROWS x 4
-  // the bf16 split of a layer's input rows: 2 x ROWS x ldx_max, 16-byte
-  // aligned (every region above is a multiple of 4 floats)
-  bf16_t* xs = reinterpret_cast<bf16_t*>(stats + DECODE_ROWS * 4);
-  const int b0 = blockIdx.x * DECODE_ROWS;
+  extern __shared__ __align__(16) char smem[];
+  float* xs = reinterpret_cast<float*>(smem);
+  float* part = reinterpret_cast<float*>(smem + p.part_off);
+  int* prev = reinterpret_cast<int*>(smem + p.prev_off);
+  float* lnb = reinterpret_cast<float*>(smem + p.ln_off);
+  float* zs = reinterpret_cast<float*>(smem + p.z_off);
+  float* xg = p.spill + (size_t)blockIdx.x * p.spill_floats;
+  float* ring = p.ring + (size_t)blockIdx.x * p.ring_floats;
+  const int nl = prog.n_enc + prog.n_dec;
 
-  // the ring buffers start at zero: the causal left padding
-  const size_t nring = (size_t)DECODE_ROWS * p.ring_rows * p.d;
-  float* ring = p.ring + (size_t)b0 * p.ring_rows * p.d;
-  for (size_t i = threadIdx.x; i < nring; i += NT) ring[i] = 0.f;
-  for (int i = threadIdx.x; i < DECODE_ROWS * p.xw; i += NT) cur[i] = 0.f;
-  if (threadIdx.x < DECODE_ROWS) prev[threadIdx.x] = 0;
-  __syncthreads();
-
-  for (int t = 0; t < p.T; ++t) {
-    // AudioEnc on the previous frame (cur) -> q in cur
-    run_stack(p, prog, 0, prog.n_enc, false, t, b0, cur, alt, taps, hs,
-              stats, xs);
-    // [ctx; q] -> alt
-    attention(p, t, b0, cur, alt, prev);
-    // AudioDec on alt -> logits in alt
-    run_stack(p, prog, prog.n_enc, prog.n_dec, true, t, b0, alt, cur, taps,
-              hs, stats, xs);
-    for (int i = threadIdx.x; i < DECODE_ROWS * p.n_mels; i += NT) {
-      const int r = i / p.n_mels, c = i % p.n_mels;
-      const float yv = sigmoidf(alt[r * p.xw + c]);
-      cur[r * p.xw + c] = yv;  // fed back as the next step's input frame
-      if (b0 + r < p.B)
-        p.y[((size_t)(b0 + r) * p.T + t) * p.n_mels + c] = yv;
+  // zero start: the first input frame, the cursors and the ring (the
+  // causal left padding's products are exactly 0)
+  for (int i = threadIdx.x; i < p.rows_sh * p.xw; i += NT) xs[i] = 0.f;
+  for (int i = threadIdx.x; i < p.spill_floats; i += NT) xg[i] = 0.f;
+  for (int i = threadIdx.x; i < p.ring_floats; i += NT) ring[i] = 0.f;
+  for (int i = threadIdx.x; i < p.B; i += NT) prev[i] = 0;
+  for (int li = 0; li < nl; ++li) {
+    const Layer& L = prog.l[li];
+    if (L.woff >= 0) {
+      int c0, n;
+      columns(L, c0, n);
+      load_slice(L, c0, n, smem);
     }
-    __syncthreads();
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every member runs before any writes into its copy
+
+  unsigned target = 0;
+  int parity = 0;
+  for (int t = 0; t < p.T; ++t) {
+    for (int li = 0; li < nl; ++li) {
+      if (li == prog.n_enc) {  // AudioEnc's output q -> [ctx; q]
+        attention(p, t, xs, xg, prev);
+        __syncthreads();
+      }
+      const Layer& L = prog.l[li];
+      int c0, n;
+      columns(L, c0, n);
+      // the norms' parameters (HC: 4 x C; C: gamma, beta at a pitch of
+      // cmo) into lnb, under the product
+      const int nln = L.kind == 1 ? 4 * L.cout : 2 * p.cmo;
+      for (int i = 4 * threadIdx.x; i < nln; i += 4 * NT)
+        sm90::cp_async16(sm90::smem_u32(lnb + i), L.ln + i, 16);
+      const Addends first =
+          threadIdx.x < p.B * n
+              ? addends(p, L, t, c0, n, threadIdx.x, ring) : Addends{};
+      if (L.wkind == WK_F32)
+        product<WK_F32>(p, L, c0, n, xs, xg, part, smem);
+      else if (L.wkind == WK_BF16)
+        product<WK_BF16>(p, L, c0, n, xs, xg, part, smem);
+      else
+        product<WK_SPLIT>(p, L, c0, n, xs, xg, part, smem);
+      __syncthreads();
+      float* hb = p.hbuf + (size_t)parity * p.B * p.ldh;
+      combine(p, L, t, c0, n, part, ring, hb, first);
+      sm90::cp_async_wait_all();  // lnb
+      grid_sync(p.bar, target);
+      post(p, L, hb, lnb, zs, li == nl - 1, t, xs, xg);
+      cluster.sync();  // every member's copy holds the layer's output
+      parity ^= 1;
+    }
   }
 }
+
+// The barriers of a decode alone, for the floor they set: n grid barriers
+// over the launch's blocks, nothing else.
+__global__ void __launch_bounds__(NT, 1) barrier_kernel(unsigned* bar, int n) {
+  unsigned target = 0;
+  for (int i = 0; i < n; ++i) grid_sync(bar, target);
+}
+
+cudaError_t set_smem(int smem) {
+  return cudaFuncSetAttribute(decode_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
+}
+
+// A cooperative launch of `blocks` blocks in clusters of CL.
+struct LaunchConfig {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[2];
+  LaunchConfig(int blocks, int smem, cudaStream_t stream) {
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(NT);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    attr[1].id = cudaLaunchAttributeCooperative;
+    attr[1].val.cooperative = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 2;
+  }
+};
 
 }  // namespace
 
-extern "C" int dctts_decode(const float* kt, const float* v, const float* cw,
-                            const float* cb, const float* cln,
-                            const float* hcw, const float* hcb,
-                            const float* hcln, const void* cws,
-                            const void* hcws, const int* prog_flat,
-                            float* y, float* a, float* ring, int n_enc,
+// The most blocks of `smem` dynamic bytes, in clusters of CL, that can be
+// co-resident on the current device (the cooperative launch's limit) into
+// *blocks, and the number of SMs into *sms.
+extern "C" int dctts_decode_coresident(int smem, int* blocks, int* sms) {
+  cudaError_t e = set_smem(smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, clusters = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  LaunchConfig lc(*sms / CL * CL, smem, 0);
+  e = cudaOccupancyMaxActiveClusters(&clusters, decode_kernel, &lc.cfg);
+  if (e != cudaSuccess) return (int)e;
+  *blocks = clusters * CL;
+  return 0;
+}
+
+// layer_ints: LAYER_INTS a layer (kind, cin, cout, rate, act, ring_off,
+// wkind, ldw, woff, nmax); layer_ptrs: LAYER_PTRS a layer (w, wl, bias, ln);
+// AudioEnc's layers first. The plan's sizes and offsets come from
+// ops/decode.py:decode_plan.
+extern "C" int dctts_decode(const float* kt, const float* v, float* y,
+                            float* a, float* hbuf, float* ring, float* spill,
+                            unsigned* bar, const int* layer_ints,
+                            const void* const* layer_ptrs, int n_enc,
                             int n_dec, int B, int N, int d, int n_mels, int T,
-                            int win, float eps, int cmi, int cmo, int mode,
-                            int c_base, int hc_base, int c_lo, int hc_lo,
+                            int win, float eps, int cmo, int xw, int ldh,
+                            int rows_sh, int ring_floats, int spill_floats,
+                            int part_off, int prev_off, int ln_off,
+                            int z_off, int nv_max, int smem, int blocks,
                             void* stream) {
   if (n_enc + n_dec > MAX_LAYERS || win < 1 || win > MAX_WIN || B < 1 ||
-      mode < MODE_HIGHEST || mode > MODE_DEFAULT)
-    return (int)cudaErrorInvalidValue;
-  const bool f32 = mode == MODE_HIGHEST || mode == MODE_HYBRID;
-  if ((f32 && (!cw || !hcw)) || (mode != MODE_HIGHEST && (!cws || !hcws)))
+      blocks < CL || blocks % CL || d % 4 || d > 256 || cmo > 512)
     return (int)cudaErrorInvalidValue;
   Program prog;
   prog.n_enc = n_enc;
   prog.n_dec = n_dec;
-  int rows = 0;
+  for (int i = 0; i < MAX_LAYERS; ++i) prog.l[i] = Layer{};
   for (int i = 0; i < n_enc + n_dec; ++i) {
-    const int* f = prog_flat + 6 * i;
+    const int* f = layer_ints + LAYER_INTS * i;
+    const void* const* q = layer_ptrs + LAYER_PTRS * i;
     Layer& L = prog.l[i];
-    L.kind = f[0];
-    L.idx = f[1];
-    L.cin = f[2];
-    L.cout = f[3];
-    L.rate = f[4];
-    L.act = f[5];
-    L.ring_off = rows;
-    if (L.kind == 1) rows += 2 * L.rate + 1;
+    L.kind = f[0]; L.cin = f[1]; L.cout = f[2]; L.rate = f[3]; L.act = f[4];
+    L.ring_off = f[5]; L.wkind = f[6]; L.ldw = f[7]; L.woff = f[8];
+    L.nmax = f[9];
+    L.w = q[0]; L.wl = q[1];
+    L.bias = static_cast<const float*>(q[2]);
+    L.ln = static_cast<const float*>(q[3]);
+    if (L.wkind < WK_F32 || L.wkind > WK_SPLIT || !L.w ||
+        (L.wkind == WK_SPLIT && !L.wl) || L.cin % 4)
+      return (int)cudaErrorInvalidValue;
   }
-  for (int i = n_enc + n_dec; i < MAX_LAYERS; ++i) prog.l[i] = Layer{};
   Args p;
-  p.kt = kt; p.v = v; p.cw = cw; p.cb = cb; p.cln = cln;
-  p.hcw = hcw; p.hcb = hcb; p.hcln = hcln;
-  p.cws = static_cast<const bf16_t*>(cws);
-  p.hcws = static_cast<const bf16_t*>(hcws);
-  p.mode = mode; p.c_base = c_base; p.hc_base = hc_base;
-  p.c_lo = c_lo; p.hc_lo = hc_lo;
-  p.y = y; p.a = a; p.ring = ring;
+  p.kt = kt; p.v = v; p.y = y; p.a = a;
+  p.hbuf = hbuf; p.ring = ring; p.spill = spill; p.bar = bar;
   p.B = B; p.N = N; p.d = d; p.n_mels = n_mels; p.T = T; p.win = win;
-  p.cmi = cmi; p.cmo = cmo; p.ring_rows = rows;
-  p.xw = 2 * d > n_mels ? 2 * d : n_mels;
+  p.cmo = cmo; p.xw = xw; p.ldh = ldh;
+  p.rows_sh = rows_sh; p.ring_floats = ring_floats;
+  p.spill_floats = spill_floats; p.part_off = part_off;
+  p.prev_off = prev_off; p.ln_off = ln_off; p.z_off = z_off;
+  p.nv_max = nv_max;
   p.eps = eps;
   p.scale = (float)(1.0 / sqrt((double)d));
-  // the split rows: the widest product's K (3d taps or a C layer's cin)
-  const int ldx_max = ((3 * d > cmi ? 3 * d : cmi) + 7) & ~7;
-  const size_t smem =
-      sizeof(float) * (size_t)DECODE_ROWS * (2 * p.xw + 5 * d + 4) +
-      sizeof(bf16_t) * 2 * (size_t)DECODE_ROWS * ldx_max;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int grid = (B + DECODE_ROWS - 1) / DECODE_ROWS;
-  decode_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(p, prog);
+  cudaError_t e = set_smem(smem);
+  if (e != cudaSuccess) return (int)e;
+  LaunchConfig lc(blocks, smem, (cudaStream_t)stream);
+  e = cudaLaunchKernelEx(&lc.cfg, decode_kernel, p, prog);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// n grid barriers over `blocks` co-resident blocks of NT threads, as the
+// decode kernel runs them (bar: a zeroed counter).
+extern "C" int dctts_decode_barriers(unsigned* bar, int n, int blocks,
+                                     void* stream) {
+  void* args[] = {&bar, &n};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)barrier_kernel, dim3(blocks), dim3(NT), args, 0,
+      (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

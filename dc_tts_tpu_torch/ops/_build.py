@@ -37,7 +37,9 @@ Fl = ctypes.c_float
 
 # argument types of each C entry, in order (see the sources)
 _SIGNATURES = {
-    "dctts_decode": [P] * 14 + [I] * 8 + [Fl] + [I] * 7 + [P],
+    "dctts_decode": [P] * 10 + [I] * 8 + [Fl] + [I] * 13 + [P],
+    "dctts_decode_coresident": [I, ctypes.POINTER(I), ctypes.POINTER(I)],
+    "dctts_decode_barriers": [P, I, I, P],
     "dctts_gl2": [P] * 7 + [I] * 8 + [P],
     "dctts_gl_k3a": [P] * 9 + [I] * 12 + [P],
     "dctts_gl_k3b": [P] * 8 + [I] * 12 + [P],

@@ -10,17 +10,28 @@ a ring buffer of 2*rate+1 rows (write at t mod R, taps at (t+1) mod R and
 (t+rate+1) mod R). Outputs Y (B, T, n_mels) and A (B, N, T).
 
 On the H100 (csrc/decode.cu): the T steps are sequential and every step
-reads all ~29 MB of packed weights, so a step is bound by how fast one SM
-can stream the weights through L2, and the whole decode by T such steps.
-The simple design here: batch rows are independent, so one 512-thread
-block owns ``ROWS`` rows and runs all T steps with no synchronisation
-between blocks; a step's activations sit in shared memory, the ring
-buffers in a global scratch the wrapper allocates (it stays in L2), and
-each thread owns one output column of a layer, streaming that column of
-the weights once per step for all of its block's rows. Only the <= win
-unmasked attention scores are computed: the masked ones are exactly zero
-after the softmax. Splitting the weights over the shared memory of all
-SMs, with cluster or grid synchronisation, is later work.
+runs 24 dependent layer products of a few MFLOP each, so the step is a
+latency chain, not a matter of bytes or operations. The design: one
+cooperative launch of one persistent 512-thread block per SM, in clusters
+of ``CLUSTER``. Block g owns the columns ``block_columns(W, G, g)`` of
+every layer of width W and computes them for all B batch rows, so each
+weight is read once a step on the whole card; its slice of the weights
+(the transposed slots ``cw_t``, ``hcw_t``, ... below: a column's weights
+contiguous) stays in shared memory where ``decode_plan`` finds room, and
+streams from L2 otherwise. A product task is ``RG`` rows of a few columns
+(of one tap each, for an HC layer), one warp; the lanes split k. Each block
+writes its columns of the pre-norm rows to a global buffer and all blocks
+meet at a grid barrier (one a layer); then each block normalises the rows
+``cluster_rows`` of its cluster rank, gates them, and stores the layer's
+output rows into the shared memory of every block of its cluster, and a
+cluster barrier closes the layer. The attention row is computed
+redundantly in every block: the same arithmetic gives the same cursor
+everywhere. An HC layer's three taps are three products of the current
+input; each block keeps the older taps' products of its columns in a ring
+in a global scratch the wrapper allocates, so only x_t is read. The
+activation rows sit in shared memory up to what it holds, the rest in a
+per-block global spill; any B runs. Only the <= win unmasked attention
+scores are computed: the masked ones are exactly zero after the softmax.
 
 Precisions (``prec``), as the JAX kernel's ``mm``: every layer product is
 float32 under "highest"; under "high3" it is xh@Wh + xh@Wl + xl@Wh on bf16
@@ -34,7 +45,13 @@ what the TPU's single-pass dot computes; JAX's interpret mode on the CPU
 computes it in float32 instead, so it has no JAX oracle off the TPU. On the
 card the split products run as FFMA on the widened bf16 halves: a product
 of two bf16 values is exact in float32, so only the order of the sums
-differs from the tensor core's.
+differs from the tensor core's. A column's sum over k in the kernel: lane
+l of a warp sums k = 128i + 4l + e in order, the 32 lane sums are added
+pairwise over xor distances 16, 8, 4, 2, 1, each of the split's three
+products apart and then as (hh + hl) + lh; an HC column adds its taps'
+products as ((oldest + middle) + current) + bias. The plain version's
+matmuls take their own order; the gates of ``chip_smoke.py`` hold the two
+apart (tests/test_torch_decode_plan.py emulates the kernel's order).
 
 ``fused_decode`` launches the kernel for CUDA tensors and runs
 ``fused_decode_plain`` (the same loop in PyTorch) for CPU tensors only.
@@ -42,6 +59,7 @@ differs from the tensor core's.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -50,10 +68,18 @@ from ..dsp.stft import split_bf16
 
 NEG_INF = -(2.0 ** 32 - 1.0)
 
-# batch rows per thread block; must equal DECODE_ROWS in csrc/decode.cu
-ROWS = 4
-# the decode precisions, in the kernel's mode numbering (csrc/decode.cu)
+# the decode precisions
 PRECS = ("highest", "high3", "hybrid", "default")
+# batch rows of one product task (a warp); RG in csrc/decode.cu
+RG = 4
+# blocks of a cluster, which split each layer's norm rows; CL there
+CLUSTER = 2
+# warps of a block; NW there
+WARPS = 16
+# the operand kinds of a layer product, in the kernel's numbering (WK_*)
+WKINDS = ("f32", "bf16", "split")
+# dynamic shared memory one block may use on the H100, bytes
+SMEM_MAX = 232448
 
 
 class _Layer(NamedTuple):
@@ -133,6 +159,11 @@ def _packed_specs(cfg, prec: str) -> dict:
     elif prec == "default":
         for k in ("cw", "hcw"):
             specs[k] = (specs[k][0], bf16)
+    # the kernel's copies: each slot transposed, a column's weights
+    # contiguous (the plain version and the JAX layout read the others)
+    for k in [k for k in specs if k.startswith(("cw", "hcw"))]:
+        shape, dtype = specs[k]
+        specs[k + "_t"] = ((*shape[:-2], shape[-1], shape[-2]), dtype)
     return specs
 
 
@@ -145,7 +176,9 @@ def pack_decode_params(cfg, params, prec: str = "highest") -> dict:
     ``cw`` and ``hcw`` as the JAX ``fused_decode`` does before its call:
     "high3" replaces both by their (2, ...) bf16 hi/lo stacks; "hybrid"
     keeps them and adds the hi/lo stacks of AudioDec's slices only, ``cw2``
-    and ``hcw2``; "default" replaces both by their bf16 roundings."""
+    and ``hcw2``; "default" replaces both by their bf16 roundings. Each of
+    those kernels also comes transposed, ``<key>_t`` (a slot's rows are its
+    output columns), the layout the CUDA kernel reads."""
     check_prec(prec)
     enc_prog, dec_prog = _programs(cfg)
     dev = params["audio_enc"][0]["conv"]["w"].device
@@ -179,6 +212,8 @@ def pack_decode_params(cfg, params, prec: str = "highest") -> dict:
                       hcw2=split_hilo(hcw[n_hc_enc:]))
     elif prec == "default":
         packed.update(cw=cw.to(torch.bfloat16), hcw=hcw.to(torch.bfloat16))
+    for k in [k for k in packed if k.startswith(("cw", "hcw"))]:
+        packed[k + "_t"] = packed[k].transpose(-1, -2).contiguous()
     return packed
 
 
@@ -309,21 +344,173 @@ def fused_decode_plain(packed: dict, Kt: torch.Tensor, V: torch.Tensor,
 _ACT = {None: 0, "relu": 1, "sigmoid": 2}
 
 
-def _program_array(enc_prog, dec_prog):
-    """Layer program as the kernel reads it: 6 ints per layer (kind, idx,
-    cin, cout, rate, act), enc layers first."""
-    flat = []
-    for l in enc_prog + dec_prog:
-        flat += [0 if l.kind == "C" else 1, l.idx, l.cin, l.cout, l.rate,
-                 _ACT[l.act]]
-    return (ctypes.c_int * len(flat))(*flat)
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def layer_width(l: _Layer) -> int:
+    """Output columns of a layer's product (an HC layer's two halves)."""
+    return 2 * l.cout if l.kind == "HC" else l.cout
+
+
+def layer_depth(l: _Layer) -> int:
+    """k of a layer's product: an HC layer's three taps of C each."""
+    return 3 * l.cout if l.kind == "HC" else l.cin
+
+
+def layer_wkind(prec: str, dec: bool) -> str:
+    """The operands of a layer's product in ``prec`` (one of ``WKINDS``):
+    "f32" ("highest", AudioEnc under "hybrid"), "bf16" ("default"),
+    "split" (the hi/lo products: "high3", AudioDec under "hybrid")."""
+    check_prec(prec)
+    if prec == "highest" or (prec == "hybrid" and not dec):
+        return "f32"
+    return "bf16" if prec == "default" else "split"
+
+
+def block_columns(width: int, blocks: int, g: int) -> Tuple[int, int]:
+    """[c0, c1): the output columns that block g of ``blocks`` owns in a
+    layer of ``width`` columns (the kernel's ``columns``)."""
+    return g * width // blocks, (g + 1) * width // blocks
+
+
+def row_groups(B: int) -> Tuple[Tuple[int, int], ...]:
+    """[r0, r1) of each product task's batch rows; every block computes its
+    columns for all of them."""
+    return tuple((r, min(r + RG, B)) for r in range(0, B, RG))
+
+
+def cluster_rows(B: int, rank: int) -> Tuple[int, ...]:
+    """The batch rows whose layer norms the block of cluster rank ``rank``
+    computes (and stores into every member of its cluster): rank, rank +
+    CLUSTER, ... (the kernel's ``post``)."""
+    return tuple(range(rank, B, CLUSTER))
+
+
+class DecodePlan(NamedTuple):
+    """The kernel's partition and shared-memory layout for one launch."""
+    blocks: int
+    B: int
+    xw: int               # floats per activation row
+    ldh: int              # floats per pre-norm row
+    rows_sh: int          # activation rows in shared memory; the rest spill
+    nv_max: int           # most product columns (taps x columns) a block has
+    part_off: int         # bytes: the product sums (B x nv_max floats)
+    prev_off: int         # bytes: the cursors (B ints)
+    ln_off: int           # bytes: a layer's norm parameters
+    z_off: int            # bytes: a warp's normalised row (ldh floats)
+    nmax: Tuple[int, ...]  # per layer: most columns a block owns
+    woff: Tuple[int, ...]  # per layer: bytes to the resident slice, or -1
+    smem: int             # dynamic shared memory bytes
+    ring_floats: int      # per block: its HC columns' tap products
+    spill_floats: int     # per block: the activation rows past rows_sh
+    barriers_per_step: int
+
+
+def decode_plan(cfg, B: int, blocks: int, prec: str = "highest"
+                ) -> DecodePlan:
+    """Where the kernel keeps what, at batch B over ``blocks`` blocks: the
+    activation rows first (as many as shared memory holds), then each
+    layer's weight slice, in program order, where it still fits (the rest
+    stream from L2)."""
+    enc, dec = _programs(cfg)
+    layers = [(False, l) for l in enc] + [(True, l) for l in dec]
+    xw = _up(max(2 * cfg.d, cfg.n_mels), 4)
+    ldh = max(layer_width(l) for _, l in layers)
+    nmax = tuple(-(-layer_width(l) // blocks) for _, l in layers)
+    nv_max = max((3 if l.kind == "HC" else 1) * n
+                 for (_, l), n in zip(layers, nmax))
+    cmo = max(l.cout for _, l in layers if l.kind == "C")
+    ln_bytes = 4 * max(4 * cfg.d, 2 * cmo)
+    z_bytes = 4 * ldh * min(WARPS, len(cluster_rows(B, 0)))
+    fixed = _up(4 * B * nv_max, 16) + _up(4 * B, 16) + ln_bytes + z_bytes
+    if fixed > SMEM_MAX:
+        raise ValueError(f"fused_decode: B={B} over {blocks} blocks needs "
+                         f"{fixed} bytes of shared memory before any "
+                         "activation row; take more blocks")
+    rows_sh = min(B, max(0, (SMEM_MAX - fixed) // (4 * xw)))
+    part_off = 4 * xw * rows_sh
+    prev_off = part_off + _up(4 * B * nv_max, 16)
+    ln_off = prev_off + _up(4 * B, 16)
+    z_off = ln_off + ln_bytes
+    cur = z_off + z_bytes
+    woff = []
+    for (is_dec, l), n in zip(layers, nmax):
+        kind = layer_wkind(prec, is_dec)
+        size = _up(n * layer_depth(l) * (4 if kind == "f32" else 2)
+                   * (2 if kind == "split" else 1), 16)
+        if cur + size <= SMEM_MAX:
+            woff.append(cur)
+            cur += size
+        else:
+            woff.append(-1)
+    hc = [n for (_, l), n in zip(layers, nmax) if l.kind == "HC"]
+    return DecodePlan(
+        blocks=blocks, B=B, xw=xw, ldh=ldh, rows_sh=rows_sh, nv_max=nv_max,
+        part_off=part_off, prev_off=prev_off, ln_off=ln_off, z_off=z_off,
+        nmax=nmax, woff=tuple(woff), smem=cur,
+        ring_floats=ring_rows(cfg) * B * max(hc, default=0) * 2,
+        spill_floats=(B - rows_sh) * xw, barriers_per_step=len(layers))
 
 
 def ring_rows(cfg) -> int:
-    """Ring-buffer rows per batch row: sum of 2*rate+1 over the HC layers
-    (272 at base_config)."""
+    """Ring rows per batch row: sum of 2*rate+1 over the HC layers (272 at
+    base_config)."""
     enc_prog, dec_prog = _programs(cfg)
     return sum(2 * l.rate + 1 for l in enc_prog + dec_prog if l.kind == "HC")
+
+
+def _layer_arrays(packed: dict, cfg, prec: str, plan: DecodePlan):
+    """The layer program as the kernel reads it: 10 ints a layer (kind,
+    cin, cout, rate, act, ring_off, wkind, ldw, woff, nmax) and 4 pointers
+    (w, wl, bias, ln), AudioEnc's layers first."""
+    enc, dec = _programs(cfg)
+    n_c_enc, n_hc_enc = _enc_counts(cfg)
+    ints, ptrs, ring_off = [], [], 0
+    for li, (is_dec, l) in enumerate([(False, l) for l in enc]
+                                     + [(True, l) for l in dec]):
+        hc = l.kind == "HC"
+        kind = layer_wkind(prec, is_dec)
+        key, idx = ("hcw_t" if hc else "cw_t"), l.idx
+        if prec == "hybrid" and is_dec:
+            key, idx = key[:-2] + "2_t", idx - (n_hc_enc if hc else n_c_enc)
+        w = packed[key]
+        hi, lo = (w[0, idx], w[1, idx]) if kind == "split" else (w[idx], None)
+        ints += [int(hc), l.cin, l.cout, l.rate, _ACT[l.act], ring_off,
+                 WKINDS.index(kind), w.shape[-1], plan.woff[li],
+                 plan.nmax[li]]
+        ptrs += [hi.data_ptr(), lo.data_ptr() if lo is not None else None,
+                 packed["hcb" if hc else "cb"][l.idx].data_ptr(),
+                 packed["hcln" if hc else "cln"][l.idx].data_ptr()]
+        ring_off += 2 * l.rate + 1 if hc else 0
+    return ((ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_void_p * len(ptrs))(*ptrs))
+
+
+def _coresident(smem: int, device) -> Tuple[int, int]:
+    from ._build import check, load_library
+
+    blocks, sms = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        check(load_library().dctts_decode_coresident(
+            smem, ctypes.byref(blocks), ctypes.byref(sms)),
+            "decode occupancy query")
+    return blocks.value, sms.value
+
+
+def coresident_blocks(smem: int, device) -> Tuple[int, int]:
+    """(the most blocks of the kernel, in clusters of ``CLUSTER``, with
+    ``smem`` bytes of shared memory that fit on ``device`` at once, its
+    SMs): the occupancy query the cooperative launch is checked against."""
+    return _coresident(smem, device)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_blocks(device) -> int:
+    """The kernel's grid on ``device``: one block per SM, in whole clusters
+    of ``CLUSTER``, as many as fit at once."""
+    fits, sms = _coresident(SMEM_MAX, device)
+    return min(sms // CLUSTER * CLUSTER, fits)
 
 
 def fused_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
@@ -331,57 +518,71 @@ def fused_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the whole autoregressive decode. Kt/V (B, N, d) float32 ->
     (Y (B, T, n_mels), A (B, N, T)). ``packed`` is ``pack_decode_params(cfg,
-    params, prec)``. CUDA tensors launch the kernel (and count the launch,
-    in ``launches`` and in ``launches_by_prec[prec]``); CPU tensors take
-    ``fused_decode_plain``. An unknown ``prec`` raises, and so does a packed
-    array of another shape or type than ``prec`` reads: nothing is
-    converted quietly."""
+    params, prec)``. CUDA tensors launch the kernel over one block per SM
+    (``decode_blocks``; and count the launch, in ``launches`` and in
+    ``launches_by_prec[prec]``); CPU tensors take ``fused_decode_plain``.
+    An unknown ``prec`` raises, and so does a packed array of another shape
+    or type than ``prec`` reads: nothing is converted quietly."""
     check_prec(prec)
     if Kt.device.type == "cpu":
         return fused_decode_plain(packed, Kt, V, T, cfg, prec)
     if Kt.device.type != "cuda":
         raise ValueError(f"fused_decode: unsupported device {Kt.device}")
+    return launch_decode(packed, Kt, V, T, cfg, prec)
+
+
+def launch_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
+                  cfg, prec: str = "highest", blocks: int | None = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fused_decode``'s launch on CUDA tensors, over ``blocks`` blocks, a
+    multiple of ``CLUSTER`` (``decode_blocks`` if None). Raises, before
+    launching, if the grid cannot be co-resident."""
     from ._build import check, load_library
 
     B, N, d = Kt.shape
     for x in (Kt, V):
         if x.device != Kt.device or x.dtype != torch.float32 \
-                or not x.is_contiguous():
+                or not x.is_contiguous() or x.device.type != "cuda":
             raise ValueError("fused_decode: Kt and V must be contiguous "
                              "float32 tensors on one CUDA device")
     if V.shape != Kt.shape or d != cfg.d:
         raise ValueError(f"fused_decode: Kt {tuple(Kt.shape)} / V "
                          f"{tuple(V.shape)} do not match d={cfg.d}")
+    if cfg.d % 4 or cfg.n_mels % 4 or cfg.d > 256 \
+            or cfg.attention_win_size > 4:
+        raise ValueError("fused_decode: the kernel takes d and n_mels "
+                         "multiples of 4, d <= 256 and a window <= 4")
     _check_packed(packed, cfg, prec, Kt.device)
     enc_prog, dec_prog = _programs(cfg)
-    prog = _program_array(enc_prog, dec_prog)
-    lib = load_library()
-    Y = torch.empty(B, T, cfg.n_mels, device=Kt.device)
-    A = torch.empty(B, N, T, device=Kt.device)
-    ring = torch.empty(-(-B // ROWS) * ROWS, ring_rows(cfg), d,
-                       device=Kt.device)
-    # the float32 kernels (read by "highest", and by AudioEnc under
-    # "hybrid"); the bf16 ones (the hi/lo stacks, or the single rounding of
-    # "default"), the packed index of the first layer they hold, and the
-    # offset of their lo halves in elements
-    cmi, cmo = packed["cw"].shape[-2:]
-    none = (None, None)
-    f32_keys = ("cw", "hcw") if prec in ("highest", "hybrid") else none
-    low_keys = {"high3": ("cw", "hcw"), "hybrid": ("cw2", "hcw2"),
-                "default": ("cw", "hcw")}.get(prec, none)
-    ptrs = [packed[k].data_ptr() if k else None for k in f32_keys + low_keys]
-    bases = _enc_counts(cfg) if prec == "hybrid" else (0, 0)
-    lo = ([packed[k][0].numel() for k in low_keys]
-          if prec in ("high3", "hybrid") else [0, 0])
-    stream = torch.cuda.current_stream(Kt.device).cuda_stream
-    code = lib.dctts_decode(
-        Kt.data_ptr(), V.data_ptr(), ptrs[0], packed["cb"].data_ptr(),
-        packed["cln"].data_ptr(), ptrs[1], packed["hcb"].data_ptr(),
-        packed["hcln"].data_ptr(), ptrs[2], ptrs[3], ctypes.addressof(prog),
-        Y.data_ptr(), A.data_ptr(), ring.data_ptr(),
-        len(enc_prog), len(dec_prog), B, N, d, cfg.n_mels, T,
-        cfg.attention_win_size, cfg.ln_eps, cmi, cmo, PRECS.index(prec),
-        *bases, *lo, stream)
+    if blocks is None:
+        blocks = decode_blocks(Kt.device)
+    if blocks < CLUSTER or blocks % CLUSTER:
+        raise ValueError(f"fused_decode: {blocks} blocks are not whole "
+                         f"clusters of {CLUSTER}")
+    plan = decode_plan(cfg, B, blocks, prec)
+    fits, _ = coresident_blocks(plan.smem, Kt.device)
+    if blocks > fits:
+        raise RuntimeError(f"fused_decode: {blocks} blocks of {plan.smem} "
+                           f"bytes cannot be co-resident ({fits} can)")
+    ints, ptrs = _layer_arrays(packed, cfg, prec, plan)
+    dev = Kt.device
+    Y = torch.empty(B, T, cfg.n_mels, device=dev)
+    A = torch.empty(B, N, T, device=dev)
+    hbuf = torch.empty(2, B, plan.ldh, device=dev)
+    ring = torch.empty(max(1, blocks * plan.ring_floats), device=dev)
+    spill = torch.empty(max(1, blocks * plan.spill_floats), device=dev)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    cmo = packed["cb"].shape[-1]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = load_library().dctts_decode(
+        Kt.data_ptr(), V.data_ptr(), Y.data_ptr(), A.data_ptr(),
+        hbuf.data_ptr(), ring.data_ptr(), spill.data_ptr(), bar.data_ptr(),
+        ctypes.addressof(ints), ctypes.addressof(ptrs), len(enc_prog),
+        len(dec_prog), B, N, d, cfg.n_mels, T, cfg.attention_win_size,
+        cfg.ln_eps, cmo, plan.xw, plan.ldh,
+        plan.rows_sh, plan.ring_floats, plan.spill_floats, plan.part_off,
+        plan.prev_off, plan.ln_off, plan.z_off, plan.nv_max, plan.smem,
+        blocks, stream)
     check(code, f"decode kernel ({prec})")
     fused_decode.launches += 1
     fused_decode.launches_by_prec[prec] += 1

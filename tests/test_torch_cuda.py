@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from dc_tts_tpu_torch.config import test_config
+from dc_tts_tpu_torch.config import base_config, test_config
 from dc_tts_tpu_torch.device import fp32_numerics
 from dc_tts_tpu_torch.dsp.griffin_lim import spectrogram_to_wav
 from dc_tts_tpu_torch.models import SSRN, Text2Mel
@@ -66,7 +66,7 @@ def _first_flip(A_k, A_p):
 
 
 @pytest.mark.parametrize("prec", K1.PRECS)
-@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("B", [1, 5, 20])
 def test_decode_kernel_matches_plain(cuda, B, prec):
     """"highest" at 2e-5 with identical cursors; the reduced bodies at
     chip_smoke.py's gate: max(2e-5, 2 x the plain version's float32-vs-
@@ -103,6 +103,45 @@ def test_decode_kernel_matches_plain(cuda, B, prec):
     assert float((Y - Yp)[:, :upto].abs().max()) <= gate_y
     assert float((A - Ap)[..., :upto].abs().max()) <= gate_a
     assert bool(torch.isfinite(Y).all())
+
+
+def test_decode_kernel_spills_rows(cuda):
+    """At base_config width, a batch past the rows one block's shared
+    memory holds: the rest run from the per-block global spill, at the
+    "highest" gate (2e-5, identical cursors) over 40 steps."""
+    cfg = base_config()
+    blocks = K1.decode_blocks(cuda)
+    B = 6 + next(b for b in range(1, 1000)
+                 if K1.decode_plan(cfg, b, blocks).spill_floats)
+    p = Text2Mel(cfg).init(torch.Generator().manual_seed(2), cuda)
+    Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, B).to(cuda))
+    packed = K1.pack_decode_params(cfg, p)
+    Kt, V = Kt.contiguous(), V.contiguous()
+    Y, A = K1.fused_decode(packed, Kt, V, 40, cfg)
+    Yp, Ap = K1.fused_decode_plain(packed, Kt, V, 40, cfg)
+    assert torch.equal(A.argmax(1), Ap.argmax(1))
+    torch.testing.assert_close(Y, Yp, atol=2e-5, rtol=0)
+    torch.testing.assert_close(A, Ap, atol=2e-5, rtol=0)
+
+
+def test_decode_refuses_grid_not_coresident(cuda, monkeypatch):
+    """If the occupancy query the wrapper checks says fewer blocks fit at
+    once than the grid has, the launch raises before it is made."""
+    cfg = test_config()
+    p = Text2Mel(cfg).init(torch.Generator().manual_seed(0), cuda)
+    Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, 2).to(cuda))
+    packed = K1.pack_decode_params(cfg, p)
+    real = K1.coresident_blocks
+
+    def fewer(smem, device):
+        fits, sms = real(smem, device)
+        return K1.decode_blocks(device) - 1, sms
+
+    monkeypatch.setattr(K1, "coresident_blocks", fewer)
+    n = K1.fused_decode.launches
+    with pytest.raises(RuntimeError, match="co-resident"):
+        K1.fused_decode(packed, Kt.contiguous(), V.contiguous(), 4, cfg)
+    assert K1.fused_decode.launches == n
 
 
 def test_decode_kernel_refuses_bad_packing(cuda):

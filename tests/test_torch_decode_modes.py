@@ -114,6 +114,9 @@ def test_pack_decode_params_by_prec_matches_jax(t2m, prec):
         want.update({k: np.asarray(base[k].astype(jnp.bfloat16)
                                    .astype(jnp.float32))
                      for k in ("cw", "hcw")})
+    # the CUDA kernel's copies: every kernel slot transposed
+    want.update({k + "_t": np.swapaxes(v, -1, -2)
+                 for k, v in list(want.items()) if k.startswith(("cw", "hcw"))})
     assert set(got) == set(want)
     for k, v in got.items():
         if v.dtype == torch.bfloat16:

@@ -1,0 +1,290 @@
+"""K1's partition over the card's blocks, checked on the CPU.
+
+The CUDA kernel (``csrc/decode.cu``) splits every layer's output columns
+over the blocks of one cooperative launch and runs every batch row through
+each block in tasks of ``RG`` rows; ``decode_plan`` lays out its shared
+memory. These tests hold that host-side plan to covering every column and
+row exactly once, the transposed packing to the JAX-layout keys bitwise,
+and an emulation of the kernel's product arithmetic (each block's column
+slice, each column summed over k in the kernel's lane order and butterfly)
+to ``layer_product``. No card is needed.
+"""
+import numpy as np
+import pytest
+import torch
+
+from dc_tts_tpu_torch.config import base_config, test_config
+from dc_tts_tpu_torch.models import Text2Mel
+from dc_tts_tpu_torch.ops import decode as K1
+
+CONFIGS = {"test": test_config, "base": base_config}
+# grid sizes the kernel takes: whole clusters (one block per SM: 132 on
+# the H100)
+BLOCKS = (32, 64, 132)
+
+
+def _layers(cfg):
+    enc, dec = K1._programs(cfg)
+    return [(False, l) for l in enc] + [(True, l) for l in dec]
+
+
+@pytest.mark.parametrize("blocks", BLOCKS)
+@pytest.mark.parametrize("B", [1, 5, 20, 72])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_partition_covers_every_column_and_row(name, B, blocks):
+    """Every output column of every layer is owned by exactly one block,
+    every batch row lies in exactly one row group of at most RG rows, and
+    its layer norms are computed by exactly one block of each cluster."""
+    cfg = CONFIGS[name]()
+    for _, l in _layers(cfg):
+        width = K1.layer_width(l)
+        owner = np.zeros(width, np.int64)
+        for g in range(blocks):
+            c0, c1 = K1.block_columns(width, blocks, g)
+            assert 0 <= c0 <= c1 <= width
+            owner[c0:c1] += 1
+        assert (owner == 1).all(), (l, blocks)
+    rows = np.zeros(B, np.int64)
+    for r0, r1 in K1.row_groups(B):
+        assert 0 < r1 - r0 <= K1.RG
+        rows[r0:r1] += 1
+    assert (rows == 1).all()
+    # each row's layer norms: one block of each cluster
+    normed = np.zeros(B, np.int64)
+    for rank in range(K1.CLUSTER):
+        normed[list(K1.cluster_rows(B, rank))] += 1
+    assert (normed == 1).all()
+
+
+@pytest.mark.parametrize("blocks", BLOCKS)
+@pytest.mark.parametrize("B", [1, 5, 20, 72])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_plan_fits_shared_memory(name, B, blocks):
+    """In every precision: the layout fits one block's shared memory, its
+    regions are 16-byte aligned and do not overlap, a resident slice holds
+    the block's largest column slice, and the rows past the resident ones
+    spill."""
+    cfg = CONFIGS[name]()
+    for prec in K1.PRECS:
+        plan = K1.decode_plan(cfg, B, blocks, prec)
+        assert plan.smem <= K1.SMEM_MAX
+        assert plan.rows_sh + plan.spill_floats // plan.xw == B
+        assert plan.xw % 4 == 0 and plan.xw >= max(2 * cfg.d, cfg.n_mels)
+        assert plan.part_off == 4 * plan.xw * plan.rows_sh
+        assert plan.prev_off >= plan.part_off + 4 * B * plan.nv_max
+        spans = [(plan.prev_off, plan.prev_off + 4 * B),
+                 (plan.ln_off, plan.ln_off + 4 * 4 * cfg.d),
+                 (plan.z_off, plan.z_off + 4 * plan.ldh
+                  * min(K1.WARPS, len(K1.cluster_rows(B, 0))))]
+        for (is_dec, l), n, off in zip(_layers(cfg), plan.nmax, plan.woff):
+            width = K1.layer_width(l)
+            assert n == max(c1 - c0 for c0, c1 in (
+                K1.block_columns(width, blocks, g) for g in range(blocks)))
+            if off < 0:
+                continue
+            kind = K1.layer_wkind(prec, is_dec)
+            size = n * K1.layer_depth(l) * (4 if kind == "f32" else 2) \
+                * (2 if kind == "split" else 1)
+            assert off % 16 == 0
+            spans.append((off, off + size))
+        spans.sort()
+        for (_, e0), (s1, _) in zip(spans, spans[1:]):
+            assert e0 <= s1
+        assert spans[-1][1] <= plan.smem
+        hc = [l for _, l in _layers(cfg) if l.kind == "HC"]
+        assert plan.ring_floats == K1.ring_rows(cfg) * B * 2 * \
+            -(-2 * cfg.d // blocks) * bool(hc)
+        assert plan.barriers_per_step == len(_layers(cfg))
+        # the staging (sized for rank 0) holds a row for every warp that
+        # normalises one, in every rank
+        assert len(K1.cluster_rows(B, 0)) == max(
+            len(K1.cluster_rows(B, r)) for r in range(K1.CLUSTER))
+
+
+def test_plan_refuses_too_few_blocks():
+    """A block's product sums for all B rows must fit its shared memory:
+    too few blocks for B raises rather than launch."""
+    with pytest.raises(ValueError, match="more blocks"):
+        K1.decode_plan(base_config(), 72, 1)
+
+
+@pytest.fixture(scope="module")
+def packed_test():
+    cfg = test_config()
+    params = Text2Mel(cfg).init(torch.Generator().manual_seed(3), "cpu")
+    return cfg, {p: K1.pack_decode_params(cfg, params, p) for p in K1.PRECS}
+
+
+@pytest.mark.parametrize("prec", K1.PRECS)
+def test_transposed_packing_round_trips(packed_test, prec):
+    """Each kernel copy ``<key>_t`` transposed back is the JAX-layout key,
+    bit for bit, and is listed in ``_packed_specs``."""
+    cfg, packed = packed_test
+    got = packed[prec]
+    specs = K1._packed_specs(cfg, prec)
+    keys = [k for k in got if k.startswith(("cw", "hcw"))
+            and not k.endswith("_t")]
+    assert keys and all(k + "_t" in specs for k in keys)
+    for k in keys:
+        back = got[k + "_t"].transpose(-1, -2)
+        assert back.dtype == got[k].dtype
+        assert torch.equal(back.view(torch.int16) if back.dtype ==
+                           torch.bfloat16 else back.view(torch.int32),
+                           got[k].view(torch.int16) if back.dtype ==
+                           torch.bfloat16 else got[k].view(torch.int32))
+
+
+@pytest.mark.parametrize("prec", K1.PRECS)
+def test_layer_program_by_prec(packed_test, prec):
+    """The program the wrapper hands the kernel: each layer's operand kind
+    (hybrid: float32 in AudioEnc, the split in AudioDec), its slot's pitch,
+    its ring rows in order, and pointers into the transposed copies."""
+    cfg, packed = packed_test
+    p = packed[prec]
+    plan = K1.decode_plan(cfg, 5, 7, prec)
+    ints, ptrs = K1._layer_arrays(p, cfg, prec, plan)
+    ints = np.asarray(ints[:]).reshape(-1, 10)
+    ptrs = [ptrs[i:i + 4] for i in range(0, len(ptrs), 4)]
+    ring_off = 0
+    for li, (is_dec, l) in enumerate(_layers(cfg)):
+        kind, cin, cout, rate, act, roff, wk, ldw, woff, nmax = ints[li]
+        hc = l.kind == "HC"
+        assert (kind, cin, cout, rate) == (int(hc), l.cin, l.cout, l.rate)
+        assert K1.WKINDS[wk] == K1.layer_wkind(prec, is_dec)
+        assert ldw == (3 * cfg.d if hc else p["cw_t"].shape[-1])
+        assert (woff, nmax) == (plan.woff[li], plan.nmax[li])
+        assert roff == ring_off
+        ring_off += 2 * l.rate + 1 if hc else 0
+        key = "hcw_t" if hc else "cw_t"
+        idx = l.idx
+        if prec == "hybrid" and is_dec:
+            n_c, n_hc = K1._enc_counts(cfg)
+            key, idx = key[:-2] + "2_t", idx - (n_hc if hc else n_c)
+        w = p[key]
+        if K1.WKINDS[wk] == "split":
+            assert ptrs[li][:2] == [w[0, idx].data_ptr(), w[1, idx].data_ptr()]
+        else:
+            assert ptrs[li][0] == w[idx].data_ptr() and ptrs[li][1] is None
+    assert ring_off == K1.ring_rows(cfg)
+
+
+def test_launch_refuses_cpu_tensors(packed_test):
+    """The kernel's launch takes CUDA tensors only: a CPU tensor raises
+    before the library is loaded."""
+    cfg, packed = packed_test
+    Kt = torch.zeros(2, cfg.max_N, cfg.d)
+    n = K1.fused_decode.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        K1.launch_decode(packed["highest"], Kt, Kt.clone(), 4, cfg)
+    assert K1.fused_decode.launches == n
+
+
+# ---------------------------------------------------------------------------
+# the kernel's product arithmetic, emulated
+
+
+def _fma(a, b, c):
+    """float32 fma(a, b, c): the product of two float32 values is exact in
+    float64, and so, but for a double rounding, is its sum with c."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _warp_column_sums(x, w_t, kind):
+    """x (B, K) float32, w_t the columns' weights (n, K) (kind "f32"
+    float32, "bf16" bf16; "split" the (2, n, K) bf16 hi/lo stack) ->
+    (B, n) as csrc/decode.cu's ``product`` sums each column: lane l of a
+    warp takes k = 128i + 4l + e in order with FFMA, then an xor butterfly
+    over the lanes; "split" sums hh, hl, lh apart and adds (hh + hl) + lh."""
+    B, K = x.shape
+    Kp = -(-K // 128) * 128
+    xp = torch.nn.functional.pad(x, (0, Kp - K))
+    ws = [w_t] if kind != "split" else [w_t[0], w_t[1]]
+    ws = [torch.nn.functional.pad(w.float(), (0, Kp - K)) for w in ws]
+    if kind == "f32":
+        xs = [xp]
+    else:
+        xh = xp.to(torch.bfloat16).float()
+        xs = [xh, (xp - xh).to(torch.bfloat16).float()]
+    n, nch = ws[0].shape[0], Kp // 128
+
+    def lanes(a):          # (rows, Kp) -> (nch, 4, rows, 32)
+        return a.view(a.shape[0], nch, 32, 4).permute(1, 3, 0, 2)
+
+    xs, ws = [lanes(a) for a in xs], [lanes(w) for w in ws]
+    # the split's products: hh = xh.wh, hl = xh.wl, lh = xl.wh
+    pairs = {"f32": [(0, 0)], "bf16": [(0, 0)],
+             "split": [(0, 0), (0, 1), (1, 0)]}[kind]
+    sums = []
+    for xi, wi in pairs:
+        acc = torch.zeros(B, n, 32)
+        for i in range(nch):
+            for e in range(4):
+                acc = _fma(xs[xi][i, e][:, None, :], ws[wi][i, e][None],
+                           acc)
+        lane = torch.arange(32)
+        for o in (16, 8, 4, 2, 1):
+            acc = acc + acc[..., lane ^ o]
+        sums.append(acc[..., 0])
+    return sums[0] if kind != "split" else (sums[0] + sums[1]) + sums[2]
+
+
+def _partitioned_product(x, w_t, kind, hc, blocks):
+    """The layer product as the kernel's blocks compute it: each block's
+    column slice, an HC column as ((oldest tap + middle) + current) of its
+    three taps' sums; the slices concatenated."""
+    width = w_t.shape[-2]
+    cols = []
+    for g in range(blocks):
+        c0, c1 = K1.block_columns(width, blocks, g)
+        wg = w_t[..., c0:c1, :]
+        if not hc:
+            cols.append(_warp_column_sums(x, wg, kind))
+            continue
+        C = x.shape[1] // 3
+        p = [_warp_column_sums(x[:, j * C:(j + 1) * C],
+                               wg[..., j * C:(j + 1) * C], kind)
+             for j in range(3)]
+        cols.append((p[0] + p[1]) + p[2])
+    return torch.cat(cols, dim=1)
+
+
+# base_config's products: AudioEnc's first C layer (k = n_mels = 80, one
+# partial 128-chunk), AudioDec's first (512 -> 256), an HC layer (3 taps
+# of 256 -> 512)
+SHAPES = {"c80": (80, 256, False), "c512": (512, 256, False),
+          "hc": (768, 512, True)}
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("kind", ["f32", "bf16", "split"])
+def test_partitioned_product_matches_layer_product(kind, shape):
+    """Per-block slices concatenated equal the unpartitioned sum bitwise
+    (the partition changes no column's order over k), at every block count
+    the kernel may take; against ``layer_product`` (torch's own order) the
+    emulation is within float32's bound for a sum of K products taken in
+    another order: 2 K 2^-24 x (|x| @ |w|) per element (x the operand
+    values the kind multiplies)."""
+    K, width, hc = SHAPES[shape]
+    rng = np.random.default_rng(K + width)
+    x = torch.as_tensor(rng.standard_normal((5, K)), dtype=torch.float32)
+    w = torch.as_tensor(rng.standard_normal((K, width)) / np.sqrt(K),
+                        dtype=torch.float32)
+    if kind == "f32":
+        wk = w
+    elif kind == "bf16":
+        wk = w.to(torch.bfloat16)
+    else:
+        wk = K1.split_hilo(w)
+    w_t = wk.transpose(-1, -2).contiguous()
+    whole = _partitioned_product(x, w_t, kind, hc, 1)
+    for blocks in BLOCKS:
+        assert torch.equal(_partitioned_product(x, w_t, kind, hc, blocks),
+                           whole)
+    want = K1.layer_product(x, wk, kind)
+    xa = x.abs() if kind == "f32" else x.to(torch.bfloat16).float().abs()
+    wa = wk.float().abs() if kind != "split" else wk[0].float().abs()
+    bound = 2 * K * 2.0 ** -24 * (xa.double() @ wa.double())
+    assert bool(((whole.double() - want.double()).abs() <= bound).all())
+    # and both near the float64 product of the same operands
+    ref = K1.layer_product(x.double(), wk, kind, torch.float64)
+    assert float((whole.double() - ref).abs().max()) < 1e-5

@@ -105,9 +105,13 @@ def test_pack_decode_params_matches_jax(t2m):
     jp, tp, _ = t2m
     want = jax_pack(jax_test_config(), jp)
     got = K1.pack_decode_params(CFG, tp)
+    # the JAX layout, and the CUDA kernel's transposed copies of the kernels
+    want = {k: np.asarray(v) for k, v in want.items()}
+    want.update({k + "_t": np.swapaxes(want[k], -1, -2)
+                 for k in ("cw", "hcw")})
     assert set(got) == set(want)
     for k in want:
-        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+        np.testing.assert_array_equal(got[k].numpy(), want[k])
 
 
 def test_decode_wrapper_takes_plain_version_on_cpu(t2m):
