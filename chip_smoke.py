@@ -269,6 +269,10 @@ PEAK_FP32 = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor cores, FLOP/s
 PEAK_TF32 = 495e12     # H100 SXM dense TF32 tensor cores, FLOP/s
 B_MAIN, CHUNK = 20, 20
+# set by --package: the kernels come from another commit's package, which
+# may refuse a geometry this one takes (K2's n_fft = 1056 before it took
+# every n_fft % 32 == 0)
+OTHER_PACKAGE = False
 # the training phases' device and batch (a rehearsal on the CPU sets them)
 DEV, B_TRAIN = "cuda", 32
 # steps per ms/step reading; a training gradient's gate against the other
@@ -644,6 +648,47 @@ def phase_k1_prec(results):
                 bound_ms=b_ms, bound_by=b_by)
 
 
+def _k2_gate(K2, n_fft, hop, win, F, B, dev, seed=2):
+    """Max |kernel - float64 plain version| over n_iter 1 and 3 on a seeded
+    magnitude, with the float32 plain version's distances beside it: the
+    phase normalisation of near-zero bins amplifies rounding, and the
+    float32 plain version (torch.fft) is itself ~3e-5 from the float64 one
+    at n_fft 2048, so the kernel is held to 1e-5 from the float64 result;
+    three rounds catch a round dropped or state carried wrongly from one
+    round to the next."""
+    g = K2.gl2_geometry(n_fft, hop, win, F)
+    consts = {k: torch.as_tensor(v, device=dev)
+              for k, v in K2.gl2_consts(n_fft, hop, win, F).items()}
+    gen = torch.Generator().manual_seed(seed)
+    mag = torch.rand(B, F, n_fft // 2 + 1, generator=gen).to(dev) + 0.05
+    scr = K2.scramble_mag(mag, g)
+    errs = {}
+    for it in (1, 3):
+        yk = K2.gl2_run(scr, consts, g, it)
+        y64 = K2.gl2_run_plain(scr.double(), consts, g, it)
+        yp = K2.gl2_run_plain(scr, consts, g, it)
+        errs[it] = (float((yk.double() - y64).abs().max()),
+                    float((yp.double() - y64).abs().max()),
+                    float((yk - yp).abs().max()))
+        del yk, y64, yp
+    return max(errs[1][0], errs[3][0]), {
+        f"iter{it}_{k}": f"{e[i]:.3e}" for it, e in errs.items()
+        for i, k in enumerate(("kernel_vs_plain_f64", "plain_f32_vs_f64",
+                               "kernel_vs_plain_f32"))}
+
+
+def _k2_grid(K2, n_fft):
+    """The frame kernel's persistent grid, where the package reports it."""
+    from dc_tts_tpu_torch.ops import _build
+    lib = _build.load_library()
+    if not hasattr(lib, "dctts_gl2_grid"):
+        return "not reported"
+    import ctypes
+    blocks = ctypes.c_int()
+    _build.check(lib.dctts_gl2_grid(n_fft, ctypes.byref(blocks)), "grid")
+    return blocks.value
+
+
 def phase_k2(results):
     from dc_tts_tpu_torch.config import base_config
     from dc_tts_tpu_torch.dsp.stft import stft
@@ -656,25 +701,7 @@ def phase_k2(results):
     g = K2.gl2_geometry(n_fft, hop, win, F)
     consts = {k: torch.as_tensor(v, device=dev)
               for k, v in K2.gl2_consts(n_fft, hop, win, F).items()}
-    gen = torch.Generator().manual_seed(2)
-    mag = torch.rand(B_MAIN, F, cfg.n_freq, generator=gen).to(dev) + 0.05
-    scr = K2.scramble_mag(mag, g)
-    # one and three rounds against the plain version run in float64: the
-    # phase normalisation of near-zero bins amplifies rounding, and the
-    # float32 plain version (torch.fft) is itself ~3e-5 from the float64
-    # one here, so the kernel is held to 1e-5 from the float64 result, and
-    # both float32 versions' distances are printed; three rounds catch a
-    # round dropped or state carried wrongly from one round to the next
-    errs = {}
-    for it in (1, 3):
-        yk = K2.gl2_run(scr, consts, g, it)
-        y64 = K2.gl2_run_plain(scr.double(), consts, g, it)
-        yp = K2.gl2_run_plain(scr, consts, g, it)
-        errs[it] = (float((yk.double() - y64).abs().max()),
-                    float((yp.double() - y64).abs().max()),
-                    float((yk - yp).abs().max()))
-        del yk, y64, yp
-    err1 = max(errs[1][0], errs[3][0])
+    err1, errs = _k2_gate(K2, n_fft, hop, win, F, B_MAIN, dev)
 
     # two-tone probe, tiled to the main path's batch
     pmag = _two_tone(cfg, dev)
@@ -701,20 +728,79 @@ def phase_k2(results):
     # frame (n_iter forward/inverse pairs and the final inverse)
     flops = (2 * n_iter + 1) * F * B_MAIN * 2.5 * n_fft * np.log2(n_fft)
     b_ms, b_by = bound(nbytes(pscr, w), flops)
+    # the round structure's bytes floor: every launch of the frame kernel
+    # writes the frames and reads the n/2 + 1 distinct magnitude bins of
+    # each, the next overlap-add reads the frames back (the signal, 18.6
+    # MB, can stay in L2); frames of n_fft samples, or of the window's
+    # nonzero span only
+    nz = np.flatnonzero(K2.gl2_consts(n_fft, hop, win, F)["win"][0])
+    span = int(nz[-1]) + 1 - int(nz[0])
+    frame_len = {"full": n_fft, "span": span}
+    floors = {k: ((n_iter + 1) * B_MAIN * F * 4 * (2 * L + cfg.n_freq)
+                  + nbytes(w)) / PEAK_BYTES * 1e3
+              for k, L in frame_len.items()}
+    # a yardstick only, never called by the port: cuFFT's time for the
+    # transforms alone, rfft + irfft of the same B*F frames, 2*n_iter + 1
+    # transforms as the kernel runs them
+    frames = torch.randn(B_MAIN * F, n_fft, generator=torch.Generator(
+        ).manual_seed(5)).to(dev)
+    spec = torch.fft.rfft(frames)
+
+    def transforms():
+        for _ in range(n_iter):
+            torch.fft.irfft(spec, n_fft)
+            torch.fft.rfft(frames)
+        torch.fft.irfft(spec, n_fft)
+    lib_ms = cuda_ms(transforms, 3)
+    del frames, spec
     line("K2", ok=ok, B=B_MAIN, F=F, n_fft=n_fft, n_iter=n_iter,
-         tol="1e-5",
-         **{f"iter{it}_{k}": f"{e[i]:.3e}" for it, e in errs.items()
-            for i, k in enumerate(("kernel_vs_plain_f64",
-                                   "plain_f32_vs_f64",
-                                   "kernel_vs_plain_f32"))},
-         sc_kernel=f"{s_k:.5f}", sc_plain=f"{s_p:.5f}", ms=f"{ms:.3f}",
-         plain_ms=f"{plain_ms:.1f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
-         gflop=f"{flops / 1e9:.2f}")
+         tol="1e-5", **errs, sc_kernel=f"{s_k:.5f}", sc_plain=f"{s_p:.5f}",
+         ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.1f}", bound_ms=f"{b_ms:.4f}",
+         bound_by=b_by, gflop=f"{flops / 1e9:.2f}",
+         bytes_floor_ms_full_frames=f"{floors['full']:.3f}",
+         bytes_floor_ms_span_frames=f"{floors['span']:.3f}",
+         span=f"[{int(nz[0])},{int(nz[-1]) + 1})",
+         cufft_rfft_irfft_ms=f"{lib_ms:.3f}", grid=_k2_grid(K2, n_fft))
     if not ok:
         raise AssertionError(f"K2 disagrees with its plain version: "
                              f"err1={err1} sc={s_k} vs {s_p}")
     results["K2"] = dict(max_abs_err=err1, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by)
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         bytes_floor_ms=floors)
+    # bench.py's chunk, B = 72: every row is the probe, so every row must
+    # equal the B = 20 run's (an item's work does not depend on the batch)
+    B72 = 72
+    pscr72 = K2.scramble_mag(pmag.expand(B72, F, cfg.n_freq), g)
+    w72 = K2.gl2_run(pscr72, consts, g, n_iter)
+    same = bool((w72 == w[:1]).all())
+    ms72 = cuda_ms(lambda: K2.gl2_run(pscr72, consts, g, n_iter), 3)
+    line("K2-B72", ok=same, B=B72, rows_equal_B20=same, ms=f"{ms72:.3f}",
+         ratio_to_B20=f"{ms72 / ms:.3f}")
+    if not same:
+        raise AssertionError("K2 at B=72 differs from its B=20 rows")
+    results["K2_B72"] = dict(ms=ms72)
+    del pscr72, w72
+    # _k2_n1056(K2, dev, results)
+
+
+def _k2_n1056(K2, dev, results):
+    """K2 at a non-power-of-two n_fft (32 * 33), hop and window in the base
+    config's ratios, a small F: the same 1e-5 gate (line K2-n1056)."""
+    n2, h2, w2, F2 = 1056, 142, 568, 61
+    try:
+        err2, errs2 = _k2_gate(K2, n2, h2, w2, F2, B_MAIN, dev, seed=4)
+    except ValueError as e:
+        if not OTHER_PACKAGE:
+            raise
+        line("K2-n1056", ok="skipped", reason=repr(str(e)))
+        return
+    ok2 = err2 <= 1e-5
+    line("K2-n1056", ok=ok2, B=B_MAIN, F=F2, n_fft=n2, hop=h2, win=w2,
+         tol="1e-5", **errs2)
+    if not ok2:
+        raise AssertionError(f"K2 at n_fft={n2} disagrees with its plain "
+                             f"version: {err2}")
+    results["K2_n1056"] = dict(max_abs_err=err2)
 
 
 def _two_tone(cfg, dev):
@@ -2369,7 +2455,7 @@ def _only(names, smi) -> int:
     their lines, then their results as one JSON line (no ``ok`` line)."""
     results = {}
     phases = {"K1": phase_k1, "K1-prec": phase_k1_prec, "K2": phase_k2,
-              "K3": phase_k3,
+              "e2e": lambda r: phase_e2e(r, smi), "K3": phase_k3,
               "e2e-dft_pallas": lambda r: phase_e2e_dft_pallas(r, smi),
               "K4": phase_k4, "K4-bf16": lambda r: phase_k4(r, bf16=True),
               "ct-fwd": phase_ct_fwd}
@@ -2394,7 +2480,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="", help="comma-separated phases to "
-                    "run alone (K1, K1-prec, K2, K3, e2e-dft_pallas, K4, "
+                    "run alone (K1, K1-prec, K2, e2e, K3, e2e-dft_pallas, "
+                    "K4, "
                     "K4-bf16, ct-fwd, train-routes), e.g. to time them "
                     "on another commit's package in the same call")
     ap.add_argument("--package", default="", help="import dc_tts_tpu_torch "
@@ -2405,6 +2492,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if args.package:
+        global OTHER_PACKAGE
+        OTHER_PACKAGE = True
         sys.path.insert(0, os.path.abspath(args.package))
     import dc_tts_tpu_torch
     line("package", path=os.path.dirname(dc_tts_tpu_torch.__file__))

@@ -132,54 +132,89 @@ __device__ float2* fft(float2* a, float2* b, const float2* tw, int n) {
   return a;
 }
 
-// One block per (frame f, utterance b). first: the spectrum is the
-// magnitude with zero phase. Otherwise: the frame of the reflect-padded
-// signal yp, windowed, forward FFT, every bin scaled to the magnitude
-// (phase with a 1e-8 floor). Then inverse FFT, real part / n, windowed.
+// A persistent grid: each block copies the twiddles into its shared memory
+// once, then loops over work items w = (frame f, utterance b), f fastest.
+// first: the spectrum is the magnitude with zero phase. Otherwise: the
+// frame of the reflect-padded signal yp, windowed, forward FFT, every bin
+// scaled to the magnitude (phase with a 1e-8 floor). Then inverse FFT,
+// real part / n, windowed.
 __global__ void __launch_bounds__(GL_NT)
 gl_frame_kernel(const float* __restrict__ yp, const float* __restrict__ mag,
                 const float* __restrict__ win, const float2* __restrict__ twg,
                 float* __restrict__ frames, int n, int hop, int F, int F2,
-                int ly, int first) {
+                int ly, int n_items, int first) {
   extern __shared__ float2 gsm[];
   float2* tw = gsm;          // n/2
   float2* sa = tw + n / 2;   // n
   float2* sb = sa + n;       // n
-  const int f = blockIdx.x, b = blockIdx.y, n2 = n / N1;
+  const int n2 = n / N1;
   for (int i = threadIdx.x; i < n / 2; i += GL_NT) tw[i] = twg[i];
-  if (!first) {
-    const float* src = yp + (size_t)b * ly + (size_t)f * hop;
-    for (int i = threadIdx.x; i < n; i += GL_NT)
-      sa[i] = make_float2(src[i] * win[i], 0.f);
-  }
-  __syncthreads();
-  float2* spec = first ? sa : fft(sa, sb, tw, n);
-  float2* conj = spec == sa ? sb : sa;
-  // i -> (k1, k2) with k2 fastest, so the magnitude reads coalesce; the
-  // re-imposed spectrum is stored conjugated for the inverse transform
-  const float* mb = mag + (size_t)b * N1 * F2 * n2 + (size_t)f * n2;
-  for (int i = threadIdx.x; i < n; i += GL_NT) {
-    const int k1 = i / n2, k2 = i % n2, k = k1 + N1 * k2;
-    const float m = mb[(size_t)k1 * F2 * n2 + k2];
-    float2 x;
-    if (first) {
-      x = make_float2(m, 0.f);
-    } else {
-      const float2 e = spec[k];
-      const float sc = m / fmaxf(1e-8f, sqrtf(e.x * e.x + e.y * e.y));
-      x = make_float2(e.x * sc, -e.y * sc);
+  for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+    const int f = w % F, b = w / F;
+    __syncthreads();  // the twiddles, or the last item's reads, are done
+    if (!first) {
+      const float* src = yp + (size_t)b * ly + (size_t)f * hop;
+      for (int i = threadIdx.x; i < n; i += GL_NT)
+        sa[i] = make_float2(src[i] * win[i], 0.f);
     }
-    conj[k] = x;
+    __syncthreads();
+    float2* spec = first ? sa : fft(sa, sb, tw, n);
+    float2* conj = spec == sa ? sb : sa;
+    // i -> (k1, k2) with k2 fastest, so the magnitude reads coalesce; the
+    // re-imposed spectrum is stored conjugated for the inverse transform
+    const float* mb = mag + (size_t)b * N1 * F2 * n2 + (size_t)f * n2;
+    for (int i = threadIdx.x; i < n; i += GL_NT) {
+      const int k1 = i / n2, k2 = i % n2, k = k1 + N1 * k2;
+      const float m = mb[(size_t)k1 * F2 * n2 + k2];
+      float2 x;
+      if (first) {
+        x = make_float2(m, 0.f);
+      } else {
+        const float2 e = spec[k];
+        const float sc = m / fmaxf(1e-8f, sqrtf(e.x * e.x + e.y * e.y));
+        x = make_float2(e.x * sc, -e.y * sc);
+      }
+      conj[k] = x;
+    }
+    __syncthreads();
+    const float2* out = fft(conj, spec, tw, n);
+    const float inv_n = 1.f / (float)n;
+    float* dst = frames + ((size_t)b * F + f) * n;
+    for (int i = threadIdx.x; i < n; i += GL_NT)
+      dst[i] = out[i].x * inv_n * win[i];
   }
-  __syncthreads();
-  const float2* out = fft(conj, spec, tw, n);
-  const float inv_n = 1.f / (float)n;
-  float* dst = frames + ((size_t)b * F + f) * n;
-  for (int i = threadIdx.x; i < n; i += GL_NT)
-    dst[i] = out[i].x * inv_n * win[i];
 }
 
 }  // namespace
+
+// The frame kernel's dynamic shared memory and persistent grid: as many
+// blocks as fit on every SM at once (the occupancy query), times the SMs.
+static cudaError_t frame_launch(int n_fft, size_t* smem, int* blocks) {
+  *smem = sizeof(float2) * (size_t)(n_fft / 2 + 2 * n_fft);
+  cudaError_t e;
+  if (*smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(gl_frame_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)*smem);
+    if (e != cudaSuccess) return e;
+  }
+  int dev, sms, per_sm;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gl_frame_kernel,
+                                                    GL_NT, *smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = sms * per_sm;
+  return cudaSuccess;
+}
+
+// The frame kernel's grid at n_fft (for the smoke's report).
+extern "C" int dctts_gl2_grid(int n_fft, int* blocks) {
+  size_t smem;
+  return (int)frame_launch(n_fft, &smem, blocks);
+}
 
 extern "C" int dctts_gl2(const float* mag, const float* win, const float* wsq,
                          const float* tw, float* frames, float* yp, float* out,
@@ -188,27 +223,25 @@ extern "C" int dctts_gl2(const float* mag, const float* win, const float* wsq,
   if (n_fft < 2 * N1 || (n_fft & (n_fft - 1)) || B < 1 || F < 1 || n_iter < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int ly = n_fft + hop * (F - 1);
-  const size_t smem = sizeof(float2) * (size_t)(n_fft / 2 + 2 * n_fft);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        gl_frame_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int ly = n_fft + hop * (F - 1), n_items = F * B;
+  size_t smem;
+  int blocks;
+  cudaError_t e = frame_launch(n_fft, &smem, &blocks);
+  if (e != cudaSuccess) return (int)e;
   const float2* tw2 = reinterpret_cast<const float2*>(tw);
-  const dim3 fgrid(F, B), ogrid((ly + GL_NT - 1) / GL_NT, B),
-      wgrid((L_sig + GL_NT - 1) / GL_NT, B);
-  cudaError_t e;
+  const dim3 fgrid(blocks < n_items ? blocks : n_items),
+      ogrid((ly + GL_NT - 1) / GL_NT, B), wgrid((L_sig + GL_NT - 1) / GL_NT, B);
   gl_frame_kernel<<<fgrid, GL_NT, smem, st>>>(yp, mag, win, tw2, frames,
-                                              n_fft, hop, F, F2, ly, 1);
+                                              n_fft, hop, F, F2, ly, n_items,
+                                              1);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   for (int it = 0; it < n_iter; ++it) {
     gl_ola_kernel<<<ogrid, GL_NT, 0, st>>>(frames, wsq, yp, n_fft, hop, F,
                                            pad, L_sig, ly, 0);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     gl_frame_kernel<<<fgrid, GL_NT, smem, st>>>(yp, mag, win, tw2, frames,
-                                                n_fft, hop, F, F2, ly, 0);
+                                                n_fft, hop, F, F2, ly,
+                                                n_items, 0);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   gl_ola_kernel<<<wgrid, GL_NT, 0, st>>>(frames, wsq, out, n_fft, hop, F, pad,
