@@ -133,7 +133,9 @@ __device__ float2* fft(float2* a, float2* b, const float2* tw, int n) {
 }
 
 // A persistent grid: each block copies the twiddles into its shared memory
-// once, then loops over work items w = (frame f, utterance b), f fastest.
+// once, then takes work items w = (frame f, utterance b), f fastest, from
+// the launch's counter until none is left (so blocks that finish early
+// take more, as the hardware's block scheduler would).
 // first: the spectrum is the magnitude with zero phase. Otherwise: the
 // frame of the reflect-padded signal yp, windowed, forward FFT, every bin
 // scaled to the magnitude (phase with a 1e-8 floor). Then inverse FFT,
@@ -141,17 +143,22 @@ __device__ float2* fft(float2* a, float2* b, const float2* tw, int n) {
 __global__ void __launch_bounds__(GL_NT)
 gl_frame_kernel(const float* __restrict__ yp, const float* __restrict__ mag,
                 const float* __restrict__ win, const float2* __restrict__ twg,
-                float* __restrict__ frames, int n, int hop, int F, int F2,
-                int ly, int n_items, int first) {
+                float* __restrict__ frames, int* __restrict__ next, int n,
+                int hop, int F, int F2, int ly, int n_items, int first) {
+  __shared__ int s_w;
   extern __shared__ float2 gsm[];
   float2* tw = gsm;          // n/2
   float2* sa = tw + n / 2;   // n
   float2* sb = sa + n;       // n
   const int n2 = n / N1;
   for (int i = threadIdx.x; i < n / 2; i += GL_NT) tw[i] = twg[i];
-  for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
-    const int f = w % F, b = w / F;
+  for (;;) {
     __syncthreads();  // the twiddles, or the last item's reads, are done
+    if (threadIdx.x == 0) s_w = atomicAdd(next, 1);
+    __syncthreads();
+    const int w = s_w;
+    if (w >= n_items) break;
+    const int f = w % F, b = w / F;
     if (!first) {
       const float* src = yp + (size_t)b * ly + (size_t)f * hop;
       for (int i = threadIdx.x; i < n; i += GL_NT)
@@ -218,7 +225,7 @@ extern "C" int dctts_gl2_grid(int n_fft, int* blocks) {
 
 extern "C" int dctts_gl2(const float* mag, const float* win, const float* wsq,
                          const float* tw, float* frames, float* yp, float* out,
-                         int B, int n_fft, int hop, int F, int F2, int pad,
+                         int* counters, int B, int n_fft, int hop, int F, int F2, int pad,
                          int L_sig, int n_iter, void* stream) {
   if (n_fft < 2 * N1 || (n_fft & (n_fft - 1)) || B < 1 || F < 1 || n_iter < 0)
     return (int)cudaErrorInvalidValue;
@@ -228,20 +235,23 @@ extern "C" int dctts_gl2(const float* mag, const float* win, const float* wsq,
   int blocks;
   cudaError_t e = frame_launch(n_fft, &smem, &blocks);
   if (e != cudaSuccess) return (int)e;
+  // one work counter per frame-kernel launch
+  e = cudaMemsetAsync(counters, 0, sizeof(int) * (size_t)(n_iter + 1), st);
+  if (e != cudaSuccess) return (int)e;
   const float2* tw2 = reinterpret_cast<const float2*>(tw);
   const dim3 fgrid(blocks < n_items ? blocks : n_items),
       ogrid((ly + GL_NT - 1) / GL_NT, B), wgrid((L_sig + GL_NT - 1) / GL_NT, B);
   gl_frame_kernel<<<fgrid, GL_NT, smem, st>>>(yp, mag, win, tw2, frames,
-                                              n_fft, hop, F, F2, ly, n_items,
-                                              1);
+                                              counters, n_fft, hop, F, F2, ly,
+                                              n_items, 1);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   for (int it = 0; it < n_iter; ++it) {
     gl_ola_kernel<<<ogrid, GL_NT, 0, st>>>(frames, wsq, yp, n_fft, hop, F,
                                            pad, L_sig, ly, 0);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     gl_frame_kernel<<<fgrid, GL_NT, smem, st>>>(yp, mag, win, tw2, frames,
-                                                n_fft, hop, F, F2, ly,
-                                                n_items, 0);
+                                                counters + it + 1, n_fft, hop,
+                                                F, F2, ly, n_items, 0);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   gl_ola_kernel<<<wgrid, GL_NT, 0, st>>>(frames, wsq, out, n_fft, hop, F, pad,

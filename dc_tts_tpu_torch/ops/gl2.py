@@ -169,10 +169,11 @@ def gl2_run(mag_scr: torch.Tensor, consts: dict, g: GL2Geom,
     frames = torch.empty(B, g.F, n, device=dev)
     yp = torch.empty(B, n + g.hop * (g.F - 1), device=dev)
     out = torch.empty(B, g.L_sig, device=dev)
+    counters = torch.empty(n_iter + 1, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.dctts_gl2(mag_scr.data_ptr(), win.data_ptr(), wsq.data_ptr(),
                          tw.data_ptr(), frames.data_ptr(), yp.data_ptr(),
-                         out.data_ptr(), B, n, g.hop, g.F, g.F2, g.pad,
+                         out.data_ptr(), counters.data_ptr(), B, n, g.hop, g.F, g.F2, g.pad,
                          g.L_sig, n_iter, stream)
     check(code, "Griffin-Lim kernels")
     gl2_run.launches += 1
