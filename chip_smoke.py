@@ -753,6 +753,7 @@ def phase_k2(results):
         torch.fft.irfft(spec, n_fft)
     lib_ms = cuda_ms(transforms, 3)
     del frames, spec
+    kinds = _kinds(lambda: K2.gl2_run(pscr, consts, g, n_iter), K2_KINDS)
     line("K2", ok=ok, B=B_MAIN, F=F, n_fft=n_fft, n_iter=n_iter,
          tol="1e-5", **errs, sc_kernel=f"{s_k:.5f}", sc_plain=f"{s_p:.5f}",
          ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.1f}", bound_ms=f"{b_ms:.4f}",
@@ -760,7 +761,9 @@ def phase_k2(results):
          bytes_floor_ms_full_frames=f"{floors['full']:.3f}",
          bytes_floor_ms_span_frames=f"{floors['span']:.3f}",
          span=f"[{int(nz[0])},{int(nz[-1]) + 1})",
-         cufft_rfft_irfft_ms=f"{lib_ms:.3f}", grid=_k2_grid(K2, n_fft))
+         cufft_rfft_irfft_ms=f"{lib_ms:.3f}", grid=_k2_grid(K2, n_fft),
+         **{f"{k}_ms": "not measured" if kinds is None else f"{kinds[k]:.3f}"
+            for k in K2_KINDS})
     if not ok:
         raise AssertionError(f"K2 disagrees with its plain version: "
                              f"err1={err1} sc={s_k} vs {s_p}")
@@ -780,7 +783,7 @@ def phase_k2(results):
         raise AssertionError("K2 at B=72 differs from its B=20 rows")
     results["K2_B72"] = dict(ms=ms72)
     del pscr72, w72
-    # _k2_n1056(K2, dev, results)
+    _k2_n1056(K2, dev, results)
 
 
 def _k2_n1056(K2, dev, results):
@@ -1526,6 +1529,8 @@ def _kinds(fn, table):
 # kernels
 K4_KINDS = {"gemm": ("gemm",), "split": ("tf32_parts",), "bf16": ("to_bf16",),
             "rows": ("_rows", "col_sum")}
+# K2's: the frame kernel (both transforms), the overlap-add
+K2_KINDS = {"frame": ("gl_frame",), "ola": ("_ola",)}
 # K3's: the bf16 prep passes, the GEMMs, the overlap-add
 K3_KINDS = {"prep": ("_prep",), "gemm": ("gemm",), "ola": ("gl_ola",)}
 

@@ -10,22 +10,42 @@
 // the FFTs' float32 operations (2 transforms of n_fft points per frame per
 // round), then the frames' round trip through device memory.
 //
-// Transforms: a mixed radix-8 Stockham FFT of the full n_fft-point complex
-// spectrum in shared memory (n_fft = 8^a * {1, 2, 4}: four passes at 2048),
-// natural order in and out, ping-ponging between two buffers. One radix-8
-// butterfly per thread per pass at n_fft = 2048. Few passes keep the
-// rounding error low, which matters here: the phase normalisation of
-// near-zero bins amplifies it. The inverse transform is the forward one on
-// the conjugate (Re ifft(X) = Re fft(conj X) / n). Twiddles exp(-2 pi i k /
-// n_fft) come from a float64-computed half-circle table. No fast math.
+// The frame kernel is persistent: as many blocks as fit on the card at once
+// copy the twiddle tables into shared memory once and then take work items
+// from a counter per launch.
+//
+// Transforms: a mixed-radix Stockham FFT of n_fft = 2^a * m points (m odd;
+// n_fft % 32 == 0), natural order in and out, planned by ops/gl2.py:fft_plan
+// (radix 8 passes, then one of 4 or 2, then, for m > 1, one pass of radix m
+// as a direct sum): four passes at 2048. Few passes keep the rounding error
+// low, which matters here: the phase normalisation of near-zero bins
+// amplifies it. Each pass keeps a butterfly's R points in registers; shared
+// memory (two buffers, ping-pong) serves only the exchange between passes,
+// through the XOR swizzle xi(), which keeps every pass's stores at most
+// 2-way bank conflicted (tests/test_torch_gl2_plan.py). The first pass of
+// the forward transform reads the frame from device memory and the last
+// pass of the inverse writes it there. Twiddles come from per-pass tables
+// computed in float64 on the host (gl2_consts' "fft_tw"): pass (R, Ns) with
+// Ns > 1 reads exp(-2 pi i r jm / (Ns R)) at [jm][r - 1] (an odd row
+// stride: a warp's loads broadcast or fall on distinct banks); the odd pass
+// reads exp(-2 pi i k / n) for k < n. The inverse transform is the forward
+// one on the conjugate (Re ifft(X) = Re fft(conj X) / n). No fast math.
 
 #include <cuda_runtime.h>
 
 #include "gl_ola.cuh"  // gl_ola_kernel, GL_NT
 
-#define N1 16  // the scrambled magnitude's k1 extent: bin k = k1 + 16*k2
+#define N1 16         // the scrambled magnitude's k1 extent: k = k1 + 16*k2
+#define MAX_PASSES 8  // 2^21 * m points at most: shared memory binds first
 
 namespace {
+
+// The passes of one transform (ops/gl2.py:fft_plan): pass p combines R[p]
+// points after Ns[p] have been combined; its twiddles start at tw[p].
+struct Plan {
+  int n, np, n_tw;
+  int R[MAX_PASSES], Ns[MAX_PASSES], tw[MAX_PASSES];
+};
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
@@ -41,12 +61,9 @@ __device__ __forceinline__ float2 mul_mi(float2 z) {
   return make_float2(z.y, -z.x);
 }
 
-// exp(-2 pi i k / n) for 0 <= k < n, from the table of k < n/2
-__device__ __forceinline__ float2 twiddle(const float2* tw, int k, int half) {
-  if (k < half) return tw[k];
-  const float2 w = tw[k - half];
-  return make_float2(-w.x, -w.y);
-}
+// The exchange buffers' index: i with its low 4 bits (a float2's bank pair)
+// XORed by 5 x its 16-element row, a permutation within each row.
+__device__ __forceinline__ int xi(int i) { return i ^ ((i >> 4) * 5 & 15); }
 
 // In-register forward DFTs of 2, 4 and 8 points.
 __device__ __forceinline__ void dft2(float2* v) {
@@ -92,49 +109,89 @@ __device__ __forceinline__ void dft(float2* v) {
   else dft2(v);
 }
 
-// One Stockham pass of radix R after Ns points have been combined:
-// butterfly j reads src[j + r*n/R], twiddles, DFTs, and writes
-// dst[(j - j%Ns)*R + j%Ns + r*Ns].
-template <int R>
-__device__ void stockham_pass(const float2* src, float2* dst,
-                              const float2* tw, int n, int Ns) {
-  const int nb = n / R, step = n / (Ns * R);
+// One Stockham pass of radix R (a power of two) after Ns points have been
+// combined: butterfly j loads load(j + r*n/R), twiddles by tw[jm][r - 1]
+// (jm = j % Ns), DFTs in registers, and stores store((j - jm)*R + jm +
+// r*Ns, value).
+template <int R, class Load, class Store>
+__device__ __forceinline__ void pow2_pass(int n, int Ns, const float2* tw,
+                                          Load load, Store store) {
+  const int nb = n / R;
   for (int j = threadIdx.x; j < nb; j += GL_NT) {
     const int jm = j & (Ns - 1);
     float2 v[R];
-    v[0] = src[j];
 #pragma unroll
-    for (int r = 1; r < R; ++r)
-      v[r] = cmul(src[j + r * nb], twiddle(tw, r * jm * step, n >> 1));
+    for (int r = 0; r < R; ++r) v[r] = load(j + r * nb);
+    if (Ns > 1) {
+      const float2* t = tw + jm * (R - 1);
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], t[r - 1]);
+    }
     dft<R>(v);
     const int o = (j - jm) * R + jm;
 #pragma unroll
-    for (int r = 0; r < R; ++r) dst[o + r * Ns] = v[r];
+    for (int r = 0; r < R; ++r) store(o + r * Ns, v[r]);
   }
 }
 
-// Forward FFT of a (natural order) using b as the other buffer; returns
-// the buffer that holds the result. The caller synchronises before.
-__device__ float2* fft(float2* a, float2* b, const float2* tw, int n) {
-  int Ns = 1;
-  for (; Ns * 8 <= n; Ns *= 8) {
-    stockham_pass<8>(a, b, tw, n, Ns);
-    __syncthreads();
-    float2* t = a; a = b; b = t;
+// The last pass, of odd radix m after Ns = n/m points (a power of two):
+// output k = sum_q load(k % Ns + q*Ns) exp(-2 pi i q k / n), a direct sum
+// with tw[k'] = exp(-2 pi i k' / n).
+template <class Load, class Store>
+__device__ __forceinline__ void odd_pass(int n, int m, int Ns,
+                                         const float2* tw, Load load,
+                                         Store store) {
+  for (int k = threadIdx.x; k < n; k += GL_NT) {
+    const int j = k & (Ns - 1);
+    float2 acc = load(j);
+    int e = 0;  // q*k mod n
+    for (int q = 1; q < m; ++q) {
+      e += k;
+      if (e >= n) e -= n;
+      acc = cadd(acc, cmul(load(j + q * Ns), tw[e]));
+    }
+    store(k, acc);
   }
-  const int R = n / Ns;
-  if (R > 1) {
-    if (R == 4) stockham_pass<4>(a, b, tw, n, Ns);
-    else stockham_pass<2>(a, b, tw, n, Ns);
-    __syncthreads();
-    a = b;
-  }
-  return a;
 }
 
-// A persistent grid: each block copies the twiddles into its shared memory
-// once, then takes work items w = (frame f, utterance b), f fastest, from
-// the launch's counter until none is left (so blocks that finish early
+template <class Load, class Store>
+__device__ __forceinline__ void any_pass(const Plan& pl, int p,
+                                         const float2* tw, Load load,
+                                         Store store) {
+  const int R = pl.R[p], Ns = pl.Ns[p];
+  const float2* t = tw + pl.tw[p];
+  if (R == 8) pow2_pass<8>(pl.n, Ns, t, load, store);
+  else if (R == 4) pow2_pass<4>(pl.n, Ns, t, load, store);
+  else if (R == 2) pow2_pass<2>(pl.n, Ns, t, load, store);
+  else odd_pass(pl.n, R, Ns, t, load, store);
+}
+
+// Forward FFT. The first pass reads load0(i) (natural order) and writes a,
+// the passes between exchange through a and b (barrier after each), the
+// last hands output i to store(free, i, v), free the buffer it does not
+// read. Returns that buffer. No barrier after the last pass.
+template <class Load, class Store>
+__device__ float2* fft(const Plan& pl, const float2* tw, float2* a,
+                       float2* b, Load load0, Store store) {
+  any_pass(pl, 0, tw, load0, [a](int i, float2 v) { a[xi(i)] = v; });
+  __syncthreads();
+  float2 *src = a, *dst = b;
+  for (int p = 1; p < pl.np - 1; ++p) {
+    any_pass(pl, p, tw, [src](int i) { return src[xi(i)]; },
+             [dst](int i, float2 v) { dst[xi(i)] = v; });
+    __syncthreads();
+    float2* t = src;
+    src = dst;
+    dst = t;
+  }
+  any_pass(pl, pl.np - 1, tw, [src](int i) { return src[xi(i)]; },
+           [dst, &store](int i, float2 v) { store(dst, i, v); });
+  return dst;
+}
+
+// A persistent grid: each block copies the twiddle tables into its shared
+// memory once, then takes work items w = (frame f, utterance b), f fastest,
+// from the launch's counter until none is left (so blocks that finish early
 // take more, as the hardware's block scheduler would).
 // first: the spectrum is the magnitude with zero phase. Otherwise: the
 // frame of the reflect-padded signal yp, windowed, forward FFT, every bin
@@ -143,15 +200,17 @@ __device__ float2* fft(float2* a, float2* b, const float2* tw, int n) {
 __global__ void __launch_bounds__(GL_NT)
 gl_frame_kernel(const float* __restrict__ yp, const float* __restrict__ mag,
                 const float* __restrict__ win, const float2* __restrict__ twg,
-                float* __restrict__ frames, int* __restrict__ next, int n,
-                int hop, int F, int F2, int ly, int n_items, int first) {
-  __shared__ int s_w;
+                float* __restrict__ frames, int* __restrict__ next,
+                const Plan pl, int hop, int F, int F2, int ly, int n_items,
+                int first) {
   extern __shared__ float2 gsm[];
-  float2* tw = gsm;          // n/2
-  float2* sa = tw + n / 2;   // n
-  float2* sb = sa + n;       // n
-  const int n2 = n / N1;
-  for (int i = threadIdx.x; i < n / 2; i += GL_NT) tw[i] = twg[i];
+  __shared__ int s_w;
+  const int n = pl.n, n2 = n / N1;
+  float2* tw = gsm;           // pl.n_tw
+  float2* sa = tw + pl.n_tw;  // n
+  float2* sb = sa + n;        // n
+  for (int i = threadIdx.x; i < pl.n_tw; i += GL_NT) tw[i] = twg[i];
+  const float inv_n = 1.f / (float)n;
   for (;;) {
     __syncthreads();  // the twiddles, or the last item's reads, are done
     if (threadIdx.x == 0) s_w = atomicAdd(next, 1);
@@ -159,19 +218,21 @@ gl_frame_kernel(const float* __restrict__ yp, const float* __restrict__ mag,
     const int w = s_w;
     if (w >= n_items) break;
     const int f = w % F, b = w / F;
+    float2* spec = nullptr;  // the forward spectrum
+    float2* conj = sa;       // the re-imposed spectrum, conjugated
     if (!first) {
       const float* src = yp + (size_t)b * ly + (size_t)f * hop;
-      for (int i = threadIdx.x; i < n; i += GL_NT)
-        sa[i] = make_float2(src[i] * win[i], 0.f);
+      spec = fft(
+          pl, tw, sa, sb,
+          [src, win](int i) { return make_float2(src[i] * win[i], 0.f); },
+          [](float2* d, int i, float2 v) { d[xi(i)] = v; });
+      conj = spec == sa ? sb : sa;
+      __syncthreads();
     }
-    __syncthreads();
-    float2* spec = first ? sa : fft(sa, sb, tw, n);
-    float2* conj = spec == sa ? sb : sa;
-    // i -> (k1, k2) with k2 fastest, so the magnitude reads coalesce; the
-    // re-imposed spectrum is stored conjugated for the inverse transform
+    // i -> (k1, k2) with k2 fastest, so the magnitude reads coalesce
     const float* mb = mag + (size_t)b * N1 * F2 * n2 + (size_t)f * n2;
     for (int i = threadIdx.x; i < n; i += GL_NT) {
-      const int k1 = i / n2, k2 = i % n2, k = k1 + N1 * k2;
+      const int k1 = i / n2, k2 = i % n2, k = xi(k1 + N1 * k2);
       const float m = mb[(size_t)k1 * F2 * n2 + k2];
       float2 x;
       if (first) {
@@ -184,20 +245,48 @@ gl_frame_kernel(const float* __restrict__ yp, const float* __restrict__ mag,
       conj[k] = x;
     }
     __syncthreads();
-    const float2* out = fft(conj, spec, tw, n);
-    const float inv_n = 1.f / (float)n;
     float* dst = frames + ((size_t)b * F + f) * n;
-    for (int i = threadIdx.x; i < n; i += GL_NT)
-      dst[i] = out[i].x * inv_n * win[i];
+    fft(pl, tw, conj == sa ? sb : sa, conj,
+        [conj](int i) { return conj[xi(i)]; },
+        [dst, win, inv_n](float2*, int i, float2 v) {
+          dst[i] = v.x * inv_n * win[i];
+        });
   }
 }
 
 }  // namespace
 
+// The transform's plan, as ops/gl2.py:fft_plan makes it; false if n is not
+// a multiple of 32.
+static bool make_plan(int n, Plan* pl) {
+  if (n < 32 || n % 32) return false;
+  int m = n;
+  while (m % 2 == 0) m /= 2;
+  const int p2 = n / m;
+  int Ns = 1, off = 0, np = 0;
+  auto add = [&](int R) {
+    pl->R[np] = R;
+    pl->Ns[np] = Ns;
+    pl->tw[np] = off;
+    if (R % 2) off += n;                 // the odd pass: exp(-2 pi i k / n)
+    else if (Ns > 1) off += Ns * (R - 1);
+    ++np;
+    Ns *= R;
+  };
+  while (p2 / Ns >= 8 && np < MAX_PASSES) add(8);
+  if (p2 / Ns > 1 && np < MAX_PASSES) add(p2 / Ns);
+  if (m > 1 && np < MAX_PASSES) add(m);
+  if (Ns != n) return false;
+  pl->n = n;
+  pl->np = np;
+  pl->n_tw = off;
+  return true;
+}
+
 // The frame kernel's dynamic shared memory and persistent grid: as many
 // blocks as fit on every SM at once (the occupancy query), times the SMs.
-static cudaError_t frame_launch(int n_fft, size_t* smem, int* blocks) {
-  *smem = sizeof(float2) * (size_t)(n_fft / 2 + 2 * n_fft);
+static cudaError_t frame_launch(const Plan& pl, size_t* smem, int* blocks) {
+  *smem = sizeof(float2) * (size_t)(pl.n_tw + 2 * pl.n);
   cudaError_t e;
   if (*smem > 48 * 1024) {
     e = cudaFuncSetAttribute(gl_frame_kernel,
@@ -219,21 +308,26 @@ static cudaError_t frame_launch(int n_fft, size_t* smem, int* blocks) {
 
 // The frame kernel's grid at n_fft (for the smoke's report).
 extern "C" int dctts_gl2_grid(int n_fft, int* blocks) {
+  Plan pl;
+  if (!make_plan(n_fft, &pl)) return (int)cudaErrorInvalidValue;
   size_t smem;
-  return (int)frame_launch(n_fft, &smem, blocks);
+  return (int)frame_launch(pl, &smem, blocks);
 }
 
 extern "C" int dctts_gl2(const float* mag, const float* win, const float* wsq,
                          const float* tw, float* frames, float* yp, float* out,
-                         int* counters, int B, int n_fft, int hop, int F, int F2, int pad,
-                         int L_sig, int n_iter, void* stream) {
-  if (n_fft < 2 * N1 || (n_fft & (n_fft - 1)) || B < 1 || F < 1 || n_iter < 0)
+                         int* counters, int B, int n_fft, int hop, int F,
+                         int F2, int pad, int L_sig, int n_iter, int n_tw,
+                         void* stream) {
+  Plan pl;
+  if (!make_plan(n_fft, &pl) || pl.n_tw != n_tw || B < 1 || F < 1 ||
+      n_iter < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int ly = n_fft + hop * (F - 1), n_items = F * B;
   size_t smem;
   int blocks;
-  cudaError_t e = frame_launch(n_fft, &smem, &blocks);
+  cudaError_t e = frame_launch(pl, &smem, &blocks);
   if (e != cudaSuccess) return (int)e;
   // one work counter per frame-kernel launch
   e = cudaMemsetAsync(counters, 0, sizeof(int) * (size_t)(n_iter + 1), st);
@@ -242,7 +336,7 @@ extern "C" int dctts_gl2(const float* mag, const float* win, const float* wsq,
   const dim3 fgrid(blocks < n_items ? blocks : n_items),
       ogrid((ly + GL_NT - 1) / GL_NT, B), wgrid((L_sig + GL_NT - 1) / GL_NT, B);
   gl_frame_kernel<<<fgrid, GL_NT, smem, st>>>(yp, mag, win, tw2, frames,
-                                              counters, n_fft, hop, F, F2, ly,
+                                              counters, pl, hop, F, F2, ly,
                                               n_items, 1);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   for (int it = 0; it < n_iter; ++it) {
@@ -250,8 +344,8 @@ extern "C" int dctts_gl2(const float* mag, const float* win, const float* wsq,
                                            pad, L_sig, ly, 0);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     gl_frame_kernel<<<fgrid, GL_NT, smem, st>>>(yp, mag, win, tw2, frames,
-                                                counters + it + 1, n_fft, hop,
-                                                F, F2, ly, n_items, 0);
+                                                counters + it + 1, pl, hop, F,
+                                                F2, ly, n_items, 0);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   gl_ola_kernel<<<wgrid, GL_NT, 0, st>>>(frames, wsq, out, n_fft, hop, F, pad,

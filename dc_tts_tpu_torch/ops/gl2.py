@@ -81,21 +81,66 @@ def gl2_geometry(n_fft: int, hop: int, win_length: int, F: int) -> GL2Geom:
                    pad, L_sig, edge_rows)
 
 
+def fft_plan(n: int) -> list[tuple[int, int]]:
+    """The CUDA kernel's passes over n = 2^a * m points (m odd, n % 32 ==
+    0; csrc/gl2.cu:make_plan): (R, Ns) for each, a pass of radix R after Ns
+    points have been combined. Radix 8 while it divides what is left of
+    2^a, then one pass of 4 or 2, then one pass of radix m if m > 1."""
+    if n < 2 * _N1 or n % (2 * _N1):
+        raise ValueError(f"fft_plan: n must be a multiple of 32, got {n}")
+    m = n
+    while m % 2 == 0:
+        m //= 2
+    p2, ns, plan = n // m, 1, []
+    while p2 // ns >= 8:
+        plan.append((8, ns))
+        ns *= 8
+    if p2 // ns > 1:
+        plan.append((p2 // ns, ns))
+        ns = p2
+    if m > 1:
+        plan.append((m, ns))
+    return plan
+
+
+def fft_twiddles(n: int) -> np.ndarray:
+    """The kernel's twiddle tables, complex128, concatenated in pass order:
+    pass (R, Ns) with R a power of two and Ns > 1 takes exp(-2 pi i r jm /
+    (Ns R)) at [jm][r - 1] (jm < Ns, 1 <= r < R); the odd pass exp(-2 pi i
+    k / n) for k < n."""
+    parts = []
+    for R, ns in fft_plan(n):
+        if R % 2:
+            parts.append(np.exp(-2j * np.pi * np.arange(n) / n))
+        elif ns > 1:
+            jm, r = np.meshgrid(np.arange(ns), np.arange(1, R),
+                                indexing="ij")
+            parts.append(np.exp(-2j * np.pi * r * jm / (ns * R)).ravel())
+    return np.concatenate(parts) if parts else np.zeros(0, np.complex128)
+
+
+def exchange_index(i):
+    """The shared-memory index of element i of an exchange buffer
+    (csrc/gl2.cu:xi): its low 4 bits, a float2's bank pair, XORed by 5 x
+    its 16-element row."""
+    return i ^ ((i >> 4) * 5 & 15)
+
+
 def gl2_consts(n_fft: int, hop: int, win_length: int, F: int) -> dict:
     """Host constants (float32): the window "win" (1, n_fft), the NOLA
     factor "wsq" (rows_y, hop) padded with ones, as the TPU kernel's, and
-    the FFT twiddles "fft_tw" (n_fft/2, 2) = (cos, -sin)(2 pi k / n_fft)
-    computed in float64."""
+    the FFT's twiddle tables "fft_tw" (n_tw, 2) = (Re, Im) of
+    ``fft_twiddles``, computed in float64."""
     g = gl2_geometry(n_fft, hop, win_length, F)
     wsq = _ola_window_sq(F, n_fft, hop, win_length)
     wsq_seg = np.ones((g.rows_y * hop,), np.float32)
     n = min(wsq.shape[0], wsq_seg.shape[0])
     wsq_seg[:n] = wsq[:n]
-    ang = 2.0 * np.pi * np.arange(n_fft // 2) / n_fft
-    tw = np.stack([np.cos(ang), -np.sin(ang)], axis=-1)
+    tw = fft_twiddles(n_fft)
     return {"win": hann_window(win_length, n_fft).reshape(1, n_fft),
             "wsq": wsq_seg.reshape(g.rows_y, hop),
-            "fft_tw": np.ascontiguousarray(tw, np.float32)}
+            "fft_tw": np.ascontiguousarray(
+                np.stack([tw.real, tw.imag], axis=-1), np.float32)}
 
 
 def scramble_mag(mag: torch.Tensor, g: GL2Geom) -> torch.Tensor:
@@ -154,16 +199,14 @@ def gl2_run(mag_scr: torch.Tensor, consts: dict, g: GL2Geom,
         raise ValueError(f"gl2_run: mag_scr must be contiguous float32 "
                          f"(B, {_N1}, {g.F2}, {g.N2}), got "
                          f"{tuple(mag_scr.shape)} {mag_scr.dtype}")
-    if n & (n - 1) or n < 32:
-        raise ValueError(f"gl2_run: the CUDA kernel's FFT needs a "
-                         f"power-of-two n_fft >= 32, got {n}")
     if n_iter < 0:
         raise ValueError(f"gl2_run: n_iter must be >= 0, got {n_iter}")
     win, wsq, tw = (torch.as_tensor(consts[k], dtype=torch.float32,
                                     device=dev).contiguous()
                     for k in ("win", "wsq", "fft_tw"))
+    n_tw = len(fft_twiddles(n))
     if win.numel() != n or wsq.numel() != g.rows_y * g.hop \
-            or tw.numel() != n:
+            or tw.numel() != 2 * n_tw:
         raise ValueError("gl2_run: consts do not match the geometry")
     lib = load_library()
     frames = torch.empty(B, g.F, n, device=dev)
@@ -173,8 +216,8 @@ def gl2_run(mag_scr: torch.Tensor, consts: dict, g: GL2Geom,
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.dctts_gl2(mag_scr.data_ptr(), win.data_ptr(), wsq.data_ptr(),
                          tw.data_ptr(), frames.data_ptr(), yp.data_ptr(),
-                         out.data_ptr(), counters.data_ptr(), B, n, g.hop, g.F, g.F2, g.pad,
-                         g.L_sig, n_iter, stream)
+                         out.data_ptr(), counters.data_ptr(), B, n, g.hop,
+                         g.F, g.F2, g.pad, g.L_sig, n_iter, n_tw, stream)
     check(code, "Griffin-Lim kernels")
     gl2_run.launches += 1
     return out

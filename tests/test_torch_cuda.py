@@ -159,9 +159,12 @@ def test_decode_kernel_refuses_bad_packing(cuda):
     assert K1.fused_decode.launches == n
 
 
+# the JAX gl2 test's geometry, and a non-power-of-two n_fft (32 * 15) with
+# hop and window in the base config's ratios and an odd F
+@pytest.mark.parametrize("geom", [(512, 69, 275, 160), (480, 64, 258, 41)])
 @pytest.mark.parametrize("n_iter", [0, 1, 3])
-def test_gl2_kernel_matches_plain(cuda, n_iter):
-    n_fft, hop, win, F = 512, 69, 275, 160
+def test_gl2_kernel_matches_plain(cuda, n_iter, geom):
+    n_fft, hop, win, F = geom
     g = K2.gl2_geometry(n_fft, hop, win, F)
     mag = torch.rand(3, F, n_fft // 2 + 1,
                      generator=torch.Generator().manual_seed(n_iter)) + 0.05

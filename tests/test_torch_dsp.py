@@ -104,7 +104,8 @@ def test_denormalize_and_trim_match_jax():
 @pytest.mark.parametrize("geom", [(N_FFT, HOP, WIN_L, F),
                                   (N_FFT, HOP, WIN_L, F - 3),
                                   (2048, 275, 1102, 840),
-                                  (512, 16, 275, 64)])
+                                  (512, 16, 275, 64),
+                                  (1056, 142, 568, 61)])
 def test_gl2_geometry_consts_scramble_match_jax(geom):
     g = K2.gl2_geometry(*geom)
     assert tuple(g) == tuple(jgl2.gl2_geometry(*geom))
@@ -112,9 +113,13 @@ def test_gl2_geometry_consts_scramble_match_jax(geom):
     for k in ("win", "wsq"):
         assert got[k].dtype == np.float32
         np.testing.assert_array_equal(got[k], want[k])
-    ang = 2 * np.pi * np.arange(geom[0] // 2) / geom[0]
-    np.testing.assert_allclose(got["fft_tw"][:, 0] - 1j * got["fft_tw"][:, 1],
-                               np.exp(1j * ang), atol=1e-7)
+    # the port's own entry: the CUDA kernel's twiddle tables, float32 of
+    # float64 exp(-2 pi i ...) (tests/test_torch_gl2_plan.py holds them)
+    tw = K2.fft_twiddles(geom[0])
+    assert got["fft_tw"].dtype == np.float32
+    np.testing.assert_allclose(got["fft_tw"][:, 0] + 1j * got["fft_tw"][:, 1],
+                               tw, atol=1e-7)
+    np.testing.assert_allclose(np.abs(tw), 1.0, atol=1e-15)
     n_f = geom[3]
     mag = np.random.default_rng(2).random(
         (1, n_f, geom[0] // 2 + 1)).astype(np.float32)
