@@ -47,18 +47,26 @@ struct Plan {
   int R[MAX_PASSES], Ns[MAX_PASSES], tw[MAX_PASSES];
 };
 
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
+// Butterfly arithmetic is float64 (double2) in registers; the exchange
+// buffers, the twiddle tables and every array in device memory are float32.
+__device__ __forceinline__ double2 cadd(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
 }
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
+__device__ __forceinline__ double2 csub(double2 a, double2 b) {
+  return make_double2(a.x - b.x, a.y - b.y);
 }
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
+  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 // (-i) z
-__device__ __forceinline__ float2 mul_mi(float2 z) {
-  return make_float2(z.y, -z.x);
+__device__ __forceinline__ double2 mul_mi(double2 z) {
+  return make_double2(z.y, -z.x);
+}
+__device__ __forceinline__ double2 wide(float2 v) {
+  return make_double2(v.x, v.y);
+}
+__device__ __forceinline__ float2 narrow(double2 v) {
+  return make_float2((float)v.x, (float)v.y);
 }
 
 // The exchange buffers' index: i with its low 4 bits (a float2's bank pair)
@@ -66,32 +74,32 @@ __device__ __forceinline__ float2 mul_mi(float2 z) {
 __device__ __forceinline__ int xi(int i) { return i ^ ((i >> 4) * 5 & 15); }
 
 // In-register forward DFTs of 2, 4 and 8 points.
-__device__ __forceinline__ void dft2(float2* v) {
-  const float2 a = v[0];
+__device__ __forceinline__ void dft2(double2* v) {
+  const double2 a = v[0];
   v[0] = cadd(a, v[1]);
   v[1] = csub(a, v[1]);
 }
 
-__device__ __forceinline__ void dft4(float2& v0, float2& v1, float2& v2,
-                                     float2& v3) {
-  const float2 a = cadd(v0, v2), b = csub(v0, v2);
-  const float2 c = cadd(v1, v3), d = mul_mi(csub(v1, v3));
+__device__ __forceinline__ void dft4(double2& v0, double2& v1,
+                                     double2& v2, double2& v3) {
+  const double2 a = cadd(v0, v2), b = csub(v0, v2);
+  const double2 c = cadd(v1, v3), d = mul_mi(csub(v1, v3));
   v0 = cadd(a, c);
   v1 = cadd(b, d);
   v2 = csub(a, c);
   v3 = csub(b, d);
 }
 
-__device__ __forceinline__ void dft8(float2* v) {
-  const float h = 0.70710678118654752f;  // sqrt(1/2)
-  float2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
-  float2 o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
+__device__ __forceinline__ void dft8(double2* v) {
+  const double h = 0.70710678118654752440;  // sqrt(1/2)
+  double2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
+  double2 o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
   dft4(e0, e1, e2, e3);
   dft4(o0, o1, o2, o3);
   // o_k *= exp(-2 pi i k / 8)
-  o1 = make_float2(h * (o1.x + o1.y), h * (o1.y - o1.x));
+  o1 = make_double2(h * (o1.x + o1.y), h * (o1.y - o1.x));
   o2 = mul_mi(o2);
-  o3 = make_float2(h * (o3.y - o3.x), -h * (o3.x + o3.y));
+  o3 = make_double2(h * (o3.y - o3.x), -h * (o3.x + o3.y));
   v[0] = cadd(e0, o0);
   v[1] = cadd(e1, o1);
   v[2] = cadd(e2, o2);
@@ -103,7 +111,7 @@ __device__ __forceinline__ void dft8(float2* v) {
 }
 
 template <int R>
-__device__ __forceinline__ void dft(float2* v) {
+__device__ __forceinline__ void dft(double2* v) {
   if constexpr (R == 8) dft8(v);
   else if constexpr (R == 4) dft4(v[0], v[1], v[2], v[3]);
   else dft2(v);
@@ -119,18 +127,18 @@ __device__ __forceinline__ void pow2_pass(int n, int Ns, const float2* tw,
   const int nb = n / R;
   for (int j = threadIdx.x; j < nb; j += GL_NT) {
     const int jm = j & (Ns - 1);
-    float2 v[R];
+    double2 v[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = load(j + r * nb);
+    for (int r = 0; r < R; ++r) v[r] = wide(load(j + r * nb));
     if (Ns > 1) {
       const float2* t = tw + jm * (R - 1);
 #pragma unroll
-      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], t[r - 1]);
+      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], wide(t[r - 1]));
     }
     dft<R>(v);
     const int o = (j - jm) * R + jm;
 #pragma unroll
-    for (int r = 0; r < R; ++r) store(o + r * Ns, v[r]);
+    for (int r = 0; r < R; ++r) store(o + r * Ns, narrow(v[r]));
   }
 }
 
@@ -143,14 +151,14 @@ __device__ __forceinline__ void odd_pass(int n, int m, int Ns,
                                          Store store) {
   for (int k = threadIdx.x; k < n; k += GL_NT) {
     const int j = k & (Ns - 1);
-    float2 acc = load(j);
+    double2 acc = wide(load(j));
     int e = 0;  // q*k mod n
     for (int q = 1; q < m; ++q) {
       e += k;
       if (e >= n) e -= n;
-      acc = cadd(acc, cmul(load(j + q * Ns), tw[e]));
+      acc = cadd(acc, cmul(wide(load(j + q * Ns)), wide(tw[e])));
     }
-    store(k, acc);
+    store(k, narrow(acc));
   }
 }
 
@@ -190,13 +198,16 @@ __device__ float2* fft(const Plan& pl, const float2* tw, float2* a,
 }
 
 // A persistent grid: each block copies the twiddle tables into its shared
-// memory once, then takes work items w = (frame f, utterance b), f fastest,
-// from the launch's counter until none is left (so blocks that finish early
-// take more, as the hardware's block scheduler would).
-// first: the spectrum is the magnitude with zero phase. Otherwise: the
-// frame of the reflect-padded signal yp, windowed, forward FFT, every bin
-// scaled to the magnitude (phase with a 1e-8 floor). Then inverse FFT,
-// real part / n, windowed.
+// memory once, then takes work items w = (frame pair p, utterance b), p
+// fastest, from the launch's counter until none is left (so blocks that
+// finish early take more, as the hardware's block scheduler would). A pair
+// is the real frames f0 = 2p and f1 = 2p + 1 (a zero frame when f1 = F) in
+// one complex transform, z = x0 + i x1.
+// first: the spectra are the magnitudes with zero phase. Otherwise: the
+// pair's frames of the reflect-padded signal yp, windowed, forward FFT,
+// split into the two spectra, each bin k <= n/2 scaled to its magnitude
+// (phase with a 1e-8 floor), merged with Hermitian halves. Then inverse
+// FFT: the frames are its real and imaginary parts / n, windowed.
 __global__ void __launch_bounds__(GL_NT)
 gl_frame_kernel(const float* __restrict__ yp, const float* __restrict__ mag,
                 const float* __restrict__ win, const float2* __restrict__ twg,
@@ -205,7 +216,7 @@ gl_frame_kernel(const float* __restrict__ yp, const float* __restrict__ mag,
                 int first) {
   extern __shared__ float2 gsm[];
   __shared__ int s_w;
-  const int n = pl.n, n2 = n / N1;
+  const int n = pl.n, h2 = n / (2 * N1), pairs = (F + 1) / 2;
   float2* tw = gsm;           // pl.n_tw
   float2* sa = tw + pl.n_tw;  // n
   float2* sb = sa + n;        // n
@@ -217,39 +228,59 @@ gl_frame_kernel(const float* __restrict__ yp, const float* __restrict__ mag,
     __syncthreads();
     const int w = s_w;
     if (w >= n_items) break;
-    const int f = w % F, b = w / F;
-    float2* spec = nullptr;  // the forward spectrum
-    float2* conj = sa;       // the re-imposed spectrum, conjugated
+    const int f0 = 2 * (w % pairs), b = w / pairs;
+    const bool two = f0 + 1 < F;
+    float2* spec = nullptr;  // the forward spectrum Z of the pair
+    float2* conj = sa;       // the merged spectrum W, conjugated
     if (!first) {
-      const float* src = yp + (size_t)b * ly + (size_t)f * hop;
+      const float* x0 = yp + (size_t)b * ly + (size_t)f0 * hop;
+      const float* x1 = x0 + hop;
       spec = fft(
           pl, tw, sa, sb,
-          [src, win](int i) { return make_float2(src[i] * win[i], 0.f); },
+          [x0, x1, win, two](int i) {
+            return make_float2(x0[i] * win[i], two ? x1[i] * win[i] : 0.f);
+          },
           [](float2* d, int i, float2 v) { d[xi(i)] = v; });
       conj = spec == sa ? sb : sa;
       __syncthreads();
     }
-    // i -> (k1, k2) with k2 fastest, so the magnitude reads coalesce
-    const float* mb = mag + (size_t)b * N1 * F2 * n2 + (size_t)f * n2;
-    for (int i = threadIdx.x; i < n; i += GL_NT) {
-      const int k1 = i / n2, k2 = i % n2, k = xi(k1 + N1 * k2);
-      const float m = mb[(size_t)k1 * F2 * n2 + k2];
-      float2 x;
+    // bins k < n/2 as (k1, k2) = (k % 16, k / 16), k2 fastest, so the
+    // magnitude reads coalesce; i = n/2 is the Nyquist bin
+    const size_t row = (size_t)F2 * 2 * h2;  // one k1 of the layout
+    const float* m0 = mag + (size_t)b * N1 * row + (size_t)f0 * 2 * h2;
+    for (int i = threadIdx.x; i <= n / 2; i += GL_NT) {
+      const int k1 = i < n / 2 ? i / h2 : 0, k2 = i < n / 2 ? i % h2 : h2;
+      const int k = k1 + N1 * k2;
+      const float g0 = m0[k1 * row + k2];
+      const float g1 = two ? m0[k1 * row + 2 * h2 + k2] : 0.f;
+      float2 x, y;  // the two re-imposed spectra at bin k
       if (first) {
-        x = make_float2(m, 0.f);
+        x = make_float2(g0, 0.f);
+        y = make_float2(g1, 0.f);
       } else {
-        const float2 e = spec[k];
-        const float sc = m / fmaxf(1e-8f, sqrtf(e.x * e.x + e.y * e.y));
-        x = make_float2(e.x * sc, -e.y * sc);
+        const float2 a = spec[xi(k)], c = spec[xi(k ? n - k : 0)];
+        // X = (Z[k] + conj Z[n-k]) / 2, Y = (Z[k] - conj Z[n-k]) / 2i
+        x = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
+        y = make_float2(0.5f * (a.y + c.y), -0.5f * (a.x - c.x));
+        const float sx = g0 / fmaxf(1e-8f, sqrtf(x.x * x.x + x.y * x.y));
+        const float sy = g1 / fmaxf(1e-8f, sqrtf(y.x * y.x + y.y * y.y));
+        x = make_float2(x.x * sx, x.y * sx);
+        y = make_float2(y.x * sy, y.y * sy);
       }
-      conj[k] = x;
+      // conj W[k] = conj(X + iY), conj W[n-k] = conj(conj X + i conj Y)
+      conj[xi(k)] = make_float2(x.x - y.y, -(x.y + y.x));
+      if (k != 0 && 2 * k != n)
+        conj[xi(n - k)] = make_float2(x.x + y.y, x.y - y.x);
     }
     __syncthreads();
-    float* dst = frames + ((size_t)b * F + f) * n;
+    float* d0 = frames + ((size_t)b * F + f0) * n;
+    float* d1 = d0 + n;
     fft(pl, tw, conj == sa ? sb : sa, conj,
         [conj](int i) { return conj[xi(i)]; },
-        [dst, win, inv_n](float2*, int i, float2 v) {
-          dst[i] = v.x * inv_n * win[i];
+        [d0, d1, win, inv_n, two](float2*, int i, float2 v) {
+          // w = ifft(W) = conj(fft(conj W)) / n
+          d0[i] = v.x * inv_n * win[i];
+          if (two) d1[i] = -v.y * inv_n * win[i];
         });
   }
 }
@@ -324,7 +355,7 @@ extern "C" int dctts_gl2(const float* mag, const float* win, const float* wsq,
       n_iter < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int ly = n_fft + hop * (F - 1), n_items = F * B;
+  const int ly = n_fft + hop * (F - 1), n_items = (F + 1) / 2 * B;
   size_t smem;
   int blocks;
   cudaError_t e = frame_launch(pl, &smem, &blocks);

@@ -5,11 +5,14 @@ planned by ``fft_plan`` with the twiddle tables of ``fft_twiddles`` and
 exchanges every pass's outputs through shared memory at
 ``exchange_index``. These tests hold a numpy emulation of those passes
 (float64, the kernel's loads, twiddles, butterflies and stores) to
-``numpy.fft.fft`` within 1e-12, and the exchange index to at most 2-way
-bank conflicts on every pass's stores. No card is needed.
+``numpy.fft.fft`` within 1e-12, the exchange index to at most 2-way
+bank conflicts on every pass's stores, and a float64 model of the kernel's
+two real frames per complex transform (pack, split, impose, merge) to one
+plain round. No card is needed.
 """
 import numpy as np
 import pytest
+import torch
 
 from dc_tts_tpu_torch.ops import gl2 as K2
 
@@ -121,3 +124,44 @@ def test_twiddle_loads_broadcast_or_distinct_banks(n):
         for w in range(0, len(jm), WARP):
             for r in range(1, R):
                 assert _conflict(jm[w: w + WARP] * (R - 1) + r - 1) <= 2
+
+
+def _pair_round(x: torch.Tensor, mag: torch.Tensor) -> torch.Tensor:
+    """The frame kernel's spectral step on frame pairs, float64: frames x
+    (F, n) -> z = x[2p] + i x[2p+1] (a zero frame after an odd F), Z =
+    fft(z), X = (Z[k] + conj Z[n-k]) / 2 and Y = (Z[k] - conj Z[n-k]) / 2i
+    for k <= n/2, each scaled to mag (1e-8 floor), W = X' + i Y' with
+    Hermitian halves, w = ifft(W): the new frames are Re w and Im w."""
+    F, n = x.shape
+    xp = torch.cat([x, x.new_zeros(F % 2, n)])
+    z = torch.complex(xp[0::2], xp[1::2])
+    Z = torch.fft.fft(z)
+    k = torch.arange(n // 2 + 1)
+    Zc = Z[:, (n - k) % n].conj()
+    X, Y = (Z[:, k] + Zc) / 2, (Z[:, k] - Zc) / 2j
+    mp = torch.cat([mag, mag.new_zeros(F % 2, mag.shape[1])])
+
+    def impose(S, m):
+        return m * S / torch.clamp(S.abs(), min=1e-8)
+    Xn, Yn = impose(X, mp[0::2]), impose(Y, mp[1::2])
+    W = torch.zeros_like(Z)
+    W[:, k] = Xn + 1j * Yn
+    kk = torch.arange(1, n // 2)
+    W[:, n - kk] = Xn[:, kk].conj() + 1j * Yn[:, kk].conj()
+    w = torch.fft.ifft(W)
+    return torch.stack([w.real, w.imag], 1).reshape(-1, n)[:F]
+
+
+@pytest.mark.parametrize("F", [12, 13])
+@pytest.mark.parametrize("n", [96, 480])
+def test_pair_split_merge_reproduces_a_plain_round(n, F):
+    """One round on frame pairs equals the plain round on single frames
+    (rfft, normalise, irfft) within 1e-12, an odd F included."""
+    rng = np.random.default_rng(F)
+    x = torch.as_tensor(rng.standard_normal((F, n)))
+    mag = torch.as_tensor(rng.random((F, n // 2 + 1)) + 0.05)
+    X = torch.fft.rfft(x)
+    want = torch.fft.irfft(mag * X / torch.clamp(X.abs(), min=1e-8), n)
+    got = _pair_round(x, mag)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=1e-12, rtol=0)
