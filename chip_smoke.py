@@ -252,6 +252,7 @@ A summary also goes to ``chiprun_out/chip_smoke.json`` beside this script.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -720,6 +721,8 @@ def phase_k2(results):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     s_k, s_p = sc(w), sc(wp)
+    # the output's bytes, to hold two versions of the kernel bitwise equal
+    digest = hashlib.sha256(w.cpu().numpy().tobytes()).hexdigest()[:16]
     ms = cuda_ms(lambda: K2.gl2_run(pscr, consts, g, n_iter), 3)
     ok = (err1 <= 1e-5 and np.isfinite(s_k) and s_k <= 1.10 * s_p + 0.01
           and w.shape == (B_MAIN, g.L_sig))
@@ -760,7 +763,7 @@ def phase_k2(results):
          bound_by=b_by, gflop=f"{flops / 1e9:.2f}",
          bytes_floor_ms_full_frames=f"{floors['full']:.3f}",
          bytes_floor_ms_span_frames=f"{floors['span']:.3f}",
-         span=f"[{int(nz[0])},{int(nz[-1]) + 1})",
+         span=f"[{int(nz[0])},{int(nz[-1]) + 1})", out_sha256=digest,
          cufft_rfft_irfft_ms=f"{lib_ms:.3f}", grid=_k2_grid(K2, n_fft),
          **{f"{k}_ms": "not measured" if kinds is None else f"{kinds[k]:.3f}"
             for k in K2_KINDS})

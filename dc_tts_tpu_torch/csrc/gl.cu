@@ -319,7 +319,7 @@ extern "C" int dctts_gl_k3a(const float* xr, const float* xi, const void* w_hi,
                        st);
   if (e != cudaSuccess) return (int)e;
   gl_ola_kernel<<<dim3((ly + GL_NT - 1) / GL_NT, B), GL_NT, 0, st>>>(
-      frames, wsq, yp, n_fft, hop, F, pad, L_sig, ly, 0);
+      frames, wsq, yp, 0, n_fft, hop, F, pad, L_sig, ly, 0);
   return (int)cudaGetLastError();
 }
 

@@ -212,8 +212,8 @@ __global__ void __launch_bounds__(GL_NT)
 gl_frame_kernel(const float* __restrict__ yp, const float* __restrict__ mag,
                 const float* __restrict__ win, const float2* __restrict__ twg,
                 float* __restrict__ frames, int* __restrict__ next,
-                const Plan pl, int hop, int F, int F2, int ly, int n_items,
-                int first) {
+                const Plan pl, int off, int len, int hop, int F, int F2,
+                int ly, int n_items, int first) {
   extern __shared__ float2 gsm[];
   __shared__ int s_w;
   const int n = pl.n, h2 = n / (2 * N1), pairs = (F + 1) / 2;
@@ -233,11 +233,13 @@ gl_frame_kernel(const float* __restrict__ yp, const float* __restrict__ mag,
     float2* spec = nullptr;  // the forward spectrum Z of the pair
     float2* conj = sa;       // the merged spectrum W, conjugated
     if (!first) {
+      // the window is zero outside [off, off + len): read the span only
       const float* x0 = yp + (size_t)b * ly + (size_t)f0 * hop;
       const float* x1 = x0 + hop;
       spec = fft(
           pl, tw, sa, sb,
-          [x0, x1, win, two](int i) {
+          [x0, x1, win, two, off, len](int i) {
+            if ((unsigned)(i - off) >= (unsigned)len) return make_float2(0.f, 0.f);
             return make_float2(x0[i] * win[i], two ? x1[i] * win[i] : 0.f);
           },
           [](float2* d, int i, float2 v) { d[xi(i)] = v; });
@@ -273,14 +275,16 @@ gl_frame_kernel(const float* __restrict__ yp, const float* __restrict__ mag,
         conj[xi(n - k)] = make_float2(x.x + y.y, x.y - y.x);
     }
     __syncthreads();
-    float* d0 = frames + ((size_t)b * F + f0) * n;
-    float* d1 = d0 + n;
+    // frames hold the window's span only: sample i at i - off
+    float* d0 = frames + ((size_t)b * F + f0) * len;
+    float* d1 = d0 + len;
     fft(pl, tw, conj == sa ? sb : sa, conj,
         [conj](int i) { return conj[xi(i)]; },
-        [d0, d1, win, inv_n, two](float2*, int i, float2 v) {
+        [d0, d1, win, inv_n, two, off, len](float2*, int i, float2 v) {
+          if ((unsigned)(i - off) >= (unsigned)len) return;
           // w = ifft(W) = conj(fft(conj W)) / n
-          d0[i] = v.x * inv_n * win[i];
-          if (two) d1[i] = -v.y * inv_n * win[i];
+          d0[i - off] = v.x * inv_n * win[i];
+          if (two) d1[i - off] = -v.y * inv_n * win[i];
         });
   }
 }
@@ -349,10 +353,10 @@ extern "C" int dctts_gl2(const float* mag, const float* win, const float* wsq,
                          const float* tw, float* frames, float* yp, float* out,
                          int* counters, int B, int n_fft, int hop, int F,
                          int F2, int pad, int L_sig, int n_iter, int n_tw,
-                         void* stream) {
+                         int off, int len, void* stream) {
   Plan pl;
   if (!make_plan(n_fft, &pl) || pl.n_tw != n_tw || B < 1 || F < 1 ||
-      n_iter < 0)
+      n_iter < 0 || off < 0 || len < 1 || off + len > n_fft)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int ly = n_fft + hop * (F - 1), n_items = (F + 1) / 2 * B;
@@ -367,19 +371,20 @@ extern "C" int dctts_gl2(const float* mag, const float* win, const float* wsq,
   const dim3 fgrid(blocks < n_items ? blocks : n_items),
       ogrid((ly + GL_NT - 1) / GL_NT, B), wgrid((L_sig + GL_NT - 1) / GL_NT, B);
   gl_frame_kernel<<<fgrid, GL_NT, smem, st>>>(yp, mag, win, tw2, frames,
-                                              counters, pl, hop, F, F2, ly,
-                                              n_items, 1);
+                                              counters, pl, off, len, hop, F,
+                                              F2, ly, n_items, 1);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   for (int it = 0; it < n_iter; ++it) {
-    gl_ola_kernel<<<ogrid, GL_NT, 0, st>>>(frames, wsq, yp, n_fft, hop, F,
+    gl_ola_kernel<<<ogrid, GL_NT, 0, st>>>(frames, wsq, yp, off, len, hop, F,
                                            pad, L_sig, ly, 0);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     gl_frame_kernel<<<fgrid, GL_NT, smem, st>>>(yp, mag, win, tw2, frames,
-                                                counters + it + 1, pl, hop, F,
-                                                F2, ly, n_items, 0);
+                                                counters + it + 1, pl, off,
+                                                len, hop, F, F2, ly, n_items,
+                                                0);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
-  gl_ola_kernel<<<wgrid, GL_NT, 0, st>>>(frames, wsq, out, n_fft, hop, F, pad,
-                                         L_sig, L_sig, 1);
+  gl_ola_kernel<<<wgrid, GL_NT, 0, st>>>(frames, wsq, out, off, len, hop, F,
+                                         pad, L_sig, L_sig, 1);
   return (int)cudaGetLastError();
 }

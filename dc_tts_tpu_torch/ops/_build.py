@@ -40,7 +40,7 @@ _SIGNATURES = {
     "dctts_decode": [P] * 10 + [I] * 8 + [Fl] + [I] * 13 + [P],
     "dctts_decode_coresident": [I, ctypes.POINTER(I), ctypes.POINTER(I)],
     "dctts_decode_barriers": [P, I, I, P],
-    "dctts_gl2": [P] * 8 + [I] * 9 + [P],
+    "dctts_gl2": [P] * 8 + [I] * 11 + [P],
     "dctts_gl2_grid": [I, ctypes.POINTER(I)],
     "dctts_gl_k3a": [P] * 9 + [I] * 12 + [P],
     "dctts_gl_k3b": [P] * 8 + [I] * 12 + [P],

@@ -35,6 +35,7 @@ frame kernel goes from the waveform to the next round's frame in one pass.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -117,6 +118,16 @@ def fft_twiddles(n: int) -> np.ndarray:
                                 indexing="ij")
             parts.append(np.exp(-2j * np.pi * r * jm / (ns * R)).ravel())
     return np.concatenate(parts) if parts else np.zeros(0, np.complex128)
+
+
+@functools.lru_cache(maxsize=16)
+def window_span(n_fft: int, win_length: int) -> tuple[int, int]:
+    """(off, len): the nonzero samples [off, off + len) of gl2_consts'
+    window ``hann_window(win_length, n_fft)``, read off the window itself.
+    Outside them every windowed sample is exactly 0, so the kernels store
+    frames over the span only (B, F, len) and skip the rest."""
+    nz = np.flatnonzero(hann_window(win_length, n_fft))
+    return int(nz[0]), int(nz[-1]) + 1 - int(nz[0])
 
 
 def exchange_index(i):
@@ -209,7 +220,8 @@ def gl2_run(mag_scr: torch.Tensor, consts: dict, g: GL2Geom,
             or tw.numel() != 2 * n_tw:
         raise ValueError("gl2_run: consts do not match the geometry")
     lib = load_library()
-    frames = torch.empty(B, g.F, n, device=dev)
+    off, span = window_span(n, g.win_length)
+    frames = torch.empty(B, g.F, span, device=dev)
     yp = torch.empty(B, n + g.hop * (g.F - 1), device=dev)
     out = torch.empty(B, g.L_sig, device=dev)
     counters = torch.empty(n_iter + 1, dtype=torch.int32, device=dev)
@@ -217,7 +229,8 @@ def gl2_run(mag_scr: torch.Tensor, consts: dict, g: GL2Geom,
     code = lib.dctts_gl2(mag_scr.data_ptr(), win.data_ptr(), wsq.data_ptr(),
                          tw.data_ptr(), frames.data_ptr(), yp.data_ptr(),
                          out.data_ptr(), counters.data_ptr(), B, n, g.hop,
-                         g.F, g.F2, g.pad, g.L_sig, n_iter, n_tw, stream)
+                         g.F, g.F2, g.pad, g.L_sig, n_iter, n_tw, off, span,
+                         stream)
     check(code, "Griffin-Lim kernels")
     gl2_run.launches += 1
     return out
