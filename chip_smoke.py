@@ -36,7 +36,15 @@ line:
              itself further than that from it: the phase normalisation of
              near-zero bins amplifies rounding); n_iter=50 spectral
              convergence on a two-tone probe <= 1.10 x the plain version's
-             + 0.01.
+             + 0.01. With the ms of its frame and overlap-add kernels
+             (torch.profiler), the frame kernel's grid, the round
+             structure's bytes floors (frames of n_fft samples, or of the
+             window's span), cuFFT's rfft + irfft of the same frames as a
+             yardstick and the output's sha256 (two versions bitwise
+             equal or not). Then (line K2-B72) bench.py's chunk, B=72,
+             every row equal to the B=20 run's, and (line K2-n1056) n_fft
+             1056 = 32 * 33, hop 142, win 568, F=61 at the same 1e-5 gate
+             ("skipped" under --package for a package that refuses it).
 5. e2e     - Synthesizer(base_config(), random weights, pcm16=True) on the
              card: synthesize_ids_chunked over the 40 Harvard sentences in
              chunks of 20, with every launch counter set to 0 just before
@@ -221,9 +229,10 @@ run are printed beside it). K3a's and K3b's ``ms``, ``plain_ms`` and
 ``bound_ms`` in the kernels line are single-pass (the schedule's 40
 middle rounds of 50), their ``launches`` both pass modes' in
 e2e-dft_pallas, K3a's ``max_abs_err`` that of its signal. K2's
-operations count each 2048-point
-transform as a real FFT (2.5 N log2 N): every frame is real and every
-spectrum Hermitian. K4's operations are its tap matmuls, 2*B*T*K*C*2C for
+operations count each 2048-point transform as a real FFT (2.5 N log2 N):
+every frame is real and every spectrum Hermitian; its ``library_ms`` is
+the cuFFT yardstick (the transforms alone, 2*n_iter + 1 of the B*F
+frames). K4's operations are its tap matmuls, 2*B*T*K*C*2C for
 the forward and three times that for the backward (h recomputed, dx, dW);
 its row passes (layer norms, gate) add under 1 % at these widths. K4's
 ``ms``, ``plain_ms`` and ``bound_ms`` in the kernels line are sums over
@@ -2489,8 +2498,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="", help="comma-separated phases to "
                     "run alone (K1, K1-prec, K2, e2e, K3, e2e-dft_pallas, "
-                    "K4, "
-                    "K4-bf16, ct-fwd, train-routes), e.g. to time them "
+                    "K4, K4-bf16, ct-fwd, train-routes), e.g. to time them "
                     "on another commit's package in the same call")
     ap.add_argument("--package", default="", help="import dc_tts_tpu_torch "
                     "from this directory (a checkout of another commit, "

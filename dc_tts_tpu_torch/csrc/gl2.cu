@@ -2,34 +2,41 @@
 //
 // Replaces dc_tts_tpu/ops/pallas_gl2.py:gl2_run (body _kernel). The design
 // note is in dc_tts_tpu_torch/ops/gl2.py: the state between rounds is the
-// windowed frames of the round in device memory; each round is
+// windowed frames of the round in device memory, over the window's nonzero
+// span [off, off + len) only; each round is
 //   gl_ola_kernel   frames -> OLA * 1/sum(w^2), reflect-mirrored edges
 //   gl_frame_kernel signal -> window -> FFT -> impose |X| -> iFFT -> window
-// over (frame, utterance). The first launch starts from the magnitude with
-// zero phase, the last OLA writes the trimmed waveform. Bound on the H100:
-// the FFTs' float32 operations (2 transforms of n_fft points per frame per
-// round), then the frames' round trip through device memory.
+// over (frame pair, utterance). The first launch starts from the magnitude
+// with zero phase, the last OLA writes the trimmed waveform. Bound on the
+// H100: the transforms' operations (one complex transform each way per
+// pair of real frames per round), then the frames' round trip through
+// device memory and the magnitude read.
 //
 // The frame kernel is persistent: as many blocks as fit on the card at once
 // copy the twiddle tables into shared memory once and then take work items
-// from a counter per launch.
+// from a counter per launch. An item is two real frames f0, f0 + 1 of one
+// utterance in one complex transform z = x0 + i x1, split into their two
+// spectra after the forward transform and merged with Hermitian halves
+// before the inverse.
 //
 // Transforms: a mixed-radix Stockham FFT of n_fft = 2^a * m points (m odd;
 // n_fft % 32 == 0), natural order in and out, planned by ops/gl2.py:fft_plan
 // (radix 8 passes, then one of 4 or 2, then, for m > 1, one pass of radix m
 // as a direct sum): four passes at 2048. Few passes keep the rounding error
 // low, which matters here: the phase normalisation of near-zero bins
-// amplifies it. Each pass keeps a butterfly's R points in registers; shared
-// memory (two buffers, ping-pong) serves only the exchange between passes,
-// through the XOR swizzle xi(), which keeps every pass's stores at most
-// 2-way bank conflicted (tests/test_torch_gl2_plan.py). The first pass of
-// the forward transform reads the frame from device memory and the last
-// pass of the inverse writes it there. Twiddles come from per-pass tables
-// computed in float64 on the host (gl2_consts' "fft_tw"): pass (R, Ns) with
+// amplifies it; so the butterflies compute in float64 (two frames in one
+// transform double the error's tail in float32). Each pass keeps a
+// butterfly's R points in registers; shared memory (two float32 buffers,
+// ping-pong) serves only the exchange between passes, through the XOR
+// swizzle xi(), which keeps every pass's stores at most 2-way bank
+// conflicted (tests/test_torch_gl2_plan.py). The first pass of the forward
+// transform reads the frames from device memory and the last pass of the
+// inverse writes them there. Twiddles come from per-pass tables computed in
+// float64 on the host (gl2_consts' "fft_tw", float32): pass (R, Ns) with
 // Ns > 1 reads exp(-2 pi i r jm / (Ns R)) at [jm][r - 1] (an odd row
 // stride: a warp's loads broadcast or fall on distinct banks); the odd pass
 // reads exp(-2 pi i k / n) for k < n. The inverse transform is the forward
-// one on the conjugate (Re ifft(X) = Re fft(conj X) / n). No fast math.
+// one on the conjugate (ifft(W) = conj(fft(conj W)) / n). No fast math.
 
 #include <cuda_runtime.h>
 
@@ -239,7 +246,8 @@ gl_frame_kernel(const float* __restrict__ yp, const float* __restrict__ mag,
       spec = fft(
           pl, tw, sa, sb,
           [x0, x1, win, two, off, len](int i) {
-            if ((unsigned)(i - off) >= (unsigned)len) return make_float2(0.f, 0.f);
+            if ((unsigned)(i - off) >= (unsigned)len)
+              return make_float2(0.f, 0.f);
             return make_float2(x0[i] * win[i], two ? x1[i] * win[i] : 0.f);
           },
           [](float2* d, int i, float2 v) { d[xi(i)] = v; });
@@ -369,7 +377,8 @@ extern "C" int dctts_gl2(const float* mag, const float* win, const float* wsq,
   if (e != cudaSuccess) return (int)e;
   const float2* tw2 = reinterpret_cast<const float2*>(tw);
   const dim3 fgrid(blocks < n_items ? blocks : n_items),
-      ogrid((ly + GL_NT - 1) / GL_NT, B), wgrid((L_sig + GL_NT - 1) / GL_NT, B);
+      ogrid((ly + GL_NT - 1) / GL_NT, B),
+      wgrid((L_sig + GL_NT - 1) / GL_NT, B);
   gl_frame_kernel<<<fgrid, GL_NT, smem, st>>>(yp, mag, win, tw2, frames,
                                               counters, pl, off, len, hop, F,
                                               F2, ly, n_items, 1);

@@ -36,7 +36,8 @@ gl_ola_kernel(const float* __restrict__ frames, const float* __restrict__ wsq,
   const int f_lo = t <= 0 ? 0 : (t + hop - 1) / hop;
   const float* fb = frames + (size_t)b * F * len;
   float acc = 0.f;
-  for (int f = f_hi; f >= f_lo; --f) acc += fb[(size_t)f * len + (u - f * hop)];
+  for (int f = f_hi; f >= f_lo; --f)
+    acc += fb[(size_t)f * len + (u - f * hop)];
   dst[(size_t)b * n_out + j] = acc * wsq[s];
 }
 

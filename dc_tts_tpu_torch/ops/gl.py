@@ -117,8 +117,9 @@ def window_span(g: GLGeom, tile: int) -> tuple[int, int]:
     columns there are acc * 0 = 0 and K3b's operands there are 0: the kernels
     run K3a's N tiles (``_BN``) and K3b's k-tiles (``_BK``) in this range
     only, with the same result."""
-    nz = np.flatnonzero(hann_window(g.win_length, g.n_fft))
-    return int(nz[0]) // tile, -(-(int(nz[-1]) + 1) // tile)
+    from .gl2 import window_span as span
+    off, n = span(g.n_fft, g.win_length)
+    return off // tile, -(-(off + n) // tile)
 
 
 def gl_fused_consts(n_fft: int, hop: int, win_length: int, F: int) -> dict:

@@ -11,24 +11,44 @@ the magnitude again. A final inverse STFT without the reflect gives the
 waveform [pad : pad + L_sig]. The TPU kernel's bf16 middle rounds are not
 ported: every round here is float32.
 
-On the H100 (csrc/gl2.cu): per utterance a round is F transforms each way
-of n_fft points, ~2 * 5 n_fft log2(n_fft) * F operations (0.19 GFLOP at
-F=840, n_fft=2048), and the state (the frames of one round) is 6.9 MB per
-utterance, which cannot stay in one SM's shared memory across rounds as it
-stays in VMEM on the TPU. So the state lives in device memory and each
-round is two launches over (frame, utterance):
-  * frame kernel, one block per frame: read the frame's n_fft samples of
-    the reflect-padded signal, window, forward FFT in shared memory (mixed
-    radix-8 Stockham: four passes at n_fft=2048, so few roundings for the
-    phase normalisation of near-zero bins to amplify), impose the magnitude
-    on every bin of the full spectrum, inverse FFT, window, write the frame;
-  * OLA kernel, one thread per sample: sum the <= ceil(n_fft/hop)
-    overlapping frames (in the TPU kernel's order), multiply by 1/sum(w^2),
-    and read mirrored positions for the reflect-padded edges.
-This spreads every round over F*B blocks, so all SMs work at any batch,
-where one block per utterance for all rounds would leave most SMs idle at
-B=72 and serialise 840 frames per SM. The spectrum is never stored: the
-frame kernel goes from the waveform to the next round's frame in one pass.
+On the H100 (csrc/gl2.cu): per utterance a round is F real transforms
+each way of n_fft points, ~2 * 2.5 n_fft log2(n_fft) * F operations, and
+the state (one round's frames) is MBs per utterance, which cannot stay in
+one SM's shared memory across rounds as it stays in VMEM on the TPU. So
+the frames live in device memory and each round is two launches:
+  * frame kernel, persistent: as many 256-thread blocks as fit on the card
+    (the occupancy query; 528 on the H100 at base_config()), each copying
+    the twiddle tables into shared memory once and then taking work items
+    (a pair of frames f, f + 1 of one utterance) from a counter per
+    launch. An item reads the pair's samples of the reflect-padded signal
+    over the window's nonzero span only (``window_span``: [474, 1575) of
+    2048 at base_config()), windows them, and takes ONE complex forward
+    FFT of z = x0 + i x1; splits the two spectra (X = (Z[k] + conj
+    Z[n-k]) / 2, Y = (Z[k] - conj Z[n-k]) / 2i), imposes the magnitude on
+    bins 0..n/2 of each (phase with a 1e-8 floor; the n/2 + 1 distinct
+    bins read from the scrambled layout), merges W = X' + i Y' with exact
+    Hermitian halves, takes one inverse FFT and stores Re w and Im w,
+    windowed, over the span: frames (B, F, span). An odd F pairs its last
+    frame with a zero frame;
+  * overlap-add kernel (csrc/gl_ola.cuh, shared with K3, which passes the
+    whole frame as its span), one thread per sample: the <= ceil(span /
+    hop) frames that cover it, in the TPU kernel's order (last frame
+    first), times 1/sum(w^2), mirrored positions for the reflect-padded
+    edges. The dropped terms are window zeros, so the result is bitwise
+    that of summing every frame.
+The FFT (``fft_plan``): n_fft = 2^a * m (m odd) as radix-8 Stockham passes,
+then one of 4 or 2, then for m > 1 one pass of radix m as a direct sum;
+four passes at 2048. Each pass holds a butterfly's points in registers;
+shared memory serves the exchange between passes only, through an XOR
+swizzle (``exchange_index``) that keeps every pass's stores at most 2-way
+bank conflicted; twiddles come from per-pass tables computed in float64
+(``fft_twiddles``, laid out [jm][r - 1]). The butterflies compute in
+float64 (the exchange, the tables and every array in device memory stay
+float32): the phase normalisation of near-zero bins amplifies rounding,
+and with two frames in one transform float32 butterflies put the
+waveform 1.02e-5 from the float64 plain version after one round at the
+smoke's input, over the 1e-5 gate; float64 ones 3.3e-6, for ~16 % more
+kernel time on the H100.
 
 ``gl2_run`` launches the kernels for CUDA tensors and runs
 ``gl2_run_plain`` (the torch.fft loop) for CPU tensors only.
@@ -104,6 +124,7 @@ def fft_plan(n: int) -> list[tuple[int, int]]:
     return plan
 
 
+@functools.lru_cache(maxsize=16)
 def fft_twiddles(n: int) -> np.ndarray:
     """The kernel's twiddle tables, complex128, concatenated in pass order:
     pass (R, Ns) with R a power of two and Ns > 1 takes exp(-2 pi i r jm /
@@ -117,7 +138,9 @@ def fft_twiddles(n: int) -> np.ndarray:
             jm, r = np.meshgrid(np.arange(ns), np.arange(1, R),
                                 indexing="ij")
             parts.append(np.exp(-2j * np.pi * r * jm / (ns * R)).ravel())
-    return np.concatenate(parts) if parts else np.zeros(0, np.complex128)
+    tw = np.concatenate(parts) if parts else np.zeros(0, np.complex128)
+    tw.setflags(write=False)   # cached: shared by every caller
+    return tw
 
 
 @functools.lru_cache(maxsize=16)
@@ -128,6 +151,17 @@ def window_span(n_fft: int, win_length: int) -> tuple[int, int]:
     frames over the span only (B, F, len) and skip the rest."""
     nz = np.flatnonzero(hann_window(win_length, n_fft))
     return int(nz[0]), int(nz[-1]) + 1 - int(nz[0])
+
+
+def ola_frame_range(s: int, off: int, span: int, hop: int,
+                    F: int) -> tuple[int, int]:
+    """[f_lo, f_hi]: the frames whose stored samples [f*hop + off, f*hop +
+    off + span) cover signal sample s (csrc/gl_ola.cuh; empty when f_lo >
+    f_hi). The overlap-add sums them from f_hi down to f_lo."""
+    u, t = s - off, s - off - span + 1
+    f_hi = -1 if u < 0 else min(F - 1, u // hop)
+    f_lo = 0 if t <= 0 else -(-t // hop)
+    return f_lo, f_hi
 
 
 def exchange_index(i):

@@ -208,6 +208,15 @@ def hc_block_bwd_plain(x, w, b, g1, b1, g2, b2, dy, size: int, rate: int,
 # wrappers
 
 
+def hc_kernel_takes(C: int, bf16: bool) -> bool:
+    """Whether the CUDA kernels take an HC block of C channels: their
+    products copy 16 bytes at a time, 4 float32 or 8 bf16 channels. The
+    models route the other widths to the torch path (``models/blocks.py``),
+    as the JAX package routes the shapes its kernel cannot take
+    (``hc_train_fits``)."""
+    return C % (8 if bf16 else 4) == 0
+
+
 def _check(name: str, x, w, rows, size: int, bf16: bool, extra=()):
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be (B, T, C), got {tuple(x.shape)}")
@@ -229,12 +238,10 @@ def _check(name: str, x, w, rows, size: int, bf16: bool, extra=()):
                          "kernel's shared memory")
     if B * T * 2 * C >= 2 ** 31:
         raise ValueError(f"{name}: B*T*2C must be < 2**31")
-    if not bf16 and C % 4:
-        raise ValueError(f"{name}: the float32 products copy 16 bytes at a "
-                         f"time and take C % 4 == 0, got C={C}")
-    if bf16 and C % 8:
-        raise ValueError(f"{name}: the bf16 products copy 16 bytes at a "
-                         f"time and take C % 8 == 0, got C={C}")
+    if not hc_kernel_takes(C, bf16):
+        raise ValueError(f"{name}: the {'bf16' if bf16 else 'float32'} "
+                         f"products copy 16 bytes at a time and take C % "
+                         f"{8 if bf16 else 4} == 0, got C={C}")
     if not bf16 and _pad_rows(B * T) * 2 * C >= 2 ** 31:
         raise ValueError(f"{name}: dh^T's padded rows need "
                          "ceil(B*T/32)*32*2C < 2**31")

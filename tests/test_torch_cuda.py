@@ -500,3 +500,30 @@ def test_ct_bad_input_raises(cuda):
     with pytest.raises(ValueError):
         X.fact_fwd(x.flatten()[1:-2047].view(63, 2048), m, True)
     assert (X.full_fwd.launches, X.fact_fwd.launches) == n
+
+
+def test_ssrn_step_at_c10_routes_narrow_blocks_off_k4(cuda):
+    """c = 10 under use_pallas: SSRN's blocks of 10 channels (C % 4) take
+    the torch path, its blocks of 20 launch K4; the step's loss equals the
+    CPU step's. K4 called directly at C = 10 still raises."""
+    from dc_tts_tpu_torch.ops import hc_vjp as K4
+    from dc_tts_tpu_torch.train import steps as TS
+
+    cfg = test_config().replace(c=10, use_pallas=True)
+    rng = np.random.default_rng(0)
+    batch = {"mels": rng.uniform(0, 1, (2, cfg.max_T, cfg.n_mels)),
+             "mags": rng.uniform(0, 1, (2, cfg.max_T * cfg.r, cfg.n_freq))}
+    losses = {}
+    for dev in ("cpu", cuda):
+        state = TS.init_ssrn_state(cfg, torch.Generator().manual_seed(0), dev)
+        b = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+             for k, v in batch.items()}
+        n = K4.hc_block_fwd.launches
+        _, m = TS.make_ssrn_step(cfg)(state, b, None)
+        losses[str(dev)] = float(m["loss"])
+        launched = K4.hc_block_fwd.launches - n
+    assert launched > 0
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    x, w, *vecs, _ = _hc_inputs(2, 40, 10, 3, 0, cuda)
+    with pytest.raises(ValueError, match="C % 4"):
+        K4.hc_block_trainable(x, w, *vecs, 3, 1, False, 1e-5)

@@ -8,7 +8,9 @@ exchanges every pass's outputs through shared memory at
 ``numpy.fft.fft`` within 1e-12, the exchange index to at most 2-way
 bank conflicts on every pass's stores, and a float64 model of the kernel's
 two real frames per complex transform (pack, split, impose, merge) to one
-plain round. No card is needed.
+plain round, and the window's span (the frames' stored samples) to the
+window's nonzero samples, with the span overlap-add's frame range to the
+full one's without its exactly-zero terms. No card is needed.
 """
 import numpy as np
 import pytest
@@ -165,3 +167,37 @@ def test_pair_split_merge_reproduces_a_plain_round(n, F):
     got = _pair_round(x, mag)
     assert got.shape == want.shape
     torch.testing.assert_close(got, want, atol=1e-12, rtol=0)
+
+
+GEOMS = {"base": (2048, 275, 1102, 840), "test": (256, 8, 32, 96),
+         "jax_gl2": (512, 69, 275, 160), "n1056": (1056, 142, 568, 61)}
+
+
+@pytest.mark.parametrize("name", sorted(GEOMS))
+def test_window_span_covers_every_nonzero_sample(name):
+    n, hop, wl, F = GEOMS[name]
+    win = K2.gl2_consts(n, hop, wl, F)["win"][0]
+    off, span = K2.window_span(n, wl)
+    inside = np.zeros(n, bool)
+    inside[off: off + span] = True
+    assert (win[~inside] == 0).all()
+    assert win[off] != 0 and win[off + span - 1] != 0
+    assert span <= wl
+    if name == "base":
+        assert (off, span) == (474, 1101)
+
+
+@pytest.mark.parametrize("name", sorted(GEOMS))
+def test_span_overlap_add_drops_only_zero_terms(name):
+    """For every sample of the signal, the frames the span overlap-add sums
+    are the full-frame overlap-add's frames whose windowed term is not
+    exactly zero, in the same order (last frame first)."""
+    n, hop, wl, F = GEOMS[name]
+    win = K2.gl2_consts(n, hop, wl, F)["win"][0]
+    off, span = K2.window_span(n, wl)
+    for s in range(n + hop * (F - 1)):
+        lo, hi = K2.ola_frame_range(s, 0, n, hop, F)
+        full = [f for f in range(hi, lo - 1, -1) if win[s - f * hop] != 0]
+        lo_s, hi_s = K2.ola_frame_range(s, off, span, hop, F)
+        assert list(range(hi_s, lo_s - 1, -1)) == full, s
+        assert len(full) <= -(-span // hop)

@@ -16,7 +16,9 @@ the CPU at ``test_config()``:
   same state at dropout 0 (parameters atol 1e-5);
 * a step's loss and gradients with ``use_pallas`` against without (loss
   rtol 1e-6, gradients atol 5e-5, as the JAX package's
-  test_use_pallas_train_grads_match_default);
+  test_use_pallas_train_grads_match_default); an SSRN step at c = 10 with
+  ``use_pallas`` (blocks of 10 channels routed off K4) against JAX's loss
+  (rtol 1e-5);
 * train-state checkpoints across the two packages, both ways, and the
   legacy params-only restore;
 * the prepro and train CLIs on the CPU, resume included.
@@ -430,3 +432,38 @@ def test_entry_points_raise_without_a_card(cli, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         (prepro.main([]) if cli == "prepro" else train_main(["1", "--tiny"]))
+
+
+# ------------------------------------------------------- K4's channel rule
+
+
+def test_ssrn_step_at_c10_with_use_pallas_matches_jax(monkeypatch):
+    """c = 10: SSRN's HC blocks of 10 channels are widths K4 cannot take
+    (C % 4), so ``use_pallas`` routes them to the torch path by a static
+    shape rule, and its blocks of 20 to K4; one train step's loss equals
+    the JAX step's (which runs its own kernel on both, interpreted)."""
+    from dc_tts_tpu_torch.ops import hc_vjp
+
+    widths = []
+    kernel = hc_vjp.hc_block_trainable
+
+    def spy(x, *a, **kw):
+        widths.append(x.shape[-1])
+        return kernel(x, *a, **kw)
+    monkeypatch.setattr(hc_vjp, "hc_block_trainable", spy)
+    jcfg = jax_test_config().replace(c=10, use_pallas=True)
+    cfg = CFG.replace(c=10, use_pallas=True)
+    state = init_ssrn_state(jcfg, jax.random.PRNGKey(0))
+    tp, to = from_jax_train_state(jax.device_get(state.params),
+                                  jax.device_get(state.opt_state))
+    batch = _batch()
+    state, jm = jax.jit(make_ssrn_step(jcfg))(state, batch,
+                                              jax.random.PRNGKey(1))
+    _, tm = TS.make_ssrn_step(cfg)(TS.TrainState(tp, to, 0), _torch(batch),
+                                   None)
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    assert widths and set(widths) == {20}
+    assert hc_vjp.hc_kernel_takes(20, False)
+    assert not hc_vjp.hc_kernel_takes(10, False)
+    assert not hc_vjp.hc_kernel_takes(20, True)
