@@ -13,8 +13,8 @@ ported: every round here is float32.
 
 On the H100 (csrc/gl2.cu): per utterance a round is F real transforms
 each way of n_fft points, ~2 * 2.5 n_fft log2(n_fft) * F operations, and
-the state (one round's frames) is MBs per utterance, which cannot stay in
-one SM's shared memory across rounds as it stays in VMEM on the TPU. So
+the state (one round's frames) is 3.7 MB per utterance at base_config(),
+which cannot stay in one SM's shared memory across rounds as it stays in VMEM on the TPU. So
 the frames live in device memory and each round is two launches:
   * frame kernel, persistent: as many 256-thread blocks as fit on the card
     (the occupancy query; 528 on the H100 at base_config()), each copying
@@ -228,8 +228,9 @@ def gl2_run(mag_scr: torch.Tensor, consts: dict, g: GL2Geom,
             n_iter: int) -> torch.Tensor:
     """Run every Griffin-Lim round. mag_scr (B, 16, F2, N2) float32 from
     ``scramble_mag`` -> (B, L_sig). CUDA tensors launch the kernels (one
-    counted launch per call: 2*n_iter + 2 kernel launches on the current
-    stream); CPU tensors take ``gl2_run_plain``."""
+    counted launch per call: a memset of the frame kernel's work counters
+    and 2*n_iter + 2 kernel launches on the current stream); CPU tensors
+    take ``gl2_run_plain``."""
     if mag_scr.device.type == "cpu":
         return gl2_run_plain(mag_scr, consts, g, n_iter)
     if mag_scr.device.type != "cuda":
