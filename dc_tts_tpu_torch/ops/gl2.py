@@ -14,8 +14,9 @@ ported: every round here is float32.
 On the H100 (csrc/gl2.cu): per utterance a round is F real transforms
 each way of n_fft points, ~2 * 2.5 n_fft log2(n_fft) * F operations, and
 the state (one round's frames) is 3.7 MB per utterance at base_config(),
-which cannot stay in one SM's shared memory across rounds as it stays in VMEM on the TPU. So
-the frames live in device memory and each round is two launches:
+which cannot stay in one SM's shared memory across rounds as it stays in
+VMEM on the TPU. So the frames live in device memory and each round is two
+launches:
   * frame kernel, persistent: as many 256-thread blocks as fit on the card
     (the occupancy query; 528 on the H100 at base_config()), each copying
     the twiddle tables into shared memory once and then taking work items
