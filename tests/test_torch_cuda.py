@@ -6,10 +6,12 @@ on a machine with an H100:
 Tolerances: the decode kernel at the JAX fused-decode test's 2e-5 with an
 identical cursor trajectory; its reduced-precision bodies at chip_smoke.py's
 gate (max(2e-5, 2 x the plain version's float32-vs-float64 distance)). The
-Griffin-Lim kernel at 1e-5 from its plain version run in float64: the
-phase normalisation of near-zero bins amplifies rounding, so the float32
-plain version is itself up to ~3e-5 from the float64 one at n_fft 2048,
-more than the kernel is. The Griffin-Lim round
+Griffin-Lim kernel at 1e-5 from its plain version run in float64 (also at
+a non-power-of-two n_fft, 480 = 32 x 15): the phase normalisation of
+near-zero bins amplifies rounding, so the float32 plain version is itself
+up to ~3e-5 from the float64 one at n_fft 2048, more than the kernel is.
+An SSRN training step at c = 10 under use_pallas (blocks K4 cannot take
+routed to the torch path) equal to the CPU step's loss at rtol 1e-5. The Griffin-Lim round
 kernels K3a/K3b (bf16 operands, float32 sums) at max 2e-2 and mean 1e-5
 from their plain version on the same operands, the CPU tests' gates
 against JAX (the phase normalisation of near-zero bins amplifies a sum's
