@@ -279,10 +279,6 @@ PEAK_FP32 = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor cores, FLOP/s
 PEAK_TF32 = 495e12     # H100 SXM dense TF32 tensor cores, FLOP/s
 B_MAIN, CHUNK = 20, 20
-# set by --package: the kernels come from another commit's package, which
-# may refuse a geometry this one takes (K2's n_fft = 1056 before it took
-# every n_fft % 32 == 0)
-OTHER_PACKAGE = False
 # the training phases' device and batch (a rehearsal on the CPU sets them)
 DEV, B_TRAIN = "cuda", 32
 # steps per ms/step reading; a training gradient's gate against the other
@@ -687,18 +683,6 @@ def _k2_gate(K2, n_fft, hop, win, F, B, dev, seed=2):
                                "kernel_vs_plain_f32"))}
 
 
-def _k2_grid(K2, n_fft):
-    """The frame kernel's persistent grid, where the package reports it."""
-    from dc_tts_tpu_torch.ops import _build
-    lib = _build.load_library()
-    if not hasattr(lib, "dctts_gl2_grid"):
-        return "not reported"
-    import ctypes
-    blocks = ctypes.c_int()
-    _build.check(lib.dctts_gl2_grid(n_fft, ctypes.byref(blocks)), "grid")
-    return blocks.value
-
-
 def phase_k2(results):
     from dc_tts_tpu_torch.config import base_config
     from dc_tts_tpu_torch.dsp.stft import stft
@@ -773,7 +757,8 @@ def phase_k2(results):
          bytes_floor_ms_full_frames=f"{floors['full']:.3f}",
          bytes_floor_ms_span_frames=f"{floors['span']:.3f}",
          span=f"[{int(nz[0])},{int(nz[-1]) + 1})", out_sha256=digest,
-         cufft_rfft_irfft_ms=f"{lib_ms:.3f}", grid=_k2_grid(K2, n_fft),
+         cufft_rfft_irfft_ms=f"{lib_ms:.3f}",
+         grid=getattr(K2.gl2_run, "grid", "not reported"),
          **{f"{k}_ms": "not measured" if kinds is None else f"{kinds[k]:.3f}"
             for k in K2_KINDS})
     if not ok:
@@ -802,13 +787,10 @@ def _k2_n1056(K2, dev, results):
     """K2 at a non-power-of-two n_fft (32 * 33), hop and window in the base
     config's ratios, a small F: the same 1e-5 gate (line K2-n1056)."""
     n2, h2, w2, F2 = 1056, 142, 568, 61
-    try:
-        err2, errs2 = _k2_gate(K2, n2, h2, w2, F2, B_MAIN, dev, seed=4)
-    except ValueError as e:
-        if not OTHER_PACKAGE:
-            raise
-        line("K2-n1056", ok="skipped", reason=repr(str(e)))
+    if not hasattr(K2, "fft_plan"):  # a package of power-of-two n_fft only
+        line("K2-n1056", ok="skipped", reason="no mixed-radix plan")
         return
+    err2, errs2 = _k2_gate(K2, n2, h2, w2, F2, B_MAIN, dev, seed=4)
     ok2 = err2 <= 1e-5
     line("K2-n1056", ok=ok2, B=B_MAIN, F=F2, n_fft=n2, hop=h2, win=w2,
          tol="1e-5", **errs2)
@@ -2508,8 +2490,6 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if args.package:
-        global OTHER_PACKAGE
-        OTHER_PACKAGE = True
         sys.path.insert(0, os.path.abspath(args.package))
     import dc_tts_tpu_torch
     line("package", path=os.path.dirname(dc_tts_tpu_torch.__file__))

@@ -20,9 +20,10 @@
 // before the inverse.
 //
 // Transforms: a mixed-radix Stockham FFT of n_fft = 2^a * m points (m odd;
-// n_fft % 32 == 0), natural order in and out, planned by ops/gl2.py:fft_plan
-// (radix 8 passes, then one of 4 or 2, then, for m > 1, one pass of radix m
-// as a direct sum): four passes at 2048. Few passes keep the rounding error
+// n_fft % 32 == 0), natural order in and out, planned on the host
+// (ops/gl2.py:fft_plan, handed over as the table of fft_passes): radix 8
+// passes, then one of 4 or 2, then, for m > 1, one pass of radix m as a
+// direct sum; four passes at 2048. Few passes keep the rounding error
 // low, which matters here: the phase normalisation of near-zero bins
 // amplifies it; so the butterflies compute in float64 (two frames in one
 // transform double the error's tail in float32). Each pass keeps a
@@ -47,7 +48,7 @@
 
 namespace {
 
-// The passes of one transform (ops/gl2.py:fft_plan): pass p combines R[p]
+// The passes of one transform (ops/gl2.py:fft_passes): pass p combines R[p]
 // points after Ns[p] have been combined; its twiddles start at tw[p].
 struct Plan {
   int n, np, n_tw;
@@ -299,31 +300,30 @@ gl_frame_kernel(const float* __restrict__ yp, const float* __restrict__ mag,
 
 }  // namespace
 
-// The transform's plan, as ops/gl2.py:fft_plan makes it; false if n is not
-// a multiple of 32.
-static bool make_plan(int n, Plan* pl) {
-  if (n < 32 || n % 32) return false;
-  int m = n;
-  while (m % 2 == 0) m /= 2;
-  const int p2 = n / m;
-  int Ns = 1, off = 0, np = 0;
-  auto add = [&](int R) {
-    pl->R[np] = R;
-    pl->Ns[np] = Ns;
-    pl->tw[np] = off;
-    if (R % 2) off += n;                 // the odd pass: exp(-2 pi i k / n)
-    else if (Ns > 1) off += Ns * (R - 1);
-    ++np;
+// The transform's plan from ops/gl2.py:fft_passes, (R, Ns, twiddle offset)
+// a pass; false unless it is one the kernel runs: radix 2, 4, 8 or odd,
+// each pass after the points the ones before it combined, n in all, every
+// table inside the n_tw twiddles.
+static bool take_plan(int n, const int* passes, int np, int n_tw, Plan* pl) {
+  if (n < 1 || np < 1 || np > MAX_PASSES || n_tw < 0) return false;
+  int Ns = 1;
+  for (int p = 0; p < np; ++p) {
+    const int R = passes[3 * p], tw = passes[3 * p + 2];
+    const bool odd = R % 2 != 0;
+    if (passes[3 * p + 1] != Ns || R < 2 || !(odd || R == 2 || R == 4 ||
+                                              R == 8) ||
+        Ns > n / R || tw < 0 ||
+        tw + (odd ? n : Ns > 1 ? Ns * (R - 1) : 0) > n_tw)
+      return false;
+    pl->R[p] = R;
+    pl->Ns[p] = Ns;
+    pl->tw[p] = tw;
     Ns *= R;
-  };
-  while (p2 / Ns >= 8 && np < MAX_PASSES) add(8);
-  if (p2 / Ns > 1 && np < MAX_PASSES) add(p2 / Ns);
-  if (m > 1 && np < MAX_PASSES) add(m);
-  if (Ns != n) return false;
+  }
   pl->n = n;
   pl->np = np;
-  pl->n_tw = off;
-  return true;
+  pl->n_tw = n_tw;
+  return Ns == n;
 }
 
 // The frame kernel's dynamic shared memory and persistent grid: as many
@@ -349,21 +349,17 @@ static cudaError_t frame_launch(const Plan& pl, size_t* smem, int* blocks) {
   return cudaSuccess;
 }
 
-// The frame kernel's grid at n_fft (for the smoke's report).
-extern "C" int dctts_gl2_grid(int n_fft, int* blocks) {
-  Plan pl;
-  if (!make_plan(n_fft, &pl)) return (int)cudaErrorInvalidValue;
-  size_t smem;
-  return (int)frame_launch(pl, &smem, blocks);
-}
-
+// Every round of Griffin-Lim. passes: the host's (n_passes, 3) plan
+// (ops/gl2.py:fft_passes); tw: its n_tw twiddles; *grid: the frame
+// kernel's block count (host memory, may be null).
 extern "C" int dctts_gl2(const float* mag, const float* win, const float* wsq,
                          const float* tw, float* frames, float* yp, float* out,
-                         int* counters, int B, int n_fft, int hop, int F,
-                         int F2, int pad, int L_sig, int n_iter, int n_tw,
-                         int off, int len, void* stream) {
+                         int* counters, const int* passes, int n_passes,
+                         int B, int n_fft, int hop, int F, int F2, int pad,
+                         int L_sig, int n_iter, int n_tw, int off, int len,
+                         int* grid, void* stream) {
   Plan pl;
-  if (!make_plan(n_fft, &pl) || pl.n_tw != n_tw || B < 1 || F < 1 ||
+  if (!take_plan(n_fft, passes, n_passes, n_tw, &pl) || B < 1 || F < 1 ||
       n_iter < 0 || off < 0 || len < 1 || off + len > n_fft)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -372,6 +368,7 @@ extern "C" int dctts_gl2(const float* mag, const float* win, const float* wsq,
   int blocks;
   cudaError_t e = frame_launch(pl, &smem, &blocks);
   if (e != cudaSuccess) return (int)e;
+  if (grid) *grid = blocks < n_items ? blocks : n_items;
   // one work counter per frame-kernel launch
   e = cudaMemsetAsync(counters, 0, sizeof(int) * (size_t)(n_iter + 1), st);
   if (e != cudaSuccess) return (int)e;

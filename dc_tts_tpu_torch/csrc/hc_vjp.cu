@@ -9,6 +9,12 @@
 //   y = g*h2 + (1-g)*x,  g = sigmoid(LN1(h[:, :C])),  h2 = LN2(h[:, C:])
 // The backward recomputes h and produces dx, dW, db and the four layer-norm
 // parameter gradients.
+// Channels: the products copy 16 bytes at a time, so they take C % 4 == 0
+// (float32) or C % 8 == 0 (bf16). A block of Cv channels, any Cv, is stored
+// padded with zero channels to such a C (ops/hc_vjp.py); the row kernels
+// take the layer norms over the Cv real channels and write 0 for y, dh and
+// dx in the padding, so its zero rows of W and zero columns of dh add
+// nothing to the real outputs of the products.
 //
 // Launches (all on the caller's stream; nothing here allocates):
 //   tf32_parts_t   W^T per tap, (2C, K*C), as TF32 hi and lo parts
@@ -94,10 +100,11 @@
 //     cp.async as the float32 core's does (the (b*T, t) row table, the tap
 //     (k, c) advanced by 64 a k-tile, the conv's padding as zero fill), with
 //     half the L2 bytes and no split in registers. The copies need C % 8 ==
-//     0. The single producer warp of each SM sub-partition paces the core
-//     (its address arithmetic is one dependent chain a k-tile), so each
-//     thread computes its 8 A rows' source offsets once a tap, not once a
-//     k-tile, and every other operand's rows from one base a k-tile.
+//     0 (other widths are padded, see the top). The single producer warp of
+//     each SM sub-partition paces the core (its address arithmetic is one
+//     dependent chain a k-tile), so each thread computes its 8 A rows'
+//     source offsets once a tap, not once a k-tile, and every other
+//     operand's rows from one base a k-tile.
 //  2. bf16 wgmma reads either operand from shared memory K-major or
 //     MN-major, so nothing is transposed in device memory: forward A =
 //     taps(x) rows K-major, B = W (K*C, 2C) MN-major as it lies; dx A =
@@ -585,41 +592,46 @@ __device__ __forceinline__ float sigmoidf(float z) {
   return 1.f / (1.f + expf(-z));
 }
 
-// mean and 1/sqrt(var + eps) of both C-wide halves of one h row
+// mean and 1/sqrt(var + eps) of both halves of one h row (C channels a
+// half, the first Cv of them real)
 __device__ __forceinline__ void row_stats(const float* __restrict__ hr, int C,
-                                          float eps, float* red, float& mu1,
-                                          float& inv1, float& mu2,
+                                          int Cv, float eps, float* red,
+                                          float& mu1, float& inv1, float& mu2,
                                           float& inv2) {
   float s[2] = {0.f, 0.f};
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+  for (int c = threadIdx.x; c < Cv; c += blockDim.x) {
     s[0] += hr[c];
     s[1] += hr[C + c];
   }
   block_sum<2>(s, red);
-  mu1 = s[0] / C;
-  mu2 = s[1] / C;
+  mu1 = s[0] / Cv;
+  mu2 = s[1] / Cv;
   float v[2] = {0.f, 0.f};
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+  for (int c = threadIdx.x; c < Cv; c += blockDim.x) {
     const float d1 = hr[c] - mu1, d2 = hr[C + c] - mu2;
     v[0] += d1 * d1;
     v[1] += d2 * d2;
   }
   block_sum<2>(v, red);
-  inv1 = rsqrtf(v[0] / C + eps);
-  inv2 = rsqrtf(v[1] / C + eps);
+  inv1 = rsqrtf(v[0] / Cv + eps);
+  inv2 = rsqrtf(v[1] / Cv + eps);
 }
 
 __global__ void __launch_bounds__(RT)
 hc_fwd_rows(const float* __restrict__ h, const float* __restrict__ x,
             const float* __restrict__ g1, const float* __restrict__ be1,
             const float* __restrict__ g2, const float* __restrict__ be2,
-            float* __restrict__ y, int C, float eps) {
+            float* __restrict__ y, int C, int Cv, float eps) {
   __shared__ float red[2 * 32];
   const size_t row = blockIdx.x;
   const float* hr = h + row * 2 * C;
   float mu1, inv1, mu2, inv2;
-  row_stats(hr, C, eps, red, mu1, inv1, mu2, inv2);
+  row_stats(hr, C, Cv, eps, red, mu1, inv1, mu2, inv2);
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    if (c >= Cv) {  // a zero channel of the padding
+      y[row * C + c] = 0.f;
+      continue;
+    }
     const float g = sigmoidf((hr[c] - mu1) * inv1 * g1[c] + be1[c]);
     const float h2 = (hr[C + c] - mu2) * inv2 * g2[c] + be2[c];
     y[row * C + c] = g * h2 + (1.f - g) * x[row * C + c];
@@ -632,7 +644,8 @@ hc_fwd_rows(const float* __restrict__ h, const float* __restrict__ x,
 // the columns c = threadIdx.x + i*blockDim.x in every array, so only the
 // row reductions synchronise. dh is written as DH: float, or bf16 (rounded
 // to nearest even) where only the bf16 products read it; db sums the
-// float32 values either way.
+// float32 values either way. Channels c >= Cv are zero padding: their dh,
+// dx and sums are 0, so the products' padded rows and columns add nothing.
 template <class DH>
 __global__ void __launch_bounds__(RT)
 hc_bwd_rows(const float* __restrict__ h, const float* __restrict__ x,
@@ -640,7 +653,7 @@ hc_bwd_rows(const float* __restrict__ h, const float* __restrict__ x,
             const float* __restrict__ be1, const float* __restrict__ g2,
             const float* __restrict__ be2, DH* __restrict__ dh,
             float* __restrict__ dx, float* __restrict__ part, int M, int C,
-            float eps, int R) {
+            int Cv, float eps, int R) {
   extern __shared__ float sm[];
   float* acc = sm;
   float* n1s = sm + 6 * C;
@@ -657,9 +670,13 @@ hc_bwd_rows(const float* __restrict__ h, const float* __restrict__ x,
     const size_t row = r;
     const float* hr = h + row * 2 * C;
     float mu1, inv1, mu2, inv2;
-    row_stats(hr, C, eps, red, mu1, inv1, mu2, inv2);
+    row_stats(hr, C, Cv, eps, red, mu1, inv1, mu2, inv2);
     float s[4] = {0.f, 0.f, 0.f, 0.f};
     for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      if (c >= Cv) {
+        dx[row * C + c] = 0.f;
+        continue;
+      }
       const float n1 = (hr[c] - mu1) * inv1;
       const float n2 = (hr[C + c] - mu2) * inv2;
       const float g = sigmoidf(n1 * g1[c] + be1[c]);
@@ -684,10 +701,12 @@ hc_bwd_rows(const float* __restrict__ h, const float* __restrict__ x,
       dx[row * C + c] = dyv * (1.f - g);
     }
     block_sum<4>(s, red);
-    const float m1 = s[0] / C, m1n = s[1] / C, m2 = s[2] / C, m2n = s[3] / C;
+    const float m1 = s[0] / Cv, m1n = s[1] / Cv, m2 = s[2] / Cv,
+                m2n = s[3] / Cv;
     for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      const float da = inv1 * (dn1s[c] - m1 - n1s[c] * m1n);
-      const float db = inv2 * (dn2s[c] - m2 - n2s[c] * m2n);
+      const bool real = c < Cv;
+      const float da = real ? inv1 * (dn1s[c] - m1 - n1s[c] * m1n) : 0.f;
+      const float db = real ? inv2 * (dn2s[c] - m2 - n2s[c] * m2n) : 0.f;
       dh[row * 2 * C + c] = (DH)da;
       dh[row * 2 * C + C + c] = (DH)db;
       acc[c] += da;
@@ -770,13 +789,15 @@ cudaError_t fwd_tc(const float* x, const float* wt, const float* b, float* h,
   return gemm_tc<FWD>(a, 1, st);
 }
 
-bool bad_geometry(int Bn, int T, int C, int K, int rate, int left) {
-  return Bn < 1 || T < 1 || C < 1 || K < 1 || rate < 1 || left < 0 ||
-         left > (K - 1) * rate || (size_t)Bn * T * 2 * C >= (1u << 31);
+bool bad_geometry(int Bn, int T, int C, int Cv, int K, int rate, int left) {
+  return Bn < 1 || T < 1 || Cv < 1 || Cv > C || K < 1 || rate < 1 ||
+         left < 0 || left > (K - 1) * rate ||
+         (size_t)Bn * T * 2 * C >= (1u << 31);
 }
 
 // the float32 products' 16-byte copies need C % 4 == 0; dh^T's padded rows
 // must stay addressable in int. The bf16 products' copies need C % 8 == 0.
+// (ops/hc_vjp.py stores a block of other Cv channels padded to such a C.)
 bool bad_tc_geometry(int Bn, int T, int C, bool bf16_ops) {
   if (bf16_ops) return C % 8 != 0;
   const size_t ldq = ((size_t)Bn * T + TBK - 1) / TBK * TBK;
@@ -785,7 +806,9 @@ bool bad_tc_geometry(int Bn, int T, int C, bool bf16_ops) {
 
 }  // namespace
 
-// y = HC(x). h: (B*T, 2C) scratch. bf16_ops: the tap product's operands in
+// y = HC(x) over channels of C, the first Cv real and the rest zero padding
+// (x, W, b and the layer-norm vectors zero there; see hc_bwd_rows); y is 0
+// in the padding. h: (B*T, 2C) scratch. bf16_ops: the tap product's operands in
 // bf16 on the bf16 core, wsplit then holding bf16(W) (K*C*2C) | bf16(x)
 // (B*T*C); otherwise wsplit (2 * K*C*2C floats) holds W^T's TF32 parts for
 // the float32 product.
@@ -793,9 +816,9 @@ extern "C" int dctts_hc_fwd(const float* x, const float* w, const float* b,
                             const float* g1, const float* be1,
                             const float* g2, const float* be2, float* h,
                             float* y, void* wsplit, int Bn, int T, int C,
-                            int K, int rate, int left, float eps,
+                            int Cv, int K, int rate, int left, float eps,
                             int bf16_ops, void* stream) {
-  if (bad_geometry(Bn, T, C, K, rate, left) ||
+  if (bad_geometry(Bn, T, C, Cv, K, rate, left) ||
       bad_tc_geometry(Bn, T, C, bf16_ops != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -814,11 +837,13 @@ extern "C" int dctts_hc_fwd(const float* x, const float* w, const float* b,
       e = fwd_tc(x, ws, b, h, M, T, C, K, rate, left, st);
   }
   if (e != cudaSuccess) return (int)e;
-  hc_fwd_rows<<<M, RT, 0, st>>>(h, x, g1, be1, g2, be2, y, C, eps);
+  hc_fwd_rows<<<M, RT, 0, st>>>(h, x, g1, be1, g2, be2, y, C, Cv, eps);
   return (int)cudaGetLastError();
 }
 
-// Gradients of HC at (x, params) for the cotangent dy. Scratch: h (B*T,
+// Gradients of HC at (x, params) for the cotangent dy, over C channels
+// of which the first Cv are real (as dctts_hc_fwd; dy zero in the padding,
+// every gradient zero there). Scratch: h (B*T,
 // 2C); row_part (ceil(B*T/R), 6C); dw_part (dw_splits, K*C*2C), unused
 // when dw_splits == 1. dparams (6C) = db (2C) | dg1 | dbe1 | dg2 | dbe2.
 // bf16_ops: the three tap products' operands in bf16 on the bf16 core:
@@ -833,11 +858,11 @@ extern "C" int dctts_hc_bwd(const float* x, const float* w, const float* b,
                             const float* dy, float* h, float* dh, float* dx,
                             float* dw, float* dparams, float* row_part,
                             float* dw_part, void* wsplit, void* dhsplit,
-                            int Bn, int T, int C, int K, int rate, int left,
-                            float eps, int R, int dw_splits, int bf16_ops,
-                            void* stream) {
+                            int Bn, int T, int C, int Cv, int K, int rate,
+                            int left, float eps, int R, int dw_splits,
+                            int bf16_ops, void* stream) {
   const bool lo = bf16_ops != 0;
-  if (bad_geometry(Bn, T, C, K, rate, left) || R < 1 || dw_splits < 1 ||
+  if (bad_geometry(Bn, T, C, Cv, K, rate, left) || R < 1 || dw_splits < 1 ||
       bad_tc_geometry(Bn, T, C, lo))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -875,10 +900,10 @@ extern "C" int dctts_hc_bwd(const float* x, const float* w, const float* b,
   if (e != cudaSuccess) return (int)e;
   if (lo)
     hc_bwd_rows<bf16><<<n_chunks, RT, smem, st>>>(
-        h, x, dy, g1, be1, g2, be2, dhb, dx, row_part, M, C, eps, R);
+        h, x, dy, g1, be1, g2, be2, dhb, dx, row_part, M, C, Cv, eps, R);
   else
     hc_bwd_rows<float><<<n_chunks, RT, smem, st>>>(
-        h, x, dy, g1, be1, g2, be2, dh, dx, row_part, M, C, eps, R);
+        h, x, dy, g1, be1, g2, be2, dh, dx, row_part, M, C, Cv, eps, R);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const size_t L6 = 6 * (size_t)C;
   hc_col_sum<<<(unsigned)((L6 + 255) / 256), 256, 0, st>>>(row_part,

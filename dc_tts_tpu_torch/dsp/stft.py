@@ -45,6 +45,16 @@ def hann_window(win_length: int, n_fft: int) -> np.ndarray:
     return out.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def window_span(n_fft: int, win_length: int) -> tuple[int, int]:
+    """(off, len): the nonzero samples [off, off + len) of
+    ``hann_window(win_length, n_fft)``, read off the window itself. Outside
+    them every windowed sample is exactly 0, so the Griffin-Lim kernels
+    (K2, K3) skip them."""
+    nz = np.flatnonzero(hann_window(win_length, n_fft))
+    return int(nz[0]), int(nz[-1]) + 1 - int(nz[0])
+
+
 def num_frames(n_samples: int, n_fft: int, hop: int) -> int:
     """Frame count for a centered STFT: 1 + n_samples // hop."""
     return 1 + n_samples // hop

@@ -23,9 +23,8 @@ dropout; in bf16 operands when ``dtype`` is bf16 (``compute_dtype=
 activations), as in the JAX package. The JAX package also gates that path
 on the TPU core's VMEM (``hc_train_fits``: SSRN's wide HC blocks stay on
 XLA there); the CUDA kernels tile time themselves and take every HC shape
-of the trainer, so the port's gate is the kernels' channel rule alone
-(``hc_kernel_takes``: C % 4 in float32, C % 8 in bf16), a static shape
-rule; the other widths take the torch path. Under ``bfloat16`` that leaves
+of the trainer (a width their 16-byte copies cannot take is stored padded
+with zero channels, ``ops/hc_vjp.py``), so the port has no gate. Under ``bfloat16`` that leaves
 those blocks' dW (and dx's conv part) in float32 where XLA's transpose of
 the bf16 conv rounds them to bf16: at the smallest shape JAX keeps off its
 kernel, 3.8e-3 x max|dW| from JAX against 1.1e-3 for the port's XLA-like
@@ -160,12 +159,7 @@ def apply_block(p: dict, spec, x: torch.Tensor, *, ln_eps: float,
                 dropout_rate: float = 0.0, gen=None, train: bool = False,
                 use_pallas: bool = False, dtype=None,
                 act_dtype=None) -> torch.Tensor:
-    fused = False
     if use_pallas and train and isinstance(spec, HC) and act_dtype is None:
-        # a static shape rule: widths K4 cannot take stay on the torch path
-        from ..ops.hc_vjp import hc_kernel_takes
-        fused = hc_kernel_takes(x.shape[-1], dtype is torch.bfloat16)
-    if fused:
         from ..ops.hc_vjp import hc_block_trainable
         y = hc_block_trainable(x, p["conv"]["w"], p["conv"]["b"],
                                p["ln1"]["gamma"], p["ln1"]["beta"],

@@ -40,12 +40,12 @@ _SIGNATURES = {
     "dctts_decode": [P] * 10 + [I] * 8 + [Fl] + [I] * 13 + [P],
     "dctts_decode_coresident": [I, ctypes.POINTER(I), ctypes.POINTER(I)],
     "dctts_decode_barriers": [P, I, I, P],
-    "dctts_gl2": [P] * 8 + [I] * 11 + [P],
-    "dctts_gl2_grid": [I, ctypes.POINTER(I)],
+    "dctts_gl2": [P] * 8 + [ctypes.POINTER(I)] + [I] * 12
+                 + [ctypes.POINTER(I), P],
     "dctts_gl_k3a": [P] * 9 + [I] * 12 + [P],
     "dctts_gl_k3b": [P] * 8 + [I] * 12 + [P],
-    "dctts_hc_fwd": [P] * 10 + [I] * 6 + [Fl, I, P],
-    "dctts_hc_bwd": [P] * 17 + [I] * 6 + [Fl, I, I, I, P],
+    "dctts_hc_fwd": [P] * 10 + [I] * 7 + [Fl, I, P],
+    "dctts_hc_bwd": [P] * 17 + [I] * 7 + [Fl, I, I, I, P],
     "dctts_ct_full": [P] * 4 + [I] * 2 + [P],
     "dctts_ct_fact": [P] * 9 + [I] * 5 + [P],
 }

@@ -59,6 +59,7 @@ import torch.nn.functional as F
 
 from ..dsp.stft import (_dft_mats, _idft_mats, _ola_window_sq, _overlap_add,
                         hann_window, split_bf16)
+from ..dsp.stft import window_span as stft_window_span
 
 # csrc/bf16_wgmma.cuh's block tile (N) and k-tile: the constant matrices
 # are padded to these
@@ -117,8 +118,7 @@ def window_span(g: GLGeom, tile: int) -> tuple[int, int]:
     columns there are acc * 0 = 0 and K3b's operands there are 0: the kernels
     run K3a's N tiles (``_BN``) and K3b's k-tiles (``_BK``) in this range
     only, with the same result."""
-    from .gl2 import window_span as span
-    off, n = span(g.n_fft, g.win_length)
+    off, n = stft_window_span(g.n_fft, g.win_length)
     return off // tile, -(-(off + n) // tile)
 
 

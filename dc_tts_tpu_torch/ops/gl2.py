@@ -22,8 +22,8 @@ launches:
     the twiddle tables into shared memory once and then taking work items
     (a pair of frames f, f + 1 of one utterance) from a counter per
     launch. An item reads the pair's samples of the reflect-padded signal
-    over the window's nonzero span only (``window_span``: [474, 1575) of
-    2048 at base_config()), windows them, and takes ONE complex forward
+    over the window's nonzero span only (``dsp.stft.window_span``: [474,
+    1575) of 2048 at base_config()), windows them, and takes ONE complex forward
     FFT of z = x0 + i x1; splits the two spectra (X = (Z[k] + conj
     Z[n-k]) / 2, Y = (Z[k] - conj Z[n-k]) / 2i), imposes the magnitude on
     bins 0..n/2 of each (phase with a 1e-8 floor; the n/2 + 1 distinct
@@ -41,7 +41,7 @@ The FFT (``fft_plan``): n_fft = 2^a * m (m odd) as radix-8 Stockham passes,
 then one of 4 or 2, then for m > 1 one pass of radix m as a direct sum;
 four passes at 2048. Each pass holds a butterfly's points in registers;
 shared memory serves the exchange between passes only, through an XOR
-swizzle (``exchange_index``) that keeps every pass's stores at most 2-way
+swizzle (csrc/gl2.cu:xi) that keeps every pass's stores at most 2-way
 bank conflicted; twiddles come from per-pass tables computed in float64
 (``fft_twiddles``, laid out [jm][r - 1]). The butterflies compute in
 float64 (the exchange, the tables and every array in device memory stay
@@ -56,13 +56,14 @@ kernel time on the H100.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..dsp.stft import _ola_window_sq, hann_window
+from ..dsp.stft import _ola_window_sq, hann_window, window_span
 
 _N1 = 16
 
@@ -105,8 +106,8 @@ def gl2_geometry(n_fft: int, hop: int, win_length: int, F: int) -> GL2Geom:
 
 def fft_plan(n: int) -> list[tuple[int, int]]:
     """The CUDA kernel's passes over n = 2^a * m points (m odd, n % 32 ==
-    0; csrc/gl2.cu:make_plan): (R, Ns) for each, a pass of radix R after Ns
-    points have been combined. Radix 8 while it divides what is left of
+    0; handed to csrc/gl2.cu by ``fft_passes``): (R, Ns) for each, a pass
+    of radix R after Ns points have been combined. Radix 8 while it divides what is left of
     2^a, then one pass of 4 or 2, then one pass of radix m if m > 1."""
     if n < 2 * _N1 or n % (2 * _N1):
         raise ValueError(f"fft_plan: n must be a multiple of 32, got {n}")
@@ -123,6 +124,20 @@ def fft_plan(n: int) -> list[tuple[int, int]]:
     if m > 1:
         plan.append((m, ns))
     return plan
+
+
+def _twiddle_count(n: int, R: int, ns: int) -> int:
+    """Entries of pass (R, Ns)'s twiddle table (``fft_twiddles``)."""
+    return n if R % 2 else ns * (R - 1) if ns > 1 else 0
+
+
+def fft_passes(n: int) -> np.ndarray:
+    """The plan as the CUDA kernel takes it: (R, Ns, the offset of the
+    pass's table in ``fft_twiddles``) for each pass, int32 (passes, 3)."""
+    plan = fft_plan(n)
+    offs = np.cumsum([0] + [_twiddle_count(n, R, ns) for R, ns in plan])
+    return np.array([(R, ns, o) for (R, ns), o in zip(plan, offs)],
+                    np.int32)
 
 
 @functools.lru_cache(maxsize=16)
@@ -142,34 +157,6 @@ def fft_twiddles(n: int) -> np.ndarray:
     tw = np.concatenate(parts) if parts else np.zeros(0, np.complex128)
     tw.setflags(write=False)   # cached: shared by every caller
     return tw
-
-
-@functools.lru_cache(maxsize=16)
-def window_span(n_fft: int, win_length: int) -> tuple[int, int]:
-    """(off, len): the nonzero samples [off, off + len) of gl2_consts'
-    window ``hann_window(win_length, n_fft)``, read off the window itself.
-    Outside them every windowed sample is exactly 0, so the kernels store
-    frames over the span only (B, F, len) and skip the rest."""
-    nz = np.flatnonzero(hann_window(win_length, n_fft))
-    return int(nz[0]), int(nz[-1]) + 1 - int(nz[0])
-
-
-def ola_frame_range(s: int, off: int, span: int, hop: int,
-                    F: int) -> tuple[int, int]:
-    """[f_lo, f_hi]: the frames whose stored samples [f*hop + off, f*hop +
-    off + span) cover signal sample s (csrc/gl_ola.cuh; empty when f_lo >
-    f_hi). The overlap-add sums them from f_hi down to f_lo."""
-    u, t = s - off, s - off - span + 1
-    f_hi = -1 if u < 0 else min(F - 1, u // hop)
-    f_lo = 0 if t <= 0 else -(-t // hop)
-    return f_lo, f_hi
-
-
-def exchange_index(i):
-    """The shared-memory index of element i of an exchange buffer
-    (csrc/gl2.cu:xi): its low 4 bits, a float2's bank pair, XORed by 5 x
-    its 16-element row."""
-    return i ^ ((i >> 4) * 5 & 15)
 
 
 def gl2_consts(n_fft: int, hop: int, win_length: int, F: int) -> dict:
@@ -255,21 +242,27 @@ def gl2_run(mag_scr: torch.Tensor, consts: dict, g: GL2Geom,
     if win.numel() != n or wsq.numel() != g.rows_y * g.hop \
             or tw.numel() != 2 * n_tw:
         raise ValueError("gl2_run: consts do not match the geometry")
+    passes = fft_passes(n)
     lib = load_library()
     off, span = window_span(n, g.win_length)
     frames = torch.empty(B, g.F, span, device=dev)
     yp = torch.empty(B, n + g.hop * (g.F - 1), device=dev)
     out = torch.empty(B, g.L_sig, device=dev)
     counters = torch.empty(n_iter + 1, dtype=torch.int32, device=dev)
+    grid = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.dctts_gl2(mag_scr.data_ptr(), win.data_ptr(), wsq.data_ptr(),
                          tw.data_ptr(), frames.data_ptr(), yp.data_ptr(),
-                         out.data_ptr(), counters.data_ptr(), B, n, g.hop,
-                         g.F, g.F2, g.pad, g.L_sig, n_iter, n_tw, off, span,
-                         stream)
+                         out.data_ptr(), counters.data_ptr(),
+                         passes.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+                         len(passes), B, n, g.hop, g.F, g.F2, g.pad, g.L_sig,
+                         n_iter, n_tw, off, span, ctypes.byref(grid), stream)
     check(code, "Griffin-Lim kernels")
     gl2_run.launches += 1
+    gl2_run.grid = grid.value
     return out
 
 
+# launches: counted calls; grid: the frame kernel's blocks in the last one
 gl2_run.launches = 0
+gl2_run.grid = None

@@ -34,7 +34,14 @@ sums the K taps that read it, so there are no atomics), and sums dW, db and
 the layer-norm gradients over B*T rows in two stages: partials per row range
 or row chunk, then a fixed-order sum. Gradients are therefore bitwise
 reproducible. There is no time tiling to choose and no VMEM gate: every HC
-shape of the trainer runs; an input the kernels do not take raises.
+shape of the trainer runs. The products copy 16 bytes at a time, so they
+take C % 4 == 0 (float32) or C % 8 == 0 (bf16); a block of any other C is
+stored padded with zero channels to the next such width
+(``stored_channels``, ``pad_channels``: x, dy, W's rows and both halves of
+its columns, b and the layer-norm vectors), and the row kernels take the
+layer norms over the C real channels and write 0 for y, dh and dx in the
+padding, so the padding adds nothing to the real outputs. An input the
+kernels do not take raises.
 
 The float32 products are float32 on the tensor cores by a three-term TF32
 split (3xTF32), the Hopper form of the TPU kernel's ``Precision.HIGHEST``
@@ -81,8 +88,8 @@ taps(bf16(x))`` and x, W and dh are rounded once a call into bf16 copies
 gather as the float32 core's feeds to shared memory; bf16 ``wgmma`` reads
 each operand K-major or MN-major, so W (forward B), dh (dW's B) and x (dW's
 A) are read as they lie, with no transposed copy. 64-deep k-tiles, float32
-register sums promoted every 2 k-tiles. The copies need C % 8 == 0; any
-other C raises. The wrappers count these launches apart, in
+register sums promoted every 2 k-tiles. The copies need C % 8 == 0 (other
+widths are padded as above). The wrappers count these launches apart, in
 ``launches_bf16``.
 """
 from __future__ import annotations
@@ -208,13 +215,44 @@ def hc_block_bwd_plain(x, w, b, g1, b1, g2, b2, dy, size: int, rate: int,
 # wrappers
 
 
-def hc_kernel_takes(C: int, bf16: bool) -> bool:
-    """Whether the CUDA kernels take an HC block of C channels: their
-    products copy 16 bytes at a time, 4 float32 or 8 bf16 channels. The
-    models route the other widths to the torch path (``models/blocks.py``),
-    as the JAX package routes the shapes its kernel cannot take
-    (``hc_train_fits``)."""
-    return C % (8 if bf16 else 4) == 0
+def stored_channels(C: int, bf16: bool) -> int:
+    """The channels the CUDA kernels store a block of C in: their products
+    copy 16 bytes at a time, so C rounded up to a multiple of 4 (float32) or
+    8 (bf16)."""
+    q = 8 if bf16 else 4
+    return -(-C // q) * q
+
+
+def _halves(t: torch.Tensor, C: int, Cp: int) -> torch.Tensor:
+    """(..., 2C) -> (..., 2Cp): each C-wide half zero-padded to Cp."""
+    return torch.cat([F.pad(t[..., :C], (0, Cp - C)),
+                      F.pad(t[..., C:], (0, Cp - C))], dim=-1)
+
+
+def pad_channels(Cp: int, x, w, b, g1, b1, g2, b2, *dy):
+    """The block's tensors stored with Cp >= C channels, zero in the
+    padding: x and dy (B, T, Cp), W (K, Cp, 2Cp) and b (2Cp,) with each
+    half of the output channels padded, the layer-norm vectors (Cp,). The
+    zero rows of W keep the padding out of the real channels of h."""
+    C = x.shape[-1]
+    if Cp == C:
+        return (x, w, b, g1, b1, g2, b2, *dy)
+    p = (0, Cp - C)
+    return (F.pad(x, p), F.pad(_halves(w, C, Cp), (0, 0) + p),
+            _halves(b, C, Cp), *(F.pad(t, p) for t in (g1, b1, g2, b2)),
+            *(F.pad(t, p) for t in dy))
+
+
+def unpad_grads(C: int, dx, dw, db, dg1, db1, dg2, db2):
+    """``pad_channels``' inverse for the gradients: the real channels."""
+    Cp = dx.shape[-1]
+    if Cp == C:
+        return dx, dw, db, dg1, db1, dg2, db2
+
+    def real(t):  # (..., 2Cp) -> (..., 2C)
+        return torch.cat([t[..., :C], t[..., Cp:Cp + C]], dim=-1)
+    return (dx[..., :C].contiguous(), real(dw[:, :C]), real(db),
+            *(t[:C].contiguous() for t in (dg1, db1, dg2, db2)))
 
 
 def _check(name: str, x, w, rows, size: int, bf16: bool, extra=()):
@@ -233,15 +271,12 @@ def _check(name: str, x, w, rows, size: int, bf16: bool, extra=()):
         if t.device != x.device or t.dtype != torch.float32:
             raise ValueError(f"{name}: the CUDA kernels take float32 tensors "
                              f"on one device, got {t.dtype} on {t.device}")
+    C = stored_channels(C, bf16)
     if C > _MAX_C:
         raise ValueError(f"{name}: C={C} > {_MAX_C} does not fit the row "
                          "kernel's shared memory")
     if B * T * 2 * C >= 2 ** 31:
         raise ValueError(f"{name}: B*T*2C must be < 2**31")
-    if not hc_kernel_takes(C, bf16):
-        raise ValueError(f"{name}: the {'bf16' if bf16 else 'float32'} "
-                         f"products copy 16 bytes at a time and take C % "
-                         f"{8 if bf16 else 4} == 0, got C={C}")
     if not bf16 and _pad_rows(B * T) * 2 * C >= 2 ** 31:
         raise ValueError(f"{name}: dh^T's padded rows need "
                          "ceil(B*T/32)*32*2C < 2**31")
@@ -295,10 +330,12 @@ def hc_block_fwd(x, w, b, g1, b1, g2, b2, size: int, rate: int, causal: bool,
         raise ValueError(f"hc_block_fwd: unsupported device {x.device}")
     from ._build import check, load_library
 
-    rows = [t.contiguous() for t in (b, g1, b1, g2, b2)]
-    x, w = _aligned(x.contiguous()), w.contiguous()
-    _check("hc_block_fwd", x, w, rows, size, bf16)
-    B, T, C = x.shape
+    _check("hc_block_fwd", x, w, (b, g1, b1, g2, b2), size, bf16)
+    B, T, Cv = x.shape
+    C = stored_channels(Cv, bf16)
+    x, w, *rows = (t.contiguous() for t in
+                   pad_channels(C, x, w, b, g1, b1, g2, b2))
+    x = _aligned(x)
     left, _ = _pads(size, rate, causal)
     lib = load_library()
     h = torch.empty(B, T, 2 * C, device=x.device)
@@ -311,11 +348,11 @@ def hc_block_fwd(x, w, b, g1, b1, g2, b2, size: int, rate: int, causal: bool,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.dctts_hc_fwd(x.data_ptr(), w.data_ptr(),
                             *(r.data_ptr() for r in rows), h.data_ptr(),
-                            y.data_ptr(), wsplit.data_ptr(), B, T, C, size,
-                            rate, left, float(eps), int(bf16), stream)
+                            y.data_ptr(), wsplit.data_ptr(), B, T, C, Cv,
+                            size, rate, left, float(eps), int(bf16), stream)
     check(code, "HC forward kernels")
     _count(hc_block_fwd, bf16)
-    return y
+    return y if C == Cv else y[..., :Cv].contiguous()
 
 
 def hc_block_bwd(x, w, b, g1, b1, g2, b2, dy, size: int, rate: int,
@@ -330,14 +367,15 @@ def hc_block_bwd(x, w, b, g1, b1, g2, b2, dy, size: int, rate: int,
         raise ValueError(f"hc_block_bwd: unsupported device {x.device}")
     from ._build import check, load_library
 
-    rows = [t.contiguous() for t in (b, g1, b1, g2, b2)]
-    x, w = _aligned(x.contiguous()), w.contiguous()
-    dy = dy.contiguous()
-    _check("hc_block_bwd", x, w, rows, size, bf16, (dy,))
+    _check("hc_block_bwd", x, w, (b, g1, b1, g2, b2), size, bf16, (dy,))
     if dy.shape != x.shape:
         raise ValueError(f"hc_block_bwd: dy {tuple(dy.shape)} != x "
                          f"{tuple(x.shape)}")
-    B, T, C = x.shape
+    B, T, Cv = x.shape
+    C = stored_channels(Cv, bf16)
+    x, w, *rows, dy = (t.contiguous() for t in
+                       pad_channels(C, x, w, b, g1, b1, g2, b2, dy))
+    x = _aligned(x)
     M = B * T
     left, _ = _pads(size, rate, causal)
     R, S = _row_chunk(M), _dw_splits(size, C, M, bf16)
@@ -364,12 +402,12 @@ def hc_block_bwd(x, w, b, g1, b1, g2, b2, dy, size: int, rate: int,
                             dw.data_ptr(), dparams.data_ptr(),
                             row_part.data_ptr(), dw_part.data_ptr(),
                             wsplit.data_ptr(), dhsplit.data_ptr(), B, T, C,
-                            size, rate, left, float(eps), R, S, int(bf16),
-                            stream)
+                            Cv, size, rate, left, float(eps), R, S,
+                            int(bf16), stream)
     check(code, "HC backward kernels")
     _count(hc_block_bwd, bf16)
     db, dg1, db1, dg2, db2 = dparams.split([2 * C, C, C, C, C])
-    return dx, dw, db, dg1, db1, dg2, db2
+    return unpad_grads(Cv, dx, dw, db, dg1, db1, dg2, db2)
 
 
 hc_block_fwd.launches = hc_block_fwd.launches_bf16 = 0

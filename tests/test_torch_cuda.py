@@ -10,8 +10,9 @@ Griffin-Lim kernel at 1e-5 from its plain version run in float64 (also at
 a non-power-of-two n_fft, 480 = 32 x 15): the phase normalisation of
 near-zero bins amplifies rounding, so the float32 plain version is itself
 up to ~3e-5 from the float64 one at n_fft 2048, more than the kernel is.
-An SSRN training step at c = 10 under use_pallas (blocks K4 cannot take
-routed to the torch path) equal to the CPU step's loss at rtol 1e-5. The Griffin-Lim round
+An SSRN training step at c = 10 under use_pallas (K4 on every HC block,
+the 10-channel ones stored padded) equal to the CPU step's loss at rtol
+1e-5. The Griffin-Lim round
 kernels K3a/K3b (bf16 operands, float32 sums) at max 2e-2 and mean 1e-5
 from their plain version on the same operands, the CPU tests' gates
 against JAX (the phase normalisation of near-zero bins amplifies a sum's
@@ -298,7 +299,9 @@ def _hc_inputs(B, T, C, size, seed, dev):
     # tile (causal, C = 32); K = 1 with C not a multiple of the k-tile;
     # C = 1024
     (3, 100, 64, 3, 9, False), (5, 20, 32, 3, 2, True),
-    (4, 37, 48, 1, 1, False), (2, 300, 1024, 3, 1, False)])
+    (4, 37, 48, 1, 1, False), (2, 300, 1024, 3, 1, False),
+    # C not a multiple of 4: stored padded with zero channels
+    (2, 60, 10, 3, 2, False), (3, 37, 6, 1, 1, True)])
 def test_hc_kernels_match_plain(cuda, B, T, C, size, rate, causal):
     """Forward and all 7 gradients against the plain versions run in
     float64: each within max(2e-5 x its max |value|, 2 x the float32 plain
@@ -331,7 +334,9 @@ def test_hc_kernels_match_plain(cuda, B, T, C, size, rate, causal):
     # 128-row tile, tiles spanning two batch rows; T shorter than a tile; K
     # = 1 with C not a multiple of the 64-deep k-tile; C = 1024
     (3, 100, 64, 3, 9, False), (5, 20, 32, 3, 2, True),
-    (4, 37, 48, 1, 1, False), (2, 300, 1024, 3, 1, False)])
+    (4, 37, 48, 1, 1, False), (2, 300, 1024, 3, 1, False),
+    # C not a multiple of 8: stored padded with zero channels
+    (2, 60, 12, 3, 2, False), (2, 40, 10, 3, 1, True)])
 def test_hc_bf16_kernels_match_plain(cuda, B, T, C, size, rate, causal):
     """The bf16 operand body: forward and all 7 gradients against the plain
     version with the same bf16 rounding points run in float64, each within
@@ -368,20 +373,23 @@ def test_hc_bf16_kernels_match_plain(cuda, B, T, C, size, rate, causal):
     assert float((y32 - outs[0]).abs().max()) > 1e-4
 
 
-def test_hc_bf16_core_refuses_c_not_multiple_of_8(cuda):
-    """The bf16 core copies 16 bytes (8 bf16) at a time: C = 12 raises on
-    the card in both directions (never the plain version), while the
-    float32 core takes it."""
+def test_hc_narrow_channels_launch_the_kernels(cuda):
+    """The cores copy 16 bytes (4 float32, 8 bf16 channels) at a time: C =
+    12 in bf16 and C = 10 in float32 are stored padded and launch the
+    kernels in both directions (never the plain version), with outputs of
+    the caller's shapes."""
     from dc_tts_tpu_torch.ops import hc_vjp as K4
-    *args, dy = _hc_inputs(2, 30, 12, 3, 12, cuda)
-    n16 = (K4.hc_block_fwd.launches_bf16, K4.hc_block_bwd.launches_bf16)
-    with pytest.raises(ValueError, match="C % 8"):
-        K4.hc_block_fwd(*args, 3, 1, False, 1e-5, True)
-    with pytest.raises(ValueError, match="C % 8"):
-        K4.hc_block_bwd(*args, dy, 3, 1, False, 1e-5, True)
-    assert (K4.hc_block_fwd.launches_bf16,
-            K4.hc_block_bwd.launches_bf16) == n16
-    assert K4.hc_block_fwd(*args, 3, 1, False, 1e-5).shape == args[0].shape
+    for C, bf16 in ((12, True), (10, False)):
+        *args, dy = _hc_inputs(2, 30, C, 3, 12, cuda)
+        key = "launches_bf16" if bf16 else "launches"
+        n = (getattr(K4.hc_block_fwd, key), getattr(K4.hc_block_bwd, key))
+        y = K4.hc_block_fwd(*args, 3, 1, False, 1e-5, bf16)
+        grads = K4.hc_block_bwd(*args, dy, 3, 1, False, 1e-5, bf16)
+        assert (getattr(K4.hc_block_fwd, key),
+                getattr(K4.hc_block_bwd, key)) == (n[0] + 1, n[1] + 1)
+        assert y.shape == args[0].shape
+        assert [g.shape for g in grads] == [a.shape for a in args]
+        assert all(bool(torch.isfinite(t).all()) for t in (y, *grads))
 
 
 @pytest.mark.parametrize("B,T", [(4, 90), (4, 300)])
@@ -504,13 +512,20 @@ def test_ct_bad_input_raises(cuda):
     assert (X.full_fwd.launches, X.fact_fwd.launches) == n
 
 
-def test_ssrn_step_at_c10_routes_narrow_blocks_off_k4(cuda):
-    """c = 10 under use_pallas: SSRN's blocks of 10 channels (C % 4) take
-    the torch path, its blocks of 20 launch K4; the step's loss equals the
-    CPU step's. K4 called directly at C = 10 still raises."""
+def test_ssrn_step_at_c10_launches_k4_on_every_block(cuda, monkeypatch):
+    """c = 10 under use_pallas: every HC block of SSRN launches K4, those of
+    10 channels (C % 4 != 0, stored padded) as those of 20, once forward
+    and once backward; the step's loss equals the CPU step's."""
     from dc_tts_tpu_torch.ops import hc_vjp as K4
     from dc_tts_tpu_torch.train import steps as TS
 
+    widths = []
+    kernel = K4.hc_block_trainable
+
+    def spy(x, *a, **kw):
+        widths.append(x.shape[-1])
+        return kernel(x, *a, **kw)
+    monkeypatch.setattr(K4, "hc_block_trainable", spy)
     cfg = test_config().replace(c=10, use_pallas=True)
     rng = np.random.default_rng(0)
     batch = {"mels": rng.uniform(0, 1, (2, cfg.max_T, cfg.n_mels)),
@@ -520,12 +535,12 @@ def test_ssrn_step_at_c10_routes_narrow_blocks_off_k4(cuda):
         state = TS.init_ssrn_state(cfg, torch.Generator().manual_seed(0), dev)
         b = {k: torch.tensor(v, dtype=torch.float32, device=dev)
              for k, v in batch.items()}
-        n = K4.hc_block_fwd.launches
+        widths.clear()
+        n = (K4.hc_block_fwd.launches, K4.hc_block_bwd.launches)
         _, m = TS.make_ssrn_step(cfg)(state, b, None)
         losses[str(dev)] = float(m["loss"])
-        launched = K4.hc_block_fwd.launches - n
-    assert launched > 0
+    torch.cuda.synchronize()
+    assert set(widths) == {10, 20}
+    assert (K4.hc_block_fwd.launches - n[0],
+            K4.hc_block_bwd.launches - n[1]) == (len(widths), len(widths))
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
-    x, w, *vecs, _ = _hc_inputs(2, 40, 10, 3, 0, cuda)
-    with pytest.raises(ValueError, match="C % 4"):
-        K4.hc_block_trainable(x, w, *vecs, 3, 1, False, 1e-5)

@@ -1,24 +1,72 @@
 """K2's host-side plan, checked on the CPU.
 
 The CUDA frame kernel (``csrc/gl2.cu``) runs a mixed-radix Stockham FFT
-planned by ``fft_plan`` with the twiddle tables of ``fft_twiddles`` and
-exchanges every pass's outputs through shared memory at
-``exchange_index``. These tests hold a numpy emulation of those passes
-(float64, the kernel's loads, twiddles, butterflies and stores) to
-``numpy.fft.fft`` within 1e-12, the exchange index to at most 2-way
-bank conflicts on every pass's stores, and a float64 model of the kernel's
-two real frames per complex transform (pack, split, impose, merge) to one
-plain round, and the window's span (the frames' stored samples) to the
-window's nonzero samples, with the span overlap-add's frame range to the
-full one's without its exactly-zero terms. No card is needed.
+planned by ``fft_plan``, handed to it as the table of ``fft_passes`` with
+the twiddle tables of ``fft_twiddles``, and exchanges every pass's outputs
+through shared memory at the index ``xi``. These tests hold a numpy
+emulation of those passes (float64, the kernel's loads, twiddles,
+butterflies and stores) to ``numpy.fft.fft`` within 1e-12, the exchange
+index to at most 2-way bank conflicts on every pass's stores, and a float64
+model of the kernel's two real frames per complex transform (pack, split,
+impose, merge) to one plain round, and the window's span (the frames'
+stored samples) to the window's nonzero samples, with the span
+overlap-add's frame range to the full one's without its exactly-zero
+terms. The exchange index and the overlap-add's frame range are evaluated
+from the kernels' own source lines (``_kernel_int_exprs``), so the tests
+hold the .cu, not a copy of it. No card is needed.
 """
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
 
+from dc_tts_tpu_torch.dsp.stft import window_span
 from dc_tts_tpu_torch.ops import gl2 as K2
 
 WARP = 32
+CSRC = pathlib.Path(K2.__file__).resolve().parents[1] / "csrc"
+
+
+def _kernel_int_exprs(source: str, pattern: str) -> dict:
+    """name -> numpy function source of each integer expression that
+    ``pattern`` (one group per name, one per expression) finds in
+    csrc/``source``: C's ``c ? a : b`` becomes np.where, ``min``
+    np.minimum, ``/`` floor division (the kernels divide non-negative
+    values only where the result is used)."""
+    text = (CSRC / source).read_text()
+    out = {}
+    for name, expr in re.findall(pattern, text):
+        m = re.fullmatch(r"(.+?) \? (.+?) : (.+)", expr)
+        if m:
+            expr = f"np.where({m[1]}, {m[2]}, {m[3]})"
+        out[name] = expr.replace("/", "//").replace("min(", "np.minimum(")
+    return out
+
+
+def exchange_index(i):
+    """The shared-memory index of exchange element i: csrc/gl2.cu's
+    ``xi``, evaluated from its source."""
+    (expr,) = _kernel_int_exprs(
+        "gl2.cu", r"int (xi)\(int i\) \{ return (.+?); \}").values()
+    return eval(expr, {"np": np, "i": np.asarray(i)})
+
+
+def ola_frame_range(s, off, span, hop, F):
+    """(f_lo, f_hi): the frames whose stored samples [f*hop + off, f*hop +
+    off + span) cover signal samples s (empty where f_lo > f_hi), from
+    csrc/gl_ola.cuh's own lines, which the overlap-add sums from f_hi down
+    to f_lo."""
+    exprs = _kernel_int_exprs(
+        "gl_ola.cuh",
+        r"(?:const int |, )(u|t|f_hi|f_lo) = ((?:[^,;()]|\([^()]*\))+)")
+    assert list(exprs) == ["u", "t", "f_hi", "f_lo"], exprs
+    env = {"np": np, "s": np.asarray(s), "off": off, "len": span,
+           "hop": hop, "F": F}
+    for name, expr in exprs.items():
+        env[name] = eval(expr, env)
+    return env["f_lo"], env["f_hi"]
 
 
 def _emulate_fft(x: np.ndarray) -> np.ndarray:
@@ -27,11 +75,15 @@ def _emulate_fft(x: np.ndarray) -> np.ndarray:
     R points (a direct sum for the odd radix) and stores through the
     exchange index into the other buffer."""
     n = x.shape[0]
-    tw, off = K2.fft_twiddles(n), 0
+    tw = K2.fft_twiddles(n)
     src = x.astype(np.complex128)        # pass 0 reads natural order
-    xi = K2.exchange_index(np.arange(n))
+    xi = exchange_index(np.arange(n))
     assert sorted(xi) == list(range(n))  # a permutation of the buffer
-    for p, (R, ns) in enumerate(K2.fft_plan(n)):
+    passes = K2.fft_passes(n)            # what the kernel is handed
+    assert passes[:, :2].tolist() == [list(p) for p in K2.fft_plan(n)]
+    off = 0
+    for R, ns, tw_off in passes.tolist():
+        assert tw_off == off
         dst = np.empty(n, np.complex128)
         if R % 2:
             k = np.arange(n)
@@ -90,7 +142,7 @@ def _conflict(addresses) -> int:
 def _pass_stores(n):
     """For every pass of the plan and every store instruction (one r of a
     power-of-two pass; the odd pass's one), each warp's exchange indices."""
-    xi = K2.exchange_index
+    xi = exchange_index
     for R, ns in K2.fft_plan(n):
         if R % 2:
             k = np.arange(n)
@@ -177,7 +229,7 @@ GEOMS = {"base": (2048, 275, 1102, 840), "test": (256, 8, 32, 96),
 def test_window_span_covers_every_nonzero_sample(name):
     n, hop, wl, F = GEOMS[name]
     win = K2.gl2_consts(n, hop, wl, F)["win"][0]
-    off, span = K2.window_span(n, wl)
+    off, span = window_span(n, wl)
     inside = np.zeros(n, bool)
     inside[off: off + span] = True
     assert (win[~inside] == 0).all()
@@ -194,10 +246,13 @@ def test_span_overlap_add_drops_only_zero_terms(name):
     exactly zero, in the same order (last frame first)."""
     n, hop, wl, F = GEOMS[name]
     win = K2.gl2_consts(n, hop, wl, F)["win"][0]
-    off, span = K2.window_span(n, wl)
-    for s in range(n + hop * (F - 1)):
-        lo, hi = K2.ola_frame_range(s, 0, n, hop, F)
+    off, span = window_span(n, wl)
+    samples = np.arange(n + hop * (F - 1))
+    los, his = ola_frame_range(samples, 0, n, hop, F)
+    los_s, his_s = ola_frame_range(samples, off, span, hop, F)
+    for s, lo, hi, lo_s, hi_s in zip(samples.tolist(), los.tolist(),
+                                     his.tolist(), los_s.tolist(),
+                                     his_s.tolist()):
         full = [f for f in range(hi, lo - 1, -1) if win[s - f * hop] != 0]
-        lo_s, hi_s = K2.ola_frame_range(s, off, span, hop, F)
         assert list(range(hi_s, lo_s - 1, -1)) == full, s
         assert len(full) <= -(-span // hop)

@@ -13,8 +13,10 @@ The bf16 body's core is checked the same way: rounding commutes with the
 tap gather (bf16(taps(x)) == taps(bf16(x)) bitwise, which lets the kernels
 round x once a call), and its emulated arithmetic (exact bf16 products,
 float32 sums per 16-deep step, promotion every 2 64-deep k-tiles) at SSRN
-HC(3,1)'s depths within K4's gate. The CUDA kernels themselves are checked
-on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+HC(3,1)'s depths within K4's gate. A block whose C the cores' 16-byte
+copies cannot take is stored padded with zero channels: the padded layout
+gives the real channels' output and gradients exactly (float64, through
+autograd). The CUDA kernels themselves are checked on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -119,21 +121,57 @@ def test_wrapper_splits_and_pads():
 
 
 def test_float32_core_shape_rules():
-    """Both cores copy 16 bytes at a time: C % 4 != 0 raises in the
-    wrapper's check for the float32 products, C % 8 != 0 for the bf16 ones
-    (never a quiet fallback); C = 12 takes the float32 core only, C = 8
-    both."""
+    """Both cores copy 16 bytes at a time, 4 float32 or 8 bf16 channels: a
+    block of any other C is stored padded to the next such width, so the
+    wrapper's check takes every C whose stored width fits the row kernel's
+    shared memory (never a quiet fallback to the plain version)."""
     def check(C, bf16):
         K4._check("hc", torch.zeros(2, 5, C), torch.zeros(3, C, 2 * C),
                   [torch.zeros(2 * C)] + [torch.zeros(C)] * 4, 3, bf16)
-    with pytest.raises(ValueError, match="C % 4"):
-        check(6, False)
-    for C in (6, 12):
-        with pytest.raises(ValueError, match="C % 8"):
-            check(C, True)
-    check(12, False)
-    check(8, False)
-    check(8, True)
+    assert [K4.stored_channels(C, False) for C in (6, 8, 10, 12)] == \
+        [8, 8, 12, 12]
+    assert [K4.stored_channels(C, True) for C in (6, 8, 10, 12)] == \
+        [8, 8, 16, 16]
+    for C in (6, 8, 10, 12):
+        check(C, False)
+        check(C, True)
+    check(K4._MAX_C - 3, True)
+    with pytest.raises(ValueError, match="does not fit"):
+        check(K4._MAX_C + 1, False)
+
+
+@pytest.mark.parametrize("C,bf16", [(10, False), (6, False), (10, True)])
+def test_padded_channels_leave_the_real_ones_exact(C, bf16):
+    """What the kernels compute for a block of C channels stored in
+    ``stored_channels(C)``: the tap product over every stored channel of
+    ``pad_channels``' tensors, the row part (layer norms, gate, residual)
+    over the C real ones, nothing flowing back from the padding. In float64
+    through autograd, ``unpad_grads`` of that gives the plain version's
+    output and gradients within 1e-10, and h is exactly 0 in the
+    padding."""
+    size, rate, causal = 3, 2, False
+    args, dy = _inputs(size, 20, seed=C, C=C)
+    args = [torch.tensor(a, dtype=torch.float64) for a in args]
+    dy = torch.tensor(dy, dtype=torch.float64)
+    Cp = K4.stored_channels(C, bf16)
+    assert Cp > C
+    padded = [t.requires_grad_(True) for t in K4.pad_channels(Cp, *args)]
+    xp, wp, bp, *vecs = padded
+    h = K4._taps(xp, size, rate, causal) @ wp.reshape(size * Cp, 2 * Cp) + bp
+    assert not h[..., C:Cp].any() and not h[..., Cp + C:].any()
+    g1, b1, g2, b2 = (v[:C] for v in vecs)
+    n1, _ = K4._ln(h[..., :C], EPS)
+    n2, _ = K4._ln(h[..., Cp:Cp + C], EPS)
+    g = torch.sigmoid(n1 * g1 + b1)
+    y = g * (n2 * g2 + b2) + (1.0 - g) * xp[..., :C]
+    grads = K4.unpad_grads(C, *torch.autograd.grad(y, padded, dy))
+    want = K4.hc_block_bwd_plain(*args, dy, size, rate, causal, EPS)
+    yw = K4.hc_block_fwd_plain(*args, size, rate, causal, EPS)
+    np.testing.assert_allclose(y.detach().numpy(), yw.numpy(), atol=1e-10)
+    for n, a, b in zip(NAMES, grads, want):
+        assert a.shape == b.shape, n
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-10,
+                                   err_msg=n)
 
 
 # ---------------------------------------------------------------------------

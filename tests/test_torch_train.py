@@ -434,14 +434,15 @@ def test_entry_points_raise_without_a_card(cli, monkeypatch):
         (prepro.main([]) if cli == "prepro" else train_main(["1", "--tiny"]))
 
 
-# ------------------------------------------------------- K4's channel rule
+# ---------------------------------------------- K4 at a narrow channel count
 
 
 def test_ssrn_step_at_c10_with_use_pallas_matches_jax(monkeypatch):
-    """c = 10: SSRN's HC blocks of 10 channels are widths K4 cannot take
-    (C % 4), so ``use_pallas`` routes them to the torch path by a static
-    shape rule, and its blocks of 20 to K4; one train step's loss equals
-    the JAX step's (which runs its own kernel on both, interpreted)."""
+    """c = 10: under ``use_pallas`` every HC block of SSRN takes K4, those
+    of 10 channels (not a multiple of the 4 its 16-byte copies take,
+    stored padded on the card) as those of 20; one train step's loss
+    equals the JAX step's (which runs its own kernel on both,
+    interpreted)."""
     from dc_tts_tpu_torch.ops import hc_vjp
 
     widths = []
@@ -463,7 +464,5 @@ def test_ssrn_step_at_c10_with_use_pallas_matches_jax(monkeypatch):
                                    None)
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                rtol=1e-5)
-    assert widths and set(widths) == {20}
-    assert hc_vjp.hc_kernel_takes(20, False)
-    assert not hc_vjp.hc_kernel_takes(10, False)
-    assert not hc_vjp.hc_kernel_takes(20, True)
+    assert set(widths) == {10, 20}
+    assert hc_vjp.stored_channels(10, False) == 12
