@@ -439,26 +439,38 @@ def _barrier_floor_ms(n, blocks):
     return cuda_ms(run, 3)
 
 
-def _k1_check(name, A, Ap, Y, Yp):
-    """(max|dY|, max|dA|, note) of the "highest" kernel against its plain
-    version: identical cursors, or a flip within a 1e-6 tie, after which
-    nothing is compared."""
-    T = A.shape[-1]
-    flip = _first_flip(A, Ap)
-    note = "cursor trajectories identical"
-    upto = T
-    if flip is not None:
-        t, b, margin = flip
-        print(f"    {name}: cursor flip at step {t}, row {b}: margin between "
-              f"the two largest in-window probabilities {margin:.3e}",
-              flush=True)
-        if margin >= 1e-6:
-            raise AssertionError(f"{name} cursor flip at step {t} row {b} "
-                                 f"with margin {margin:.3e} >= 1e-6: a bug")
-        upto = t + 1
-        note = f"tie at step {t} row {b}: compared steps 0..{t} only"
-    dY = float((Y[:, :upto] - Yp[:, :upto]).abs().max())
-    dA = float((A[:, :, :upto] - Ap[:, :, :upto]).abs().max())
+def _k1_replay(packed, Kt, V, T, cfg, prec, A, sum_dtype=torch.float32):
+    """The plain version of ``prec`` on the kernel's own cursors
+    (``A.argmax(1)``): every step starts from the kernel's cursor state."""
+    from dc_tts_tpu_torch.ops import decode as K1
+    return K1.fused_decode_plain(packed, Kt, V, T, cfg, prec, sum_dtype,
+                                 cursors=A.argmax(1))
+
+
+def _k1_check(name, A, Ar, Y, Yr, free_flip, tie):
+    """(max|dY|, max|dA|, note) of a decode kernel against its plain version
+    replayed on the kernel's cursors (``_k1_replay``), over all T steps.
+    At every step the kernel's cursor must be the replayed plain version's
+    own argmax, or a tie: the two largest probabilities of the plain row
+    differ by less than ``tie``. ``free_flip``: the first cursor flip of
+    the free-running plain version, reported as information."""
+    ck, cr = A.argmax(1), Ar.argmax(1)                 # (B, T)
+    bs, ts = (ck != cr).nonzero(as_tuple=True)
+    ties = [(int(t), int(b), float(Ar[b, :, t].topk(2).values.diff().abs()))
+            for b, t in zip(bs.tolist(), ts.tolist())]
+    worst = max((m for _, _, m in ties), default=0.0)
+    if worst >= tie:
+        t, b, m = max(ties, key=lambda x: x[2])
+        raise AssertionError(f"{name}: cursor at step {t} row {b} differs "
+                             f"from the plain version's with margin {m:.3e}"
+                             f" >= {tie:.3e}: a bug")
+    note = (f"{len(ties)} tied cursor steps (margins < {worst:.2e})"
+            if ties else "every cursor the plain version's own")
+    if free_flip is not None:
+        note += (f"; free run flips at step {free_flip[0]} row "
+                 f"{free_flip[1]} (margin {free_flip[2]:.2e})")
+    dY = float((Y - Yr).abs().max())
+    dA = float((A - Ar).abs().max())
     return dY, dA, note
 
 
@@ -482,8 +494,9 @@ def phase_k1(results):
         Yp, Ap = K1.fused_decode_plain(packed, Kt, V, T, cfg)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        Yr, Ar = _k1_replay(packed, Kt, V, T, cfg, "highest", A)
         ms = cuda_ms(lambda: K1.fused_decode(packed, Kt, V, T, cfg), 3)
-    dY, dA, note = _k1_check("K1", A, Ap, Y, Yp)
+    dY, dA, note = _k1_check("K1", A, Ar, Y, Yr, _first_flip(A, Ap), 1e-6)
     ok = dY <= 2e-5 and dA <= 2e-5 and bool(torch.isfinite(Y).all())
     # operations: the layer matmuls per row per step plus the unmasked
     # attention keys (scores + context) the cursors of this run select
@@ -501,7 +514,8 @@ def phase_k1(results):
     grid = _k1_grid(cfg, B_MAIN, "highest", ms, T)
     floor = _barrier_floor_ms(grid["barriers_per_step"] * T, grid["blocks"])
     line("K1", ok=ok, B=B_MAIN, N=cfg.max_N, T=T, max_dY=f"{dY:.3e}",
-         max_dA=f"{dA:.3e}", tol="2e-5", note=repr(note), ms=f"{ms:.3f}",
+         max_dA=f"{dA:.3e}", tol="2e-5", compared_steps=T, note=repr(note),
+         ms=f"{ms:.3f}",
          plain_ms=f"{plain_ms:.1f}", bound_ms=f"{b_ms:.4f}",
          bound_by=b_by, gflop=f"{flops / 1e9:.2f}", **grid,
          barrier_floor_ms=f"{floor:.3f}")
@@ -528,16 +542,39 @@ def phase_k1(results):
         Kt, V = (x.contiguous() for x in model.text_encode(params, ids))
         Y, A = K1.fused_decode(packed, Kt, V, T, cfg)
         Yp, Ap = K1.fused_decode_plain(packed, Kt, V, T, cfg)
+        Yr, Ar = _k1_replay(packed, Kt, V, T, cfg, "highest", A)
         ms72 = cuda_ms(lambda: K1.fused_decode(packed, Kt, V, T, cfg), 3)
-    dY, dA, note = _k1_check("K1-B72", A, Ap, Y, Yp)
+    dY, dA, note = _k1_check("K1-B72", A, Ar, Y, Yr, _first_flip(A, Ap),
+                             1e-6)
     ok = dY <= 2e-5 and dA <= 2e-5 and bool(torch.isfinite(Y).all())
     line("K1-B72", ok=ok, B=72, T=T, max_dY=f"{dY:.3e}", max_dA=f"{dA:.3e}",
-         tol="2e-5", note=repr(note), ms=f"{ms72:.3f}",
+         tol="2e-5", compared_steps=T, note=repr(note), ms=f"{ms72:.3f}",
          **_k1_grid(cfg, 72, "highest", ms72, T))
     if not ok:
         raise AssertionError(f"K1 at B=72 disagrees with its plain version: "
                              f"dY={dY} dA={dA}")
     results["K1_B72"] = dict(max_abs_err=max(dY, dA), ms=ms72)
+    # past one of the kernel's old limits at full width: a window of 8 keys
+    # (it took 4), one register chunk of the attention's walk, same gate
+    cfg8 = cfg.replace(attention_win_size=8)
+    ids = torch.as_tensor(harvard_ids(cfg, B_MAIN), device=dev)
+    with torch.no_grad():
+        Kt, V = (x.contiguous() for x in model.text_encode(params, ids))
+        Y, A = K1.fused_decode(packed, Kt, V, T, cfg8)
+        Yp, Ap = K1.fused_decode_plain(packed, Kt, V, T, cfg8)
+        Yr, Ar = _k1_replay(packed, Kt, V, T, cfg8, "highest", A)
+        ms8 = cuda_ms(lambda: K1.fused_decode(packed, Kt, V, T, cfg8), 3)
+    dY, dA, note = _k1_check("K1-win8", A, Ar, Y, Yr, _first_flip(A, Ap),
+                             1e-6)
+    ok = dY <= 2e-5 and dA <= 2e-5 and bool(torch.isfinite(Y).all())
+    keys = int((A > 0).sum(1).max())
+    line("K1-win8", ok=ok, B=B_MAIN, T=T, win=8, most_keys_a_row=keys,
+         max_dY=f"{dY:.3e}", max_dA=f"{dA:.3e}", tol="2e-5",
+         compared_steps=T, note=repr(note), ms=f"{ms8:.3f}")
+    if not ok:
+        raise AssertionError(f"K1 at win=8 disagrees with its plain version:"
+                             f" dY={dY} dA={dA}")
+    results["K1_win8"] = dict(max_abs_err=max(dY, dA), ms=ms8)
 
 
 def _k1_bound(cfg, prec, B, T, A, tensors):
@@ -592,29 +629,20 @@ def phase_k1_prec(results):
             Yp, Ap = K1.fused_decode_plain(packed, Kt, V, T, cfg, prec)
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
-            Y64, A64 = K1.fused_decode_plain(packed, Kt, V, T, cfg, prec,
-                                             torch.float64)
+            Yr, Ar = _k1_replay(packed, Kt, V, T, cfg, prec, A)
+            Y64, A64 = _k1_replay(packed, Kt, V, T, cfg, prec, A,
+                                  torch.float64)
             ms = cuda_ms(lambda: K1.fused_decode(packed, Kt, V, T, cfg, prec),
                          3)
-            # the float32 plain version against float64: how far float32
-            # rounding moves this mode (it flips bf16 roundings of the
-            # activations), over the steps before their cursors part
-            flip64 = _first_flip(A64, Ap.double())
-            upto64 = T if flip64 is None else flip64[0] + 1
-            flip = _first_flip(A, Ap)
-            upto = T if flip is None else flip[0] + 1
-            upto = min(upto, upto64)
-            dY64 = float((Y64[:, :upto] - Yp[:, :upto].double()).abs().max())
-            dA64 = float((A64[:, :, :upto] - Ap[:, :, :upto].double()
-                          ).abs().max())
+            # the float32 plain version against float64 on the same
+            # cursors: how far float32 rounding moves this mode (it flips
+            # bf16 roundings of the activations), over all T steps
+            dY64 = float((Y64 - Yr.double()).abs().max())
+            dA64 = float((A64 - Ar.double()).abs().max())
             gate_y, gate_a = max(2e-5, 2 * dY64), max(2e-5, 2 * dA64)
             tie = max(1e-6, gate_a)
-            if flip is not None and flip[2] >= tie:
-                raise AssertionError(
-                    f"K1[{prec}] cursor flip at step {flip[0]} row {flip[1]} "
-                    f"with margin {flip[2]:.3e} >= {tie:.3e}: a bug")
-            dY = float((Y[:, :upto] - Yp[:, :upto]).abs().max())
-            dA = float((A[:, :, :upto] - Ap[:, :, :upto]).abs().max())
+            flip = _first_flip(A, Ap)
+            dY, dA, note = _k1_check(f"K1[{prec}]", A, Ar, Y, Yr, flip, tie)
             ok = (dY <= gate_y and dA <= gate_a
                   and bool(torch.isfinite(Y).all()))
             # what the kernel reads: the transposed copies (under "hybrid"
@@ -635,7 +663,8 @@ def phase_k1_prec(results):
                  max_dY=f"{dY:.3e}", max_dA=f"{dA:.3e}",
                  gate_Y=f"{gate_y:.3e}", gate_A=f"{gate_a:.3e}",
                  plain_f32_vs_f64_dY=f"{dY64:.3e}",
-                 plain_f32_vs_f64_dA=f"{dA64:.3e}", compared_steps=upto,
+                 plain_f32_vs_f64_dA=f"{dA64:.3e}", compared_steps=T,
+                 tie=f"{tie:.3e}", note=repr(note),
                  kernel_flip=None if flip is None else
                  f"step{flip[0]}/row{flip[1]}/margin{flip[2]:.2e}",
                  ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.1f}",

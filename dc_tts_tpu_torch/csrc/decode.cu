@@ -19,7 +19,14 @@
 // every block of its cluster (distributed shared memory), and a cluster
 // barrier closes the layer: 24 grid and 24 cluster barriers a step at
 // base_config. The attention row is computed in every block for every row:
-// the arithmetic is identical, so the cursors agree without a barrier. An
+// the arithmetic is identical, so the cursors agree without a barrier. The
+// config's widths are free, as the TPU kernel's are (only its VMEM bounds
+// it): the attention walks the window in register chunks of MAX_WIN keys
+// and the features in chunks of 256; each tap of a weight slot is padded to
+// the 16-byte copy width with zero weights (ops/decode.py:kernel_slot), so
+// any d and n_mels run; a row wider than a lane's registers hold (C > 512,
+// HC > 256) is normalised by a second loop. Only shared memory and
+// co-residency refuse a config (ops/decode.py:decode_plan). An
 // HC layer's product x_t @ W is three products, one per tap; the block
 // keeps the two older taps' products of its columns (x_s @ W_tap) in a
 // private ring in global memory and adds them when the lag comes round, so
@@ -65,7 +72,8 @@ namespace cg = cooperative_groups;
 #define RG 4            // batch rows of one product task; RG in ops/decode.py
 #define CL 2            // blocks of a cluster; CLUSTER in ops/decode.py
 #define MAX_LAYERS 32
-#define MAX_WIN 4       // attention keys a row (the window)
+#define MAX_WIN 8       // attention keys of a register chunk (any window)
+#define FCH 8           // attention features a lane holds, a chunk of 256
 #define LAYER_INTS 10   // ints per layer in the host's program array
 #define LAYER_PTRS 4    // pointers per layer
 
@@ -233,7 +241,9 @@ __device__ void product(const Args& p, const Layer& L, int c0, int n,
   constexpr int VG = WK == WK_SPLIT ? 2 : 4, M = RG * VG;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool hc = L.kind == 1;
-  const int K = hc ? L.cout : L.cin;  // depth of a virtual column
+  // depth of a virtual column: a tap's inputs, padded with zero weights to
+  // the 16-byte copy width (the row's values there are finite: 0 x finite)
+  const int K = ((hc ? L.cout : L.cin) + 3) & ~3;
   const int taps = hc ? 3 : 1;
   const int nv = taps * n;
   const int nvg = (nv + VG - 1) / VG;
@@ -368,7 +378,8 @@ __device__ void combine(const Args& p, const Layer& L, int t, int c0, int n,
 // before the barrier), gates and activations in one rolled loop: the
 // phase runs once a layer, and its code is kept short, because fetching
 // long unrolled code is what paced it.
-template <int PL>  // columns a lane holds: 16 (C, width <= 512), 8 (HC)
+template <int PL>  // columns a lane holds: 16 (C, width <= 512), 8 (HC,
+                   // C <= 256); wider rows take normalise_wide
 __device__ __forceinline__ void load_row(const float* h, int W,
                                          float (&a)[PL]) {
   const int lane = threadIdx.x & 31;
@@ -419,6 +430,43 @@ __device__ __forceinline__ void normalise(const float (&a)[N][PL], int W,
   }
 }
 
+// normalise for rows wider than a lane's registers hold (C > 512, HC >
+// 256): the same sums in the same order, the values read from h (N rows of
+// W at a pitch of W) once for each pass.
+template <int N>
+__device__ void normalise_wide(const float* h, int W, float eps, float* z) {
+  const int lane = threadIdx.x & 31;
+  float s[N], mean[N], q[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    s[j] = 0.f;
+    for (int c = lane; c < W; c += 32) s[j] += __ldcg(h + j * W + c);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < N; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    mean[j] = s[j] / (float)W;
+    q[j] = 0.f;
+    for (int c = lane; c < W; c += 32) {
+      const float v = __ldcg(h + j * W + c) - mean[j];
+      q[j] += v * v;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < N; ++j) q[j] += __shfl_xor_sync(0xffffffffu, q[j], o);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float rs = rsqrtf(q[j] / (float)W + eps);
+    for (int c = lane; c < W; c += 32)
+      z[j * W + c] = (__ldcg(h + j * W + c) - mean[j]) * rs;
+  }
+}
+
 __device__ void post(const Args& p, const Layer& L, const float* hb,
                      const float* lnb, float* zs, bool last, int t,
                      float* xs, float* xg) {
@@ -430,15 +478,19 @@ __device__ void post(const Args& p, const Layer& L, const float* hb,
   for (int k = warp; rank + CL * k < p.B; k += NW) {
     const int b = rank + CL * k;
     const float* hr = hb + (size_t)b * p.ldh;
-    if (hc) {  // the gate's half and the other
+    if (hc && W <= 32 * 8) {  // the gate's half and the other
       float h[2][8];
       load_row<8>(hr, W, h[0]);
       load_row<8>(hr + W, W, h[1]);
       normalise<2, 8>(h, W, p.eps, z);
-    } else {
+    } else if (!hc && W <= 32 * 16) {
       float h[1][16];
       load_row<16>(hr, W, h[0]);
       normalise<1, 16>(h, W, p.eps, z);
+    } else if (hc) {
+      normalise_wide<2>(hr, W, p.eps, z);
+    } else {
+      normalise_wide<1>(hr, W, p.eps, z);
     }
     __syncwarp();
     const float* x = xrow(p, xs, xg, b);  // this block's copy: the residual
@@ -467,84 +519,122 @@ __device__ void post(const Args& p, const Layer& L, const float* hb,
   }
 }
 
+// The scores of keys [w0, w0 + MAX_WIN) of a row's window (those < nw),
+// from the key rows at kb and q: lane l sums features l + 32i in order (in
+// chunks of 32 * FCH), then the 32 lane sums are added as warp_sum adds them.
+__device__ __forceinline__ void scores(const Args& p, const float* q,
+                                       const float* kb, int w0, int nw,
+                                       float (&s)[MAX_WIN]) {
+  const int lane = threadIdx.x & 31, d = p.d;
+  float part[MAX_WIN];
+#pragma unroll
+  for (int w = 0; w < MAX_WIN; ++w) part[w] = 0.f;
+#pragma unroll 1
+  for (int c0 = 0; c0 < d; c0 += 32 * FCH) {
+    float qv[FCH];
+#pragma unroll
+    for (int i = 0; i < FCH; ++i) {
+      const int c = c0 + lane + 32 * i;
+      qv[i] = c < d ? q[c] : 0.f;
+    }
+#pragma unroll
+    for (int w = 0; w < MAX_WIN; ++w) {
+      if (w0 + w >= nw) continue;
+      const float* kr = kb + (size_t)(w0 + w) * d;
+#pragma unroll
+      for (int i = 0; i < FCH; ++i) {
+        const int c = c0 + lane + 32 * i;
+        if (c < d) part[w] = fmaf(__ldg(kr + c), qv[i], part[w]);
+      }
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < MAX_WIN; ++w)
+    if (w0 + w < nw) s[w] = warp_sum(part[w]) * p.scale;
+}
+
 // Every row's attention, one warp a row, in every block: scores of the
 // <= win unmasked keys, softmax (the masked keys' exp(NEG_INF - max) is
 // exactly 0), new cursor = first argmax, ctx = a.V; the row [q] becomes
-// [ctx; q]. Lane l holds features l + 32i; a row's keys are loaded at
-// once, then its values. The row's owner block writes column t of A.
+// [ctx; q]. q moves to the row's second half first and is read from there;
+// ctx is summed into the first. The window is taken in register chunks of
+// MAX_WIN keys: the largest score, then the sum of the exponentials in key
+// order, then the probabilities, the argmax (strict, so the first maximum
+// wins across chunks too), ctx and A; a window of one chunk computes its
+// scores once, a longer one recomputes them in each pass (the same
+// arithmetic, so the same bits). The row's owner block writes column t of A.
 __device__ void attention(const Args& p, int t, float* xs, float* xg,
                           int* prev) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, d = p.d;
   for (int b = warp; b < p.B; b += NW) {
     float* x = xrow(p, xs, xg, b);
+    float* q = x + d;
+    for (int c = lane; c < d; c += 32)
+      q[c] = b < p.rows_sh ? x[c] : *static_cast<volatile float*>(x + c);
     const int pv = prev[b];
     const int nw = min(p.win, p.N - pv);
-    float q[8], kk[MAX_WIN][8];
-    const size_t row0 = ((size_t)b * p.N + pv) * d;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c = lane + 32 * i;
-      q[i] = c >= d ? 0.f
-             : b < p.rows_sh ? x[c] : *static_cast<volatile float*>(x + c);
-#pragma unroll
-      for (int w = 0; w < MAX_WIN; ++w)
-        kk[w][i] = c < d && w < nw ? __ldg(p.kt + row0 + (size_t)w * d + c)
-                                   : 0.f;
-    }
+    const int nch = (nw + MAX_WIN - 1) / MAX_WIN;
+    const float* kb = p.kt + ((size_t)b * p.N + pv) * d;
+    const float* vb = p.v + ((size_t)b * p.N + pv) * d;
     float s[MAX_WIN];
     float m = -INFINITY;
+    for (int ch = 0; ch < nch; ++ch) {
+      scores(p, q, kb, ch * MAX_WIN, nw, s);
 #pragma unroll
-    for (int w = 0; w < MAX_WIN; ++w) {
-      if (w < nw) {
-        float part = 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          if (lane + 32 * i < d) part = fmaf(kk[w][i], q[i], part);
-        s[w] = warp_sum(part) * p.scale;
-        m = fmaxf(m, s[w]);
-      }
+      for (int w = 0; w < MAX_WIN; ++w)
+        if (ch * MAX_WIN + w < nw) m = fmaxf(m, s[w]);
     }
     float sum = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      if (nch > 1) scores(p, q, kb, ch * MAX_WIN, nw, s);
 #pragma unroll
-    for (int w = 0; w < MAX_WIN; ++w)
-      if (w < nw) {
-        s[w] = expf(s[w] - m);
-        sum += s[w];
-      }
+      for (int w = 0; w < MAX_WIN; ++w)
+        if (ch * MAX_WIN + w < nw) {
+          s[w] = expf(s[w] - m);
+          sum += s[w];
+        }
+    }
+    const bool own = b % gridDim.x == blockIdx.x;
+    float* acol = p.a + (size_t)b * p.N * p.T + t;
+    if (own)
+      for (int n = lane; n < p.N; n += 32)
+        if (n < pv || n >= pv + nw) acol[(size_t)n * p.T] = 0.f;
     float best = -1.f;
     int bi = 0;
-#pragma unroll
-    for (int w = 0; w < MAX_WIN; ++w)
-      if (w < nw) {
-        s[w] = s[w] / sum;
-        if (s[w] > best) {  // strict: the first maximum wins
-          best = s[w];
-          bi = w;
-        }
-      }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c = lane + 32 * i;
-      if (c < d) {
-        float acc = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int w0 = ch * MAX_WIN;
+      if (nch > 1) {
+        scores(p, q, kb, w0, nw, s);
 #pragma unroll
         for (int w = 0; w < MAX_WIN; ++w)
-          if (w < nw)
-            acc = fmaf(s[w], __ldg(p.v + row0 + (size_t)w * d + c), acc);
-        x[d + c] = q[i];
-        x[c] = acc;
+          if (w0 + w < nw) s[w] = expf(s[w] - m);
       }
-    }
-    if (b % gridDim.x == blockIdx.x) {
-      float* acol = p.a + (size_t)b * p.N * p.T + t;
-      for (int n = lane; n < p.N; n += 32) {
-        const int w = n - pv;
-        float v = 0.f;
+      float mine = 0.f;  // lane w's probability, for A
 #pragma unroll
-        for (int u = 0; u < MAX_WIN; ++u)
-          if (u < nw && u == w) v = s[u];
-        acol[(size_t)n * p.T] = v;
-      }
+      for (int w = 0; w < MAX_WIN; ++w)
+        if (w0 + w < nw) {
+          s[w] = s[w] / sum;
+          if (s[w] > best) {  // strict: the first maximum wins
+            best = s[w];
+            bi = w0 + w;
+          }
+          if (w == lane) mine = s[w];
+        }
+#pragma unroll 1
+      for (int c0 = 0; c0 < d; c0 += 32 * FCH)
+#pragma unroll
+        for (int i = 0; i < FCH; ++i) {
+          const int c = c0 + lane + 32 * i;
+          if (c >= d) continue;
+          float acc = ch ? x[c] : 0.f;
+#pragma unroll
+          for (int w = 0; w < MAX_WIN; ++w)
+            if (w0 + w < nw)
+              acc = fmaf(s[w], __ldg(vb + (size_t)(w0 + w) * d + c), acc);
+          x[c] = acc;
+        }
+      if (own && lane < MAX_WIN && w0 + lane < nw)
+        acol[(size_t)(pv + w0 + lane) * p.T] = mine;
     }
     __syncwarp();
     if (lane == 0) prev[b] = pv + bi;
@@ -555,7 +645,8 @@ __device__ void attention(const Args& p, int t, float* xs, float* xg,
 // rows packed at a pitch of the layer's depth, 8 bytes a copy.
 __device__ void load_slice(const Layer& L, int c0, int n, char* smem) {
   const int esz = L.wkind == WK_F32 ? 4 : 2;
-  const int row_bytes = (L.kind == 1 ? 3 * L.cout : L.cin) * esz;
+  const int row_bytes =
+      (L.kind == 1 ? 3 : 1) * (((L.kind == 1 ? L.cout : L.cin) + 3) & ~3) * esz;
   const int units = row_bytes / 8;
   for (int half = 0; half < (L.wkind == WK_SPLIT ? 2 : 1); ++half) {
     const char* src = static_cast<const char*>(half ? L.wl : L.w)
@@ -619,9 +710,13 @@ decode_kernel(const __grid_constant__ Args p,
       columns(L, c0, n);
       // the norms' parameters (HC: 4 x C; C: gamma, beta at a pitch of
       // cmo) into lnb, under the product
+      // (an odd cmo leaves C layers' rows unaligned: plain loads then)
       const int nln = L.kind == 1 ? 4 * L.cout : 2 * p.cmo;
-      for (int i = 4 * threadIdx.x; i < nln; i += 4 * NT)
-        sm90::cp_async16(sm90::smem_u32(lnb + i), L.ln + i, 16);
+      if (nln % 4 == 0 && reinterpret_cast<uintptr_t>(L.ln) % 16 == 0)
+        for (int i = 4 * threadIdx.x; i < nln; i += 4 * NT)
+          sm90::cp_async16(sm90::smem_u32(lnb + i), L.ln + i, 16);
+      else
+        for (int i = threadIdx.x; i < nln; i += NT) lnb[i] = L.ln[i];
       const Addends first =
           threadIdx.x < p.B * n
               ? addends(p, L, t, c0, n, threadIdx.x, ring) : Addends{};
@@ -711,8 +806,8 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
                             int part_off, int prev_off, int ln_off,
                             int z_off, int nv_max, int smem, int blocks,
                             void* stream) {
-  if (n_enc + n_dec > MAX_LAYERS || win < 1 || win > MAX_WIN || B < 1 ||
-      blocks < CL || blocks % CL || d % 4 || d > 256 || cmo > 512)
+  if (n_enc + n_dec > MAX_LAYERS || win < 1 || B < 1 || blocks < CL ||
+      blocks % CL || xw % 4)
     return (int)cudaErrorInvalidValue;
   Program prog;
   prog.n_enc = n_enc;
@@ -729,7 +824,7 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
     L.bias = static_cast<const float*>(q[2]);
     L.ln = static_cast<const float*>(q[3]);
     if (L.wkind < WK_F32 || L.wkind > WK_SPLIT || !L.w ||
-        (L.wkind == WK_SPLIT && !L.wl) || L.cin % 4)
+        (L.wkind == WK_SPLIT && !L.wl) || L.ldw % 4)
       return (int)cudaErrorInvalidValue;
   }
   Args p;

@@ -80,6 +80,9 @@ WARPS = 16
 WKINDS = ("f32", "bf16", "split")
 # dynamic shared memory one block may use on the H100, bytes
 SMEM_MAX = 232448
+# the kernel's copies move 16 bytes (4 float32): a weight slot's depth (a
+# tap's inputs) is padded to a multiple of this with zero weights
+PAD = 4
 
 
 class _Layer(NamedTuple):
@@ -160,11 +163,27 @@ def _packed_specs(cfg, prec: str) -> dict:
         for k in ("cw", "hcw"):
             specs[k] = (specs[k][0], bf16)
     # the kernel's copies: each slot transposed, a column's weights
-    # contiguous (the plain version and the JAX layout read the others)
+    # contiguous, each tap's depth padded (``kernel_slot``; the plain
+    # version and the JAX layout read the others)
     for k in [k for k in specs if k.startswith(("cw", "hcw"))]:
         shape, dtype = specs[k]
-        specs[k + "_t"] = ((*shape[:-2], shape[-1], shape[-2]), dtype)
+        depth = (3 * _up(C, PAD) if k.startswith("hcw")
+                 else _up(shape[-2], PAD))
+        specs[k + "_t"] = ((*shape[:-2], shape[-1], depth), dtype)
     return specs
+
+
+def kernel_slot(w: torch.Tensor, taps: int) -> torch.Tensor:
+    """The kernel's copy of packed kernels w (..., taps * K, N): transposed
+    to (..., N, taps * Kp), a column's weights contiguous, each tap's K
+    inputs followed by Kp - K zero weights (Kp = K rounded up to ``PAD``), so
+    that every tap starts on a 16-byte boundary."""
+    *lead, depth, n = w.shape
+    K = depth // taps
+    t = w.transpose(-1, -2).reshape(*lead, n, taps, K)
+    out = t.new_zeros(*lead, n, taps, _up(K, PAD))
+    out[..., :K] = t
+    return out.reshape(*lead, n, taps * _up(K, PAD))
 
 
 def pack_decode_params(cfg, params, prec: str = "highest") -> dict:
@@ -177,8 +196,9 @@ def pack_decode_params(cfg, params, prec: str = "highest") -> dict:
     "high3" replaces both by their (2, ...) bf16 hi/lo stacks; "hybrid"
     keeps them and adds the hi/lo stacks of AudioDec's slices only, ``cw2``
     and ``hcw2``; "default" replaces both by their bf16 roundings. Each of
-    those kernels also comes transposed, ``<key>_t`` (a slot's rows are its
-    output columns), the layout the CUDA kernel reads."""
+    those kernels also comes as ``<key>_t`` (``kernel_slot``: a slot's rows
+    are its output columns, each tap's depth zero-padded to ``PAD``), the
+    layout the CUDA kernel reads."""
     check_prec(prec)
     enc_prog, dec_prog = _programs(cfg)
     dev = params["audio_enc"][0]["conv"]["w"].device
@@ -213,7 +233,8 @@ def pack_decode_params(cfg, params, prec: str = "highest") -> dict:
     elif prec == "default":
         packed.update(cw=cw.to(torch.bfloat16), hcw=hcw.to(torch.bfloat16))
     for k in [k for k in packed if k.startswith(("cw", "hcw"))]:
-        packed[k + "_t"] = packed[k].transpose(-1, -2).contiguous()
+        packed[k + "_t"] = kernel_slot(packed[k], 3 if k.startswith("hcw")
+                                       else 1)
     return packed
 
 
@@ -260,7 +281,8 @@ def layer_product(x: torch.Tensor, w: torch.Tensor, kind: str,
 
 def fused_decode_plain(packed: dict, Kt: torch.Tensor, V: torch.Tensor,
                        T: int, cfg, prec: str = "highest",
-                       sum_dtype=torch.float32
+                       sum_dtype=torch.float32,
+                       cursors: torch.Tensor | None = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The decode kernel's function in PyTorch: a loop over T steps and the
     packed layers, with one ring buffer of 2*rate+1 rows per HC layer.
@@ -269,7 +291,14 @@ def fused_decode_plain(packed: dict, Kt: torch.Tensor, V: torch.Tensor,
     of the bf16 values (never a bf16 matmul, which would round its result).
     Everything else runs in ``sum_dtype`` too: float64 gives the reference
     that the kernel's float32 sums are measured against on the card. Y and
-    A come back in ``sum_dtype``."""
+    A come back in ``sum_dtype``.
+
+    ``cursors`` (B, T) integer, for checks only: the cursor after each step
+    is taken from it instead of the argmax of this run's attention row (the
+    window of step t starts at ``cursors[:, t - 1]``). Replaying another
+    run's cursors (``A.argmax(1)`` of the kernel's A) compares every step
+    from the same cursor state; the plain version's own choice at each step
+    stays in its A."""
     check_prec(prec)
     _check_packed(packed, cfg, prec, Kt.device)
     enc_prog, dec_prog = _programs(cfg)
@@ -329,7 +358,8 @@ def fused_decode_plain(packed: dict, Kt: torch.Tensor, V: torch.Tensor,
         scores = torch.einsum("bnd,bd->bn", Kt, q) * (d ** -0.5)
         disallowed = (pos < prev) | (pos >= prev + cfg.attention_win_size)
         a = torch.softmax(torch.where(disallowed, NEG_INF, scores), dim=-1)
-        prev = torch.argmax(a, dim=-1, keepdim=True)
+        prev = (torch.argmax(a, dim=-1, keepdim=True) if cursors is None
+                else cursors[:, t: t + 1].to(device=dev, dtype=torch.long))
         ctx = torch.einsum("bn,bnd->bd", a, V)
         y = torch.sigmoid(run_stack(dec_prog, torch.cat([ctx, q], dim=-1), t,
                                     n_hc_enc, True))
@@ -354,8 +384,9 @@ def layer_width(l: _Layer) -> int:
 
 
 def layer_depth(l: _Layer) -> int:
-    """k of a layer's product: an HC layer's three taps of C each."""
-    return 3 * l.cout if l.kind == "HC" else l.cin
+    """k of a layer's product as the kernel lays it out: an HC layer's
+    three taps of C each, each tap's depth padded to ``PAD``."""
+    return 3 * _up(l.cout, PAD) if l.kind == "HC" else _up(l.cin, PAD)
 
 
 def layer_wkind(prec: str, dec: bool) -> str:
@@ -412,10 +443,13 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest"
     """Where the kernel keeps what, at batch B over ``blocks`` blocks: the
     activation rows first (as many as shared memory holds), then each
     layer's weight slice, in program order, where it still fits (the rest
-    stream from L2)."""
+    stream from L2). Rows and weight slots are padded to ``PAD`` floats
+    (``layer_depth``, ``kernel_slot``), so any d, n_mels and layer width
+    run; only shared memory (here) and co-residency (``launch_decode``)
+    refuse a config."""
     enc, dec = _programs(cfg)
     layers = [(False, l) for l in enc] + [(True, l) for l in dec]
-    xw = _up(max(2 * cfg.d, cfg.n_mels), 4)
+    xw = _up(max(2 * cfg.d, cfg.n_mels), PAD)
     ldh = max(layer_width(l) for _, l in layers)
     nmax = tuple(-(-layer_width(l) // blocks) for _, l in layers)
     nv_max = max((3 if l.kind == "HC" else 1) * n
@@ -548,10 +582,6 @@ def launch_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
     if V.shape != Kt.shape or d != cfg.d:
         raise ValueError(f"fused_decode: Kt {tuple(Kt.shape)} / V "
                          f"{tuple(V.shape)} do not match d={cfg.d}")
-    if cfg.d % 4 or cfg.n_mels % 4 or cfg.d > 256 \
-            or cfg.attention_win_size > 4:
-        raise ValueError("fused_decode: the kernel takes d and n_mels "
-                         "multiples of 4, d <= 256 and a window <= 4")
     _check_packed(packed, cfg, prec, Kt.device)
     enc_prog, dec_prog = _programs(cfg)
     if blocks is None:

@@ -4,7 +4,9 @@ Marked ``cuda``; every test skips where no CUDA device is present. Run them
 on a machine with an H100:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 Tolerances: the decode kernel at the JAX fused-decode test's 2e-5 with an
-identical cursor trajectory; its reduced-precision bodies at chip_smoke.py's
+identical cursor trajectory (past its old domain limits: against the plain
+version replayed on the kernel's cursors, a cursor differing only in a
+tie below 1e-6); its reduced-precision bodies at chip_smoke.py's
 gate (max(2e-5, 2 x the plain version's float32-vs-float64 distance)). The
 Griffin-Lim kernel at 1e-5 from its plain version run in float64 (also at
 a non-power-of-two n_fft, 480 = 32 x 15): the phase normalisation of
@@ -106,6 +108,40 @@ def test_decode_kernel_matches_plain(cuda, B, prec):
     assert float((Y - Yp)[:, :upto].abs().max()) <= gate_y
     assert float((A - Ap)[..., :upto].abs().max()) <= gate_a
     assert bool(torch.isfinite(Y).all())
+
+
+# one config past each limit the kernel once had, at test_config() widths
+PAST_LIMITS = {"d18": dict(d=18), "d264": dict(d=264),
+               "n_mels10": dict(n_mels=10),
+               "win5": dict(attention_win_size=5),
+               "win9": dict(attention_win_size=9),
+               "c520": dict(n_mels=520)}
+
+
+@pytest.mark.parametrize("name", sorted(PAST_LIMITS))
+def test_decode_kernel_past_the_old_limits(cuda, name):
+    """d % 4, n_mels % 4, d > 256, a window > 4 (5, and 9: two register
+    chunks of keys) and a C layer wider than 512, in "highest": against
+    the plain version replayed on the kernel's cursors, every step within
+    2e-5, every cursor the plain version's own or a tie below 1e-6."""
+    cfg = test_config().replace(**PAST_LIMITS[name])
+    p = Text2Mel(cfg).init(torch.Generator().manual_seed(7), cuda)
+    Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, 5).to(cuda))
+    Kt, V = Kt.contiguous(), V.contiguous()
+    packed = K1.pack_decode_params(cfg, p)
+    n = K1.fused_decode.launches
+    Y, A = K1.fused_decode(packed, Kt, V, cfg.max_T, cfg)
+    torch.cuda.synchronize()
+    assert K1.fused_decode.launches == n + 1
+    Yr, Ar = K1.fused_decode_plain(packed, Kt, V, cfg.max_T, cfg,
+                                   cursors=A.argmax(1))
+    for b, t in (A.argmax(1) != Ar.argmax(1)).nonzero().tolist():
+        top = Ar[b, :, t].topk(2).values
+        assert float(top[0] - top[1]) < 1e-6, (b, t)
+    torch.testing.assert_close(Y, Yr, atol=2e-5, rtol=0)
+    torch.testing.assert_close(A, Ar, atol=2e-5, rtol=0)
+    if name == "win9":
+        assert int((A > 0).sum(1).max()) == 9
 
 
 def test_decode_kernel_spills_rows(cuda):
