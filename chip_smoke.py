@@ -10,25 +10,33 @@ line:
 2. build   - nvcc builds the kernels from dc_tts_tpu_torch/csrc/.
 3. K1      - the decode kernel against its plain PyTorch version at
              base_config width and the main path's shapes (B=20 Harvard
-             sentences, N=180, T=210, seeded random weights): max|dY|,
-             max|dA| <= 2e-5 and the same cursor trajectory. A flip whose
-             two largest in-window probabilities differ by < 1e-6 is a tie:
-             Y and A are then compared up to and including that step. With
-             the kernel's grid (blocks, grid barriers a step, µs a step) and
-             the barrier floor: the ms of the decode's grid barriers alone
-             (csrc/decode.cu barrier_kernel). Then (line K1-grid) the
-             kernel's ms over 32, 64 and all blocks, for information, and
-             (line K1-B72) bench.py's chunk, B=72, at the same gate.
+             sentences, N=180, T=210, seeded random weights), the plain
+             version replayed on the kernel's own cursors (its
+             fused_decode_plain(..., cursors=A.argmax(1))), so every one of
+             the T steps is compared from the same cursor state: max|dY|,
+             max|dA| <= 2e-5 over all T steps (compared_steps), and at every
+             step the kernel's cursor is the replayed plain version's own
+             argmax or a tie (its two largest probabilities differ by less
+             than 1e-6). The free-running plain version's first flip, if any,
+             is printed as information. With the kernel's grid (blocks, grid
+             barriers a step, µs a step) and the barrier floor: the ms of the
+             decode's grid barriers alone (csrc/decode.cu barrier_kernel).
+             Then (line K1-grid) the kernel's ms over 32, 64 and all blocks,
+             for information; (line K1-B72) bench.py's chunk, B=72, and
+             (line K1-win8) a window of 8 keys (past the 4 the kernel once
+             took), at the same gate.
 3b. K1-<prec> - K1's reduced-precision bodies (high3, hybrid, default) on
              phase K1's inputs, each against the plain version of the same
-             mode: max|dY|, max|dA| <= max(2e-5, 2 x the distance between
-             the plain version with float32 sums and with float64 sums),
-             over the steps before the first cursor flip of either pair; a
-             kernel flip whose margin is below max(1e-6, that gate for A)
-             is a tie (the split modes round x - bf16(x) to bf16, which a
-             float32 ulp can flip). CUDA-event ms, plain ms, the bound, the
-             grid, and for information each mode's distance from the
-             float32 kernel (max|dY|, first cursor flip, rows flipped).
+             mode replayed on the kernel's cursors, over all T steps:
+             max|dY|, max|dA| <= max(2e-5, 2 x the distance between the
+             plain version with float32 sums and with float64 sums, both
+             replayed on those cursors); at every step the kernel's cursor
+             is the plain version's own or a tie below max(1e-6, that gate
+             for A) (the split modes round x - bf16(x) to bf16, which a
+             float32 ulp can flip; the tied steps are counted). CUDA-event
+             ms, plain ms, the bound, the grid, the free run's first flip,
+             and for information each mode's distance from the float32
+             kernel (max|dY|, first cursor flip, rows flipped).
 4. K2      - the Griffin-Lim kernels against their plain version at the
              production geometry (n_fft 2048, hop 275, win 1102, F=840,
              B=20): n_iter=1 and n_iter=3 waveforms within 1e-5 of the
@@ -145,7 +153,9 @@ line:
              on, against numpy's float64 FFT (2e-6 float32, 5e-3 bf16). Per
              kernel: ms a launch inside a CUDA graph of 50 (the script's "in
              loop"), ms a call from the host, the plain version's graph ms,
-             the bound, and the yardsticks the port never calls: cuFFT
+             the bound (float32 also at three TF32 passes on the tensor
+             cores, bound_3xtf32_ms), and the yardsticks the port never
+             calls: cuFFT
              (torch.fft.rfft for X1, torch.fft.fft for the factored ones,
              which give all 2048 bins; for X4 also torch.fft.rfft of its
              covered frames, rfft_ms) and cuBLAS on X1's GEMM (line
@@ -2251,12 +2261,14 @@ _CT_MS = re.compile(r"^\[(\S+)/(\S+)\] (\S+) ms/call  (\S+) ms/call in-loop$",
 _CT_ABLATE = re.compile(r"^stages=(\S+)\s+(\S+) ms/call$", re.M)
 
 
-def _ct_bound(kernel, x, m, outs, bf16, covered, stages):
+def _ct_bound(kernel, x, m, outs, bf16, covered, stages, peak=None):
     """(ms, by): each input read once (the covered frames of x, the
     constants the stages read) and each output written once, against the
     operations of each stage at its own peak (X1's GEMM and stage C on the
-    bf16 tensor cores in bf16 mode, the rest at the float32 rate)."""
-    peak = PEAK_BF16 if bf16 else PEAK_FP32
+    bf16 tensor cores in bf16 mode, the rest at the float32 rate). ``peak``:
+    the rate of those two stages' operations instead (float32's three TF32
+    passes: PEAK_TF32 / 3)."""
+    peak = peak or (PEAK_BF16 if bf16 else PEAK_FP32)
     if kernel == "full_fwd":
         n_bytes = nbytes(x, m["CF"], m["SF"], *outs)
         t_ops = 2.0 * x.shape[0] * 2048 * 2 * 1025 / peak
@@ -2346,7 +2358,9 @@ def phase_ct_fwd(results):
             prec = "bf16" if bf16 else "f32"
             if F == CT_F:
                 xa = x.bfloat16() if bf16 else x
-                w = m["CS"].T if bf16 else m["CS"]
+                # the GEMM x @ [CF, SF] interleaved, (2048, npad)
+                w = torch.zeros(2048, X._NPAD, device=dev, dtype=xa.dtype)
+                w[:, 0:2 * X.NF:2], w[:, 1:2 * X.NF:2] = m["CF"], m["SF"]
                 lib["cublas_" + prec] = looped(lambda x_, m_: x_ @ w, xa,
                                                None)
                 todo = [("full_fwd", "full", F, "TAWC",
@@ -2390,6 +2404,10 @@ def phase_ct_fwd(results):
                 finite = all(bool(torch.isfinite(g).all()) for g in got)
                 b_ms, b_by = _ct_bound(kernel, x, m, got, bf16, covered,
                                        stages)
+                # float32 on the tensor cores: three TF32 passes
+                b_tc = None if bf16 else _ct_bound(
+                    kernel, x, m, got, bf16, covered, stages,
+                    PEAK_TF32 / 3)[0]
                 del got, want
                 row = dict(kernel=kernel, case=label, prec=prec, F=F,
                            covered=covered, max_abs=d, rel_plain=d / scale,
@@ -2398,7 +2416,7 @@ def phase_ct_fwd(results):
                            ms=looped(kfn, x, m),
                            ms_call=call(lambda: kfn(x, m)),
                            plain_ms=looped(pfn, x, m), bound_ms=b_ms,
-                           bound_by=b_by)
+                           bound_by=b_by, bound_3xtf32_ms=b_tc)
                 row["library_ms"] = (lib["rfft"] if kernel == "full_fwd"
                                      else lib["fft_covered"]
                                      if kernel == "ablate_fwd"
@@ -2463,7 +2481,8 @@ def phase_ct_fwd(results):
                                   if k != "ablate" else json.dumps(v)
                                   .replace(" ", "")) for k, v in sub.items()})
 
-    results["launches"].update({k: launches[k] for k in CT_KERNELS})
+    results.setdefault("launches", {}).update(
+        {k: launches[k] for k in CT_KERNELS})
     for kernel in CT_KERNELS:
         rows = [r for r in cases if r["kernel"] == kernel]
         head = next(r for r in rows if r["prec"] == "bf16" and (

@@ -73,8 +73,9 @@ namespace cg = cooperative_groups;
 #define CL 2            // blocks of a cluster; CLUSTER in ops/decode.py
 #define MAX_LAYERS 32
 #define MAX_WIN 8       // attention keys of a register chunk (any window)
+#define ROW_WIN 4       // the most keys attention_row takes
 #define FCH 8           // attention features a lane holds, a chunk of 256
-#define LAYER_INTS 10   // ints per layer in the host's program array
+#define LAYER_INTS 12   // ints per layer in the host's program array
 #define LAYER_PTRS 4    // pointers per layer
 
 #define WK_F32 0        // WKINDS in ops/decode.py, in order
@@ -98,6 +99,8 @@ struct Layer {
   int wkind, ldw;    // the slot rows' pitch in elements
   int woff;          // byte offset of the block's resident slice, or -1
   int nmax;          // most columns a block owns
+  int kp;            // a tap's depth, padded to 4 with zero weights
+  int lnv;           // 1: the norm parameters copy as aligned 16-byte chunks
 };
 
 struct Program {
@@ -243,7 +246,7 @@ __device__ void product(const Args& p, const Layer& L, int c0, int n,
   const bool hc = L.kind == 1;
   // depth of a virtual column: a tap's inputs, padded with zero weights to
   // the 16-byte copy width (the row's values there are finite: 0 x finite)
-  const int K = ((hc ? L.cout : L.cin) + 3) & ~3;
+  const int K = L.kp;
   const int taps = hc ? 3 : 1;
   const int nv = taps * n;
   const int nvg = (nv + VG - 1) / VG;
@@ -434,7 +437,8 @@ __device__ __forceinline__ void normalise(const float (&a)[N][PL], int W,
 // 256): the same sums in the same order, the values read from h (N rows of
 // W at a pitch of W) once for each pass.
 template <int N>
-__device__ void normalise_wide(const float* h, int W, float eps, float* z) {
+__device__ __noinline__ void normalise_wide(const float* h, int W, float eps,
+                                           float* z) {
   const int lane = threadIdx.x & 31;
   float s[N], mean[N], q[N];
 #pragma unroll
@@ -519,9 +523,93 @@ __device__ void post(const Args& p, const Layer& L, const float* hb,
   }
 }
 
-// The scores of keys [w0, w0 + MAX_WIN) of a row's window (those < nw),
-// from the key rows at kb and q: lane l sums features l + 32i in order (in
-// chunks of 32 * FCH), then the 32 lane sums are added as warp_sum adds them.
+// Every row's attention, one warp a row, in every block: scores of the
+// <= win unmasked keys, softmax (the masked keys' exp(NEG_INF - max) is
+// exactly 0), new cursor = first argmax, ctx = a.V; the row [q] becomes
+// [ctx; q]. The row's owner block writes column t of A. A config whose
+// window is at most ROW_WIN keys with d <= 256 (32 * FCH) takes
+// attention_row, straight-line code with all the keys' features loaded at
+// once; any other takes attention_walk, which computes the same sums in the
+// same order.
+
+// One row: lane l holds features l + 32i; the keys are loaded at once, then
+// the values. Returns the cursor's offset in the window.
+__device__ __forceinline__ int attention_row(const Args& p, int t, float* x,
+                                             int b, int pv, int nw) {
+  const int lane = threadIdx.x & 31, d = p.d;
+  float q[FCH], kk[ROW_WIN][FCH];
+  const size_t row0 = ((size_t)b * p.N + pv) * d;
+#pragma unroll
+  for (int i = 0; i < FCH; ++i) {
+    const int c = lane + 32 * i;
+    q[i] = c >= d ? 0.f
+           : b < p.rows_sh ? x[c] : *static_cast<volatile float*>(x + c);
+#pragma unroll
+    for (int w = 0; w < ROW_WIN; ++w)
+      kk[w][i] = c < d && w < nw ? __ldg(p.kt + row0 + (size_t)w * d + c)
+                                 : 0.f;
+  }
+  float s[ROW_WIN];
+  float m = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < ROW_WIN; ++w) {
+    if (w < nw) {
+      float part = 0.f;
+#pragma unroll
+      for (int i = 0; i < FCH; ++i)
+        if (lane + 32 * i < d) part = fmaf(kk[w][i], q[i], part);
+      s[w] = warp_sum(part) * p.scale;
+      m = fmaxf(m, s[w]);
+    }
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int w = 0; w < ROW_WIN; ++w)
+    if (w < nw) {
+      s[w] = expf(s[w] - m);
+      sum += s[w];
+    }
+  float best = -1.f;
+  int bi = 0;
+#pragma unroll
+  for (int w = 0; w < ROW_WIN; ++w)
+    if (w < nw) {
+      s[w] = s[w] / sum;
+      if (s[w] > best) {  // strict: the first maximum wins
+        best = s[w];
+        bi = w;
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < FCH; ++i) {
+    const int c = lane + 32 * i;
+    if (c < d) {
+      float acc = 0.f;
+#pragma unroll
+      for (int w = 0; w < ROW_WIN; ++w)
+        if (w < nw)
+          acc = fmaf(s[w], __ldg(p.v + row0 + (size_t)w * d + c), acc);
+      x[d + c] = q[i];
+      x[c] = acc;
+    }
+  }
+  if (b % gridDim.x == blockIdx.x) {
+    float* acol = p.a + (size_t)b * p.N * p.T + t;
+    for (int n = lane; n < p.N; n += 32) {
+      const int w = n - pv;
+      float v = 0.f;
+#pragma unroll
+      for (int u = 0; u < ROW_WIN; ++u)
+        if (u < nw && u == w) v = s[u];
+      acol[(size_t)n * p.T] = v;
+    }
+  }
+  return bi;
+}
+
+// The scores of keys [w0, w0 + MAX_WIN) of a window (those < nw), from the
+// key rows at kb and q: lane l sums features l + 32i in order (in chunks of
+// 32 * FCH), the 32 lane sums added as warp_sum adds them.
 __device__ __forceinline__ void scores(const Args& p, const float* q,
                                        const float* kb, int w0, int nw,
                                        float (&s)[MAX_WIN]) {
@@ -529,23 +617,16 @@ __device__ __forceinline__ void scores(const Args& p, const float* q,
   float part[MAX_WIN];
 #pragma unroll
   for (int w = 0; w < MAX_WIN; ++w) part[w] = 0.f;
-#pragma unroll 1
   for (int c0 = 0; c0 < d; c0 += 32 * FCH) {
-    float qv[FCH];
 #pragma unroll
     for (int i = 0; i < FCH; ++i) {
       const int c = c0 + lane + 32 * i;
-      qv[i] = c < d ? q[c] : 0.f;
-    }
+      if (c >= d) continue;
+      const float qv = q[c];
 #pragma unroll
-    for (int w = 0; w < MAX_WIN; ++w) {
-      if (w0 + w >= nw) continue;
-      const float* kr = kb + (size_t)(w0 + w) * d;
-#pragma unroll
-      for (int i = 0; i < FCH; ++i) {
-        const int c = c0 + lane + 32 * i;
-        if (c < d) part[w] = fmaf(__ldg(kr + c), qv[i], part[w]);
-      }
+      for (int w = 0; w < MAX_WIN; ++w)
+        if (w0 + w < nw)
+          part[w] = fmaf(__ldg(kb + (size_t)(w0 + w) * d + c), qv, part[w]);
     }
   }
 #pragma unroll
@@ -553,91 +634,90 @@ __device__ __forceinline__ void scores(const Args& p, const float* q,
     if (w0 + w < nw) s[w] = warp_sum(part[w]) * p.scale;
 }
 
-// Every row's attention, one warp a row, in every block: scores of the
-// <= win unmasked keys, softmax (the masked keys' exp(NEG_INF - max) is
-// exactly 0), new cursor = first argmax, ctx = a.V; the row [q] becomes
-// [ctx; q]. q moves to the row's second half first and is read from there;
-// ctx is summed into the first. The window is taken in register chunks of
-// MAX_WIN keys: the largest score, then the sum of the exponentials in key
-// order, then the probabilities, the argmax (strict, so the first maximum
-// wins across chunks too), ctx and A; a window of one chunk computes its
-// scores once, a longer one recomputes them in each pass (the same
-// arithmetic, so the same bits). The row's owner block writes column t of A.
+// Any window and any d: q moves to the row's second half first and is read
+// from there, ctx is summed into the first; the window is walked in
+// register chunks of MAX_WIN keys three times (the largest score; the sum
+// of the exponentials in key order; the probabilities, the argmax (strict,
+// so the first maximum wins across chunks too), ctx and A), the scores
+// recomputed in each (the same arithmetic, so the same bits).
+__device__ __forceinline__ int attention_walk(const Args& p, int t, float* x,
+                                              int b, int pv, int nw) {
+  const int lane = threadIdx.x & 31, d = p.d;
+  float* q = x + d;
+  for (int c = lane; c < d; c += 32)
+    q[c] = b < p.rows_sh ? x[c] : *static_cast<volatile float*>(x + c);
+  const float* kb = p.kt + ((size_t)b * p.N + pv) * d;
+  const float* vb = p.v + ((size_t)b * p.N + pv) * d;
+  float s[MAX_WIN];
+  float m = -INFINITY;
+  for (int w0 = 0; w0 < nw; w0 += MAX_WIN) {
+    scores(p, q, kb, w0, nw, s);
+#pragma unroll
+    for (int w = 0; w < MAX_WIN; ++w)
+      if (w0 + w < nw) m = fmaxf(m, s[w]);
+  }
+  float sum = 0.f;
+  for (int w0 = 0; w0 < nw; w0 += MAX_WIN) {
+    scores(p, q, kb, w0, nw, s);
+#pragma unroll
+    for (int w = 0; w < MAX_WIN; ++w)
+      if (w0 + w < nw) sum += expf(s[w] - m);
+  }
+  const bool own = b % gridDim.x == blockIdx.x;
+  float* acol = p.a + (size_t)b * p.N * p.T + t;
+  if (own)
+    for (int n = lane; n < p.N; n += 32)
+      if (n < pv || n >= pv + nw) acol[(size_t)n * p.T] = 0.f;
+  float best = -1.f;
+  int bi = 0;
+  for (int w0 = 0; w0 < nw; w0 += MAX_WIN) {
+    scores(p, q, kb, w0, nw, s);
+    float mine = 0.f;  // lane w's probability, for A
+#pragma unroll
+    for (int w = 0; w < MAX_WIN; ++w)
+      if (w0 + w < nw) {
+        s[w] = expf(s[w] - m) / sum;
+        if (s[w] > best) {
+          best = s[w];
+          bi = w0 + w;
+        }
+        if (w == lane) mine = s[w];
+      }
+    for (int c = lane; c < d; c += 32) {
+      float acc = w0 ? x[c] : 0.f;
+#pragma unroll
+      for (int w = 0; w < MAX_WIN; ++w)
+        if (w0 + w < nw)
+          acc = fmaf(s[w], __ldg(vb + (size_t)(w0 + w) * d + c), acc);
+      x[c] = acc;
+    }
+    if (own && lane < MAX_WIN && w0 + lane < nw)
+      acol[(size_t)(pv + w0 + lane) * p.T] = mine;
+  }
+  return bi;
+}
+
 __device__ void attention(const Args& p, int t, float* xs, float* xg,
                           int* prev) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, d = p.d;
-  for (int b = warp; b < p.B; b += NW) {
-    float* x = xrow(p, xs, xg, b);
-    float* q = x + d;
-    for (int c = lane; c < d; c += 32)
-      q[c] = b < p.rows_sh ? x[c] : *static_cast<volatile float*>(x + c);
-    const int pv = prev[b];
-    const int nw = min(p.win, p.N - pv);
-    const int nch = (nw + MAX_WIN - 1) / MAX_WIN;
-    const float* kb = p.kt + ((size_t)b * p.N + pv) * d;
-    const float* vb = p.v + ((size_t)b * p.N + pv) * d;
-    float s[MAX_WIN];
-    float m = -INFINITY;
-    for (int ch = 0; ch < nch; ++ch) {
-      scores(p, q, kb, ch * MAX_WIN, nw, s);
-#pragma unroll
-      for (int w = 0; w < MAX_WIN; ++w)
-        if (ch * MAX_WIN + w < nw) m = fmaxf(m, s[w]);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // one branch a launch, outside the rows' loop: the walk stays off the
+  // common case's path (a call there, or a branch a row, cost ~2 %)
+  if (p.win <= ROW_WIN && p.d <= 32 * FCH) {
+    for (int b = warp; b < p.B; b += NW) {
+      float* x = xrow(p, xs, xg, b);
+      const int pv = prev[b];
+      const int bi = attention_row(p, t, x, b, pv, min(p.win, p.N - pv));
+      __syncwarp();
+      if (lane == 0) prev[b] = pv + bi;
     }
-    float sum = 0.f;
-    for (int ch = 0; ch < nch; ++ch) {
-      if (nch > 1) scores(p, q, kb, ch * MAX_WIN, nw, s);
-#pragma unroll
-      for (int w = 0; w < MAX_WIN; ++w)
-        if (ch * MAX_WIN + w < nw) {
-          s[w] = expf(s[w] - m);
-          sum += s[w];
-        }
+  } else {
+    for (int b = warp; b < p.B; b += NW) {
+      float* x = xrow(p, xs, xg, b);
+      const int pv = prev[b];
+      const int bi = attention_walk(p, t, x, b, pv, min(p.win, p.N - pv));
+      __syncwarp();
+      if (lane == 0) prev[b] = pv + bi;
     }
-    const bool own = b % gridDim.x == blockIdx.x;
-    float* acol = p.a + (size_t)b * p.N * p.T + t;
-    if (own)
-      for (int n = lane; n < p.N; n += 32)
-        if (n < pv || n >= pv + nw) acol[(size_t)n * p.T] = 0.f;
-    float best = -1.f;
-    int bi = 0;
-    for (int ch = 0; ch < nch; ++ch) {
-      const int w0 = ch * MAX_WIN;
-      if (nch > 1) {
-        scores(p, q, kb, w0, nw, s);
-#pragma unroll
-        for (int w = 0; w < MAX_WIN; ++w)
-          if (w0 + w < nw) s[w] = expf(s[w] - m);
-      }
-      float mine = 0.f;  // lane w's probability, for A
-#pragma unroll
-      for (int w = 0; w < MAX_WIN; ++w)
-        if (w0 + w < nw) {
-          s[w] = s[w] / sum;
-          if (s[w] > best) {  // strict: the first maximum wins
-            best = s[w];
-            bi = w0 + w;
-          }
-          if (w == lane) mine = s[w];
-        }
-#pragma unroll 1
-      for (int c0 = 0; c0 < d; c0 += 32 * FCH)
-#pragma unroll
-        for (int i = 0; i < FCH; ++i) {
-          const int c = c0 + lane + 32 * i;
-          if (c >= d) continue;
-          float acc = ch ? x[c] : 0.f;
-#pragma unroll
-          for (int w = 0; w < MAX_WIN; ++w)
-            if (w0 + w < nw)
-              acc = fmaf(s[w], __ldg(vb + (size_t)(w0 + w) * d + c), acc);
-          x[c] = acc;
-        }
-      if (own && lane < MAX_WIN && w0 + lane < nw)
-        acol[(size_t)(pv + w0 + lane) * p.T] = mine;
-    }
-    __syncwarp();
-    if (lane == 0) prev[b] = pv + bi;
   }
 }
 
@@ -645,8 +725,7 @@ __device__ void attention(const Args& p, int t, float* xs, float* xg,
 // rows packed at a pitch of the layer's depth, 8 bytes a copy.
 __device__ void load_slice(const Layer& L, int c0, int n, char* smem) {
   const int esz = L.wkind == WK_F32 ? 4 : 2;
-  const int row_bytes =
-      (L.kind == 1 ? 3 : 1) * (((L.kind == 1 ? L.cout : L.cin) + 3) & ~3) * esz;
+  const int row_bytes = (L.kind == 1 ? 3 : 1) * L.kp * esz;
   const int units = row_bytes / 8;
   for (int half = 0; half < (L.wkind == WK_SPLIT ? 2 : 1); ++half) {
     const char* src = static_cast<const char*>(half ? L.wl : L.w)
@@ -712,7 +791,7 @@ decode_kernel(const __grid_constant__ Args p,
       // cmo) into lnb, under the product
       // (an odd cmo leaves C layers' rows unaligned: plain loads then)
       const int nln = L.kind == 1 ? 4 * L.cout : 2 * p.cmo;
-      if (nln % 4 == 0 && reinterpret_cast<uintptr_t>(L.ln) % 16 == 0)
+      if (L.lnv)
         for (int i = 4 * threadIdx.x; i < nln; i += 4 * NT)
           sm90::cp_async16(sm90::smem_u32(lnb + i), L.ln + i, 16);
       else
@@ -793,7 +872,7 @@ extern "C" int dctts_decode_coresident(int smem, int* blocks, int* sms) {
 }
 
 // layer_ints: LAYER_INTS a layer (kind, cin, cout, rate, act, ring_off,
-// wkind, ldw, woff, nmax); layer_ptrs: LAYER_PTRS a layer (w, wl, bias, ln);
+// wkind, ldw, woff, nmax, kp, lnv); layer_ptrs: LAYER_PTRS a layer (w, wl, bias, ln);
 // AudioEnc's layers first. The plan's sizes and offsets come from
 // ops/decode.py:decode_plan.
 extern "C" int dctts_decode(const float* kt, const float* v, float* y,
@@ -819,12 +898,13 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
     Layer& L = prog.l[i];
     L.kind = f[0]; L.cin = f[1]; L.cout = f[2]; L.rate = f[3]; L.act = f[4];
     L.ring_off = f[5]; L.wkind = f[6]; L.ldw = f[7]; L.woff = f[8];
-    L.nmax = f[9];
+    L.nmax = f[9]; L.kp = f[10]; L.lnv = f[11];
     L.w = q[0]; L.wl = q[1];
     L.bias = static_cast<const float*>(q[2]);
     L.ln = static_cast<const float*>(q[3]);
     if (L.wkind < WK_F32 || L.wkind > WK_SPLIT || !L.w ||
-        (L.wkind == WK_SPLIT && !L.wl) || L.ldw % 4)
+        (L.wkind == WK_SPLIT && !L.wl) || L.ldw % 4 || L.kp % 4 ||
+        (L.lnv && reinterpret_cast<uintptr_t>(L.ln) % 16))
       return (int)cudaErrorInvalidValue;
   }
   Args p;

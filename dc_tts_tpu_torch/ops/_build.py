@@ -46,8 +46,8 @@ _SIGNATURES = {
     "dctts_gl_k3b": [P] * 8 + [I] * 12 + [P],
     "dctts_hc_fwd": [P] * 10 + [I] * 7 + [Fl, I, P],
     "dctts_hc_bwd": [P] * 17 + [I] * 7 + [Fl, I, I, I, P],
-    "dctts_ct_full": [P] * 4 + [I] * 2 + [P],
-    "dctts_ct_fact": [P] * 9 + [I] * 5 + [P],
+    "dctts_ct_full": [P] * 5 + [I] * 2 + [P],
+    "dctts_ct_fact": [P] * 8 + [I] * 5 + [P],
 }
 
 

@@ -29,26 +29,37 @@ only, and the product is float32 whatever the right one holds):
     script asserts) and X4 covers frames 0..511 only; the port leaves rows
     512..839 zero (the TPU leaves them unwritten).
 
-What bounds them on the H100 (3.35 TB/s; 67 TFLOP/s float32, 989 dense
-bf16, each stage at its own peak): X1 its 2*F*2048*2050 operations (7.05
-GFLOP at F = 840: 105 us float32, 7.1 us bf16); the factored form 2.24
-MFLOP a frame, 3.7x fewer, so in bf16 the bytes bound it (x read once, all
-2048 bins of Xr and Xi written once, twice rfft's 1025: 6.2 us at F = 840
-against rfft's 4.1) and in float32 the operations (28 us). The design
+What bounds them on the H100 (3.35 TB/s; 67 TFLOP/s float32, 495 TF32, 989
+dense bf16, each stage at its own peak): X1 its 2*F*2048*2050 operations
+(7.05 GFLOP at F = 840: 7.1 us bf16; float32 105 us on the FMA units, 42.7
+us as three TF32 passes); the factored form 2.24 MFLOP a frame, 3.7x fewer,
+so in bf16 the bytes bound it (x read once, all 2048 bins of Xr and Xi
+written once, twice rfft's 1025: 6.2 us at F = 840 against rfft's 4.1) and
+in float32 the operations (28 us on the FMA units). The design
 (csrc/ct_fwd.cu):
-  * X1 is one GEMM, N = 2*1025 with CF and SF interleaved as columns (one
-    thread's accumulator pair is one bin): bf16, K3's tensor-core block
-    (csrc/bf16_gemm.cuh) whose loader rounds x to bf16, each 32-deep
-    k-tile promoted to a float32 register sum (a 2048-deep tensor-core sum
-    truncates); float32, a SIMT SGEMM (FFMA, no TF32) whose sums are
-    promoted every 64 products (an in-order 2048-deep sum read 1.73e-6 of
-    max|FFT| from float64 on the card, near the 2e-6 gate).
-  * X2-X4 are one kernel: a block keeps C128, S128 in shared memory and
-    walks over groups of 4 frames (8 KB each); stages T, A, W in float32
-    FFMA, one thread per (frame, n2), into shared z; stage C is the
-    group's 64 x 128 x 128 products (bf16 ``mma.sync`` or FFMA); each (k1,
-    f) row of 128 k2 is written contiguous. The stage bits are template
-    arguments: a stage that is off costs no instruction.
+  * X1 is one GEMM, N = 2*1025 with CF and SF interleaved as rows of B^T
+    (one lane's accumulator pair is one bin), 128 x 128 tiles: 7 x 17 = 119
+    tiles at F = 840, one wave on 132 SMs. bf16: x rounded to bf16 once a
+    call (not once per N tile), then the pipelined bf16 wgmma core of
+    csrc/bf16_wgmma.cuh (K3's and K4's). float32: the three-term TF32 split
+    on wgmma (K4's float32 core): x split hi/lo in registers, CS's TF32
+    parts split once by ``consts``; the tensor cores' sums promoted to
+    float32 register sums every 64 products (an in-order 2048-deep sum read
+    1.73e-6 of max|FFT| from float64 on the card, near the 2e-6 gate).
+  * X2-X4 are one kernel, warp-specialised and persistent: one thread
+    copies each frame (8 KB; without T its 16 rows of 512 bytes) into a
+    shared ring by bulk copies whose bytes arrive on mbarriers; consumer
+    warpgroups run stages T, A, W in float32 FFMA (one thread an n2 of
+    each frame) for groups of 4 frames, 64 (frame, k1) rows, into shared
+    z, and stage C on the tensor cores: z (bf16-rounded, or split into TF32
+    hi/lo) times the resident constant ``fact_consts``, columns k2 = 0..64
+    of C128 and S128, as four products P = zr C', Q = zi S', R = zr S', U =
+    zi C' (N = 72), then Xr[k] = P - Q, Xr[128 - k] = P + Q, Xi[k] = R + U,
+    Xi[128 - k] = U - R (C128[:, 128 - k] = C128[:, k], S128[:, 128 - k] =
+    -S128[:, k]). The full [[C, S], [-S, C]] would need 512 KB of float32
+    TF32 parts (128 KB bf16); the half-width one 144 KB (36 KB), and 44 %
+    fewer products. The stage bits are template arguments: a stage that is
+    off costs no instruction.
 
 Every wrapper launches its kernel for CUDA tensors (and raises on what it
 cannot take) and runs its plain version for CPU tensors only; each counts
@@ -67,14 +78,18 @@ NF = N_FFT // 2 + 1
 STAGE_SETS = ("", "T", "TA", "TAW", "TAWC", "C", "AC", "A")
 _BITS = {"T": 1, "A": 2, "W": 4, "C": 8}
 _NPAD = -(-2 * NF // 128) * 128     # X1's interleaved columns, padded
+# stage C's constant: columns k2 = 0..64 of C128, S128 (the rest by
+# symmetry), padded to KC_N rows of the kernel's B tiles
+KC_COLS, KC_N = N2 // 2 + 1, 72
 
 
 def consts(bf16: bool, device="cpu") -> dict:
     """The script's ``consts``: computed in float64, then C16, S16, C128,
     S128, CF, SF rounded to bfloat16 (bf16) or float32; Tc, Ts (16, 1, 128)
-    float32 in both modes. Also "CS", X1's kernel layout of CF and SF: bf16
-    (npad, 2048) with rows 2k, 2k+1 = CF[:, k], SF[:, k], or float32 (2048,
-    npad) with those columns, npad = 2176, zero-padded."""
+    float32 in both modes. Also "CS", X1's kernel layout of CF and SF:
+    (npad, 2048) with rows 2k, 2k+1 = CF[:, k], SF[:, k], npad = 2176,
+    zero-padded; bf16, or in float32 mode (2, npad, 2048), the TF32 hi and
+    lo parts of those rows (``tf32_split``)."""
     n1, n2 = np.arange(N1), np.arange(N2)
     ang16 = 2 * np.pi * np.outer(n1, n1) / N1
     angT = 2 * np.pi * np.outer(n1, n2) / N_FFT       # (k1, n2)
@@ -87,10 +102,84 @@ def consts(bf16: bool, device="cpu") -> dict:
     dt = torch.bfloat16 if bf16 else torch.float32
     m = {k: torch.from_numpy(v).to(torch.float32 if k in ("Tc", "Ts") else dt)
          for k, v in out.items()}
-    cs = torch.zeros(N_FFT, _NPAD, dtype=dt)
-    cs[:, 0: 2 * NF: 2], cs[:, 1: 2 * NF: 2] = m["CF"], m["SF"]
-    m["CS"] = cs.T.contiguous() if bf16 else cs
+    cs = torch.zeros(_NPAD, N_FFT, dtype=dt)
+    cs[0: 2 * NF: 2], cs[1: 2 * NF: 2] = m["CF"].T, m["SF"].T
+    m["CS"] = cs if bf16 else torch.stack(tf32_split(cs))
+    m["KC"] = fact_consts(m["C128"], m["S128"])
     return {k: v.to(device) for k, v in m.items()}
+
+
+def _swizzle128(tiles: np.ndarray) -> np.ndarray:
+    """(..., rows, per) -> the same values in the 128-byte swizzle of a
+    K-major shared-memory tile: row n's 16-byte chunk c at chunk c ^ (n %
+    8)."""
+    *lead, rows, per = tiles.shape
+    epc = per // 8                                   # elements a chunk
+    out = np.empty_like(tiles)
+    n = np.arange(rows)[:, None]
+    c = np.arange(8)[None, :]
+    src = tiles.reshape(*lead, rows, 8, epc)
+    dst = out.reshape(*lead, rows, 8, epc)
+    dst[..., n, c ^ (n % 8), :] = src[..., n, c, :]
+    return out
+
+
+def fact_consts(c128: torch.Tensor, s128: torch.Tensor) -> torch.Tensor:
+    """The factored kernel's stage-C constant (csrc/ct_fwd.cu FactC), the
+    bytes of its shared-memory image: for M in C128, S128 (bf16; float32:
+    the TF32 hi and lo parts of each), the K-major B tiles of rows k2 =
+    0..KC_N-1 (columns 0..64 of M, zero past 64) over k = n2, in k-tiles of
+    128 bytes (64 bf16 or 32 floats) in the 128-byte swizzle. Flat, in the
+    matrices' type."""
+    bf16 = c128.dtype == torch.bfloat16
+    parts = [c128, s128] if bf16 else [*tf32_split(c128), *tf32_split(s128)]
+    per = 64 if bf16 else 32
+    out = []
+    for m in parts:
+        bits = m.view(torch.int16 if bf16 else torch.int32).numpy()
+        b = np.zeros((N2, KC_N), bits.dtype)         # (n2, k2)
+        b[:, :KC_COLS] = bits[:, :KC_COLS]
+        tiles = b.T.reshape(KC_N, N2 // per, per).transpose(1, 0, 2)
+        out.append(_swizzle128(np.ascontiguousarray(tiles)).reshape(-1))
+    flat = torch.from_numpy(np.concatenate(out))
+    return flat.view(torch.bfloat16 if bf16 else torch.float32)
+
+
+def stage_c_matrix(kc: torch.Tensor) -> torch.Tensor:
+    """The (256, 256) float64 matrix [[C128, S128], [-S128, C128]] that the
+    factored kernel's stage C applies to [zr | zi] (float32: the sum of the
+    TF32 parts), rebuilt from its constant ``fact_consts``: columns 0..64
+    read back, columns 65..127 by the symmetry its butterfly uses,
+    C128[:, 128 - k] = C128[:, k] and S128[:, 128 - k] = -S128[:, k]."""
+    bf16 = kc.dtype == torch.bfloat16
+    per = 64 if bf16 else 32
+    v = kc.view(torch.int16 if bf16 else torch.int32).cpu().numpy()
+    tiles = v.reshape(-1, N2 // per, KC_N, per)
+    back = _swizzle128(tiles)                 # the swizzle is an involution
+    mats = back.transpose(0, 2, 1, 3).reshape(-1, KC_N, N2)
+    vals = (torch.from_numpy(np.ascontiguousarray(mats))
+            .view(kc.dtype).double())          # (parts, k2, n2)
+    if not bf16:
+        vals = torch.stack([vals[0] + vals[1], vals[2] + vals[3]])
+    c, s = (vals[i, :KC_COLS].T for i in (0, 1))  # (n2, k2 <= 64)
+    k = torch.arange(KC_COLS, N2)
+    C = torch.cat([c, c[:, N2 - k]], dim=1)
+    S = torch.cat([s, -s[:, N2 - k]], dim=1)
+    return torch.cat([torch.cat([C, S], 1), torch.cat([-S, C], 1)], 0)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest, ties away from zero, the low 13 mantissa bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo): hi = tf32(x), lo = tf32(x - hi), the three-term split's
+    parts (x - hi is exact in float32)."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
 
 
 def unscramble(y: torch.Tensor) -> torch.Tensor:
@@ -199,12 +288,16 @@ def full_fwd(x, m, bf16: bool):
     if bf16:
         _check("full_fwd CS", m["CS"], (_NPAD, N_FFT), torch.bfloat16, dev)
     else:
-        _check("full_fwd CS", m["CS"], (N_FFT, _NPAD), torch.float32, dev)
+        _check("full_fwd CS", m["CS"], (2, _NPAD, N_FFT), torch.float32, dev)
     xr = torch.empty(F, NF, device=dev)
     xi = torch.empty_like(xr)
+    # bf16: x rounded once a call, into this scratch
+    xb = torch.empty(F if bf16 else 1, N_FFT, dtype=torch.bfloat16,
+                     device=dev)
     code = load_library().dctts_ct_full(
-        x.data_ptr(), m["CS"].data_ptr(), xr.data_ptr(), xi.data_ptr(), F,
-        int(bf16), torch.cuda.current_stream(dev).cuda_stream)
+        x.data_ptr(), m["CS"].data_ptr(), xr.data_ptr(), xi.data_ptr(),
+        xb.data_ptr(), F, int(bf16),
+        torch.cuda.current_stream(dev).cuda_stream)
     check(code, "forward rDFT kernel X1")
     full_fwd.launches += 1
     return xr, xi
@@ -216,10 +309,11 @@ def _fact(fn: str, x, m, bf16: bool, tf: int, stages: str):
     from ._build import check, load_library
     F, dev = _frames(fn, x), x.device
     dt = torch.bfloat16 if bf16 else torch.float32
+    kc_len = (2 if bf16 else 4) * KC_N * N2
     for k, shape, t in (("C16", (N1, N1), dt), ("S16", (N1, N1), dt),
                         ("Tc", (N1, 1, N2), torch.float32),
                         ("Ts", (N1, 1, N2), torch.float32),
-                        ("C128", (N2, N2), dt), ("S128", (N2, N2), dt)):
+                        ("KC", (kc_len,), dt)):
         _check(f"{fn} {k}", m[k], shape, t, dev)
     Fc = F // tf * tf
     xr = torch.empty(N1, F, N2, device=dev)
@@ -231,7 +325,7 @@ def _fact(fn: str, x, m, bf16: bool, tf: int, stages: str):
     bits = sum(_BITS[s] for s in set(stages))
     code = load_library().dctts_ct_fact(
         x.data_ptr(), *(m[k].data_ptr() for k in ("C16", "S16", "Tc", "Ts",
-                                                  "C128", "S128")),
+                                                  "KC")),
         xr.data_ptr(), xi.data_ptr(), F, Fc, tf, bits, int(bf16),
         torch.cuda.current_stream(dev).cuda_stream)
     check(code, f"factored DFT kernel ({fn})")

@@ -455,8 +455,8 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest"
     nv_max = max((3 if l.kind == "HC" else 1) * n
                  for (_, l), n in zip(layers, nmax))
     cmo = max(l.cout for _, l in layers if l.kind == "C")
-    ln_bytes = 4 * max(4 * cfg.d, 2 * cmo)
-    z_bytes = 4 * ldh * min(WARPS, len(cluster_rows(B, 0)))
+    ln_bytes = _up(4 * max(4 * cfg.d, 2 * cmo), 16)
+    z_bytes = _up(4 * ldh * min(WARPS, len(cluster_rows(B, 0))), 16)
     fixed = _up(4 * B * nv_max, 16) + _up(4 * B, 16) + ln_bytes + z_bytes
     if fixed > SMEM_MAX:
         raise ValueError(f"fused_decode: B={B} over {blocks} blocks needs "
@@ -495,9 +495,11 @@ def ring_rows(cfg) -> int:
 
 
 def _layer_arrays(packed: dict, cfg, prec: str, plan: DecodePlan):
-    """The layer program as the kernel reads it: 10 ints a layer (kind,
-    cin, cout, rate, act, ring_off, wkind, ldw, woff, nmax) and 4 pointers
-    (w, wl, bias, ln), AudioEnc's layers first."""
+    """The layer program as the kernel reads it: 12 ints a layer (kind,
+    cin, cout, rate, act, ring_off, wkind, ldw, woff, nmax, kp: a tap's
+    depth padded to ``PAD``, lnv: 1 if the norm parameters lie on 16-byte
+    boundaries at a multiple of 4 floats) and 4 pointers (w, wl, bias, ln),
+    AudioEnc's layers first."""
     enc, dec = _programs(cfg)
     n_c_enc, n_hc_enc = _enc_counts(cfg)
     ints, ptrs, ring_off = [], [], 0
@@ -510,12 +512,13 @@ def _layer_arrays(packed: dict, cfg, prec: str, plan: DecodePlan):
             key, idx = key[:-2] + "2_t", idx - (n_hc_enc if hc else n_c_enc)
         w = packed[key]
         hi, lo = (w[0, idx], w[1, idx]) if kind == "split" else (w[idx], None)
+        ln = packed["hcln" if hc else "cln"][l.idx]
+        lnv = ln.numel() % 4 == 0 and ln.data_ptr() % 16 == 0
         ints += [int(hc), l.cin, l.cout, l.rate, _ACT[l.act], ring_off,
                  WKINDS.index(kind), w.shape[-1], plan.woff[li],
-                 plan.nmax[li]]
+                 plan.nmax[li], layer_depth(l) // (3 if hc else 1), int(lnv)]
         ptrs += [hi.data_ptr(), lo.data_ptr() if lo is not None else None,
-                 packed["hcb" if hc else "cb"][l.idx].data_ptr(),
-                 packed["hcln" if hc else "cln"][l.idx].data_ptr()]
+                 packed["hcb" if hc else "cb"][l.idx].data_ptr(), ln.data_ptr()]
         ring_off += 2 * l.rate + 1 if hc else 0
     return ((ctypes.c_int * len(ints))(*ints),
             (ctypes.c_void_p * len(ptrs))(*ptrs))

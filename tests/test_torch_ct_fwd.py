@@ -78,16 +78,73 @@ def _bits(a):
 @pytest.mark.parametrize("bf16", [False, True])
 def test_consts_bit_equal(script, bf16):
     got, want = X.consts(bf16), script.consts(bf16)
-    assert set(got) == set(want) | {"CS"}
+    assert set(got) == set(want) | {"CS", "KC"}
     for k in want:
         assert tuple(got[k].shape) == np.asarray(want[k]).shape, k
         np.testing.assert_array_equal(_bits(got[k]), _bits(want[k]),
                                       err_msg=k)
-    # X1's kernel layout: CF, SF interleaved (columns, or rows in bf16)
-    cs = got["CS"].T if bf16 else got["CS"]
-    assert torch.equal(cs[:, 0:2050:2], got["CF"])
-    assert torch.equal(cs[:, 1:2050:2], got["SF"])
-    assert float(cs[:, 2050:].float().abs().sum()) == 0.0
+    # X1's kernel layout: CF, SF interleaved as rows; in float32 their TF32
+    # hi and lo parts (cvt.rna: to nearest, ties away from zero, 10 bits)
+    if bf16:
+        cs = got["CS"].T
+        assert torch.equal(cs[:, 0:2050:2], got["CF"])
+        assert torch.equal(cs[:, 1:2050:2], got["SF"])
+        assert float(cs[:, 2050:].float().abs().sum()) == 0.0
+        return
+    hi, lo = (got["CS"][i].T.double().numpy() for i in (0, 1))
+    ref = np.zeros((2048, 2176))
+    ref[:, 0:2050:2] = got["CF"].numpy()
+    ref[:, 1:2050:2] = got["SF"].numpy()
+    np.testing.assert_array_equal(hi, _tf32(ref))
+    np.testing.assert_array_equal(lo, _tf32(ref - hi))
+    assert float(np.abs(hi + lo - ref).max()) <= 2.0 ** -21
+
+
+def _tf32(v):
+    """float64 values of float32 numbers -> their TF32 rounding, to nearest
+    with ties away from zero, from the decimal definition (not bit tricks):
+    a multiple of 2^(e - 10) for |v| in [2^e, 2^(e+1))."""
+    v = np.asarray(v, np.float64).astype(np.float32).astype(np.float64)
+    out = np.zeros_like(v)
+    nz = v != 0
+    e = np.floor(np.log2(np.abs(v[nz])))
+    q = 2.0 ** (e - 10)
+    out[nz] = np.sign(v[nz]) * np.floor(np.abs(v[nz]) / q + 0.5) * q
+    return out
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_stage_c_constant_matches_script(script, bf16):
+    """The factored kernel's stage-C constant ("KC"): its columns k2 = 0..64
+    are the script's C128 and S128 bit for bit (bf16) or their exact TF32
+    hi/lo split (float32); the packed [[C128, S128], [-S128, C128]] that its
+    butterfly applies (columns 65..127 by C128[:, 128-k] = C128[:, k],
+    S128[:, 128-k] = -S128[:, k]) equals the script's: exactly on those
+    columns, elsewhere within 1e-13 (the script's float64 cos and sin at
+    their zeros, e.g. cos(pi/2) = 6e-17, are the only asymmetry), plus the
+    split's 2^-22 in float32."""
+    got = X.consts(bf16)
+    want = {k: torch.from_numpy(np.asarray(script.consts(bf16)[k]).astype(
+        np.float32)).to(got["C128"].dtype) for k in ("C128", "S128")}
+    M = X.stage_c_matrix(got["KC"])
+    C, S = want["C128"].double(), want["S128"].double()
+    ref = torch.cat([torch.cat([C, S], 1), torch.cat([-S, C], 1)], 0)
+    cols = list(range(X.KC_COLS)) + list(range(128, 128 + X.KC_COLS))
+    if bf16:
+        assert torch.equal(M[:, cols], ref[:, cols])
+    else:
+        # the image holds exactly tf32_split(C128), tf32_split(S128)
+        assert torch.equal(got["KC"], X.fact_consts(want["C128"],
+                                                    want["S128"]))
+        h, lo = X.tf32_split(want["C128"])
+        assert torch.equal(_tf32_t(want["C128"]), h)
+        assert torch.equal(_tf32_t(want["C128"] - h), lo)
+        assert float((M[:, cols] - ref[:, cols]).abs().max()) <= 2.0 ** -22
+    assert float((M - ref).abs().max()) <= 1e-13 + (0 if bf16 else 2 ** -22)
+
+
+def _tf32_t(t):
+    return torch.from_numpy(_tf32(t.double().numpy())).float()
 
 
 def test_unscramble(script, monkeypatch):

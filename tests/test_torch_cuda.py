@@ -111,7 +111,7 @@ def test_decode_kernel_matches_plain(cuda, B, prec):
 
 
 # one config past each limit the kernel once had, at test_config() widths
-PAST_LIMITS = {"d18": dict(d=18), "d264": dict(d=264),
+PAST_LIMITS = {"d17": dict(d=17), "d18": dict(d=18), "d264": dict(d=264),
                "n_mels10": dict(n_mels=10),
                "win5": dict(attention_win_size=5),
                "win9": dict(attention_win_size=9),
@@ -120,7 +120,8 @@ PAST_LIMITS = {"d18": dict(d=18), "d264": dict(d=264),
 
 @pytest.mark.parametrize("name", sorted(PAST_LIMITS))
 def test_decode_kernel_past_the_old_limits(cuda, name):
-    """d % 4, n_mels % 4, d > 256, a window > 4 (5, and 9: two register
+    """d % 4 (17: its C layers' norm parameters also off 16-byte
+    boundaries), n_mels % 4, d > 256, a window > 4 (5, and 9: two register
     chunks of keys) and a C layer wider than 512, in "highest": against
     the plain version replayed on the kernel's cursors, every step within
     2e-5, every cursor the plain version's own or a tie below 1e-6."""
@@ -529,6 +530,31 @@ def test_ct_ablate_matches_plain(cuda, F, tf, bf16):
         tol = 1e-3 if bf16 and "C" in stages else 1e-5
         assert _ct_dist(got, want, scale) <= tol, stages
         assert max(float(g[:, Fc:].abs().max()) for g in got) == 0.0
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_ct_ragged_frames_match_plain(cuda, bf16):
+    """F that no tile or frame group divides: X1 and X3 at F = 203 (X1's
+    128-row tiles, the factored kernel's groups of 4 and 8 frames), X2 at
+    F = 210 in tiles of 105, X4 at F = 203 in tiles of 67 (201 frames
+    covered) at every stage set; the gates of the tests above."""
+    from dc_tts_tpu_torch.ops import ct_fwd as X
+    x, m, scale = _ct_case(203, bf16, cuda)
+    fact_tol = 1e-3 if bf16 else 1e-5
+    assert _ct_dist(X.full_fwd(x, m, bf16), X.full_fwd_plain(x, m, bf16),
+                    scale) <= 1e-5
+    assert _ct_dist(X.fact_fwd(x, m, bf16), X.fact_fwd_plain(x, m, bf16),
+                    scale) <= fact_tol
+    for stages in X.STAGE_SETS:
+        got = X.ablate_fwd(x, m, bf16, stages, 67)
+        want = X.ablate_fwd_plain(x, m, bf16, stages, 67)
+        tol = fact_tol if "C" in stages else 1e-5
+        assert _ct_dist(got, want, scale) <= tol, stages
+        assert max(float(g[:, 201:].abs().max()) for g in got) == 0.0
+    x, m, scale = _ct_case(210, bf16, cuda)
+    assert _ct_dist(X.fact_fwd_tiled(x, m, bf16, 105),
+                    X.fact_fwd_tiled_plain(x, m, bf16, 105), scale) \
+        <= fact_tol
 
 
 def test_ct_bad_input_raises(cuda):

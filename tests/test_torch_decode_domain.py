@@ -8,7 +8,8 @@ its attention walks the window in register chunks of keys and the features
 in chunks of 256, and its layer norms take rows wider than a lane's
 registers in a second loop. Only shared memory and co-residency refuse a
 config. Here, at ``test_config()`` widths past each limit the kernel once
-had (d % 4, n_mels % 4, d > 256, a window > 4, a C layer wider than 512):
+had (d % 4, n_mels % 4, d > 256, a window > 4, a C layer wider than 512;
+d = 17 also puts C layers' norm parameters off 16-byte boundaries):
 the host-side plan and packing, and the plain version against JAX's
 interpret-mode kernel at 2e-5 (tests/test_torch_text2mel.py's tolerance)
 with identical cursors. Also the plain version's forced cursor trajectory,
@@ -31,7 +32,8 @@ from dc_tts_tpu_torch.params import from_jax_params
 torch.set_num_threads(1)
 
 # one config past each old limit of the kernel
-PAST = {"d18": dict(d=18), "d264": dict(d=264), "n_mels10": dict(n_mels=10),
+PAST = {"d17": dict(d=17), "d18": dict(d=18), "d264": dict(d=264),
+        "n_mels10": dict(n_mels=10),
         "win5": dict(attention_win_size=5), "win9": dict(attention_win_size=9),
         "c520": dict(n_mels=520)}
 
@@ -68,14 +70,24 @@ def test_plan_takes_configs_past_the_old_limits(name):
         for B in (1, 20, 72):
             plan = K1.decode_plan(cfg, B, 132, prec)
             assert plan.smem <= K1.SMEM_MAX
+            # every region on a 16-byte boundary (its copies move 16 bytes)
+            assert all(o % 16 == 0 for o in (plan.part_off, plan.prev_off,
+                                             plan.ln_off, plan.z_off,
+                                             *plan.woff) if o >= 0)
             assert plan.xw % K1.PAD == 0
             assert plan.xw >= max(2 * cfg.d, cfg.n_mels)
             assert all(K1.layer_depth(l) % K1.PAD == 0
                        and K1.layer_depth(l) <= (3 if l.kind == "HC" else 1)
                        * plan.xw for l in layers)
-        ints, _ = K1._layer_arrays(packed, cfg, prec, plan)
-        ldw = np.asarray(ints[:]).reshape(-1, 10)[:, 7]
-        assert (ldw % K1.PAD == 0).all()
+        ints, ptrs = K1._layer_arrays(packed, cfg, prec, plan)
+        ints = np.asarray(ints[:]).reshape(-1, 12)
+        ldw, kp, lnv = ints[:, 7], ints[:, 10], ints[:, 11]
+        assert (ldw % K1.PAD == 0).all() and (kp % K1.PAD == 0).all()
+        # 16-byte copies of the norm parameters only where they are aligned
+        lns = [ptrs[4 * i + 3] for i in range(len(layers))]
+        assert all(v == (a % 16 == 0 and (4 * c.cout if c.kind == "HC"
+                                          else 2 * widest_c) % 4 == 0)
+                   for v, a, c in zip(lnv, lns, layers))
 
 
 @pytest.mark.parametrize("name", sorted(PAST))

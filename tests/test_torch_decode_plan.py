@@ -138,21 +138,26 @@ def test_transposed_packing_round_trips(packed_test, prec):
 def test_layer_program_by_prec(packed_test, prec):
     """The program the wrapper hands the kernel: each layer's operand kind
     (hybrid: float32 in AudioEnc, the split in AudioDec), its slot's pitch,
-    its ring rows in order, and pointers into the transposed copies."""
+    a tap's padded depth, its ring rows in order, and pointers into the
+    transposed copies."""
     cfg, packed = packed_test
     p = packed[prec]
     plan = K1.decode_plan(cfg, 5, 7, prec)
     ints, ptrs = K1._layer_arrays(p, cfg, prec, plan)
-    ints = np.asarray(ints[:]).reshape(-1, 10)
+    ints = np.asarray(ints[:]).reshape(-1, 12)
     ptrs = [ptrs[i:i + 4] for i in range(0, len(ptrs), 4)]
     ring_off = 0
     for li, (is_dec, l) in enumerate(_layers(cfg)):
-        kind, cin, cout, rate, act, roff, wk, ldw, woff, nmax = ints[li]
+        kind, cin, cout, rate, act, roff, wk, ldw, woff, nmax, kp, lnv = \
+            ints[li]
         hc = l.kind == "HC"
         assert (kind, cin, cout, rate) == (int(hc), l.cin, l.cout, l.rate)
         assert K1.WKINDS[wk] == K1.layer_wkind(prec, is_dec)
-        assert ldw == (3 * cfg.d if hc else p["cw_t"].shape[-1])
+        assert ldw == (3 * K1._up(cfg.d, K1.PAD) if hc
+                       else p["cw_t"].shape[-1])
         assert (woff, nmax) == (plan.woff[li], plan.nmax[li])
+        # a tap's padded depth; the norm parameters on 16-byte boundaries
+        assert kp == K1.layer_depth(l) // (3 if hc else 1) and lnv == 1
         assert roff == ring_off
         ring_off += 2 * l.rate + 1 if hc else 0
         key = "hcw_t" if hc else "cw_t"
