@@ -1,5 +1,6 @@
 // The pipelined bf16 GEMM core on the Hopper tensor cores, shared by K4's
-// bf16 body (csrc/hc_vjp.cu) and K3 (csrc/gl.cu): one block computes a
+// bf16 body (csrc/hc_vjp.cu), K3 (csrc/gl.cu) and X1's bf16 body
+// (csrc/ct_fwd.cu X1Op): one block computes a
 // 128 x 128 tile of out = A @ B with bf16 operands and float32 sums, or with
 // three parts A_hi@B_hi + A_hi@B_lo + A_lo@B_hi (a bf16 hi/lo split of
 // float32 operands).

@@ -341,32 +341,40 @@ struct FactC {
 // groups of GF frames (with C, 4: 64 (frame, k1) rows; else 1),
 // warp-specialised: one producer thread (the last warpgroup) copies each
 // frame into a ring of RING shared-memory stages (one bulk copy, or 16 rows
-// of 512 bytes without T); NCW consumer warpgroups run stages T, A, W
-// (float32 FFMA, one thread an n2 of the warpgroup's frames side by side;
-// with two, warpgroup w takes the group's frames 2w, 2w + 1) and, with C,
-// stage C on the tensor cores for the group's 64 rows (with two
-// warpgroups, 0 forms Xr's products and 1 Xi's), staged in shared memory
-// and written out as whole 512-byte rows.
+// of 512 bytes without T), each consumer warpgroup owning RING / NCW
+// stages; the NCW consumer warpgroups run stages T, A, W (float32 FFMA,
+// one thread an n2 of the warpgroup's frames side by side) and, with C
+// (two warpgroups, w taking the group's frames 2w, 2w + 1), stage C on the
+// tensor cores for the group's 64 rows, warpgroup 0 forming Xr's products
+// and 1 Xi's, staged in shared memory and written out as whole 512-byte
+// rows.
 template <bool BF16, int ST>
 struct Fact {
   static constexpr bool C = ST & ST_C;
   static constexpr int GF = C ? 4 : 1;
-  // consumer warpgroups: two with C in bf16 (stage A's FFMA spread over
-  // both); one in float32 (with two, its launch failed on the card: a cause
-  // not found; PERF.md), forming Xr's and Xi's products in turn
-  static constexpr int NCW = C && BF16 ? 2 : 1;
+  // consumer warpgroups: two with C (stage A's FFMA spread over both, one
+  // forming Xr's products, the other Xi's), else one
+  static constexpr int NCW = C ? 2 : 1;
   static constexpr int THREADS = (NCW + 1) * 128;
   static constexpr int RING = C ? (BF16 ? 8 : 2) : 8;
   // z (bf16 or float32 zr | zi), then the outputs Xr | Xi staged there
+  // (bulk copies of the staged rows to device memory, tried in bf16, were
+  // slower than the threads' 16-byte stores; PERF.md)
   static constexpr int ZBYTES = C ? 2 * 64 * CT_N2 * 4 : 0;
   static constexpr size_t CONST_OFF = 0;
   static constexpr size_t Z_OFF = C ? FactC<BF16>::BYTES : 0;
   static constexpr size_t RING_OFF = Z_OFF + ZBYTES;
-  static constexpr size_t BAR_OFF = RING_OFF + (size_t)RING * NFFT * 4;
+  // C16, S16 as float32 in shared memory, where there is room (not in
+  // float32 with C: its constants fill it; there they are read through L1)
+  static constexpr bool SMALL = !(C && !BF16);
+  static constexpr size_t SMALL_OFF = RING_OFF + (size_t)RING * NFFT * 4;
+  static constexpr size_t BAR_OFF =
+      SMALL_OFF + (SMALL ? 2 * CT_N1 * CT_N1 * 4 : 0);
   static constexpr size_t SMEM = 1024 + BAR_OFF + (2 * RING + 1) * 8;
 };
 
-// 16 constants of row k1 of a (16, 16) matrix in the mode's type
+// 16 constants of row k1 of a (16, 16) matrix in the mode's type, read
+// through L1
 template <bool BF16>
 __device__ __forceinline__ void row16(const void* m, int k1, float (&o)[16]) {
   if constexpr (BF16) {
@@ -464,6 +472,8 @@ ct_fact(const float* __restrict__ x, const void* c16, const void* s16,
   typedef Fact<BF16, ST> K;
   constexpr bool T = ST & ST_T, A = ST & ST_A, W = ST & ST_W, C = K::C;
   constexpr int RING = K::RING, GF = K::GF, NCW = K::NCW;
+  constexpr int FPW = GF / NCW;    // frames a warpgroup takes of a group
+  constexpr int RPW = RING / NCW;  // ring stages a warpgroup owns
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem =
       smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
@@ -495,45 +505,60 @@ ct_fact(const float* __restrict__ x, const void* c16, const void* s16,
         bulk_copy(sm90::smem_u32(smem + K::CONST_OFF + o),
                   static_cast<const uint8_t*>(kc) + o, KC_TILE, cbar);
     }
-    int n = 0;  // frames issued, in the consumers' order
-    for (int q = blockIdx.x; q < nq; q += gridDim.x)
-      for (int j = 0; j < GF; ++j, ++n) {
-        const int s = n % RING, f = q * GF + j;
-        if (n >= RING) sm90::mbar_wait(&empty[s], ((n / RING) - 1) & 1);
-        const uint32_t dst = sm90::smem_u32(ring + (size_t)s * NFFT);
-        if (f >= Fc) {
-          sm90::mbar_arrive(&full[s]);
-        } else if (T) {
-          mbar_expect_tx(&full[s], NFFT * 4);
-          bulk_copy(dst, x + (size_t)f * NFFT, NFFT * 4, &full[s]);
-        } else {
-          // without T the tile's (tf, 2048) memory read as (16, tf, 128):
-          // row n1*tf + fl of 128
-          const int t = f / tf, fl = f - t * tf;
-          const float* src = x + (size_t)t * tf * NFFT + (size_t)fl * CT_N2;
-          mbar_expect_tx(&full[s], NFFT * 4);
-          for (int n1 = 0; n1 < CT_N1; ++n1)
-            bulk_copy(dst + n1 * CT_N2 * 4, src + (size_t)n1 * tf * CT_N2,
-                      CT_N2 * 4, &full[s]);
+    // each consumer warpgroup has its own RPW stages and takes its frames
+    // in order, so no wait on a stage is ever two phases ahead of it
+    for (int q = blockIdx.x, it = 0; q < nq; q += gridDim.x, ++it)
+      for (int jj = 0; jj < FPW; ++jj)
+        for (int w = 0; w < NCW; ++w) {
+          const int k = it * FPW + jj, s = w * RPW + k % RPW;
+          const int f = q * GF + w * FPW + jj;
+          if (k >= RPW) sm90::mbar_wait(&empty[s], ((k / RPW) - 1) & 1);
+          const uint32_t dst = sm90::smem_u32(ring + (size_t)s * NFFT);
+          if (f >= Fc) {
+            sm90::mbar_arrive(&full[s]);
+          } else if (T) {
+            mbar_expect_tx(&full[s], NFFT * 4);
+            bulk_copy(dst, x + (size_t)f * NFFT, NFFT * 4, &full[s]);
+          } else {
+            // without T the tile's (tf, 2048) memory read as (16, tf, 128):
+            // row n1*tf + fl of 128
+            const int t = f / tf, fl = f - t * tf;
+            const float* src =
+                x + (size_t)t * tf * NFFT + (size_t)fl * CT_N2;
+            mbar_expect_tx(&full[s], NFFT * 4);
+            for (int n1 = 0; n1 < CT_N1; ++n1)
+              bulk_copy(dst + n1 * CT_N2 * 4, src + (size_t)n1 * tf * CT_N2,
+                        CT_N2 * 4, &full[s]);
+          }
         }
-      }
     return;
   }
 
   // ---------------- consumer warpgroup wgi: stages T, A, W of its frames
   if constexpr (NCW == 2) sm90::regs_inc<232>();
   const int n2 = tid & 127, warp = (tid >> 5) & 3, lane = tid & 31;
+  float* small = reinterpret_cast<float*>(smem + K::SMALL_OFF);
+  if constexpr (A && K::SMALL) {
+    // C16, S16 widened to float32 once a block: read as 16-byte broadcasts
+    for (int i = tid; i < 2 * CT_N1 * CT_N1; i += NCW * 128) {
+      const void* m = i < CT_N1 * CT_N1 ? c16 : s16;
+      const int e = i % (CT_N1 * CT_N1);
+      small[i] = BF16 ? __bfloat162float(static_cast<const bf16*>(m)[e])
+                      : static_cast<const float*>(m)[e];
+    }
+    wg_sync_n(1, NCW * 128);
+  }
   uint32_t* zr = reinterpret_cast<uint32_t*>(smem + K::Z_OFF);
   uint32_t* zi = zr + (BF16 ? 64 * CT_N2 / 2 : 64 * CT_N2);
-  constexpr int FPW = GF / NCW;  // frames a warpgroup takes of a group
   for (int q = blockIdx.x, it = 0; q < nq; q += gridDim.x, ++it) {
     // its frames j = FPW * wgi + jj, side by side: each constant it loads
     // serves them all
     float xv[FPW][CT_N1];
 #pragma unroll
     for (int jj = 0; jj < FPW; ++jj) {
-      const int j = FPW * wgi + jj, n = it * GF + j, s = n % RING;
-      sm90::mbar_wait(&full[s], (n / RING) & 1);
+      const int j = FPW * wgi + jj, k = it * FPW + jj;
+      const int s = wgi * RPW + k % RPW;
+      sm90::mbar_wait(&full[s], (k / RPW) & 1);
 #pragma unroll
       for (int n1 = 0; n1 < CT_N1; ++n1)
         xv[jj][n1] = q * GF + j < Fc
@@ -546,8 +571,21 @@ ct_fact(const float* __restrict__ x, const void* c16, const void* s16,
     for (int k1 = 0; k1 < CT_N1; ++k1) {
       float cr[CT_N1], ci[CT_N1];
       if constexpr (A) {
-        row16<BF16>(c16, k1, cr);
-        row16<BF16>(s16, k1, ci);
+        if constexpr (K::SMALL) {
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const float4 c = reinterpret_cast<const float4*>(small)[4 * k1 + h];
+            const float4 v = reinterpret_cast<const float4*>(
+                small + CT_N1 * CT_N1)[4 * k1 + h];
+            cr[4 * h] = c.x; cr[4 * h + 1] = c.y; cr[4 * h + 2] = c.z;
+            cr[4 * h + 3] = c.w;
+            ci[4 * h] = v.x; ci[4 * h + 1] = v.y; ci[4 * h + 2] = v.z;
+            ci[4 * h + 3] = v.w;
+          }
+        } else {
+          row16<BF16>(c16, k1, cr);
+          row16<BF16>(s16, k1, ci);
+        }
       }
       // the twiddles of (k1, n2), read through L1 for each group: held
       // across groups they would crowd stage C's accumulators
@@ -594,71 +632,55 @@ ct_fact(const float* __restrict__ x, const void* c16, const void* s16,
       }
     }
     if constexpr (C) {
-      // Stage C: Xr's products P = zr @ C', Q = zi @ S' and Xi's R = zr @
-      // S', U = zi @ C' over k2 = 0..64 (C' = C128[:, :72], S' likewise,
-      // zero past 64); the butterfly of C128[:, 128-k] = C128[:, k],
-      // S128[:, 128-k] = -S128[:, k] gives Xr[k] = P - Q, Xr[128-k] = P + Q,
-      // Xi[k] = R + U, Xi[128-k] = U - R. With two consumer warpgroups
-      // warpgroup 0 forms Xr, 1 Xi; with one it forms both.
-      wg_sync_n(1, NCW * 128);  // the group's z is complete
+      // Stage C: Xr's products P = zr @ C', Q = zi @ S' (warpgroup 0) and
+      // Xi's R = zr @ S', U = zi @ C' (warpgroup 1, in its P and Q) over k2
+      // = 0..64 (C' = C128[:, :72], S' likewise, zero past 64); the
+      // butterfly of C128[:, 128-k] = C128[:, k], S128[:, 128-k] =
+      // -S128[:, k] gives Xr[k] = P - Q, Xr[128-k] = P + Q, Xi[k] = R + U,
+      // Xi[128-k] = U - R.
+      wg_sync_n(1, 256);  // the group's z is complete
       if (it == 0) sm90::mbar_wait(cbar, 0);
       const uint32_t kcs = sm90::smem_u32(smem + K::CONST_OFF);
       constexpr uint32_t SOFF = FactC<BF16>::PARTS / 2 * FactC<BF16>::KT *
                                 KC_TILE;  // S' after C'
-      float P[NCW == 1 ? 2 : 1][36], Q[NCW == 1 ? 2 : 1][36];
+      float P[36], Q[36];
 #pragma unroll
-      for (int u = 0; u < (NCW == 1 ? 2 : 1); ++u) {
-        const int part = NCW == 1 ? u : wgi;  // 0: Xr, 1: Xi
-#pragma unroll
-        for (int i = 0; i < 36; ++i) P[u][i] = Q[u][i] = 0.f;
-        stage_c<BF16>(zr, zi, part ? kcs + SOFF : kcs,
-                      part ? kcs : kcs + SOFF, P[u], Q[u]);
-      }
-      wg_sync_n(1, NCW * 128);  // z read: the outputs are staged there
-      // part 0 (Xr) staged in z's first half, part 1 (Xi) in the second:
-      // row r of 128 at r*128, zword's order
+      for (int i = 0; i < 36; ++i) P[i] = Q[i] = 0.f;
+      stage_c<BF16>(zr, zi, wgi ? kcs + SOFF : kcs, wgi ? kcs : kcs + SOFF,
+                    P, Q);
+      wg_sync_n(1, 256);  // both warpgroups done with z: stage outputs there
+      // warpgroup 0 stages Xr's 64 rows in z's first half, 1 Xi's in the
+      // second: row r of 128 at r*128, zword's order
+      float* stg = reinterpret_cast<float*>(zr) + wgi * 64 * CT_N2;
       const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-      for (int u = 0; u < (NCW == 1 ? 2 : 1); ++u) {
-        const int part = NCW == 1 ? u : wgi;
-        float* stg = reinterpret_cast<float*>(zr) + part * 64 * CT_N2;
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        float* row = stg + r * CT_N2;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = warp * 16 + g + 8 * h;
-          float* row = stg + r * CT_N2;
+        for (int i = 0; i < 9; ++i)
 #pragma unroll
-          for (int i = 0; i < 9; ++i)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int c = 8 * i + 2 * t4 + e, v = 4 * i + 2 * h + e;
-              const float a = P[u][v], b = Q[u][v];
-              const float lo = part ? a + b : a - b;
-              const float hi = part ? b - a : a + b;
-              if (c <= 64) row[zword(r, c)] = lo;
-              if (c >= 1 && c <= 63) row[zword(r, CT_N2 - c)] = hi;
-            }
-        }
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * i + 2 * t4 + e, v = 4 * i + 2 * h + e;
+            const float lo = wgi ? P[v] + Q[v] : P[v] - Q[v];
+            const float hi = wgi ? Q[v] - P[v] : P[v] + Q[v];
+            if (c <= 64) row[zword(r, c)] = lo;
+            if (c >= 1 && c <= 63) row[zword(r, CT_N2 - c)] = hi;
+          }
       }
       wg_sync_n(2 + wgi, 128);
-      // each warp writes 16 rows of each part it staged, a row's 512 bytes
-      // by the 32 lanes
-#pragma unroll
-      for (int u = 0; u < (NCW == 1 ? 2 : 1); ++u) {
-        const int part = NCW == 1 ? u : wgi;
-        const float* stg = reinterpret_cast<const float*>(zr) +
-                           part * 64 * CT_N2;
-        float* out = part ? yi : yr;
+      // each warp writes 16 rows, a row's 512 bytes by the 32 lanes
+      float* out = wgi ? yi : yr;
 #pragma unroll 4
-        for (int i = 0; i < 16; ++i) {
-          const int r = warp * 16 + i, f = q * GF + r / CT_N1;
-          if (f >= Fc) continue;
-          const float4 v = *reinterpret_cast<const float4*>(
-              stg + r * CT_N2 + zword(r, 4 * lane));
-          *reinterpret_cast<float4*>(
-              out + ((size_t)(r % CT_N1) * F + f) * CT_N2 + 4 * lane) = v;
-        }
+      for (int i = 0; i < 16; ++i) {
+        const int r = warp * 16 + i, f = q * GF + r / CT_N1;
+        if (f >= Fc) continue;
+        const float4 v = *reinterpret_cast<const float4*>(
+            stg + r * CT_N2 + zword(r, 4 * lane));
+        *reinterpret_cast<float4*>(
+            out + ((size_t)(r % CT_N1) * F + f) * CT_N2 + 4 * lane) = v;
       }
-      wg_sync_n(1, NCW * 128);  // the staged outputs read: the next z
+      wg_sync_n(1, 256);  // the staged outputs read: the next group's z
     }
   }
 }

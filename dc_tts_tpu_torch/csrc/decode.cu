@@ -872,8 +872,8 @@ extern "C" int dctts_decode_coresident(int smem, int* blocks, int* sms) {
 }
 
 // layer_ints: LAYER_INTS a layer (kind, cin, cout, rate, act, ring_off,
-// wkind, ldw, woff, nmax, kp, lnv); layer_ptrs: LAYER_PTRS a layer (w, wl, bias, ln);
-// AudioEnc's layers first. The plan's sizes and offsets come from
+// wkind, ldw, woff, nmax, kp, lnv); layer_ptrs: LAYER_PTRS a layer (w, wl,
+// bias, ln); AudioEnc's layers first. The plan's sizes and offsets come from
 // ops/decode.py:decode_plan.
 extern "C" int dctts_decode(const float* kt, const float* v, float* y,
                             float* a, float* hbuf, float* ring, float* spill,

@@ -4,8 +4,9 @@
 // descriptors for K-major and MN-major tiles in the 128-byte swizzle,
 // wgmma m64n128k8 .f32.tf32.tf32 with A in registers and wgmma
 // m64n128k16 .f32.bf16.bf16 with both operands in shared memory. Used by
-// K4's float32 core (csrc/hc_vjp.cu tc_gemm) and by the bf16 core of
-// csrc/bf16_wgmma.cuh (K4's bf16 body, K3 in csrc/gl.cu); nothing here
+// K4's float32 core (csrc/hc_vjp.cu tc_gemm), by the bf16 core of
+// csrc/bf16_wgmma.cuh (K4's bf16 body, K3 in csrc/gl.cu, X1) and by
+// csrc/ct_fwd.cu (X1's float32 body, the factored kernel); nothing here
 // depends on the kernel that uses it.
 #pragma once
 

@@ -145,29 +145,6 @@ def fact_consts(c128: torch.Tensor, s128: torch.Tensor) -> torch.Tensor:
     return flat.view(torch.bfloat16 if bf16 else torch.float32)
 
 
-def stage_c_matrix(kc: torch.Tensor) -> torch.Tensor:
-    """The (256, 256) float64 matrix [[C128, S128], [-S128, C128]] that the
-    factored kernel's stage C applies to [zr | zi] (float32: the sum of the
-    TF32 parts), rebuilt from its constant ``fact_consts``: columns 0..64
-    read back, columns 65..127 by the symmetry its butterfly uses,
-    C128[:, 128 - k] = C128[:, k] and S128[:, 128 - k] = -S128[:, k]."""
-    bf16 = kc.dtype == torch.bfloat16
-    per = 64 if bf16 else 32
-    v = kc.view(torch.int16 if bf16 else torch.int32).cpu().numpy()
-    tiles = v.reshape(-1, N2 // per, KC_N, per)
-    back = _swizzle128(tiles)                 # the swizzle is an involution
-    mats = back.transpose(0, 2, 1, 3).reshape(-1, KC_N, N2)
-    vals = (torch.from_numpy(np.ascontiguousarray(mats))
-            .view(kc.dtype).double())          # (parts, k2, n2)
-    if not bf16:
-        vals = torch.stack([vals[0] + vals[1], vals[2] + vals[3]])
-    c, s = (vals[i, :KC_COLS].T for i in (0, 1))  # (n2, k2 <= 64)
-    k = torch.arange(KC_COLS, N2)
-    C = torch.cat([c, c[:, N2 - k]], dim=1)
-    S = torch.cat([s, -s[:, N2 - k]], dim=1)
-    return torch.cat([torch.cat([C, S], 1), torch.cat([-S, C], 1)], 0)
-
-
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
     """float32 x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
     nearest, ties away from zero, the low 13 mantissa bits cleared."""

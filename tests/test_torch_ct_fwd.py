@@ -126,7 +126,7 @@ def test_stage_c_constant_matches_script(script, bf16):
     got = X.consts(bf16)
     want = {k: torch.from_numpy(np.asarray(script.consts(bf16)[k]).astype(
         np.float32)).to(got["C128"].dtype) for k in ("C128", "S128")}
-    M = X.stage_c_matrix(got["KC"])
+    M = _stage_c_matrix(got["KC"])
     C, S = want["C128"].double(), want["S128"].double()
     ref = torch.cat([torch.cat([C, S], 1), torch.cat([-S, C], 1)], 0)
     cols = list(range(X.KC_COLS)) + list(range(128, 128 + X.KC_COLS))
@@ -141,6 +141,29 @@ def test_stage_c_constant_matches_script(script, bf16):
         assert torch.equal(_tf32_t(want["C128"] - h), lo)
         assert float((M[:, cols] - ref[:, cols]).abs().max()) <= 2.0 ** -22
     assert float((M - ref).abs().max()) <= 1e-13 + (0 if bf16 else 2 ** -22)
+
+
+def _stage_c_matrix(kc: torch.Tensor) -> torch.Tensor:
+    """The (256, 256) float64 matrix [[C128, S128], [-S128, C128]] that the
+    factored kernel's stage C applies to [zr | zi] (float32: the sum of the
+    TF32 parts), rebuilt from its constant ``fact_consts``: columns 0..64
+    read back, columns 65..127 by the symmetry its butterfly uses,
+    C128[:, 128 - k] = C128[:, k] and S128[:, 128 - k] = -S128[:, k]."""
+    bf16 = kc.dtype == torch.bfloat16
+    per = 64 if bf16 else 32
+    v = kc.view(torch.int16 if bf16 else torch.int32).cpu().numpy()
+    tiles = v.reshape(-1, X.N2 // per, X.KC_N, per)
+    back = X._swizzle128(tiles)  # the swizzle is an involution
+    mats = back.transpose(0, 2, 1, 3).reshape(-1, X.KC_N, X.N2)
+    vals = (torch.from_numpy(np.ascontiguousarray(mats))
+            .view(kc.dtype).double())  # (parts, k2, n2)
+    if not bf16:
+        vals = torch.stack([vals[0] + vals[1], vals[2] + vals[3]])
+    c, s = (vals[i, :X.KC_COLS].T for i in (0, 1))  # (n2, k2 <= 64)
+    k = torch.arange(X.KC_COLS, X.N2)
+    C = torch.cat([c, c[:, X.N2 - k]], dim=1)
+    S = torch.cat([s, -s[:, X.N2 - k]], dim=1)
+    return torch.cat([torch.cat([C, S], 1), torch.cat([-S, C], 1)], 0)
 
 
 def _tf32_t(t):
