@@ -495,8 +495,7 @@ ct_fact(const float* __restrict__ x, const void* c16, const void* s16,
 
   if (wgi == NCW) {
     // ---------------- producer: one thread issues every copy; with C its
-    // warpgroup hands its registers to the consumers' products (a wgmma
-    // accumulator spilled to local memory is a failed launch)
+    // warpgroup hands its registers to the consumers' products
     if constexpr (NCW == 2) sm90::regs_dec<40>();
     if (tid != NCW * 128) return;
     if constexpr (C) {
