@@ -535,7 +535,7 @@ def test_ct_ablate_matches_plain(cuda, F, tf, bf16):
 @pytest.mark.parametrize("bf16", [False, True])
 def test_ct_ragged_frames_match_plain(cuda, bf16):
     """F that no tile or frame group divides: X1 and X3 at F = 203 (X1's
-    128-row tiles, the factored kernel's groups of 4 and 8 frames), X2 at
+    128-row tiles, the factored kernel's groups of 4 frames), X2 at
     F = 210 in tiles of 105, X4 at F = 203 in tiles of 67 (201 frames
     covered) at every stage set; the gates of the tests above."""
     from dc_tts_tpu_torch.ops import ct_fwd as X
