@@ -25,8 +25,11 @@
 // and the features in chunks of 256; each tap of a weight slot is padded to
 // the 16-byte copy width with zero weights (ops/decode.py:kernel_slot), so
 // any d and n_mels run; a row wider than a lane's registers hold (C > 512,
-// HC > 256) is normalised by a second loop. Only shared memory and
-// co-residency refuse a config (ops/decode.py:decode_plan). An
+// HC > 256) is normalised by a second loop. Those paths live in a second
+// instantiation of the kernel (GEN), launched only for a config that needs
+// them: code the common case never runs still cost it 2-13 % (PERF.md).
+// Only shared memory and co-residency refuse a config
+// (ops/decode.py:decode_plan). An
 // HC layer's product x_t @ W is three products, one per tap; the block
 // keeps the two older taps' products of its columns (x_s @ W_tap) in a
 // private ring in global memory and adds them when the lag comes round, so
@@ -471,6 +474,7 @@ __device__ __noinline__ void normalise_wide(const float* h, int W, float eps,
   }
 }
 
+template <bool GEN>
 __device__ void post(const Args& p, const Layer& L, const float* hb,
                      const float* lnb, float* zs, bool last, int t,
                      float* xs, float* xg) {
@@ -482,12 +486,12 @@ __device__ void post(const Args& p, const Layer& L, const float* hb,
   for (int k = warp; rank + CL * k < p.B; k += NW) {
     const int b = rank + CL * k;
     const float* hr = hb + (size_t)b * p.ldh;
-    if (hc && W <= 32 * 8) {  // the gate's half and the other
+    if (hc && (!GEN || W <= 32 * 8)) {  // the gate's half and the other
       float h[2][8];
       load_row<8>(hr, W, h[0]);
       load_row<8>(hr + W, W, h[1]);
       normalise<2, 8>(h, W, p.eps, z);
-    } else if (!hc && W <= 32 * 16) {
+    } else if (!hc && (!GEN || W <= 32 * 16)) {
       float h[1][16];
       load_row<16>(hr, W, h[0]);
       normalise<1, 16>(h, W, p.eps, z);
@@ -697,12 +701,14 @@ __device__ __forceinline__ int attention_walk(const Args& p, int t, float* x,
   return bi;
 }
 
+template <bool GEN>
 __device__ void attention(const Args& p, int t, float* xs, float* xg,
                           int* prev) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // one branch a launch, outside the rows' loop: the walk stays off the
-  // common case's path (a call there, or a branch a row, cost ~2 %)
-  if (p.win <= ROW_WIN && p.d <= 32 * FCH) {
+  // one branch a launch, outside the rows' loop, and only in the general
+  // kernel: the walk stays off the common case's path (a call there, or a
+  // branch a row, cost it ~2 %)
+  if (!GEN || (p.win <= ROW_WIN && p.d <= 32 * FCH)) {
     for (int b = warp; b < p.B; b += NW) {
       float* x = xrow(p, xs, xg, b);
       const int pv = prev[b];
@@ -746,6 +752,10 @@ __device__ __forceinline__ void columns(const Layer& L, int& c0, int& n) {
   n = (int)((long long)(blockIdx.x + 1) * W / gridDim.x) - c0;
 }
 
+// GEN: the general kernel, for configs past the common case (a window of
+// more than ROW_WIN keys, d > 256, a row wider than a lane's registers,
+// norm parameters off 16 bytes); the common kernel compiles none of it.
+template <bool GEN>
 __global__ void __launch_bounds__(NT, 1)
 decode_kernel(const __grid_constant__ Args p,
               const __grid_constant__ Program prog) {
@@ -781,7 +791,7 @@ decode_kernel(const __grid_constant__ Args p,
   for (int t = 0; t < p.T; ++t) {
     for (int li = 0; li < nl; ++li) {
       if (li == prog.n_enc) {  // AudioEnc's output q -> [ctx; q]
-        attention(p, t, xs, xg, prev);
+        attention<GEN>(p, t, xs, xg, prev);
         __syncthreads();
       }
       const Layer& L = prog.l[li];
@@ -791,7 +801,7 @@ decode_kernel(const __grid_constant__ Args p,
       // cmo) into lnb, under the product
       // (an odd cmo leaves C layers' rows unaligned: plain loads then)
       const int nln = L.kind == 1 ? 4 * L.cout : 2 * p.cmo;
-      if (L.lnv)
+      if (!GEN || L.lnv)
         for (int i = 4 * threadIdx.x; i < nln; i += 4 * NT)
           sm90::cp_async16(sm90::smem_u32(lnb + i), L.ln + i, 16);
       else
@@ -810,7 +820,7 @@ decode_kernel(const __grid_constant__ Args p,
       combine(p, L, t, c0, n, part, ring, hb, first);
       sm90::cp_async_wait_all();  // lnb
       grid_sync(p.bar, target);
-      post(p, L, hb, lnb, zs, li == nl - 1, t, xs, xg);
+      post<GEN>(p, L, hb, lnb, zs, li == nl - 1, t, xs, xg);
       cluster.sync();  // every member's copy holds the layer's output
       parity ^= 1;
     }
@@ -825,7 +835,10 @@ __global__ void __launch_bounds__(NT, 1) barrier_kernel(unsigned* bar, int n) {
 }
 
 cudaError_t set_smem(int smem) {
-  return cudaFuncSetAttribute(decode_kernel,
+  cudaError_t e = cudaFuncSetAttribute(
+      decode_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(decode_kernel<true>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem);
 }
@@ -855,7 +868,8 @@ struct LaunchConfig {
 
 // The most blocks of `smem` dynamic bytes, in clusters of CL, that can be
 // co-resident on the current device (the cooperative launch's limit) into
-// *blocks, and the number of SMs into *sms.
+// *blocks, and the number of SMs into *sms (the common and the general
+// kernel: the same threads, register cap and shared memory).
 extern "C" int dctts_decode_coresident(int smem, int* blocks, int* sms) {
   cudaError_t e = set_smem(smem);
   if (e != cudaSuccess) return (int)e;
@@ -865,7 +879,8 @@ extern "C" int dctts_decode_coresident(int smem, int* blocks, int* sms) {
   e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   LaunchConfig lc(*sms / CL * CL, smem, 0);
-  e = cudaOccupancyMaxActiveClusters(&clusters, decode_kernel, &lc.cfg);
+  e = cudaOccupancyMaxActiveClusters(&clusters, decode_kernel<false>,
+                                     &lc.cfg);
   if (e != cudaSuccess) return (int)e;
   *blocks = clusters * CL;
   return 0;
@@ -891,6 +906,7 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
   Program prog;
   prog.n_enc = n_enc;
   prog.n_dec = n_dec;
+  bool general = win > ROW_WIN || d > 32 * FCH;
   for (int i = 0; i < MAX_LAYERS; ++i) prog.l[i] = Layer{};
   for (int i = 0; i < n_enc + n_dec; ++i) {
     const int* f = layer_ints + LAYER_INTS * i;
@@ -906,6 +922,7 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
         (L.wkind == WK_SPLIT && !L.wl) || L.ldw % 4 || L.kp % 4 ||
         (L.lnv && reinterpret_cast<uintptr_t>(L.ln) % 16))
       return (int)cudaErrorInvalidValue;
+    general = general || !L.lnv || L.cout > 32 * (L.kind == 1 ? 8 : 16);
   }
   Args p;
   p.kt = kt; p.v = v; p.y = y; p.a = a;
@@ -921,7 +938,8 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
   cudaError_t e = set_smem(smem);
   if (e != cudaSuccess) return (int)e;
   LaunchConfig lc(blocks, smem, (cudaStream_t)stream);
-  e = cudaLaunchKernelEx(&lc.cfg, decode_kernel, p, prog);
+  e = general ? cudaLaunchKernelEx(&lc.cfg, decode_kernel<true>, p, prog)
+              : cudaLaunchKernelEx(&lc.cfg, decode_kernel<false>, p, prog);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
