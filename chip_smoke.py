@@ -219,7 +219,33 @@ line:
 12b. synth-cli - python -m dc_tts_tpu_torch.synthesize --random-weights
              with --decode-precision hybrid, then with --mode reference: each
              exits 0 and writes the 40 wavs.
-13. the kernels line, the nvidia-smi line, and the ``ok`` line.
+13. parallel - the parallel modes on torch.distributed. On NCCL, one rank
+             (a file store in a temporary directory): Synthesizer(mesh=
+             make_mesh(), pcm16=True) over the 40 sentences in chunks of 20,
+             bitwise the single card's, K1 and K2 launched twice (line
+             parallel-dp-synth); 3 Text2Mel and 3 SSRN data-parallel steps
+             on one seeded full-grid batch (B=32, use_pallas), every leaf
+             within 1e-6 x its max of the same steps without the group, with
+             K4's launches and ms/step beside the plain steps' (lines
+             parallel-dp-train-*); synthesize_time_sharded on one shard, 2
+             sentences, within 1e-4 x max of the unsharded float32 SSRN and
+             "dft" Griffin-Lim, K1 once, K2 never (line parallel-ts1). Then
+             two gloo ranks spawned on cuda:0 (one card holds one NCCL rank;
+             every exchange goes through the host): the same synthesis over
+             two shards, Z within 2e-5 of one shard's and the time-sharded
+             vocoder on one shard's Z within 2e-3 of its waveform
+             (tests/test_sp_gl.py's gate; the end-to-end waveform distance is
+             printed: SSRN's sums on half the frames differ by ~1e-6, which
+             Griffin-Lim and de-emphasis amplify) (line parallel-ts2); the
+             pipeline 1 + 1 at microbatch 2 on 4 sentences within 2e-3 of
+             the single card in chunks of 2, K1 twice on rank 0 and K2 twice
+             on rank 1 (line parallel-pipeline); then python -m
+             torch.distributed.run --nproc-per-node 1 -m
+             dc_tts_tpu_torch.synthesize --mesh writes the 40 wavs (line
+             parallel-cli). Every count is set to 0 just before a path and
+             read just after; a rank that fails fails the phase. The times
+             are for information: two ranks time-slice one card.
+14. the kernels line, the nvidia-smi line, and the ``ok`` line.
 
 ``python3 chip_smoke.py --only K3,K4-bf16 [--package DIR]`` runs the named
 phases alone (after device and build) and prints their results as one JSON
@@ -289,8 +315,10 @@ PEAK_FP32 = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor cores, FLOP/s
 PEAK_TF32 = 495e12     # H100 SXM dense TF32 tensor cores, FLOP/s
 B_MAIN, CHUNK = 20, 20
-# the training phases' device and batch (a rehearsal on the CPU sets them)
-DEV, B_TRAIN = "cuda", 32
+# the training and parallel phases' device and batch, and the device of the
+# parallel phase's two gloo ranks, both on the one card (a rehearsal on the
+# CPU sets them)
+DEV, B_TRAIN, RANKS_DEV = "cuda", 32, "cuda:0"
 # steps per ms/step reading; a training gradient's gate against the other
 # route, each leaf over its max |value|, with ReLU masks and L1 signs frozen
 TIME_STEPS, EQUIV_GRAD_TOL = 10, 1e-4
@@ -2244,6 +2272,262 @@ def phase_synth_cli(root):
 
 
 # ---------------------------------------------------------------------------
+# the parallel modes (torch.distributed)
+
+
+def _seeded_nets(cfg):
+    """phase e2e's seeded random weights (on the CPU)."""
+    from dc_tts_tpu_torch.models import SSRN, Text2Mel
+    gen = torch.Generator().manual_seed(0)
+    return Text2Mel(cfg).init(gen), SSRN(cfg).init(gen)
+
+
+def _timed(fn):
+    """(fn(), host seconds, every launch count) with the counts set to 0
+    just before and the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, counts()
+
+
+def _k12(launches):
+    return {k: launches[k] for k in ("K1", "K2")}
+
+
+def _parallel_rank(rank, n, ts_ids, pipe_ids, Z1):
+    """One of two gloo ranks on cuda:0: synthesize_time_sharded over both,
+    the time-sharded vocoder on the one-shard run's Z (Z1), then
+    PipelinedSynthesizer 1 + 1 at microbatch 2 (one warm-up microbatch
+    first)."""
+    from dc_tts_tpu_torch import base_config
+    from dc_tts_tpu_torch.parallel.mesh import make_mesh
+    from dc_tts_tpu_torch.parallel.sp_gl import (time_sharded_vocoder,
+                                                 time_slice)
+    from dc_tts_tpu_torch.pipeline import (PipelinedSynthesizer,
+                                           synthesize_time_sharded)
+    cfg = base_config()
+    p1, p2 = _seeded_nets(cfg)
+    (wav, _, Z, _), ts_s, ts_n = _timed(
+        lambda: synthesize_time_sharded(cfg, p1, p2, ts_ids, device=DEV))
+    mesh = make_mesh()
+    voc = time_sharded_vocoder(time_slice(torch.as_tensor(Z1, device=DEV),
+                                          mesh), cfg, mesh)
+    pipe = PipelinedSynthesizer(cfg, p1, p2, microbatch=2, device=DEV)
+    pipe.synthesize_ids(pipe_ids[:2])
+    pw, pipe_s, pipe_n = _timed(lambda: pipe.synthesize_ids(pipe_ids))
+    return {"ts_wav": wav.cpu().numpy(), "ts_s": ts_s, "ts": _k12(ts_n),
+            "ts_Z": Z.cpu().numpy() if rank == 0 else None,
+            "voc_wav": voc.cpu().numpy(),
+            "pipe_wav": pw, "pipe_s": pipe_s, "pipe": _k12(pipe_n)}
+
+
+def _max_rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _dp_train(mesh):
+    """3 Text2Mel and 3 SSRN steps on one seeded full-grid batch (B=32,
+    use_pallas), through the one-rank NCCL group and without it, from the
+    same initial parameters: every leaf within 1e-6 x its max (bitwise
+    expected: one rank's sum is its own value)."""
+    from dc_tts_tpu_torch.config import base_config
+    from dc_tts_tpu_torch.train import steps as TS
+    from dc_tts_tpu_torch.train.optimizer import tree_leaves
+
+    cfg = base_config().replace(use_pallas=True)
+    rng = np.random.default_rng(0)
+    B, N, T = B_TRAIN, cfg.max_N, cfg.max_T
+    batches = {
+        "t2m": {"texts": rng.integers(1, cfg.vocab_size, (B, N)),
+                "mels": rng.uniform(size=(B, T, cfg.n_mels)),
+                "text_lens": np.full((B,), N), "mel_lens": np.full((B,), T)},
+        "ssrn": {"mels": rng.uniform(size=(B, T, cfg.n_mels)),
+                 "mags": rng.uniform(size=(B, T * cfg.r, cfg.n_freq))}}
+    out = {}
+    for net, (init, make) in (
+            ("t2m", (TS.init_text2mel_state, TS.make_text2mel_step)),
+            ("ssrn", (TS.init_ssrn_state, TS.make_ssrn_step))):
+        batch = {k: torch.as_tensor(v, device=DEV).to(
+            torch.long if v.dtype.kind == "i" else torch.float32)
+            for k, v in batches[net].items()}
+        # one step first, so that neither timed run pays the first launch
+        warm = init(cfg, torch.Generator().manual_seed(0), DEV)
+        make(cfg, seed=1)(warm, batch, torch.Generator(device=DEV))
+        runs = {}
+        for name, group in (("plain", None), ("dp", mesh.groups["data"])):
+            state = init(cfg, torch.Generator().manual_seed(0), DEV)
+            if group is not None:
+                TS.replicate_state(state, mesh)
+            step = make(cfg, seed=1, group=group)
+            drop = torch.Generator(device=DEV)
+
+            def steps():
+                nonlocal state
+                for _ in range(3):
+                    state, m = step(state, batch, drop)
+                return float(m["loss"])
+
+            loss, secs, n = _timed(steps)
+            runs[name] = dict(loss=loss, ms_step=secs / 3 * 1e3,
+                              k4=n["hc_block_fwd"] + n["hc_block_bwd"],
+                              leaves=[t.detach().clone() for t in
+                                      tree_leaves(state.params)])
+        a, b = runs["dp"].pop("leaves"), runs["plain"].pop("leaves")
+        worst = max(_max_rel(x, y) for x, y in zip(a, b))
+        bitwise = sum(bool(torch.equal(x, y)) for x, y in zip(a, b))
+        ok = worst <= 1e-6 and runs["dp"]["loss"] == runs["plain"]["loss"] \
+            and runs["dp"]["k4"] == runs["plain"]["k4"] > 0
+        line(f"parallel-dp-train-{net}", ok=ok, steps=3, batch=B,
+             max_rel_vs_plain=f"{worst:.3e}", tol="1e-6 x max",
+             bitwise_leaves=f"{bitwise}/{len(a)}",
+             loss=f"{runs['dp']['loss']:.6f}",
+             ms_step=f"{runs['dp']['ms_step']:.2f}",
+             plain_ms_step=f"{runs['plain']['ms_step']:.2f}",
+             k4_launches=runs["dp"]["k4"])
+        if not ok:
+            raise AssertionError(f"data-parallel {net} steps differ from "
+                                 f"the plain ones: {worst:.3e}, {runs}")
+        out[net] = dict(runs, max_rel=worst, bitwise=bitwise,
+                        leaves=len(a))
+    return out
+
+
+def phase_parallel(results, smi):
+    """The parallel modes: on NCCL, one rank (a file store in a temporary
+    directory), data-parallel synthesis of the 40 sentences (bitwise the
+    single-card pcm16), data-parallel training steps, and the time-sharded
+    synthesis over one shard; then two gloo ranks spawned on cuda:0 (NCCL
+    takes one rank a card), the time-sharded synthesis over two shards and
+    the pipeline 1 + 1; then the CLI under torchrun, one rank. Times are
+    for information: two ranks share one card."""
+    import torch.distributed as dist
+    from dc_tts_tpu_torch import Synthesizer, base_config
+    from dc_tts_tpu_torch.parallel import distributed as D
+    from dc_tts_tpu_torch.parallel.mesh import make_mesh
+    from dc_tts_tpu_torch.pipeline import synthesize_time_sharded
+
+    t_phase = time.perf_counter()
+    cfg = base_config()
+    p1, p2 = _seeded_nets(cfg)
+    ids = harvard_ids(cfg, 40)
+    want = Synthesizer(cfg, p1, p2, pcm16=True, device=DEV
+                       ).synthesize_ids_chunked(ids, CHUNK)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        assert D.initialize(num_processes=1, process_id=0, device=DEV,
+                            init_method="file://" + os.path.join(tmp, "s"))
+        try:
+            mesh = make_mesh()
+            backend = dist.get_backend(mesh.groups["data"])
+            dp = Synthesizer(cfg, p1, p2, pcm16=True, mesh=mesh, device=DEV)
+            dp.synthesize_ids_chunked(ids[:CHUNK], CHUNK)        # warm-up
+            got, wall, n = _timed(
+                lambda: dp.synthesize_ids_chunked(ids, CHUNK))
+            ok = (backend == ("nccl" if DEV == "cuda" else "gloo")
+                  and got.dtype == want.dtype
+                  and np.array_equal(got, want) and n["K1"] == 2
+                  and n["K2"] == 2)
+            line("parallel-dp-synth", ok=ok, backend=backend, ranks=1,
+                 equal_to_single_card=np.array_equal(got, want),
+                 launches=json.dumps(_k12(n)).replace(" ", ""),
+                 wall_s=f"{wall:.3f}",
+                 audio_s_per_s=f"{got.size / cfg.sr / wall:.1f}")
+            if not ok:
+                raise AssertionError(f"data-parallel synthesis: {backend}, "
+                                     f"{_k12(n)}, equal "
+                                     f"{np.array_equal(got, want)}")
+            out["dp_synth"] = dict(wall_s=wall, launches=_k12(n))
+            out["dp_train"] = _dp_train(mesh)
+            ts_ids = ids[:2]
+            (w1, _, Z1, _), ts_s, n = _timed(
+                lambda: synthesize_time_sharded(cfg, p1, p2, ts_ids,
+                                                device=DEV))
+            rw = Synthesizer(cfg.replace(stft_method="dft"), p1, p2,
+                             ssrn_precision="highest", device=DEV
+                             ).synthesize_ids(ts_ids)[0]
+            d1 = _max_rel(w1, rw)
+            ok = d1 <= 1e-4 and n["K1"] == 1 and n["K2"] == 0
+            line("parallel-ts1", ok=ok, shards=1, max_rel_vs_unsharded=
+                 f"{d1:.3e}", tol="1e-4 x max (float32 SSRN, dft GL)",
+                 launches=json.dumps(_k12(n)).replace(" ", ""),
+                 seconds=f"{ts_s:.3f}")
+            if not ok:
+                raise AssertionError(f"one-shard time-sharded synthesis: "
+                                     f"{d1:.3e}, {_k12(n)}")
+            out["ts1"] = dict(max_rel=d1, seconds=ts_s, launches=_k12(n))
+        finally:
+            dist.destroy_process_group()
+    Z1 = Z1.cpu().numpy()
+    ranks = D.run_ranks(_parallel_rank, 2, (ids[:2], ids[:4], Z1),
+                        backend="gloo", device=RANKS_DEV, timeout=600)
+    w1 = w1.cpu().numpy()
+    # the vocoder's gate (tests/test_sp_gl.py's) holds on the same
+    # magnitudes: SSRN's products on half the frames reduce in another
+    # order, and Griffin-Lim and de-emphasis amplify Z's ~1e-6 about 1000x
+    d_voc = max(float(np.abs(r["voc_wav"] - w1).max()) for r in ranks)
+    dw = max(float(np.abs(r["ts_wav"] - w1).max()) for r in ranks)
+    dz = float(np.abs(ranks[0]["ts_Z"] - Z1).max())
+    ok = (d_voc <= 2e-3 and dz <= 2e-5
+          and ranks[0]["ts"] == {"K1": 1, "K2": 0}
+          and ranks[1]["ts"] == {"K1": 0, "K2": 0})
+    line("parallel-ts2", ok=ok, shards=2, backend="gloo", device=RANKS_DEV,
+         max_dwav_same_Z=f"{d_voc:.3e}", max_dZ=f"{dz:.3e}",
+         tol="wav on the same Z 2e-3, Z 2e-5",
+         max_dwav_end_to_end=f"{dw:.3e}",
+         launches=json.dumps([r["ts"] for r in ranks]).replace(" ", ""),
+         seconds=f"{ranks[0]['ts_s']:.3f}")
+    if not ok:
+        raise AssertionError(f"two-shard time-sharded synthesis: "
+                             f"{d_voc:.3e}, {dz:.3e}, "
+                             f"{[r['ts'] for r in ranks]}")
+    # like for like: the single card on the pipeline's microbatches
+    single = Synthesizer(cfg, p1, p2, device=DEV).synthesize_ids_chunked(
+        ids[:4], 2)
+    dp_ = max(float(np.abs(r["pipe_wav"] - single).max()) for r in ranks)
+    ok = (dp_ <= 2e-3 and ranks[0]["pipe"] == {"K1": 2, "K2": 0}
+          and ranks[1]["pipe"] == {"K1": 0, "K2": 2})
+    line("parallel-pipeline", ok=ok, stages="1+1", microbatch=2,
+         sentences=4, max_dwav_vs_single_card=f"{dp_:.3e}", tol="2e-3",
+         launches=json.dumps([r["pipe"] for r in ranks]).replace(" ", ""),
+         seconds=f"{ranks[0]['pipe_s']:.3f}")
+    if not ok:
+        raise AssertionError(f"pipeline: {dp_:.3e}, "
+                             f"{[r['pipe'] for r in ranks]}")
+    out["ts2"] = dict(max_dwav_same_Z=d_voc, max_dwav=dw, max_dZ=dz,
+                      seconds=ranks[0]["ts_s"],
+                      launches=[r["ts"] for r in ranks])
+    out["pipeline"] = dict(max_dwav=dp_, seconds=ranks[0]["pipe_s"],
+                           launches=[r["pipe"] for r in ranks])
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        r = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", "dc_tts_tpu_torch.synthesize",
+             "--random-weights", "--mesh", "--device", DEV, "--out", tmp],
+            cwd=HERE, env=env,
+            capture_output=True, text=True, timeout=600)
+        wavs = len([f for f in os.listdir(tmp) if f.endswith(".wav")])
+        cli_s = time.perf_counter() - t0
+    ok = r.returncode == 0 and wavs == 40
+    line("parallel-cli", ok=ok, command="torchrun --nproc-per-node 1 -m "
+         "dc_tts_tpu_torch.synthesize --mesh", wavs=wavs,
+         seconds=f"{cli_s:.1f}")
+    if not ok:
+        raise AssertionError(f"torchrun synthesize --mesh exited "
+                             f"{r.returncode}, {wavs} wavs:\n"
+                             + r.stdout[-3000:] + r.stderr[-3000:])
+    secs = time.perf_counter() - t_phase
+    line("parallel", ok=True, seconds=f"{secs:.1f}", card=repr(smi),
+         note="times for information: two ranks time-slice one card")
+    results["parallel"] = dict(out, cli_s=cli_s, seconds=secs)
+
+
+# ---------------------------------------------------------------------------
 # X1-X4: the forward-rDFT prototypes of scripts/ct_kernel_exp.py
 
 
@@ -2505,7 +2789,8 @@ def _only(names, smi) -> int:
               "e2e": lambda r: phase_e2e(r, smi), "K3": phase_k3,
               "e2e-dft_pallas": lambda r: phase_e2e_dft_pallas(r, smi),
               "K4": phase_k4, "K4-bf16": lambda r: phase_k4(r, bf16=True),
-              "ct-fwd": phase_ct_fwd}
+              "ct-fwd": phase_ct_fwd,
+              "parallel": lambda r: phase_parallel(r, smi)}
     unknown = [n for n in names if n not in phases and n != "train-routes"]
     if unknown:
         raise SystemExit(f"chip_smoke: unknown phases {unknown}; known: "
@@ -2528,8 +2813,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="", help="comma-separated phases to "
                     "run alone (K1, K1-prec, K2, e2e, K3, e2e-dft_pallas, "
-                    "K4, K4-bf16, ct-fwd, train-routes), e.g. to time them "
-                    "on another commit's package in the same call")
+                    "K4, K4-bf16, ct-fwd, train-routes, parallel), e.g. to "
+                    "time them on another commit's package in the same "
+                    "call")
     ap.add_argument("--package", default="", help="import dc_tts_tpu_torch "
                     "from this directory (a checkout of another commit, "
                     "e.g. from git archive) instead of this one's")
@@ -2564,6 +2850,7 @@ def main(argv=None) -> int:
         phase_train_routes(results, data, feats)
         phase_train_cli(results, data, feats, root)
         phase_synth_cli(root)
+    phase_parallel(results, smi)
     results["launches"].update(
         {"hc_block_fwd": results["k4_launches"]["fwd"],
          "hc_block_bwd": results["k4_launches"]["bwd"],
@@ -2616,7 +2903,8 @@ def main(argv=None) -> int:
                    "ct-fwd": results["ct-fwd"],
                    "train": {k: results[k] for k in ("train-t2m",
                                                      "train-ssrn",
-                                                     "train-routes")}},
+                                                     "train-routes")},
+                   "parallel": results["parallel"]},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

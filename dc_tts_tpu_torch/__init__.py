@@ -4,5 +4,10 @@ The port of ``dc_tts_tpu`` (JAX on a TPU), module for module; it imports
 neither JAX nor the JAX package. Entry points run on CUDA unless the caller
 asks for the CPU.
 """
-from .config import Config, base_config, test_config  # noqa: F401
-from .pipeline import Synthesizer  # noqa: F401
+__version__ = "0.1.0"
+
+from .config import Config, base_config, test_config  # noqa: E402
+from .pipeline import Synthesizer  # noqa: E402
+
+__all__ = ["Config", "base_config", "test_config", "Synthesizer",
+           "__version__"]

@@ -13,7 +13,9 @@ match the JAX package's for the same seed, bit for bit).
 Every batch is padded to a static shape, the full (max_N, max_T) grid or
 one of a few length buckets, with each example's lengths beside it (the
 losses mask by them), and a pool of threads assembles batches ahead of the
-trainer.
+trainer; they are handed out in the shuffle's order, whichever thread
+finishes first, so every data-parallel rank with the same seed sees the
+same global batches.
 """
 from __future__ import annotations
 
@@ -342,14 +344,20 @@ class TrainLoader:
 
     # -- iteration -------------------------------------------------------
     def __iter__(self) -> Iterator[dict]:
-        """Infinite epoch-shuffled stream. A worker crash (unreadable or
-        mismatched features) is re-raised here instead of leaving the
-        consumer waiting on an empty queue."""
+        """Infinite epoch-shuffled stream, in the shuffle's order. A worker
+        crash (unreadable or mismatched features) is re-raised here instead
+        of leaving the consumer waiting on an empty queue."""
         self.start()
+        done, want = {}, 0    # batches that finished ahead of their turn
         try:
             while True:
+                if want in done:
+                    yield done.pop(want)
+                    want += 1
+                    continue
                 try:
-                    yield self._queue.get(timeout=1.0)
+                    seq, batch = self._queue.get(timeout=1.0)
+                    done[seq] = batch
                 except queue.Empty:
                     if self._error is not None:
                         raise RuntimeError(
@@ -410,13 +418,15 @@ class TrainLoader:
         return items
 
     def _feed(self):
+        seq = 0
         while not self._stop.is_set():
             for item in self._epoch_batches():
                 if self._stop.is_set():
                     return
                 while not self._stop.is_set():
                     try:
-                        self._work.put(item, timeout=0.2)
+                        self._work.put((seq, item), timeout=0.2)
+                        seq += 1
                         break
                     except queue.Full:
                         continue
@@ -424,7 +434,7 @@ class TrainLoader:
     def _worker(self):
         while not self._stop.is_set():
             try:
-                shape, batch_examples = self._work.get(timeout=0.2)
+                seq, (shape, batch_examples) = self._work.get(timeout=0.2)
             except queue.Empty:
                 continue
             try:
@@ -435,7 +445,7 @@ class TrainLoader:
                 return
             while not self._stop.is_set():
                 try:
-                    self._queue.put(batch, timeout=0.2)
+                    self._queue.put((seq, batch), timeout=0.2)
                     break
                 except queue.Full:
                     continue

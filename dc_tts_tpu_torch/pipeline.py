@@ -8,7 +8,15 @@ and "reference" are plain torch) -> SSRN -> denormalize -> Griffin-Lim
 under "dft_pallas", plain torch transforms otherwise) -> de-emphasis ->
 optional 16-bit PCM quantisation on the device. Every step is enqueued on
 the current CUDA stream; nothing waits for the device until results are
-copied back. The mesh, pipeline and time-sharded modes are not ported.
+copied back.
+
+The parallel modes run on ``torch.distributed``, one device a rank
+(``parallel/``): ``Synthesizer(mesh=)`` splits each batch's rows over the
+data axis, every rank running the whole single-device chain on its own
+rows (the JAX package's ``shard_map``), and gathers the outputs in row
+order; ``synthesize_time_sharded`` decodes on rank 0 and shards SSRN and
+Griffin-Lim over time; ``PipelinedSynthesizer`` decodes on one half of the
+ranks and vocodes on the other, microbatch after microbatch.
 
 SSRN's conv matmuls take ``ssrn_precision`` in synthesis, as in the JAX
 package: "high" (the default: the 3-pass bf16 hi/lo split, the config's
@@ -36,11 +44,41 @@ from .models.ssrn import SSRN
 from .models.text2mel import Text2Mel
 from .ops.decode import check_prec, pack_decode_params
 from .params import to_device
+from .parallel import distributed as D
+from .train.optimizer import tree_leaves
 
 DECODE_MODES = ("fused", "incremental", "reference")
 # ssrn_precision -> the compute_dtype SSRN runs under (None: the config's)
 SSRN_PRECISIONS = {"highest": None, "high": "float32_high",
                    "bf16": "bfloat16"}
+
+
+def _ssrn(cfg: Config, ssrn_precision: str) -> SSRN:
+    """SSRN under a synthesis ``ssrn_precision``."""
+    if ssrn_precision not in SSRN_PRECISIONS:
+        raise ValueError(f"ssrn_precision={ssrn_precision!r}; use one "
+                         f"of {tuple(SSRN_PRECISIONS)}")
+    dtype = SSRN_PRECISIONS[ssrn_precision]
+    return SSRN(cfg if dtype is None else cfg.replace(compute_dtype=dtype))
+
+
+def _pad_rows(ids: np.ndarray, multiple: int) -> np.ndarray:
+    """Pad the batch up to a multiple with PAD(0) rows (they decode garbage
+    and are sliced off by the caller)."""
+    ids = np.asarray(ids)
+    padded = -(-ids.shape[0] // multiple) * multiple
+    if padded == ids.shape[0]:
+        return ids
+    return np.concatenate(
+        [ids, np.zeros((padded - ids.shape[0], ids.shape[1]), ids.dtype)])
+
+
+def _replicate(trees, src: int, group) -> None:
+    """The same parameter values on every rank of ``group``: global rank
+    ``src``'s (the JAX package's contract, "the same value on every
+    process", made true rather than assumed)."""
+    D.broadcast_([t for tree in trees for t in tree_leaves(tree)], src,
+                 group)
 
 
 class Synthesizer:
@@ -50,15 +88,18 @@ class Synthesizer:
     pass device="cpu" to run the plain PyTorch versions on the CPU.
     decode_mode "auto" is the fused decode kernel. ssrn_precision and
     decode_prec: see the module docstring; decode_prec is read by the fused
-    mode only, as in the JAX package."""
+    mode only, as in the JAX package.
+
+    With a ``mesh`` (``parallel.make_mesh``) this rank synthesizes its
+    rows of every batch, padded with PAD rows to a multiple of the data
+    axis, and every rank returns the whole batch. The parameters are rank
+    0's of the data axis, broadcast here."""
 
     def __init__(self, cfg: Config, t2m_params, ssrn_params, *,
-                 device="cuda", decode_mode: str = "auto",
+                 device="cuda", mesh=None, decode_mode: str = "auto",
                  pcm16: bool = False, ssrn_precision: str = "high",
                  decode_prec: str = "highest"):
-        if ssrn_precision not in SSRN_PRECISIONS:
-            raise ValueError(f"ssrn_precision={ssrn_precision!r}; use one "
-                             f"of {tuple(SSRN_PRECISIONS)}")
+        self.ssrn = _ssrn(cfg, ssrn_precision)
         check_prec(decode_prec)
         if decode_mode == "auto":
             decode_mode = "fused"
@@ -68,11 +109,14 @@ class Synthesizer:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.text2mel = Text2Mel(cfg)
-        ssrn_dtype = SSRN_PRECISIONS[ssrn_precision]
-        self.ssrn = SSRN(cfg if ssrn_dtype is None
-                         else cfg.replace(compute_dtype=ssrn_dtype))
         self.t2m_params = to_device(t2m_params, self.device)
         self.ssrn_params = to_device(ssrn_params, self.device)
+        if mesh is not None:
+            if mesh.coords is None:
+                raise ValueError("this rank lies outside the mesh")
+            _replicate((self.t2m_params, self.ssrn_params),
+                       mesh.ranks["data"][0], mesh.groups["data"])
+        self.mesh = mesh
         self.decode_mode = decode_mode
         self.decode_prec = decode_prec
         self.pcm16 = pcm16
@@ -94,9 +138,7 @@ class Synthesizer:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def synthesize_ids(self, ids):
-        """ids (B, max_N) int -> (wavs (B, n_samples), Y, Z, align), all on
-        the device; wavs are int16 when pcm16 is set."""
+    def _synthesize_rows(self, ids):
         ids = torch.as_tensor(np.asarray(ids), dtype=torch.long,
                               device=self.device)
         Y, align = self.text2mel.decode(self.t2m_params, ids,
@@ -110,14 +152,43 @@ class Synthesizer:
                               ).to(torch.int16)
         return wav, Y, Z, align
 
+    def _my_rows(self, ids) -> np.ndarray:
+        """This rank's rows of a batch padded to the data axis."""
+        nd, i = self.mesh.shape["data"], self.mesh.coords["data"]
+        ids = _pad_rows(ids, nd)
+        b = ids.shape[0] // nd
+        return ids[i * b: (i + 1) * b]
+
+    def _gather(self, t: torch.Tensor, B: int) -> torch.Tensor:
+        return D.all_gather_cat(t, self.mesh.groups["data"])[:B]
+
+    def synthesize_ids(self, ids):
+        """ids (B, max_N) int -> (wavs (B, n_samples), Y, Z, align), all on
+        the device; wavs are int16 when pcm16 is set."""
+        if self.mesh is None:
+            return self._synthesize_rows(ids)
+        B = np.asarray(ids).shape[0]
+        return tuple(self._gather(o, B)
+                     for o in self._synthesize_rows(self._my_rows(ids)))
+
     def synthesize_ids_chunked(self, ids, chunk: int = 40) -> np.ndarray:
         """Any batch size, in chunks of ``chunk`` rows -> wavs (B, n_samples)
         on the host. Every chunk is enqueued before any result is copied
         back; each copy is a non-blocking copy into pinned host memory, so
-        a chunk's transfer overlaps the next chunks' compute."""
+        a chunk's transfer overlaps the next chunks' compute. Under a mesh
+        the chunk is first rounded up to a multiple of the data axis."""
         ids = np.asarray(ids)
-        wavs = [self.synthesize_ids(ids[i: i + chunk])[0]
-                for i in range(0, ids.shape[0], chunk)]
+        if self.mesh is not None:
+            nd = self.mesh.shape["data"]
+            chunk = -(-chunk // nd) * nd
+        parts = [ids[i: i + chunk] for i in range(0, ids.shape[0], chunk)]
+        if self.mesh is None:
+            wavs = [self._synthesize_rows(p)[0] for p in parts]
+        else:
+            # every chunk enqueued before the first gather waits on one
+            local = [self._synthesize_rows(self._my_rows(p))[0]
+                     for p in parts]
+            wavs = [self._gather(w, len(p)) for w, p in zip(local, parts)]
         if self.device.type != "cuda":
             return torch.cat(wavs).numpy()
         host = []
@@ -137,6 +208,156 @@ class Synthesizer:
         if trim:
             return [trim_silence(w) for w in wavs]
         return list(wavs)
+
+
+@torch.no_grad()
+def synthesize_time_sharded(cfg: Config, t2m_params, ssrn_params, ids, *,
+                            n_shards: int = 0, decode_mode: str = "fused",
+                            device="cuda"):
+    """Sequence-parallel synthesis: shard the TIME axis, not utterances.
+
+    Rank 0 decodes the batch (the autoregressive loop has no time
+    parallelism; kernel K1 at "highest" in the fused mode), scatters Y's
+    time slices to the ranks of an ``n_shards`` mesh (default all ranks),
+    which run SSRN in float32 and the Griffin-Lim loop time-sharded with
+    halo exchanges (``parallel/sp.py``, ``parallel/sp_gl.py``): the
+    long-utterance latency axis that per-utterance data parallelism cannot
+    cover. cfg.max_T must divide by the shard count and each Griffin-Lim
+    shard must exceed the overlap halo (``griffin_lim_sp``). Every rank of
+    the world calls it with the same ids; the mesh's ranks return (wav (B,
+    samples), Y, Z, align), the whole batch on each, and a rank the mesh
+    leaves out returns None."""
+    from .parallel.mesh import make_mesh
+    from .parallel.sp import ssrn_apply_sp
+    from .parallel.sp_gl import time_sharded_vocoder
+
+    n = n_shards or D.world()[1]
+    if cfg.max_T % n:
+        raise ValueError(
+            f"--time-shard {n} must divide the frame grid: max_T="
+            f"{cfg.max_T} (and max_T*r={cfg.max_T * cfg.r} GL frames)")
+    mesh = make_mesh(data=n, model=1)
+    if mesh.coords is None:
+        return None
+    dev = resolve_device(device)
+    group, root = mesh.groups["data"], mesh.ranks["data"][0]
+    ids = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=dev)
+    B = ids.shape[0]
+    parts = align = None
+    if mesh.coords["data"] == 0:
+        Y, align = Text2Mel(cfg).decode(to_device(t2m_params, dev), ids,
+                                        mode=decode_mode)
+        parts = list(Y.split(cfg.max_T // n, dim=1))
+    else:
+        align = torch.empty(B, ids.shape[1], cfg.max_T, device=dev)
+    Y_local = D.scatter(torch.empty(B, cfg.max_T // n, cfg.n_mels,
+                                    device=dev), parts, root, group)
+    ssrn_params = to_device(ssrn_params, dev)
+    _replicate((ssrn_params,), root, group)
+    Z_local = ssrn_apply_sp(cfg, ssrn_params, Y_local, mesh)
+    wav = time_sharded_vocoder(Z_local, cfg, mesh)
+    D.broadcast_([align], root, group)
+    return (wav, D.all_gather_cat(Y_local, group, dim=1),
+            D.all_gather_cat(Z_local, group, dim=1), align)
+
+
+class PipelinedSynthesizer:
+    """Pipeline-parallel batched synthesis over two groups of ranks.
+
+    Stage 1 (Text2Mel's decode, kernel K1) runs on ranks [0, h), h = world
+    // 2, stage 2 (SSRN at ``ssrn_precision``, then Griffin-Lim, kernel K2
+    by default) on ranks [h, world). Each microbatch's rows are split over
+    each stage's ranks; Y's rows go from stage 1 to stage 2 by non-blocking
+    sends, so stage 1 decodes microbatch i+1 while stage 2 vocodes
+    microbatch i. The generalisation of the reference's two-GPU split of
+    the two networks. Every rank of the world constructs it and calls
+    ``synthesize_ids`` with the same ids."""
+
+    def __init__(self, cfg: Config, t2m_params, ssrn_params, *,
+                 microbatch: int = 8, ssrn_precision: str = "high",
+                 device="cuda"):
+        from .parallel.mesh import make_mesh
+
+        rank, n = D.world()
+        if n < 2:
+            raise ValueError("the pipeline needs >= 2 ranks")
+        half, other = n // 2, n - n // 2
+        if microbatch % half or microbatch % other:
+            raise ValueError(
+                f"--microbatch {microbatch} must be divisible by both "
+                f"stage sizes ({half} and {other} of {n} ranks)")
+        self.cfg = cfg
+        self.microbatch = microbatch
+        self.device = resolve_device(device)
+        self.mesh1 = make_mesh(data=half, ranks=range(half))
+        self.mesh2 = make_mesh(data=other, ranks=range(half, n))
+        self.stage = 1 if rank < half else 2
+        if self.stage == 1:
+            self.t2m_params = to_device(t2m_params, self.device)
+            _replicate((self.t2m_params,), 0, self.mesh1.groups["data"])
+            self.packed = pack_decode_params(cfg, self.t2m_params, "highest")
+        else:
+            self.ssrn = _ssrn(cfg, ssrn_precision)
+            self.ssrn_params = to_device(ssrn_params, self.device)
+            _replicate((self.ssrn_params,), half, self.mesh2.groups["data"])
+
+    def _routes(self, j: int, k: int):
+        """Rows [lo, hi) of a microbatch that stage-1 rank j decodes and
+        stage-2 rank k vocodes (empty when they share none)."""
+        r1 = self.microbatch // self.mesh1.shape["data"]
+        r2 = self.microbatch // self.mesh2.shape["data"]
+        return max(j * r1, k * r2), min((j + 1) * r1, (k + 1) * r2)
+
+    @torch.no_grad()
+    def synthesize_ids(self, ids) -> np.ndarray:
+        """ids (B, max_N) -> wavs (B, n_samples) float32 on the host, on
+        every rank. Any B: the batch is padded to a microbatch multiple
+        (pad rows decode garbage and are dropped)."""
+        cfg, mb, dev = self.cfg, self.microbatch, self.device
+        B = np.asarray(ids).shape[0]
+        ids = _pad_rows(ids, mb)
+        n_mb = ids.shape[0] // mb
+        n1, n2 = self.mesh1.shape["data"], self.mesh2.shape["data"]
+        world = torch.distributed.group.WORLD
+        n_samples = cfg.hop_length * (cfg.max_T * cfg.r - 1)
+        if self.stage == 1:
+            j, r1 = self.mesh1.coords["data"], mb // n1
+            sends = []
+            for m in range(n_mb):
+                rows = torch.as_tensor(ids[m * mb + j * r1:
+                                           m * mb + (j + 1) * r1],
+                                       dtype=torch.long, device=dev)
+                Y, _ = Text2Mel(cfg).decode(self.t2m_params, rows,
+                                            mode="fused", packed=self.packed)
+                for k in range(n2):
+                    lo, hi = self._routes(j, k)
+                    if lo < hi:
+                        sends.append(D.isend(Y[lo - j * r1: hi - j * r1],
+                                             n1 + k, world))
+            for s in sends:
+                s.wait()
+        else:
+            k, r2 = self.mesh2.coords["data"], mb // n2
+            # every receive posted first: microbatch i+1 arrives while i is
+            # vocoded
+            recvs = [[D.irecv(torch.empty(hi - lo, cfg.max_T, cfg.n_mels,
+                                          device=dev), j, world)
+                      for j in range(n1)
+                      for lo, hi in [self._routes(j, k)] if lo < hi]
+                     for _ in range(n_mb)]
+            mine = []
+            for parts in recvs:
+                Y = torch.cat([p.wait() for p in parts])
+                _, Z = self.ssrn.apply(self.ssrn_params, Y)
+                mine.append(spectrogram_to_wav(Z, cfg))
+        out = torch.empty(n_mb, mb, n_samples, device=dev)
+        for k in range(n2):
+            part = torch.stack(mine) if self.stage == 2 and \
+                k == self.mesh2.coords["data"] else \
+                torch.empty(n_mb, mb // n2, n_samples, device=dev)
+            D.broadcast_([part], n1 + k, world)
+            out[:, k * (mb // n2): (k + 1) * (mb // n2)] = part
+        return out.reshape(-1, n_samples)[:B].cpu().numpy()
 
 
 def restore_synthesis_params(cfg: Config, logdir1: str, logdir2: str):

@@ -6,9 +6,17 @@ every ``--ckpt-every`` steps, resume from the latest checkpoint on restart,
 stop at ``--max-steps``. The same flags and cadence as
 ``python -m dc_tts_tpu.train``, plus ``--device`` (default cuda; raises
 without a card unless ``--device cpu``). ``--dtype`` sets
-``cfg.compute_dtype``. One GPU: the parallel modes and the JAX PRNG choice
-are refused. As in the JAX package, kernel K4 runs only where a caller sets
-``cfg.use_pallas``.
+``cfg.compute_dtype``. The JAX PRNG choice is refused. As in the JAX
+package, kernel K4 runs only where a caller sets ``cfg.use_pallas``.
+
+Data parallelism: under ``torchrun --nproc-per-node N`` every rank is one
+process with one device (NCCL on cards, gloo with ``--device cpu``);
+``--data-parallel`` ranks (default all) each take their rows of every
+global batch (the loader seeded alike on every rank), the gradients are
+summed over them before each update, and only rank 0 writes checkpoints,
+logs and plots. Without ``torchrun`` it runs as one rank.
+``--model-parallel`` other than 1 (tensor parallelism) is not ported yet
+(ROADMAP Queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -23,43 +31,14 @@ from ..data.dataset import (TrainLoader, compute_bucket_shapes,
                             load_dataset_index)
 from ..device import resolve_device
 from ..params import requires_grad
+from ..parallel import distributed
+from ..parallel.mesh import make_mesh, prefetch_to_device
 from ..utils.logging import MetricLogger
 from ..utils.plotting import plot_alignment, plot_spectrogram
 from . import checkpoint
 from .steps import (TrainState, init_ssrn_state, init_text2mel_state,
-                    make_ssrn_step, make_text2mel_step,
+                    make_ssrn_step, make_text2mel_step, replicate_state,
                     teacher_forcing_shift)
-
-
-def prefetch_to_device(batches, device):
-    """Yield each numpy batch as tensors on ``device``. On a card the copy
-    of batch k+1 (from pinned memory, on a side stream) is issued before
-    batch k is handed out, so it overlaps step k."""
-    if device.type != "cuda":
-        for b in batches:
-            yield {k: torch.from_numpy(v) for k, v in b.items()}
-        return
-    side = torch.cuda.Stream(device)
-
-    def put(b):
-        with torch.cuda.stream(side):
-            out = {k: torch.from_numpy(v).pin_memory().to(device,
-                                                          non_blocking=True)
-                   for k, v in b.items()}
-        done = torch.cuda.Event()
-        done.record(side)
-        return out, done
-
-    it = iter(batches)
-    nxt = put(next(it))
-    for b in it:
-        cur, done = nxt
-        nxt = put(b)
-        main = torch.cuda.current_stream(device)
-        main.wait_event(done)
-        for t in cur.values():
-            t.record_stream(main)
-        yield cur
 
 
 def _plots(num: int, cfg, params, batch, gs: int, tag: str, logdir: str,
@@ -102,9 +81,10 @@ def main(argv=None):
                     help="checkpoints retained; 0 keeps all")
     ap.add_argument("--log-every", type=int, default=50)
     ap.add_argument("--data-parallel", type=int, default=None,
-                    help="not ported: the port trains on one GPU")
+                    help="data-parallel ranks (default: all the ranks "
+                         "torchrun starts, else 1)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="not ported: the port trains on one GPU")
+                    help="tensor parallelism: only 1 is ported")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tiny", action="store_true",
                     help="use the tiny test config")
@@ -126,13 +106,25 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (default cuda; no CPU fallback)")
     args = ap.parse_args(argv)
-    if args.data_parallel not in (None, 1) or args.model_parallel != 1:
-        ap.error("--data-parallel/--model-parallel other than 1 are not "
-                 "ported to the PyTorch package: it trains on one GPU")
+    if args.model_parallel != 1:
+        ap.error("--model-parallel other than 1 (tensor parallelism) is not "
+                 "ported to the PyTorch package yet: ROADMAP.md, Queue 1, "
+                 "item 5")
     if args.rng is not None:
         ap.error("--rng selects a JAX PRNG implementation and is not ported "
                  "to the PyTorch package")
     device = resolve_device(args.device)
+    distributed.initialize(device=device)
+    n_ranks = distributed.world()[1]
+    if (args.data_parallel or 1) > n_ranks:
+        ap.error(f"--data-parallel {args.data_parallel} needs as many ranks;"
+                 f" this run has {n_ranks} (start it under torchrun "
+                 f"--nproc-per-node {args.data_parallel})")
+    mesh = make_mesh(data=args.data_parallel)
+    if mesh.coords is None:
+        return          # a rank the --data-parallel grid leaves out
+    rank0 = distributed.world()[0] == 0
+    group = mesh.groups["data"]
 
     cfg = test_config() if args.tiny else base_config()
     if args.dtype != "float32":
@@ -141,32 +133,36 @@ def main(argv=None):
         cfg = cfg.replace(data=args.data)
     if args.batch_size:
         cfg = cfg.replace(B=args.batch_size)
+    if cfg.B % mesh.shape["data"]:
+        ap.error(f"batch size {cfg.B} does not divide over "
+                 f"{mesh.shape['data']} data-parallel ranks")
     logdir = args.logdir or (cfg.logdir + "-" + str(args.num))
     max_steps = args.max_steps or cfg.num_iterations
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
-    print(f"device: {device} ({name})")
+    log = print if rank0 else (lambda *a, **k: None)
+    log(f"device: {device} ({name})  mesh: {mesh.shape}")
 
     examples = load_dataset_index(cfg, args.features, cfg.data,
                                   on_the_fly=args.on_the_fly)
-    print(f"dataset: {len(examples)} usable examples"
-          + (" (on-the-fly features)" if args.on_the_fly else ""))
+    log(f"dataset: {len(examples)} usable examples"
+        + (" (on-the-fly features)" if args.on_the_fly else ""))
     buckets = None
     if args.buckets > 1:
         buckets = compute_bucket_shapes(cfg, examples, args.features,
                                         args.buckets,
                                         on_the_fly=args.on_the_fly)
-        print(f"buckets: {buckets}")
+        log(f"buckets: {buckets}")
     loader = TrainLoader(cfg, examples, args.features, seed=args.seed,
                          buckets=buckets, on_the_fly=args.on_the_fly)
 
     gen = torch.Generator().manual_seed(args.seed)
     if args.num == 1:
         state = init_text2mel_state(cfg, gen, device)
-        step_fn = make_text2mel_step(cfg, seed=args.seed + 1)
+        step_fn = make_text2mel_step(cfg, seed=args.seed + 1, group=group)
     else:
         state = init_ssrn_state(cfg, gen, device)
-        step_fn = make_ssrn_step(cfg, seed=args.seed + 1)
+        step_fn = make_ssrn_step(cfg, seed=args.seed + 1, group=group)
 
     # full-state resume: parameters, Adam moments and schedule counts; a
     # params-only checkpoint restores with fast-forwarded counts
@@ -174,19 +170,21 @@ def main(argv=None):
         logdir, state.params, state.opt_state)
     requires_grad(params)
     state = TrainState(params, opt_state, start_step)
+    replicate_state(state, mesh)
     if start_step:
-        print(f"resumed from step {start_step} ({kind} checkpoint)")
+        log(f"resumed from step {start_step} ({kind} checkpoint)")
 
-    logger = MetricLogger(logdir, tensorboard=args.tensorboard)
+    logger = MetricLogger(logdir, tensorboard=args.tensorboard) \
+        if rank0 else None
     drop_gen = torch.Generator(device=device)
     t_last, n_last = time.time(), start_step
     gs = start_step
-    for batch in prefetch_to_device(loader, device):
+    for batch in prefetch_to_device(loader, device, mesh):
         if gs >= max_steps:
             break
         state, metrics = step_fn(state, batch, drop_gen)
         gs = state.step
-        if gs % args.log_every == 0:
+        if gs % args.log_every == 0 and rank0:
             loss = float(metrics["loss"])
             now = time.time()
             sps = (gs - n_last) / max(now - t_last, 1e-9)
@@ -194,16 +192,17 @@ def main(argv=None):
             logger.log(gs, {**{k: float(v) for k, v in metrics.items()},
                             "steps_per_sec": sps})
             print(f"step {gs}  loss {loss:.4f}  {sps:.2f} steps/s")
-        if gs % args.ckpt_every == 0:
+        if gs % args.ckpt_every == 0 and rank0:
             checkpoint.save_train_state(logdir, state.params, state.opt_state,
                                         gs, keep=args.keep_ckpts)
             _plots(args.num, cfg, state.params, batch, gs,
                    checkpoint.step_name(gs)[9:], logdir, logger)
     loader.stop()
-    checkpoint.save_train_state(logdir, state.params, state.opt_state,
-                                state.step, keep=args.keep_ckpts)
-    logger.close()
-    print("Done")
+    if rank0:
+        checkpoint.save_train_state(logdir, state.params, state.opt_state,
+                                    state.step, keep=args.keep_ckpts)
+        logger.close()
+    log("Done")
 
 
 if __name__ == "__main__":

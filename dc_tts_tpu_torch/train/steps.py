@@ -9,6 +9,13 @@ hand-written backward under ``cfg.use_pallas``), and one optimizer update.
 The update runs in place on the state's tensors, as the JAX step donates
 its state. ``metrics`` are 0-d tensors on the device; nothing waits for the
 device inside a step.
+
+Data parallelism (``group``, the data axis' process group): each rank's
+batch holds its rows of the global batch; the losses give this rank's
+share of the global batch's loss (``losses.py``), and the gradients and the
+metrics are summed over the group before the update, so every rank applies
+the update of the global batch. Each rank draws its own dropout masks; rank
+0 draws those of a single process.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from ..config import Config
 from ..models.ssrn import SSRN
 from ..models.text2mel import Text2Mel
 from ..params import requires_grad
+from ..parallel.distributed import all_reduce_sum_, broadcast_
 from .losses import attention_diagonality, ssrn_loss, text2mel_loss
 from .optimizer import apply_updates, init_opt_state, tree_leaves
 
@@ -51,55 +59,74 @@ def teacher_forcing_shift(mels: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(mels[:, :1]), mels[:, :-1]], dim=1)
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The dropout seed of one step: a function of the run's seed and the
-    step alone, so a resumed run draws the masks it would have drawn."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+def step_seed(seed: int, step: int, shard: int = 0) -> int:
+    """The dropout seed of one step: a function of the run's seed, the
+    step and the data-parallel rank ``shard`` alone, so a resumed run draws
+    the masks it would have drawn (rank 0's are a single process's)."""
+    key = [seed, step] + ([shard] if shard else [])
+    return int(np.random.SeedSequence(key).generate_state(1)[0])
 
 
-def text2mel_grads(cfg: Config, params, batch: dict, gen=None):
-    """(metrics, gradients as a leaf list) of the Text2Mel loss."""
+def text2mel_grads(cfg: Config, params, batch: dict, gen=None, group=None):
+    """(metrics, gradients as a leaf list) of the Text2Mel loss (of this
+    rank's share of it under a data-parallel ``group``)."""
     mels = batch["mels"]
     S = teacher_forcing_shift(mels)
     logits, Y, align, _ = Text2Mel(cfg).apply(params, batch["texts"], S,
                                               gen=gen, train=True)
     loss, metrics = text2mel_loss(logits, Y, align, mels, cfg,
                                   batch.get("text_lens"),
-                                  batch.get("mel_lens"))
+                                  batch.get("mel_lens"), group)
     grads = torch.autograd.grad(loss, tree_leaves(params))
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["attention_diagonality"] = attention_diagonality(
-        align.detach(), batch.get("text_lens"), batch.get("mel_lens"))
+        align.detach(), batch.get("text_lens"), batch.get("mel_lens"), group)
     return metrics, list(grads)
 
 
-def ssrn_grads(cfg: Config, params, batch: dict, gen=None):
-    """(metrics, gradients as a leaf list) of the SSRN loss."""
+def ssrn_grads(cfg: Config, params, batch: dict, gen=None, group=None):
+    """(metrics, gradients as a leaf list) of the SSRN loss (share)."""
     logits, Z = SSRN(cfg).apply(params, batch["mels"], gen=gen, train=True)
-    loss, metrics = ssrn_loss(logits, Z, batch["mags"], cfg)
+    loss, metrics = ssrn_loss(logits, Z, batch["mags"], cfg, group)
     grads = torch.autograd.grad(loss, tree_leaves(params))
     return {k: v.detach() for k, v in metrics.items()}, list(grads)
 
 
-def _make_step(cfg: Config, grads_fn, seed: int):
+def _make_step(cfg: Config, grads_fn, seed: int, group):
+    shard = 0 if group is None else torch.distributed.get_rank(group)
+
     def step(state: TrainState, batch: dict,
              gen: Optional[torch.Generator] = None):
         if gen is not None:
-            gen.manual_seed(step_seed(seed, state.step))
-        metrics, grads = grads_fn(cfg, state.params, batch, gen)
+            gen.manual_seed(step_seed(seed, state.step, shard))
+        metrics, grads = grads_fn(cfg, state.params, batch, gen, group)
+        if group is not None:
+            # the global batch's gradient and metrics: the shares summed
+            all_reduce_sum_(grads, group)
+            all_reduce_sum_(list(metrics.values()), group)
         opt_state = apply_updates(state.params, grads, state.opt_state, cfg)
         return TrainState(state.params, opt_state, state.step + 1), metrics
 
     return step
 
 
-def make_text2mel_step(cfg: Config, seed: int = 0):
+def make_text2mel_step(cfg: Config, seed: int = 0, group=None):
     """The Text2Mel step. batch: texts (B, N) int, mels (B, T, n_mels),
-    and optionally text_lens, mel_lens (B,)."""
-    return _make_step(cfg, text2mel_grads, seed)
+    and optionally text_lens, mel_lens (B,); under a data-parallel
+    ``group`` this rank's rows of the global batch."""
+    return _make_step(cfg, text2mel_grads, seed, group)
 
 
-def make_ssrn_step(cfg: Config, seed: int = 0):
+def make_ssrn_step(cfg: Config, seed: int = 0, group=None):
     """The SSRN step. batch: mels (B, T/r, n_mels), mags (B, T, n_freq);
     SSRN trains on the ground-truth coarse mels."""
-    return _make_step(cfg, ssrn_grads, seed)
+    return _make_step(cfg, ssrn_grads, seed, group)
+
+
+def replicate_state(state: TrainState, mesh) -> None:
+    """Every rank of the mesh's data axis takes its rank 0's parameters
+    and optimizer moments (after init or a restore), in place."""
+    adam = state.opt_state[1]
+    tensors = [t for tree in (state.params, adam["mu"], adam["nu"])
+               for t in tree_leaves(tree)]
+    broadcast_(tensors, mesh.ranks["data"][0], mesh.groups["data"])

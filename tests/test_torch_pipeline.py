@@ -158,13 +158,26 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(params, tmp_path):
 
 
 def test_cli_on_cpu_and_refused_flags(tmp_path):
-    """The parallel modes stay refused; a reduced --decode-precision with
-    --mode incremental or reference is a usage error, as in the JAX CLI."""
+    """--mesh runs as one rank without torchrun and writes what the plain
+    run writes; the JAX CLI's usage errors: the parallel modes with each
+    other or with an option they fix, and a reduced --decode-precision
+    with --mode incremental or reference."""
     out = tmp_path / "wavs"
     cli.main(["--tiny", "--random-weights", "--device", "cpu",
               "--sentences", SENTS, "--out", str(out)])
     assert len(list(out.glob("*.wav"))) == 40
-    for flag in (["--mesh"], ["--pipeline"], ["--time-shard", "2"],
+    cli.main(["--tiny", "--random-weights", "--device", "cpu", "--mesh",
+              "--sentences", SENTS, "--out", str(tmp_path / "mesh")])
+    for i in (1, 40):
+        assert (tmp_path / "mesh" / f"{i}.wav").read_bytes() == \
+            (out / f"{i}.wav").read_bytes()
+    for flag in (["--pipeline", "--mesh"], ["--pipeline", "--plots"],
+                 ["--pipeline", "--mode", "incremental"],
+                 ["--pipeline", "--decode-precision", "hybrid"],
+                 ["--time-shard", "2", "--mesh"],
+                 ["--time-shard", "2", "--pipeline"],
+                 ["--time-shard", "2", "--ssrn-precision", "bf16"],
+                 ["--time-shard", "2", "--plots"],
                  ["--mode", "incremental", "--decode-precision", "hybrid"],
                  ["--mode", "reference", "--decode-precision", "high3"]):
         with pytest.raises(SystemExit) as e:
@@ -212,8 +225,9 @@ def test_restore_synthesis_params_from_jax_checkpoints(params, tmp_path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Import every module of the port and run a tiny CPU synthesis in a
-    process where importing jax or dc_tts_tpu fails."""
+    """Import every module of the port and run a tiny CPU synthesis, also
+    data-parallel over a one-rank gloo group, in a process where importing
+    jax or dc_tts_tpu fails."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -236,6 +250,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         wav = s.synthesize_ids(ids)[0]
         assert wav.shape == (2, cfg.hop_length * (cfg.max_T_full - 1))
         assert bool(torch.isfinite(wav).all())
+        import os, tempfile, torch.distributed as dist
+        from dc_tts_tpu_torch.parallel import distributed, make_mesh
+        with tempfile.TemporaryDirectory() as tmp:
+            assert distributed.initialize(
+                num_processes=1, process_id=0, device="cpu",
+                init_method="file://" + os.path.join(tmp, "store"))
+            mesh = make_mesh()
+            assert dist.get_backend(mesh.groups["data"]) == "gloo"
+            dp = Synthesizer(cfg, s.t2m_params, s.ssrn_params,
+                             device="cpu", mesh=mesh)
+            assert torch.equal(dp.synthesize_ids(ids)[0], wav)
+            dist.destroy_process_group()
         assert not any(k == "jax" or k.startswith(("jax.", "dc_tts_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok", len(names))
