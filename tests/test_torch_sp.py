@@ -2,12 +2,12 @@
 two-stage pipeline against the JAX package.
 
 Two and four gloo ranks on the CPU, each world spawned once for the module
-(``run_ranks``), run every scenario; the JAX references run here on the
-virtual CPU mesh at the same shard count. Gates: time-sharded SSRN and the
+(``run_ranks``), run every scenario; the JAX references run here, under
+jit, on the virtual CPU mesh at the same shard count. Gates: time-sharded SSRN and the
 block stacks 2e-5 (``tests/test_sp.py``'s), Griffin-Lim 2e-5 against JAX's
 ``griffin_lim_sp`` (measured 1.8e-6; ``tests/test_sp_gl.py`` holds JAX's
 to its unsharded loop at 2e-3), the time-sharded synthesis Y 2e-5, Z 1e-4,
-waveform 1e-4 (measured 2.8e-5: Y's 1e-6 through SSRN and 4 rounds), and
+waveform 1e-4 (measured 8.8e-6: Y's 4e-6 through SSRN and 4 rounds), and
 the pipeline 2e-3 against JAX's plain synthesis (``tests/test_pipeline.py``'s
 gate; measured 6.6e-4 on 1 + 1 ranks, 1.5e-3 on 2 + 2: the rows a rank
 vocodes change SSRN's float32 sums, which Griffin-Lim amplifies). The ranks
@@ -124,8 +124,10 @@ def test_ssrn_and_stacks_match_jax(jax_params, ranks, n):
     from dc_tts_tpu.config import test_config as jax_test_config
     from dc_tts_tpu.models import blocks as jblocks
     from dc_tts_tpu.models.ssrn import SSRN as JSSRN
+    import jax
     Y, x, _, _ = _inputs()
-    _, Zj = JSSRN(jax_test_config()).apply(jax_params[1], jnp.asarray(Y))
+    _, Zj = jax.jit(JSSRN(jax_test_config()).apply)(jax_params[1],
+                                                    jnp.asarray(Y))
     np.testing.assert_allclose(_cat(ranks[n], "Z"), np.asarray(Zj),
                                atol=2e-5, rtol=0)
     for i, (p, stack) in enumerate(zip(jax_params[2], STACKS)):
@@ -142,10 +144,11 @@ def test_griffin_lim_matches_jax(ranks, n):
     import jax.numpy as jnp
     from dc_tts_tpu.config import test_config as jax_test_config
     from dc_tts_tpu.parallel.sp_gl import griffin_lim_sp as jax_gl
+    import jax
     mag = _inputs()[2]
-    want = np.asarray(jax_gl(jnp.asarray(mag),
-                             jax_test_config().replace(n_iter=GL_ITER),
-                             _jax_mesh(n)))
+    cfg, mesh = jax_test_config().replace(n_iter=GL_ITER), _jax_mesh(n)
+    want = np.asarray(jax.jit(lambda m: jax_gl(m, cfg, mesh))(
+        jnp.asarray(mag)))
     for r in ranks[n]:
         assert r["gl"].shape == want.shape
         np.testing.assert_allclose(r["gl"], want, atol=2e-5, rtol=0)
@@ -172,7 +175,8 @@ def test_griffin_lim_refuses_a_shard_too_fine():
 
 def test_time_sharded_synthesis_matches_jax(jax_params, ranks):
     """Two shards: rank 0 decodes, SSRN and Griffin-Lim run time-sharded;
-    both ranks return JAX's outputs (JAX decodes incrementally here, equal
+    both ranks return JAX's outputs (JAX's function under jit: outside it
+    the sharded stages run op by op; it decodes incrementally here, equal
     to its fused kernel within 2e-6 and faster on the CPU). Four shards at
     24 frames are too fine for the Griffin-Lim halo: every rank raises
     JAX's error."""
@@ -180,11 +184,13 @@ def test_time_sharded_synthesis_matches_jax(jax_params, ranks):
     from dc_tts_tpu.config import test_config as jax_test_config
     from dc_tts_tpu.parallel.sp_gl import griffin_lim_sp as jax_gl
     from dc_tts_tpu.pipeline import synthesize_time_sharded as jax_ts
+    import jax
     jcfg = jax_test_config()
     ids = _inputs()[3][:2]
-    want = [np.asarray(o) for o in jax_ts(jcfg, *jax_params[:2], ids,
-                                          n_shards=2,
-                                          decode_mode="incremental")]
+    want = [np.asarray(o) for o in jax.jit(
+        lambda p1, p2, i: jax_ts(jcfg, p1, p2, i, n_shards=2,
+                                 decode_mode="incremental"))(
+            *jax_params[:2], ids)]
     for r in ranks[2]:
         wav, Y, Z, A = r["time_sharded"]
         np.testing.assert_array_equal(A.argmax(1), want[3].argmax(1))
