@@ -245,6 +245,24 @@ line:
              parallel-cli). Every count is set to 0 just before a path and
              read just after; a rank that fails fails the phase. The times
              are for information: two ranks time-slice one card.
+13b. parallel-tp - tensor parallelism: two gloo ranks spawned on cuda:0
+             over a data 1 x model 2 grid train at base_config() widths
+             (B=8: every gather crosses the host), use_pallas, each from
+             the same seeded whole parameters and batch: 2 Text2Mel and 2
+             SSRN steps in float32 (K4 on the gathered weight) and 1 of
+             each under bfloat16 (K4's bf16 body). Rank 0 first runs the
+             one-rank steps and records every ReLU mask and L1 sign; both
+             ranks replay them (the switched ones counted). Against the
+             one-rank run: the loss within 1e-6 relative; float32, the
+             step-1 gradients within 1e-5 x each leaf's max and the
+             parameters after the steps within 1e-5 x a leaf's max + 0.1 x
+             the steps' summed learning rates; bfloat16, the gradients'
+             relative L2 within 3e-2 and each leaf within 5e-2 x its max,
+             the parameters finite (lines parallel-tp-<net>-<dtype>). K4's
+             launches on each rank, counts set to 0 just before the steps
+             and read just after, equal the one-rank steps' (28 + 28 a
+             Text2Mel step, 8 + 8 an SSRN step). ms/step per rank and of
+             one rank, for information (line parallel-tp).
 14. the kernels line, the nvidia-smi line, and the ``ok`` line.
 
 ``python3 chip_smoke.py --only K3,K4-bf16 [--package DIR]`` runs the named
@@ -297,6 +315,7 @@ A summary also goes to ``chiprun_out/chip_smoke.json`` beside this script.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -2528,6 +2547,251 @@ def phase_parallel(results, smi):
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism: two model ranks on the one card
+
+# (network, compute_dtype, steps) of phase parallel-tp, all with use_pallas
+TP_RUNS = (("t2m", "float32", 2), ("ssrn", "float32", 2),
+           ("t2m", "bfloat16", 1), ("ssrn", "bfloat16", 1))
+B_TP = 8         # every gather of the two gloo ranks crosses the host
+
+
+def _tp_batch(net, cfg):
+    """A seeded full-grid batch of B_TP rows on the card."""
+    rng = np.random.default_rng(0)
+    B, N, T = B_TP, cfg.max_N, cfg.max_T
+    if net == "t2m":
+        b = {"texts": rng.integers(1, cfg.vocab_size, (B, N)),
+             "mels": rng.uniform(size=(B, T, cfg.n_mels)),
+             "text_lens": np.full((B,), N), "mel_lens": np.full((B,), T)}
+    else:
+        b = {"mels": rng.uniform(size=(B, T, cfg.n_mels)),
+             "mags": rng.uniform(size=(B, T * cfg.r, cfg.n_freq))}
+    return {k: torch.as_tensor(v, device=DEV).to(
+        torch.long if v.dtype.kind == "i" else torch.float32)
+        for k, v in b.items()}
+
+
+@contextlib.contextmanager
+def _kinks(mode, seq):
+    """Within it every ReLU mask and L1 sign of the networks and losses is
+    recorded into the list ``seq`` (mode "record") or replayed from it in
+    the same order ("replay"); yields {"flips": the elements where a
+    replaying run's own decision differs}. Two runs that round the forward
+    differently switch such decisions where a value lies within rounding of
+    its kink (see _equivalence); with them replayed the rest compares
+    tightly. A replayed ReLU is x * mask and a replayed L1 term mean((pred -
+    target) * sign): the same values and gradients where the decisions
+    agree."""
+    from dc_tts_tpu_torch.models import blocks as BL
+    from dc_tts_tpu_torch.train import losses
+    act, l1_loss = BL._act, losses.l1_loss
+    state = {"i": 0, "flips": 0}
+
+    def decide(d):
+        if mode == "record":
+            seq.append(d)
+            return None
+        ref = seq[state["i"]]
+        state["i"] += 1
+        state["flips"] += int((ref != d).sum())
+        return ref
+
+    def relu(x, name):
+        if name != "relu":
+            return act(x, name)
+        mask = decide(x.detach() > 0)
+        return act(x, name) if mask is None else x * mask.to(x.dtype)
+
+    def l1(pred, target):
+        sign = decide(torch.sign((pred - target).detach()).to(torch.int8))
+        if sign is None:
+            return l1_loss(pred, target)
+        return torch.mean((pred - target) * sign.to(pred.dtype))
+
+    BL._act, losses.l1_loss = relu, l1
+    try:
+        yield state
+    finally:
+        BL._act, losses.l1_loss = act, l1_loss
+
+
+def _tp_train(net, cfg, params_cpu, batch, steps, mesh=None):
+    """The step-1 loss and gradients, then ``steps`` steps from the given
+    whole parameters (on one rank without a mesh, else tensor-parallel over
+    its model group), the counts set to 0 just before the steps and read
+    just after -> (loss, whole gradients, whole parameters, K4's launches
+    by key, ms/step on the host clock). Call it under ``_kinks``."""
+    from dc_tts_tpu_torch.params import requires_grad
+    from dc_tts_tpu_torch.parallel.tp import gather_params
+    from dc_tts_tpu_torch.train import steps as TS
+    from dc_tts_tpu_torch.train.optimizer import (init_opt_state,
+                                                  tree_leaves, tree_map,
+                                                  tree_unflatten)
+    params = tree_map(lambda t: t.to(DEV, copy=True), params_cpu)
+    requires_grad(params)
+    state = TS.TrainState(params, init_opt_state(params), 0)
+    mg = None
+    if mesh is not None:
+        state, mg = TS.shard_state(state, mesh), mesh.groups["model"]
+    grads_fn, make = ((TS.text2mel_grads, TS.make_text2mel_step)
+                      if net == "t2m" else (TS.ssrn_grads, TS.make_ssrn_step))
+    gen = torch.Generator(device=DEV).manual_seed(TS.step_seed(1, 0))
+    m, grads = grads_fn(cfg, state.params, batch, gen, None, mg)
+    grads = tree_unflatten(state.params, [g.detach() for g in grads])
+    step = make(cfg, seed=1, model_group=mg)
+
+    def run():
+        nonlocal state
+        for _ in range(steps):
+            state, _ = step(state, batch, gen)
+
+    _, secs, n = _timed(run)
+    k4 = {k: n[k] for k in ("hc_block_fwd", "hc_block_bwd",
+                            "hc_block_fwd_bf16", "hc_block_bwd_bf16")}
+    if mesh is not None:
+        grads = gather_params(grads, mesh)
+        params = gather_params(state.params, mesh)
+    else:
+        params = state.params
+    return (float(m["loss"]), tree_leaves(grads),
+            [t.detach() for t in tree_leaves(params)], k4,
+            secs / steps * 1e3)
+
+
+def _tp_gaps(got, want, lr_sum):
+    """The distances tests/test_torch_tp.py gates: the loss's relative; the
+    step-1 gradients' worst max |d| over a leaf's max |value| and their
+    relative L2 over all leaves; the parameters' worst max |d| over
+    (1e-5 x a leaf's max + 0.1 x the steps' summed learning rates), and
+    how many gradient leaves are bitwise equal."""
+    (loss, g, p), (wloss, wg, wp) = got, want
+    num = sum(float(((a - b).double() ** 2).sum()) for a, b in zip(g, wg))
+    den = sum(float((b.double() ** 2).sum()) for b in wg)
+    gl = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+          for a, b in zip(g, wg)]
+    pl = [float((a - b).abs().max())
+          / (1e-5 * float(b.abs().max()) + 0.1 * lr_sum)
+          for a, b in zip(p, wp)]
+    i, k = int(np.argmax(gl)), int(np.argmax(pl))
+    return dict(
+        loss_rel=abs(loss - wloss) / abs(wloss),
+        grad_leaf=gl[i], grad_leaf_at=(i, float(wg[i].abs().max())),
+        grad_l2=(num / den) ** 0.5,
+        grad_bitwise=sum(bool(torch.equal(a, b)) for a, b in zip(g, wg)),
+        leaves=len(wg), param=pl[k], param_at=k,
+        grad_max=max(float(b.abs().max()) for b in wg),
+        params_finite=all(bool(torch.isfinite(a).all()) for a in p))
+
+
+def _tp_rank(rank, n):
+    """One of two gloo ranks on cuda:0, a data 1 x model 2 grid: each run
+    of TP_RUNS from the same seeded whole parameters (base_config(), B_TP,
+    use_pallas), rank 0 first on its own as the one-rank reference, then
+    both ranks tensor-parallel; rank 0 measures the distances."""
+    from dc_tts_tpu_torch.config import base_config
+    from dc_tts_tpu_torch.models import SSRN, Text2Mel
+    from dc_tts_tpu_torch.parallel.mesh import make_mesh
+    from dc_tts_tpu_torch.train.optimizer import noam_lr
+    import torch.distributed as dist
+    mesh = make_mesh(data=1, model=2)
+    gen = torch.Generator().manual_seed(0)
+    init = {"t2m": Text2Mel(base_config()).init(gen),
+            "ssrn": SSRN(base_config()).init(gen)}
+    out = {}
+    for net, dtype, steps in TP_RUNS:
+        cfg = base_config().replace(use_pallas=True, B=B_TP,
+                                    compute_dtype=dtype)
+        batch = _tp_batch(net, cfg)
+        ref, seq = None, [None]
+        if rank == 0:
+            seq[0] = []
+            with _kinks("record", seq[0]):
+                ref = _tp_train(net, cfg, init[net], batch, steps)
+            seq[0] = [d.cpu() for d in seq[0]]
+        # the one-rank run's decisions, replayed on both ranks
+        dist.broadcast_object_list(seq, src=mesh.ranks["model"][0],
+                                   group=mesh.groups["model"])
+        with _kinks("replay", [d.to(DEV) for d in seq[0]]) as kinks:
+            tp = _tp_train(net, cfg, init[net], batch, steps, mesh)
+        r = dict(loss=tp[0], k4=tp[3], ms_step=tp[4], flips=kinks["flips"],
+                 decisions=sum(d.numel() for d in seq[0]))
+        if ref is not None:
+            lr_sum = sum(float(noam_lr(s, cfg.lr, cfg.warmup_steps))
+                         for s in range(steps))
+            r.update(_tp_gaps(tp[:3], ref[:3], lr_sum), ref_k4=ref[3],
+                     ref_ms_step=ref[4])
+            names = _leaf_names(init[net])
+            r["grad_leaf_at"] = (names[r["grad_leaf_at"][0]],
+                                 r["grad_leaf_at"][1])
+            r["param_at"] = names[r["param_at"]]
+        out[f"{net}-{dtype}"] = r
+        del ref, tp
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel_tp(results, smi):
+    """Tensor parallelism: two gloo ranks spawned on cuda:0 (NCCL takes
+    one rank a card) train both networks over a model axis of 2 at
+    base_config() widths, use_pallas: 2 float32 steps (K4) and 1 bfloat16
+    step (K4's bf16 body) each, held against the one-rank steps on the same
+    card and batch, with the one-rank run's ReLU masks and L1 signs
+    replayed (_kinks; the switched ones counted), at tests/test_torch_tp.py's
+    gates but for the bf16 gradients' relative L2, 3e-2 here: on the card a
+    half-width product takes another cuBLAS kernel, so the forward too
+    rounds differently in float32 and flips bf16 roundings of the next
+    block's operands (on the CPU the forward is bitwise one rank's). K4's
+    launches per rank equal the one-rank steps'. The ms/step are for
+    information: two ranks time-slice one card and every gather crosses
+    the host."""
+    from dc_tts_tpu_torch.parallel import distributed as D
+    t0 = time.perf_counter()
+    ranks = D.run_ranks(_tp_rank, 2, (), backend="gloo", device=RANKS_DEV,
+                        timeout=600)
+    per_step = {"t2m": 28, "ssrn": 8}
+    out = {}
+    for net, dtype, steps in TP_RUNS:
+        key = f"{net}-{dtype}"
+        r0, r1 = ranks[0][key], ranks[1][key]
+        bf16 = dtype == "bfloat16"
+        sfx = "_bf16" if bf16 else ""
+        want = {k: 0 for k in r0["k4"]}
+        want.update({f"hc_block_fwd{sfx}": per_step[net] * steps,
+                     f"hc_block_bwd{sfx}": per_step[net] * steps})
+        if bf16:
+            close = r0["grad_l2"] <= 3e-2 and r0["grad_leaf"] <= 5e-2 \
+                and r0["params_finite"]
+        else:
+            close = r0["grad_leaf"] <= 1e-5 and r0["param"] <= 1.0
+        ok = (close and r0["loss_rel"] <= 1e-6 and r0["ref_k4"] == want
+              and r0["k4"] == want and r1["k4"] == want)
+        line(f"parallel-tp-{key}", ok=ok, model=2, backend="gloo",
+             device=RANKS_DEV, batch=B_TP, steps=steps,
+             loss=f"{r0['loss']:.6f}", loss_rel=f"{r0['loss_rel']:.3e}",
+             grad_leaf=f"{r0['grad_leaf']:.3e}",
+             grad_l2=f"{r0['grad_l2']:.3e}",
+             grad_bitwise=f"{r0['grad_bitwise']}/{r0['leaves']}",
+             grad_leaf_at=r0["grad_leaf_at"][0],
+             flips=f"{r0['flips']}/{r0['decisions']}",
+             param_over_gate=f"{r0['param']:.3e}",
+             tol=("loss 1e-6 rel, grads l2 3e-2 and 5e-2 x leaf max" if bf16
+                  else "loss 1e-6 rel, grads 1e-5 x leaf max, params "
+                  "1e-5 x leaf max + 0.1 x the steps' lr"),
+             k4_launches=json.dumps([r0["k4"], r1["k4"]]).replace(" ", ""),
+             one_rank_k4=json.dumps(r0["ref_k4"]).replace(" ", ""),
+             ms_step=f"{r0['ms_step']:.1f},{r1['ms_step']:.1f}",
+             one_rank_ms_step=f"{r0['ref_ms_step']:.1f}")
+        out[key] = dict(rank0=r0, rank1=r1, ok=ok)
+    bad = {k: v for k, v in out.items() if not v["ok"]}
+    if bad:
+        raise AssertionError(f"tensor-parallel runs off their gates: {bad}")
+    secs = time.perf_counter() - t0
+    line("parallel-tp", ok=True, seconds=f"{secs:.1f}", card=repr(smi),
+         note="times for information: two ranks time-slice one card")
+    results["parallel-tp"] = dict(out, seconds=secs)
+
+
+# ---------------------------------------------------------------------------
 # X1-X4: the forward-rDFT prototypes of scripts/ct_kernel_exp.py
 
 
@@ -2790,7 +3054,8 @@ def _only(names, smi) -> int:
               "e2e-dft_pallas": lambda r: phase_e2e_dft_pallas(r, smi),
               "K4": phase_k4, "K4-bf16": lambda r: phase_k4(r, bf16=True),
               "ct-fwd": phase_ct_fwd,
-              "parallel": lambda r: phase_parallel(r, smi)}
+              "parallel": lambda r: phase_parallel(r, smi),
+              "parallel-tp": lambda r: phase_parallel_tp(r, smi)}
     unknown = [n for n in names if n not in phases and n != "train-routes"]
     if unknown:
         raise SystemExit(f"chip_smoke: unknown phases {unknown}; known: "
@@ -2813,7 +3078,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="", help="comma-separated phases to "
                     "run alone (K1, K1-prec, K2, e2e, K3, e2e-dft_pallas, "
-                    "K4, K4-bf16, ct-fwd, train-routes, parallel), e.g. to "
+                    "K4, K4-bf16, ct-fwd, train-routes, parallel, "
+                    "parallel-tp), e.g. to "
                     "time them on another commit's package in the same "
                     "call")
     ap.add_argument("--package", default="", help="import dc_tts_tpu_torch "
@@ -2851,6 +3117,7 @@ def main(argv=None) -> int:
         phase_train_cli(results, data, feats, root)
         phase_synth_cli(root)
     phase_parallel(results, smi)
+    phase_parallel_tp(results, smi)
     results["launches"].update(
         {"hc_block_fwd": results["k4_launches"]["fwd"],
          "hc_block_bwd": results["k4_launches"]["bwd"],
@@ -2904,7 +3171,8 @@ def main(argv=None) -> int:
                    "train": {k: results[k] for k in ("train-t2m",
                                                      "train-ssrn",
                                                      "train-routes")},
-                   "parallel": results["parallel"]},
+                   "parallel": results["parallel"],
+                   "parallel-tp": results["parallel-tp"]},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

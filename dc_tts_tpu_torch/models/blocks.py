@@ -35,6 +35,16 @@ Under ``bfloat16_full`` the sigmoids round as the JAX program does
 
 With ``remat`` each block runs under ``torch.utils.checkpoint``: its
 activations are recomputed in the backward instead of kept.
+
+Tensor parallelism (``model_group``, ``parallel/tp.py``): each conv of a
+block gathers its slice of the output channels before the layer norm (an
+HC block's 2C channels before the split into gate and info, in
+model-coordinate order). K4 takes no slice: an HC block under
+``use_pallas`` gathers its kernel's weight whole and runs K4 on it, as
+JAX's GSPMD runs a ``pallas_call`` whole on every rank; the weight's
+gradient back is this rank's columns of K4's dW, and K4's dx is already
+whole. Under ``remat`` the recompute issues the same collectives in the
+same order on every model rank.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.tp import gather_from_model, is_sharded
 from . import layers as L
 
 Act = Optional[str]  # None | "relu" | "sigmoid"
@@ -157,25 +168,31 @@ def _highway(p: dict, h: torch.Tensor, x: torch.Tensor,
 
 def apply_block(p: dict, spec, x: torch.Tensor, *, ln_eps: float,
                 dropout_rate: float = 0.0, gen=None, train: bool = False,
-                use_pallas: bool = False, dtype=None,
-                act_dtype=None) -> torch.Tensor:
+                use_pallas: bool = False, dtype=None, act_dtype=None,
+                model_group=None) -> torch.Tensor:
+    g = model_group
     if use_pallas and train and isinstance(spec, HC) and act_dtype is None:
         from ..ops.hc_vjp import hc_block_trainable
-        y = hc_block_trainable(x, p["conv"]["w"], p["conv"]["b"],
+        w = p["conv"]["w"]
+        if is_sharded(p["conv"]):
+            w = gather_from_model(w, g)
+        y = hc_block_trainable(x, w, p["conv"]["b"],
                                p["ln1"]["gamma"], p["ln1"]["beta"],
                                p["ln2"]["gamma"], p["ln2"]["beta"],
                                spec.size, spec.rate, spec.causal, ln_eps,
                                dtype is torch.bfloat16)
     elif isinstance(spec, C):
         y = L.conv1d(p["conv"], x, size=spec.size, rate=spec.rate,
-                     causal=spec.causal, dtype=dtype, out_dtype=act_dtype)
+                     causal=spec.causal, dtype=dtype, out_dtype=act_dtype,
+                     group=g)
         y = _act(L.layer_norm(p["ln"], y, ln_eps), spec.act)
     elif isinstance(spec, HC):
         h = L.conv1d(p["conv"], x, size=spec.size, rate=spec.rate,
-                     causal=spec.causal, dtype=dtype, out_dtype=act_dtype)
+                     causal=spec.causal, dtype=dtype, out_dtype=act_dtype,
+                     group=g)
         y = _highway(p, h, x, ln_eps)
     elif isinstance(spec, D):
-        y = L.conv1d_transpose(p["conv"], x, dtype, act_dtype)
+        y = L.conv1d_transpose(p["conv"], x, dtype, act_dtype, g)
         y = _act(L.layer_norm(p["ln"], y, ln_eps), spec.act)
     else:
         raise TypeError(spec)
@@ -214,16 +231,19 @@ def _remat_block(p: dict, spec, x: torch.Tensor, gen, **kw) -> torch.Tensor:
 def apply_stack(params: Sequence[dict], specs: Sequence, x: torch.Tensor, *,
                 ln_eps: float, dropout_rate: float = 0.0, gen=None,
                 train: bool = False, use_pallas: bool = False, dtype=None,
-                act_dtype=None, remat: bool = False) -> torch.Tensor:
+                act_dtype=None, remat: bool = False,
+                model_group=None) -> torch.Tensor:
     """Run a stack. In training (``train``) every block is followed by
     dropout drawn from ``gen``, layer after layer in order. ``dtype`` and
     ``act_dtype``: the operand modes (module docstring); with ``act_dtype``
     the input is narrowed to it first. ``remat``: each block recomputed in
-    the backward (``_remat_block``)."""
+    the backward (``_remat_block``). ``model_group``: tensor parallelism
+    over that group, ``params`` this rank's slices (module docstring)."""
     if act_dtype is not None:
         x = x.to(act_dtype)
     kw = dict(ln_eps=ln_eps, dropout_rate=dropout_rate, train=train,
-              use_pallas=use_pallas, dtype=dtype, act_dtype=act_dtype)
+              use_pallas=use_pallas, dtype=dtype, act_dtype=act_dtype,
+              model_group=model_group)
     for p, spec in zip(params, specs):
         if remat and torch.is_grad_enabled():
             x = _remat_block(p, spec, x, gen, **kw)

@@ -22,6 +22,14 @@ result (the ``bfloat16_full`` training mode). Gradients follow JAX's
 transpose rules: ``"high"`` takes the same 3-pass products; in bf16 the
 cotangent meets the other rounded operand in float32 and the product is
 rounded to bf16, the cotangent of JAX's ``astype(bfloat16)``.
+
+Tensor parallelism (``group``, the model axis' process group,
+``parallel/tp.py``): a conv whose kernel holds a slice of its output
+channels computes that slice, gathers it over the group and adds the whole
+bias; its input's gradient is the sum over the group of every rank's
+partial product, taken in float32 before any bf16 rounding of it, so the
+gradients are one rank's up to float32 summation order. A whole kernel
+runs as without a group.
 """
 from __future__ import annotations
 
@@ -31,6 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from ..dsp.stft import split_bf16
+from ..parallel.distributed import all_reduce_sum_
+from ..parallel.tp import copy_to_model, gather_from_model, is_sharded
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -122,9 +132,9 @@ class _LowPrecisionMatmul(torch.autograd.Function):
     docstring)."""
 
     @staticmethod
-    def forward(ctx, a, b, mode):
+    def forward(ctx, a, b, mode, group):
         ctx.save_for_backward(a, b)
-        ctx.mode = mode
+        ctx.mode, ctx.group = mode, group
         return _lp_mm(a, b, mode)
 
     @staticmethod
@@ -134,25 +144,32 @@ class _LowPrecisionMatmul(torch.autograd.Function):
         if ctx.mode == "high":
             if ctx.needs_input_grad[0]:
                 da = _lp_mm(g, b.T, "high")
+                all_reduce_sum_([da], ctx.group)
             if ctx.needs_input_grad[1]:
                 db = _lp_mm(a.T, g, "high")
         else:
             if ctx.needs_input_grad[0]:
-                da = (g @ _round_bf16(b).T).to(torch.bfloat16)
+                da = g @ _round_bf16(b).T
+                all_reduce_sum_([da], ctx.group)
+                da = da.to(torch.bfloat16)
             if ctx.needs_input_grad[1]:
                 db = (_round_bf16(a).T @ g).to(torch.bfloat16)
         return (None if da is None else da.to(a.dtype),
-                None if db is None else db.to(b.dtype), None)
+                None if db is None else db.to(b.dtype), None, None)
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor, dtype=None) -> torch.Tensor:
+def matmul(x: torch.Tensor, w: torch.Tensor, dtype=None,
+           group=None) -> torch.Tensor:
     """x (..., Q) @ w (Q, N) in operand mode ``dtype`` (module docstring):
-    None in x's precision, ``"high"`` or ``torch.bfloat16`` float32 out."""
+    None in x's precision, ``"high"`` or ``torch.bfloat16`` float32 out.
+    ``group``: x's gradient summed over this model group (w a slice of
+    the columns)."""
     if dtype is None:
-        return x @ w
+        return copy_to_model(x, group) @ w
     if dtype != "high" and dtype is not torch.bfloat16:
         raise ValueError(f"unknown operand mode {dtype!r}")
-    y = _LowPrecisionMatmul.apply(x.reshape(-1, x.shape[-1]), w, dtype)
+    y = _LowPrecisionMatmul.apply(x.reshape(-1, x.shape[-1]), w, dtype,
+                                  group)
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
@@ -181,17 +198,22 @@ def _gather_taps(x: torch.Tensor, size: int, rate: int,
 
 
 def conv1d(params, x: torch.Tensor, *, size: int = 1, rate: int = 1,
-           causal: bool = False, dtype=None, out_dtype=None) -> torch.Tensor:
+           causal: bool = False, dtype=None, out_dtype=None,
+           group=None) -> torch.Tensor:
     """Dilated 1-D convolution as one matmul. x (B,T,Cin) -> (B,T,Cout).
     ``dtype``: the operand mode (module docstring); ``out_dtype`` narrows
-    the stored result, to which the bias is added in that dtype."""
+    the stored result, to which the bias is added in that dtype. ``group``:
+    the model group, for a kernel that holds a slice of the output channels
+    (the slice is gathered in the stored dtype)."""
     w = params["w"]
     K, cin, cout = w.shape
     assert K == size
+    group = group if is_sharded(params) else None
     taps = _gather_taps(x, size, rate, causal)
-    y = matmul(taps, w.reshape(K * cin, cout), dtype)
+    y = matmul(taps, w.reshape(K * cin, cout), dtype, group)
     if out_dtype is not None:
         y = y.to(out_dtype)
+    y = gather_from_model(y, group)
     return y + params["b"].to(y.dtype)
 
 
@@ -255,19 +277,20 @@ def init_deconv(gen, in_ch: int, out_ch: int, size: int = 3, device="cpu"):
     return init_conv(gen, in_ch, out_ch, size, device)
 
 
-def conv1d_transpose(params, x: torch.Tensor, dtype=None,
-                     out_dtype=None) -> torch.Tensor:
+def conv1d_transpose(params, x: torch.Tensor, dtype=None, out_dtype=None,
+                     group=None) -> torch.Tensor:
     """x (B, T, Cin) -> (B, 2T, Cout): stride-2, kernel-3, SAME deconv,
         y[2t] = x[t] @ w[0] + x[t-1] @ w[2],   y[2t+1] = x[t] @ w[1].
-    ``dtype`` as ``conv1d``; the two even-phase products and the bias are
-    summed in float32 and only then narrowed to ``out_dtype``."""
+    ``dtype`` and ``group`` as ``conv1d``; the two even-phase products and
+    the bias are summed in float32 and only then narrowed to ``out_dtype``
+    (so a slice is gathered in float32)."""
     w = params["w"]
     B, T, _ = x.shape
-    cout = w.shape[-1]
+    group = group if is_sharded(params) else None
     x_prev = F.pad(x, (0, 0, 1, 0))[:, :T]
-    even = matmul(x, w[0], dtype) + matmul(x_prev, w[2], dtype) \
-        + params["b"]
-    odd = matmul(x, w[1], dtype) + params["b"]
-    if out_dtype is not None:
-        even, odd = even.to(out_dtype), odd.to(out_dtype)
-    return torch.stack([even, odd], dim=2).reshape(B, 2 * T, cout)
+    even = matmul(x, w[0], dtype, group) + matmul(x_prev, w[2], dtype, group)
+    odd = matmul(x, w[1], dtype, group)
+    y = gather_from_model(
+        torch.stack([even, odd], dim=2).reshape(B, 2 * T, -1), group)
+    y = y + params["b"]
+    return y if out_dtype is None else y.to(out_dtype)

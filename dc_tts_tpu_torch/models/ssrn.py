@@ -7,12 +7,15 @@ C(c,1) -> HC(3,1) -> HC(3,3) -> 2x[ D(stride2) -> HC(3,1) -> HC(3,3) ]
 -> sigmoid. All non-causal. In synthesis every conv is a torch matmul; in
 training under ``cfg.use_pallas`` the eight HC blocks run kernel K4.
 ``cfg.compute_dtype`` selects the operand modes (``blocks.operand_modes``);
-the logits are cast back to float32 for the loss.
+the logits are cast back to float32 for the loss. ``model_group`` runs
+the stack tensor-parallel over that process group (``parallel/tp.py``;
+``params`` this rank's slices; the last n_freq-wide conv stays whole when
+the model size does not divide it).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, field
+from typing import Any, Tuple
 
 import torch
 
@@ -40,6 +43,7 @@ def ssrn_specs(cfg: Config):
 @dataclass(frozen=True)
 class SSRN:
     cfg: Config
+    model_group: Any = field(default=None, compare=False)
 
     def init(self, gen: torch.Generator, device="cpu") -> dict:
         params, out = init_stack(gen, self.cfg.n_mels, ssrn_specs(self.cfg),
@@ -57,5 +61,5 @@ class SSRN:
             params["stack"], ssrn_specs(cfg), Y, ln_eps=cfg.ln_eps,
             dropout_rate=cfg.dropout_rate, gen=gen, train=train,
             use_pallas=cfg.use_pallas, dtype=dtype, act_dtype=act_dtype,
-            remat=cfg.remat))
+            remat=cfg.remat, model_group=self.model_group))
         return logits, torch.sigmoid(logits)

@@ -16,6 +16,10 @@ in every HC block (``blocks.apply_block``). ``cfg.compute_dtype`` selects
 the stacks' operand modes (``blocks.operand_modes``); the stacks' outputs
 are cast back to float32, so attention and the losses stay float32.
 ``cfg.remat`` recomputes each block's activations in the backward.
+``model_group`` runs the stacks tensor-parallel over that process group
+(``parallel/tp.py``) with ``params`` this rank's slices
+(``parallel.shard_params``): each stack's output is whole, so TextEnc's K/V
+split, the attention and the losses see replicated tensors.
 
 Decode modes, as in the JAX package: "incremental" (a loop of one-frame
 steps, ``decode_step``, with cached conv history), "fused" (the whole loop
@@ -25,8 +29,8 @@ original synthesize.py, plain torch).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -78,6 +82,7 @@ class DecodeState(NamedTuple):
 @dataclass(frozen=True)
 class Text2Mel:
     cfg: Config
+    model_group: Any = field(default=None, compare=False)
 
     # ------------------------------------------------------------- init
     def init(self, gen: torch.Generator, device="cpu") -> dict:
@@ -112,7 +117,8 @@ class Text2Mel:
             params, specs, x, ln_eps=cfg.ln_eps,
             dropout_rate=cfg.dropout_rate, gen=gen, train=train,
             use_pallas=cfg.use_pallas, dtype=self.dtype,
-            act_dtype=self.act_dtype, remat=cfg.remat))
+            act_dtype=self.act_dtype, remat=cfg.remat,
+            model_group=self.model_group))
 
     def text_encode(self, params, ids: torch.Tensor, *, gen=None,
                     train: bool = False

@@ -10,9 +10,9 @@ tuple, as ``PartitionSpec``: ``(None, None, "model")`` shards the last
 dimension over the model axis, ``()`` replicates.
 
 Data parallelism splits a batch's rows over the data axis (``shard_batch``,
-each rank its contiguous rows). The model axis is laid out and
-``param_partition_specs`` gives JAX's rule, but no path of the port splits
-parameters over it yet: ``--model-parallel`` other than 1 is refused.
+each rank its contiguous rows). Tensor parallelism splits the conv kernels'
+output channels over the model axis by ``param_partition_specs``, JAX's
+rule (``tp.py``: ``shard_params``, the gathers, the training path).
 """
 from __future__ import annotations
 

@@ -15,8 +15,16 @@ process with one device (NCCL on cards, gloo with ``--device cpu``);
 global batch (the loader seeded alike on every rank), the gradients are
 summed over them before each update, and only rank 0 writes checkpoints,
 logs and plots. Without ``torchrun`` it runs as one rank.
-``--model-parallel`` other than 1 (tensor parallelism) is not ported yet
-(ROADMAP Queue 1, item 5).
+
+Tensor parallelism: ``--model-parallel m`` lays the ranks out as a
+``data x m`` grid (``parallel.make_mesh``; data defaults to the ranks over
+m) and each model rank holds its slice of every conv kernel's output
+channels (``parallel/tp.py``), as JAX's GSPMD shards them. Every rank
+draws the whole initial state from the seed (or restores the whole
+checkpoint) and keeps its slices. A checkpoint holds whole arrays, the
+file a one-rank run writes: every rank gathers the parameters and Adam's
+moments over its model group, rank 0 writes them and draws the plots from
+them.
 """
 from __future__ import annotations
 
@@ -36,9 +44,9 @@ from ..parallel.mesh import make_mesh, prefetch_to_device
 from ..utils.logging import MetricLogger
 from ..utils.plotting import plot_alignment, plot_spectrogram
 from . import checkpoint
-from .steps import (TrainState, init_ssrn_state, init_text2mel_state,
-                    make_ssrn_step, make_text2mel_step, replicate_state,
-                    teacher_forcing_shift)
+from .steps import (TrainState, gather_state, init_ssrn_state,
+                    init_text2mel_state, make_ssrn_step, make_text2mel_step,
+                    replicate_state, shard_state, teacher_forcing_shift)
 
 
 def _plots(num: int, cfg, params, batch, gs: int, tag: str, logdir: str,
@@ -84,7 +92,8 @@ def main(argv=None):
                     help="data-parallel ranks (default: all the ranks "
                          "torchrun starts, else 1)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="tensor parallelism: only 1 is ported")
+                    help="model-parallel ranks: each holds a slice of every "
+                         "conv kernel's output channels")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tiny", action="store_true",
                     help="use the tiny test config")
@@ -106,25 +115,22 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (default cuda; no CPU fallback)")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        ap.error("--model-parallel other than 1 (tensor parallelism) is not "
-                 "ported to the PyTorch package yet: ROADMAP.md, Queue 1, "
-                 "item 5")
     if args.rng is not None:
         ap.error("--rng selects a JAX PRNG implementation and is not ported "
                  "to the PyTorch package")
     device = resolve_device(args.device)
     distributed.initialize(device=device)
     n_ranks = distributed.world()[1]
-    if (args.data_parallel or 1) > n_ranks:
-        ap.error(f"--data-parallel {args.data_parallel} needs as many ranks;"
-                 f" this run has {n_ranks} (start it under torchrun "
-                 f"--nproc-per-node {args.data_parallel})")
-    mesh = make_mesh(data=args.data_parallel)
+    data, model = args.data_parallel or 1, args.model_parallel
+    if model < 1 or data * model > n_ranks:
+        ap.error(f"--data-parallel {data} x --model-parallel {model} needs "
+                 f"{data * model} ranks; this run has {n_ranks} (start it "
+                 f"under torchrun --nproc-per-node {data * model})")
+    mesh = make_mesh(data=args.data_parallel, model=model)
     if mesh.coords is None:
-        return          # a rank the --data-parallel grid leaves out
+        return          # a rank the grid leaves out
     rank0 = distributed.world()[0] == 0
-    group = mesh.groups["data"]
+    group, model_group = mesh.groups["data"], mesh.groups["model"]
 
     cfg = test_config() if args.tiny else base_config()
     if args.dtype != "float32":
@@ -159,17 +165,20 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(args.seed)
     if args.num == 1:
         state = init_text2mel_state(cfg, gen, device)
-        step_fn = make_text2mel_step(cfg, seed=args.seed + 1, group=group)
+        step_fn = make_text2mel_step(cfg, seed=args.seed + 1, group=group,
+                                     model_group=model_group)
     else:
         state = init_ssrn_state(cfg, gen, device)
-        step_fn = make_ssrn_step(cfg, seed=args.seed + 1, group=group)
+        step_fn = make_ssrn_step(cfg, seed=args.seed + 1, group=group,
+                                 model_group=model_group)
 
     # full-state resume: parameters, Adam moments and schedule counts; a
-    # params-only checkpoint restores with fast-forwarded counts
+    # params-only checkpoint restores with fast-forwarded counts. The whole
+    # arrays, then this rank's slices of them.
     params, opt_state, start_step, kind = checkpoint.restore_train_state(
         logdir, state.params, state.opt_state)
     requires_grad(params)
-    state = TrainState(params, opt_state, start_step)
+    state = shard_state(TrainState(params, opt_state, start_step), mesh)
     replicate_state(state, mesh)
     if start_step:
         log(f"resumed from step {start_step} ({kind} checkpoint)")
@@ -192,15 +201,18 @@ def main(argv=None):
             logger.log(gs, {**{k: float(v) for k, v in metrics.items()},
                             "steps_per_sec": sps})
             print(f"step {gs}  loss {loss:.4f}  {sps:.2f} steps/s")
-        if gs % args.ckpt_every == 0 and rank0:
-            checkpoint.save_train_state(logdir, state.params, state.opt_state,
-                                        gs, keep=args.keep_ckpts)
-            _plots(args.num, cfg, state.params, batch, gs,
-                   checkpoint.step_name(gs)[9:], logdir, logger)
+        if gs % args.ckpt_every == 0:
+            params, opt_state = gather_state(state, mesh)   # collective
+            if rank0:
+                checkpoint.save_train_state(logdir, params, opt_state, gs,
+                                            keep=args.keep_ckpts)
+                _plots(args.num, cfg, params, batch, gs,
+                       checkpoint.step_name(gs)[9:], logdir, logger)
     loader.stop()
+    params, opt_state = gather_state(state, mesh)
     if rank0:
-        checkpoint.save_train_state(logdir, state.params, state.opt_state,
-                                    state.step, keep=args.keep_ckpts)
+        checkpoint.save_train_state(logdir, params, opt_state, state.step,
+                                    keep=args.keep_ckpts)
         logger.close()
     log("Done")
 

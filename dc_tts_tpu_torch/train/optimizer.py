@@ -38,6 +38,22 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def tree_unflatten(template, leaves):
+    """A tree of ``template``'s structure holding ``leaves`` (in
+    ``tree_leaves`` order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return [build(v) for v in t]
+        return next(it)
+
+    return build(template)
+
+
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}

@@ -16,6 +16,14 @@ share of the global batch's loss (``losses.py``), and the gradients and the
 metrics are summed over the group before the update, so every rank applies
 the update of the global batch. Each rank draws its own dropout masks; rank
 0 draws those of a single process.
+
+Tensor parallelism (``model_group``, the model axis' process group): the
+state holds this rank's slices (``shard_state`` of a whole state that
+every rank drew from the same seed), the networks gather every sharded
+conv's output (``parallel/tp.py``), and every model rank computes the same
+loss, with the dropout masks of its data row (the seed takes the data
+coordinate, not the model one). The gradients are summed over the data
+group only; the metrics are not summed over the model group.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from ..models.ssrn import SSRN
 from ..models.text2mel import Text2Mel
 from ..params import requires_grad
 from ..parallel.distributed import all_reduce_sum_, broadcast_
+from ..parallel.tp import gather_params, shard_params
 from .losses import attention_diagonality, ssrn_loss, text2mel_loss
 from .optimizer import apply_updates, init_opt_state, tree_leaves
 
@@ -67,13 +76,15 @@ def step_seed(seed: int, step: int, shard: int = 0) -> int:
     return int(np.random.SeedSequence(key).generate_state(1)[0])
 
 
-def text2mel_grads(cfg: Config, params, batch: dict, gen=None, group=None):
+def text2mel_grads(cfg: Config, params, batch: dict, gen=None, group=None,
+                   model_group=None):
     """(metrics, gradients as a leaf list) of the Text2Mel loss (of this
-    rank's share of it under a data-parallel ``group``)."""
+    rank's share of it under a data-parallel ``group``; of this rank's
+    slices under ``model_group``)."""
     mels = batch["mels"]
     S = teacher_forcing_shift(mels)
-    logits, Y, align, _ = Text2Mel(cfg).apply(params, batch["texts"], S,
-                                              gen=gen, train=True)
+    logits, Y, align, _ = Text2Mel(cfg, model_group).apply(
+        params, batch["texts"], S, gen=gen, train=True)
     loss, metrics = text2mel_loss(logits, Y, align, mels, cfg,
                                   batch.get("text_lens"),
                                   batch.get("mel_lens"), group)
@@ -84,22 +95,27 @@ def text2mel_grads(cfg: Config, params, batch: dict, gen=None, group=None):
     return metrics, list(grads)
 
 
-def ssrn_grads(cfg: Config, params, batch: dict, gen=None, group=None):
+def ssrn_grads(cfg: Config, params, batch: dict, gen=None, group=None,
+               model_group=None):
     """(metrics, gradients as a leaf list) of the SSRN loss (share)."""
-    logits, Z = SSRN(cfg).apply(params, batch["mels"], gen=gen, train=True)
+    logits, Z = SSRN(cfg, model_group).apply(params, batch["mels"], gen=gen,
+                                             train=True)
     loss, metrics = ssrn_loss(logits, Z, batch["mags"], cfg, group)
     grads = torch.autograd.grad(loss, tree_leaves(params))
     return {k: v.detach() for k, v in metrics.items()}, list(grads)
 
 
-def _make_step(cfg: Config, grads_fn, seed: int, group):
+def _make_step(cfg: Config, grads_fn, seed: int, group, model_group):
+    # the data coordinate: the data group of each model column holds one
+    # rank of every data row, in row order
     shard = 0 if group is None else torch.distributed.get_rank(group)
 
     def step(state: TrainState, batch: dict,
              gen: Optional[torch.Generator] = None):
         if gen is not None:
             gen.manual_seed(step_seed(seed, state.step, shard))
-        metrics, grads = grads_fn(cfg, state.params, batch, gen, group)
+        metrics, grads = grads_fn(cfg, state.params, batch, gen, group,
+                                  model_group)
         if group is not None:
             # the global batch's gradient and metrics: the shares summed
             all_reduce_sum_(grads, group)
@@ -110,22 +126,43 @@ def _make_step(cfg: Config, grads_fn, seed: int, group):
     return step
 
 
-def make_text2mel_step(cfg: Config, seed: int = 0, group=None):
+def make_text2mel_step(cfg: Config, seed: int = 0, group=None,
+                       model_group=None):
     """The Text2Mel step. batch: texts (B, N) int, mels (B, T, n_mels),
     and optionally text_lens, mel_lens (B,); under a data-parallel
-    ``group`` this rank's rows of the global batch."""
-    return _make_step(cfg, text2mel_grads, seed, group)
+    ``group`` this rank's rows of the global batch; under ``model_group``
+    the state holds this rank's slices (``shard_state``)."""
+    return _make_step(cfg, text2mel_grads, seed, group, model_group)
 
 
-def make_ssrn_step(cfg: Config, seed: int = 0, group=None):
+def make_ssrn_step(cfg: Config, seed: int = 0, group=None, model_group=None):
     """The SSRN step. batch: mels (B, T/r, n_mels), mags (B, T, n_freq);
     SSRN trains on the ground-truth coarse mels."""
-    return _make_step(cfg, ssrn_grads, seed, group)
+    return _make_step(cfg, ssrn_grads, seed, group, model_group)
+
+
+def shard_state(state: TrainState, mesh) -> TrainState:
+    """This rank's slices of a whole train state over the mesh's model
+    axis: the parameters (marked for gradients) and Adam's moments by
+    ``param_partition_specs``; the state itself on a model axis of 1."""
+    if mesh.shape["model"] == 1:
+        return state
+    params = shard_params(state.params, mesh)
+    requires_grad(params)
+    return TrainState(params, shard_params(state.opt_state, mesh), state.step)
+
+
+def gather_state(state: TrainState, mesh):
+    """(parameters, optimizer state), whole, from this rank's slices: a
+    collective over the model group, which every rank of it calls."""
+    return (gather_params(state.params, mesh),
+            gather_params(state.opt_state, mesh))
 
 
 def replicate_state(state: TrainState, mesh) -> None:
     """Every rank of the mesh's data axis takes its rank 0's parameters
-    and optimizer moments (after init or a restore), in place."""
+    and optimizer moments (after init or a restore), in place; under
+    tensor parallelism each model column its own slices."""
     adam = state.opt_state[1]
     tensors = [t for tree in (state.params, adam["mu"], adam["nu"])
                for t in tree_leaves(tree)]
