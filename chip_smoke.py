@@ -263,7 +263,38 @@ line:
              and read just after, equal the one-rank steps' (28 + 28 a
              Text2Mel step, 8 + 8 an SSRN step). ms/step per rank and of
              one rank, for information (line parallel-tp).
-14. the kernels line, the nvidia-smi line, and the ``ok`` line.
+14. the entry points beside the package, each a line:
+    bench    - python -m dc_tts_tpu_torch.bench as a subprocess, cut to
+             BENCH_SENTENCES=144 BENCH_REPS=3 (chunks of 72): one JSON line
+             with bench.py's keys and ``card`` (this card's nvidia-smi
+             line), finite positive value, value_device and vs_baseline;
+             phase e2e's device audio-s/s beside it for information.
+    learn    - scripts/overfit_demo.py on the card: test_config(), B = 1,
+             1500 steps a network with use_pallas (K4: every HC block's
+             forward and backward each step, no other kernel), then the
+             default Synthesizer (K1 "highest" and K2 twice each: the
+             chunked pcm16 path and synthesize_ids; K4 and K3 never):
+             loss_mels and loss_mags < 0.08, the synthesized audio's mel
+             correlation > 0.6 and L1 < 0.12 (tests/test_quality_e2e.py's
+             gates). For information (line learn-info): the same trained
+             nets on the CPU (max|dY|, max|dZ|, cursors equal) and each
+             reduced decode precision's first cursor flip and rows flipped
+             against "highest".
+    bench-train - scripts/bench_train.py's 14 variants at base_config(), 2
+             steps a span: ms/step and MFU in (0, 1); counts set to 0 just
+             before a variant and read just after: float32 K4 in the float32
+             use_pallas variants only, its bf16 body in the bf16 one, no
+             other kernel.
+    profile-stages - scripts/profile_stages.py's stage times of the 40
+             sentences (CUDA events, best of 2), shares, MFU in (0, 1).
+    bench-variants - scripts/bench_variants.py's dft_pallas2 (K2),
+             dft_pallas (K3) and fft variants, one timed run each, counts
+             set to 0 just before and read just after: K1 twice (warm-up
+             and run), K2 under dft_pallas2 only, K3 under dft_pallas only.
+    scaling  - torchrun --nproc-per-node 1 -m
+             dc_tts_tpu_torch.scripts.scaling_bench (NCCL, one card): the
+             size-1 line, batch 8, efficiency 100 %.
+15. the kernels line, the nvidia-smi line, and the ``ok`` line.
 
 ``python3 chip_smoke.py --only K3,K4-bf16 [--package DIR]`` runs the named
 phases alone (after device and build) and prints their results as one JSON
@@ -316,6 +347,7 @@ A summary also goes to ``chiprun_out/chip_smoke.json`` beside this script.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import json
 import os
@@ -1136,46 +1168,11 @@ def device_busy(prof, n_top=6):
     return sum(t for t, _ in by_name.values()), top
 
 
-def stage_ms(synth, ids):
-    """CUDA-event milliseconds of each stage of ``synthesize_ids`` on one
-    chunk, run stage by stage as the Synthesizer chains them, and the
-    chunk's int16 waveforms."""
-    from dc_tts_tpu_torch.dsp.features import deemphasis
-    from dc_tts_tpu_torch.dsp.griffin_lim import denormalize_mag, griffin_lim
-    from dc_tts_tpu_torch.ops import decode as K1
-
-    cfg, p = synth.cfg, synth.t2m_params
-    names = ("text_enc_ms", "decode_k1_ms", "ssrn_ms", "griffin_lim_ms",
-             "deemph_pcm16_ms")
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    with torch.no_grad():
-        ids = torch.as_tensor(ids, device=synth.device)
-        torch.cuda.synchronize()
-        ev[0].record()
-        Kt, V = synth.text2mel.text_encode(p, ids)
-        ev[1].record()
-        Y, _ = K1.fused_decode(synth.packed, Kt.contiguous(),
-                               V.contiguous(), cfg.max_T, cfg,
-                               synth.decode_prec)
-        ev[2].record()
-        _, Z = synth.ssrn.apply(synth.ssrn_params, Y)
-        ev[3].record()
-        wav = griffin_lim(denormalize_mag(Z, cfg), cfg.n_fft, cfg.hop_length,
-                          cfg.win_length, cfg.n_iter, method=cfg.stft_method)
-        ev[4].record()
-        wav = deemphasis(wav, cfg.preemphasis)
-        wav = torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0
-                          ).to(torch.int16)
-        ev[5].record()
-        torch.cuda.synchronize()
-    return {n: ev[i].elapsed_time(ev[i + 1])
-            for i, n in enumerate(names)}, wav
-
-
 def phase_e2e(results, smi):
     from dc_tts_tpu_torch import Synthesizer, base_config, test_config
     from dc_tts_tpu_torch.dsp.griffin_lim import spectrogram_to_wav
     from dc_tts_tpu_torch.models import SSRN, Text2Mel
+    from dc_tts_tpu_torch.scripts.profile_stages import stage_times
 
     cfg = base_config()
     gen = torch.Generator().manual_seed(0)
@@ -1201,7 +1198,7 @@ def phase_e2e(results, smi):
     if not ok:
         raise AssertionError(f"end to end failed: {wavs.shape} {wavs.dtype} "
                              f"{launches}")
-    stages, wav_st = stage_ms(synth, ids[:CHUNK])
+    stages, wav_st = stage_times(synth, ids[:CHUNK])
     # the stage-by-stage copy of the chain is held to the Synthesizer's own
     wav_sy = synth.synthesize_ids(ids[:CHUNK])[0]
     d_st = int((wav_st.int() - wav_sy.int()).abs().max())
@@ -1280,6 +1277,7 @@ def phase_e2e_prec(results, smi):
     precision: K1 launched in that mode only."""
     from dc_tts_tpu_torch import Synthesizer, base_config
     from dc_tts_tpu_torch.models import SSRN, Text2Mel
+    from dc_tts_tpu_torch.scripts.profile_stages import stage_times
 
     cfg = base_config()
     gen = torch.Generator().manual_seed(0)
@@ -1303,7 +1301,7 @@ def phase_e2e_prec(results, smi):
               and launches["K2"] == 2
               and launches["K3a"] == launches["K3b"] == 0
               and int(np.abs(wavs).max()) > 0)
-        stages, wav_st = stage_ms(synth, ids[:CHUNK])
+        stages, wav_st = stage_times(synth, ids[:CHUNK])
         wav_sy = synth.synthesize_ids(ids[:CHUNK])[0]
         d_st = int((wav_st.int() - wav_sy.int()).abs().max())
         audio_s = wavs.size / cfg.sr
@@ -1401,6 +1399,7 @@ def phase_e2e_dft_pallas(results, smi):
     from dc_tts_tpu_torch.dsp.features import deemphasis
     from dc_tts_tpu_torch.dsp.griffin_lim import denormalize_mag, griffin_lim
     from dc_tts_tpu_torch.models import SSRN, Text2Mel
+    from dc_tts_tpu_torch.scripts.profile_stages import stage_times
     from dc_tts_tpu_torch.utils.profiling import trace
 
     cfg = base_config().replace(stft_method="dft_pallas")
@@ -1458,7 +1457,7 @@ def phase_e2e_dft_pallas(results, smi):
     # where the time goes: CUDA events per stage of one chunk (held equal to
     # synthesize_ids' output), and torch.profiler's kernel time by name over
     # that chunk's Griffin-Lim
-    stages, wav_st = stage_ms(synth, ids[:CHUNK])
+    stages, wav_st = stage_times(synth, ids[:CHUNK])
     d_st = int((wav_st.int() - first[0].int()).abs().max())
     with trace(os.path.join(HERE, "chiprun_out", "trace_dft_pallas")) as prof:
         torch.cuda.synchronize()
@@ -3045,6 +3044,237 @@ def phase_ct_fwd(results):
                              graph_replayed_launches=replayed)
 
 
+# ---------------------------------------------------------------------------
+# the entry points beside the package (bench, the learning demo, scripts/)
+
+# the bench phase's cut of dc_tts_tpu_torch.bench's workload (720 sentences,
+# 5 reps; the chunk of 72 kept)
+BENCH_CUT = {"BENCH_SENTENCES": "144", "BENCH_REPS": "3"}
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "delivery",
+              "value_device", "rep_times_device_s", "stft_method",
+              "sentences", "chunk", "reps", "rep_times_s", "rep_spread",
+              "card"}
+# steps a network of the learn phase (tests/test_quality_e2e.py's)
+LEARN_STEPS = 1500
+
+
+def phase_bench(results, smi):
+    """python -m dc_tts_tpu_torch.bench as a subprocess at BENCH_CUT: one
+    JSON line with bench.py's keys and the card, finite positive values."""
+    t0 = time.perf_counter()
+    out = _run(["dc_tts_tpu_torch.bench"], **BENCH_CUT)
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    r = json.loads(lines[-1])
+    times = r.get("rep_times_s", []) + r.get("rep_times_device_s", [])
+    ok = (len(lines) == 1 and set(r) == BENCH_KEYS
+          and r["sentences"] == int(BENCH_CUT["BENCH_SENTENCES"])
+          and r["chunk"] == 72 and r["reps"] == int(BENCH_CUT["BENCH_REPS"])
+          and r["delivery"] == "pcm16" and r["stft_method"] == "dft_pallas2"
+          and r["card"] == smi
+          and all(np.isfinite(r[k]) and r[k] > 0
+                  for k in ("value", "value_device", "vs_baseline"))
+          and len(times) == 2 * r["reps"] and min(times) > 0)
+    # for information: phase e2e's device audio-s/s (one chunk of 20)
+    stages = results.get("e2e", {}).get("stages_ms")
+    e2e_dev = "not run"
+    if stages:
+        from dc_tts_tpu_torch.config import base_config
+        cfg = base_config()
+        audio_s = CHUNK * cfg.hop_length * (cfg.max_T_full - 1) / cfg.sr
+        e2e_dev = f"{audio_s / (sum(stages.values()) / 1e3):.1f}"
+    line("bench", ok=ok, cut=" ".join(f"{k}={v}" for k, v in
+                                      BENCH_CUT.items()),
+         value=r.get("value"), value_device=r.get("value_device"),
+         rep_spread=r.get("rep_spread"),
+         e2e_stages_device_audio_s_per_s=e2e_dev,
+         seconds=f"{time.perf_counter() - t0:.1f}", card=repr(smi))
+    if not ok:
+        raise AssertionError(f"dc_tts_tpu_torch.bench printed {lines}")
+    results["bench"] = r
+
+
+def phase_learn(results, smi):
+    """The overfit demo on the card (scripts/overfit_demo.py): test_config(),
+    B = 1, LEARN_STEPS steps a network with use_pallas (K4), then the
+    default Synthesizer (K1 "highest", K2, pcm16, chunked) speaks the
+    sentence; tests/test_quality_e2e.py's gates."""
+    from dc_tts_tpu_torch.scripts import overfit_demo as demo
+    from dc_tts_tpu_torch.train import steps as TS
+
+    cfg, dev = demo.demo_config(), torch.device(DEV)
+    data = demo.utterance(cfg)
+    tcfg = cfg.replace(use_pallas=True)
+    s1 = TS.init_text2mel_state(tcfg, torch.Generator().manual_seed(0), dev)
+    s2 = TS.init_ssrn_state(tcfg, torch.Generator().manual_seed(1), dev)
+    (s1, s2, m1, m2), train_s, train_n = _timed(
+        lambda: demo.train(tcfg, data, LEARN_STEPS, s1, s2, dev))
+    per_step = len(_hc_shapes("t2m", cfg)) + len(_hc_shapes("ssrn", cfg))
+    r, synth_s, synth_n = _timed(
+        lambda: demo.evaluate(cfg, data, s1.params, s2.params, dev))
+    k4_ok = (train_n["hc_block_fwd"] == train_n["hc_block_bwd"]
+             == per_step * LEARN_STEPS and train_n["K1"] == 0)
+    synth_ok = (synth_n["K1"] == synth_n["K1_highest"] == 2
+                and synth_n["K2"] == 2 and synth_n["hc_block_fwd"] == 0
+                and synth_n["K3a"] == 0)
+    gates = (m1["loss_mels"] < 0.08 and m2["loss_mags"] < 0.08
+             and r["corr"] > 0.6 and r["l1"] < 0.12)
+    # for information: the same trained nets on the CPU (plain versions)
+    cpu = demo.evaluate(cfg, data, s1.params, s2.params, "cpu")
+    dY = float(np.abs(r["Y"] - cpu["Y"]).max())
+    dZ = float(np.abs(r["Z"] - cpu["Z"]).max())
+    same = bool((r["align"].argmax(1) == cpu["align"].argmax(1)).all())
+    # and the reduced decode precisions on the trained Text2Mel
+    from dc_tts_tpu_torch import Synthesizer
+    from dc_tts_tpu_torch.train.optimizer import tree_map
+    p1 = tree_map(torch.Tensor.detach, s1.params)
+    p2 = tree_map(torch.Tensor.detach, s2.params)
+    A = {p: Synthesizer(cfg, p1, p2, decode_prec=p).synthesize_ids(
+        data["ids"])[3] for p in ("highest", "high3", "hybrid", "default")}
+    flips = {}
+    for p in ("high3", "hybrid", "default"):
+        rows = int((A[p].argmax(1) != A["highest"].argmax(1)).any(1).sum())
+        flips[p] = {"first_flip": _first_flip(A[p], A["highest"]),
+                    "rows_flipped": rows}
+    ok = k4_ok and synth_ok and gates
+    line("learn", ok=ok, steps=LEARN_STEPS, train_s=f"{train_s:.1f}",
+         loss_mels=f"{m1['loss_mels']:.4f}", loss_att=f"{m1['loss_att']:.4f}",
+         diag=f"{m1['attention_diagonality']:.4f}",
+         loss_mags=f"{m2['loss_mags']:.4f}", corr=f"{r['corr']:.4f}",
+         l1=f"{r['l1']:.4f}", mel_l1_free=f"{r['mel_l1']:.4f}",
+         monotonic=f"{r['monotonic']:.3f}",
+         gates="losses 0.08, corr 0.6, L1 0.12",
+         k4=f"{train_n['hc_block_fwd']}+{train_n['hc_block_bwd']}",
+         synth_launches=json.dumps(_k12(synth_n)).replace(" ", ""),
+         synth_s=f"{synth_s:.2f}", card=repr(smi))
+    line("learn-info", card_vs_cpu_max_dY=f"{dY:.3e}",
+         card_vs_cpu_max_dZ=f"{dZ:.3e}", cursors_equal=same,
+         reduced_precisions=json.dumps(flips).replace(" ", ""))
+    if not ok:
+        raise AssertionError(f"learn failed: K4 {train_n}, synthesis "
+                             f"{synth_n}, metrics {m1} {m2} corr "
+                             f"{r['corr']} L1 {r['l1']}")
+    results["learn"] = dict(steps=LEARN_STEPS, train_s=train_s, t2m=m1,
+                            ssrn=m2, corr=r["corr"], l1=r["l1"],
+                            mel_l1=r["mel_l1"], monotonic=r["monotonic"],
+                            card_vs_cpu=dict(dY=dY, dZ=dZ, cursors=same),
+                            reduced_precisions=flips)
+
+
+def phase_bench_train(results, smi):
+    """scripts/bench_train.py's variants at base_config(), 2 steps a span,
+    every launch count set to 0 just before a variant and read just after:
+    K4 (float32) in the float32 use_pallas variants only, its bf16 body in
+    the bf16 use_pallas variants only, no other kernel."""
+    from dc_tts_tpu_torch.config import base_config
+    from dc_tts_tpu_torch.scripts import bench_train as BT
+
+    cfg, dev = base_config(), torch.device(DEV)
+    full = BT.synth_batch(cfg, 7, dev)
+    rows, bad = {}, []
+    for label, which, vcfg, bucket in BT.variants(cfg):
+        batch = full if bucket is None else BT.synth_batch(
+            cfg, 7, dev, n=bucket[0], t=bucket[1])
+        r, _, n = _timed(lambda: BT.bench_step(label, vcfg, which, batch,
+                                               dev, iters=2))
+        bf16 = vcfg.compute_dtype == "bfloat16"
+        k4 = ("hc_block_fwd_bf16", "hc_block_bwd_bf16") if bf16 else (
+            "hc_block_fwd", "hc_block_bwd")
+        want = set(k4) if vcfg.use_pallas else set()
+        if {k for k, v in n.items() if v} != want or not (
+                0 < r["mfu"] < 1):
+            bad.append((label, n, r["mfu"]))
+        rows[label] = dict(ms_per_step=r["ms_per_step"],
+                           fenced_ms=r["fenced_ms"], mfu=r["mfu"],
+                           launches={k: v for k, v in n.items() if v})
+    line("bench-train", ok=not bad, iters=2, variants=len(rows),
+         ms_per_step=json.dumps({k: round(v["ms_per_step"], 2)
+                                 for k, v in rows.items()}).replace(" ", ""),
+         card=repr(smi))
+    if bad:
+        raise AssertionError(f"bench_train variants failed: {bad}")
+    results["bench-train"] = rows
+
+
+def phase_profile_stages(results, smi):
+    """scripts/profile_stages.py on the card: the 40 sentences' stage times
+    (CUDA events, the best of 2), shares and MFU, every stage timed."""
+    from dc_tts_tpu_torch.config import base_config
+    from dc_tts_tpu_torch.scripts import profile_stages as PS
+
+    r = PS.profile(base_config(), torch.device(DEV), reps=2)
+    ok = (r["batch"] == 40 and all(v > 0 for v in r["ms"].values())
+          and all(0 < v < 1 for v in r["mfu"].values()))
+    line("profile-stages", ok=ok, batch=r["batch"],
+         **{k: f"{v:.3f}" for k, v in r["ms"].items()},
+         shares=json.dumps({k: round(v, 4) for k, v in r["share"].items()}
+                           ).replace(" ", ""),
+         mfu=json.dumps({k: round(v, 5) for k, v in r["mfu"].items()}
+                        ).replace(" ", ""),
+         device_audio_s_per_s=f"{r['audio_s_per_s']:.1f}", card=repr(smi))
+    if not ok:
+        raise AssertionError(f"profile_stages: {r}")
+    results["profile-stages"] = r
+
+
+# bench-variants' cut: the methods of kernels K2 and K3, and cuFFT's
+BENCH_VARIANTS = "dft_pallas2,dft_pallas,fft GL"
+
+
+def phase_bench_variants(results, smi):
+    """scripts/bench_variants.py on the card: the BENCH_VARIANTS variants
+    over the 40 sentences, one timed run after a warm-up; K2 launched under
+    dft_pallas2 only, K3 under dft_pallas only."""
+    from dc_tts_tpu_torch.bench import bench_ids
+    from dc_tts_tpu_torch.config import base_config
+    from dc_tts_tpu_torch.scripts import bench_variants as BV
+    from dc_tts_tpu_torch.scripts import chosen
+
+    base, dev = base_config(), torch.device(DEV)
+    ids = bench_ids(base, 40)
+    rows, ok = {}, True
+    for label, cfg in chosen(BV.variants(base), BENCH_VARIANTS):
+        r, _, n = _timed(lambda: BV.bench(cfg, ids, dev, reps=1))
+        m = cfg.stft_method
+        ok = ok and r["audio_s_per_s"] > 0 and n["K1"] == 2 and (
+            n["K2"] > 0) == (m == "dft_pallas2") and (
+            n["K3a"] > 0) == (m == "dft_pallas")
+        rows[m] = dict(r, launches={k: v for k, v in n.items() if v})
+    ok = ok and len(rows) == 3
+    line("bench-variants", ok=ok, reps=1, variants=BENCH_VARIANTS,
+         audio_s_per_s=json.dumps({k: round(v["audio_s_per_s"], 1)
+                                   for k, v in rows.items()}
+                                  ).replace(" ", ""), card=repr(smi))
+    if not ok:
+        raise AssertionError(f"bench_variants: {rows}")
+    results["bench-variants"] = rows
+
+
+def phase_scaling(results, smi):
+    """scripts/scaling_bench.py under torchrun --nproc-per-node 1 (NCCL, one
+    card): a line for size 1 at 100 % efficiency."""
+    t0 = time.perf_counter()
+    out = _run(["torch.distributed.run", "--standalone", "--nproc-per-node",
+                "1", "-m", "dc_tts_tpu_torch.scripts.scaling_bench"])
+    sizes = re.findall(r"^devices=\s*(\d+)\s+batch=\s*(\d+)\s+(\S+)s\s+(\S+) "
+                       r"audio-s/s\s+scaling-eff\s+(\S+)%$", out, re.M)
+    ok = len(sizes) == 1 and sizes[0][:2] == ("1", "8") and \
+        float(sizes[0][3]) > 0 and sizes[0][4] == "100.0"
+    line("scaling", ok=ok, command="torchrun --nproc-per-node 1 -m "
+         "dc_tts_tpu_torch.scripts.scaling_bench",
+         sizes=json.dumps(sizes).replace(" ", ""),
+         seconds=f"{time.perf_counter() - t0:.1f}", card=repr(smi))
+    if not ok:
+        raise AssertionError(f"scaling_bench printed:\n{out[-2000:]}")
+    results["scaling"] = sizes
+
+
+ENTRY_PHASES = (("bench", phase_bench), ("learn", phase_learn),
+                ("bench-train", phase_bench_train),
+                ("profile-stages", phase_profile_stages),
+                ("bench-variants", phase_bench_variants),
+                ("scaling", phase_scaling))
+
+
 def _only(names, smi) -> int:
     """Run the named phases alone after device and build (``--only``):
     their lines, then their results as one JSON line (no ``ok`` line)."""
@@ -3055,7 +3285,9 @@ def _only(names, smi) -> int:
               "K4": phase_k4, "K4-bf16": lambda r: phase_k4(r, bf16=True),
               "ct-fwd": phase_ct_fwd,
               "parallel": lambda r: phase_parallel(r, smi),
-              "parallel-tp": lambda r: phase_parallel_tp(r, smi)}
+              "parallel-tp": lambda r: phase_parallel_tp(r, smi),
+              **{name: functools.partial(fn, smi=smi)
+                 for name, fn in ENTRY_PHASES}}
     unknown = [n for n in names if n not in phases and n != "train-routes"]
     if unknown:
         raise SystemExit(f"chip_smoke: unknown phases {unknown}; known: "
@@ -3079,7 +3311,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="", help="comma-separated phases to "
                     "run alone (K1, K1-prec, K2, e2e, K3, e2e-dft_pallas, "
                     "K4, K4-bf16, ct-fwd, train-routes, parallel, "
-                    "parallel-tp), e.g. to "
+                    "parallel-tp, bench, learn, bench-train, "
+                    "profile-stages, bench-variants, scaling), e.g. to "
                     "time them on another commit's package in the same "
                     "call")
     ap.add_argument("--package", default="", help="import dc_tts_tpu_torch "
@@ -3118,6 +3351,8 @@ def main(argv=None) -> int:
         phase_synth_cli(root)
     phase_parallel(results, smi)
     phase_parallel_tp(results, smi)
+    for _, fn in ENTRY_PHASES:
+        fn(results, smi)
     results["launches"].update(
         {"hc_block_fwd": results["k4_launches"]["fwd"],
          "hc_block_bwd": results["k4_launches"]["bwd"],
@@ -3172,7 +3407,8 @@ def main(argv=None) -> int:
                                                      "train-ssrn",
                                                      "train-routes")},
                    "parallel": results["parallel"],
-                   "parallel-tp": results["parallel-tp"]},
+                   "parallel-tp": results["parallel-tp"],
+                   **{name: results[name] for name, _ in ENTRY_PHASES}},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -95,9 +95,11 @@ def griffin_lim_flops(batch: int, frames: int, n_fft: int, n_iter: int,
     return (n_iter + 1) * per_dir * 2
 
 
-# The H100 SXM's published dense bf16 tensor-core peak (NVIDIA's data
-# sheet, at 700 W); float32 sums.
+# The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): dense
+# bf16 on the tensor cores (float32 sums), and float32 outside them (what
+# float32 products run at with TF32 off).
 H100_BF16_PEAK_FLOPS = 989e12
+H100_FP32_PEAK_FLOPS = 67e12
 
 
 def mfu(flops: int, seconds: float, passes: int = 1,
