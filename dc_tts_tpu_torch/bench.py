@@ -74,16 +74,21 @@ def bench_ids(cfg, n_total: int) -> np.ndarray:
     return text_mod.encode_batch((sents * reps)[:n_total], cfg)
 
 
-def seeded_synthesizer(cfg, device, **kw):
-    """A Synthesizer on seeded random weights (the smoke's e2e seed)."""
+def seeded_nets(cfg):
+    """Seeded random (Text2Mel, SSRN) parameters on the CPU: seed 0,
+    Text2Mel drawn first (the bench's weights and chip_smoke.py's)."""
     import torch
 
     from .models.ssrn import SSRN
     from .models.text2mel import Text2Mel
-    from .pipeline import Synthesizer
     gen = torch.Generator().manual_seed(0)
-    return Synthesizer(cfg, Text2Mel(cfg).init(gen), SSRN(cfg).init(gen),
-                       device=device, **kw)
+    return Text2Mel(cfg).init(gen), SSRN(cfg).init(gen)
+
+
+def seeded_synthesizer(cfg, device, **kw):
+    """A Synthesizer on ``seeded_nets``' weights."""
+    from .pipeline import Synthesizer
+    return Synthesizer(cfg, *seeded_nets(cfg), device=device, **kw)
 
 
 def device_pass(synth, ids: np.ndarray, chunk: int) -> list:

@@ -1,9 +1,1 @@
 """Experiment scripts of the port: counterparts of the repository's scripts/."""
-
-
-def chosen(items, only: str) -> list:
-    """The (label, ...) items whose label holds one of ``only``'s
-    comma-separated substrings (the scripts' ``BENCH_ONLY``); every item
-    for an empty ``only``."""
-    keys = [k.strip() for k in only.split(",") if k.strip()]
-    return [it for it in items if not keys or any(k in it[0] for k in keys)]

@@ -16,22 +16,20 @@ Per variant: pipelined ms/step (the best of three spans of ``--iters``
 steps, one wait for the device at each span's end, as the training loop
 never waits per step), the fenced per-step time (the best single step,
 waiting for its loss), steps/s, examples/s and MFU: 3 x the forward's
-algorithmic FLOPs over the H100's peak for the variant's products
-(float32 67 TFLOP/s; the bf16 modes 989 TFLOP/s). ``BENCH_ONLY="t2m f32,
-ssrn"`` runs the variants whose label holds one of the comma-separated
-substrings. A failing variant raises.
+algorithmic FLOPs over the H100's peak for the variant's products: float32
+67 TFLOP/s; float32 ``use_pallas`` 495 / 3 TFLOP/s (K4 runs the HC blocks'
+products, most of the FLOPs, on the tensor cores in three TF32 passes; the
+rest run at the float32 rate, so against this peak the MFU reads low,
+never high); the bf16 modes 989 TFLOP/s. A failing variant raises.
 """
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 import time
 
 import numpy as np
 import torch
-
-from . import chosen
 
 
 def synth_batch(cfg, seed: int, device, n=None, t=None) -> dict:
@@ -95,7 +93,7 @@ def bench_step(label: str, cfg, which: str, batch: dict, device,
                iters: int = 5) -> dict:
     """Pipelined and fenced ms/step of one variant; prints its line."""
     from ..utils.profiling import (H100_BF16_PEAK_FLOPS, H100_FP32_PEAK_FLOPS,
-                                   mfu)
+                                   H100_TF32_PEAK_FLOPS, mfu)
     state, step, keys, fwd_flops = net_step(cfg, which, device)
     b = {k: batch[k] for k in keys}
     gen = torch.Generator(device=device)
@@ -109,15 +107,20 @@ def bench_step(label: str, cfg, which: str, batch: dict, device,
         float(metrics["loss"])
         fenced = min(fenced, (time.perf_counter() - t0) * 1e3)
     flops = 3 * fwd_flops(batch["texts"].shape[1], batch["mels"].shape[1])
-    peak = (H100_BF16_PEAK_FLOPS if cfg.compute_dtype.startswith("bfloat16")
-            else H100_FP32_PEAK_FLOPS)
+    if cfg.compute_dtype.startswith("bfloat16"):
+        passes, peak, of = 1, H100_BF16_PEAK_FLOPS, "989"
+    elif cfg.use_pallas:                                   # K4's 3xTF32
+        passes, peak, of = 3, H100_TF32_PEAK_FLOPS, "495/3"
+    else:
+        passes, peak, of = 1, H100_FP32_PEAK_FLOPS, "67"
     on_card = torch.device(device).type == "cuda"
     r = {"label": label, "ms_per_step": pipelined, "fenced_ms": fenced,
          "steps_per_s": 1e3 / pipelined,
          "examples_per_s": cfg.B * 1e3 / pipelined, "train_flops": flops,
-         "mfu": mfu(flops, pipelined / 1e3, 1, peak) if on_card else None}
+         "mfu": (mfu(flops, pipelined / 1e3, passes, peak) if on_card
+                 else None)}
     util = ("mfu not measured (CPU run)" if r["mfu"] is None else
-            f"mfu {100 * r['mfu']:5.1f}% of {peak / 1e12:.0f} TFLOP/s")
+            f"mfu {100 * r['mfu']:5.1f}% of {of} TFLOP/s")
     print(f"{label:34s} {pipelined:8.1f} ms/step  "
           f"{r['steps_per_s']:6.2f} steps/s {r['examples_per_s']:7.1f} ex/s"
           f"  {util}  (fenced {fenced:.1f} ms)", flush=True)
@@ -168,13 +171,13 @@ def variants(cfg) -> list:
     return out
 
 
-def run(cfg, device, iters: int = 5, only: str = "") -> list:
-    """Every variant (those ``only`` selects) -> their results."""
+def run(cfg, device, iters: int = 5) -> list:
+    """Every variant -> their results."""
     print(f"{device}, B={cfg.B}, full grid ({cfg.max_N}, {cfg.max_T})",
           flush=True)
     full = synth_batch(cfg, 7, device)
     out = []
-    for label, which, vcfg, bucket in chosen(variants(cfg), only):
+    for label, which, vcfg, bucket in variants(cfg):
         batch = full if bucket is None else synth_batch(
             cfg, 7, device, n=min(bucket[0], cfg.max_N),
             t=min(bucket[1], cfg.max_T))
@@ -182,7 +185,7 @@ def run(cfg, device, iters: int = 5, only: str = "") -> list:
     return out
 
 
-def run_defaults(cfg, device, iters: int = 5, only: str = "") -> list:
+def run_defaults(cfg, device, iters: int = 5) -> list:
     """The CLI's three buckets in each --dtype -> their results."""
     shapes = [(min(72, cfg.max_N), min(96, cfg.max_T)),
               (min(104, cfg.max_N), min(136, cfg.max_T)),
@@ -196,7 +199,7 @@ def run_defaults(cfg, device, iters: int = 5, only: str = "") -> list:
                   (f"{which} bf16_full+buckets", which,
                    cfg.replace(compute_dtype="bfloat16_full"))]
     return [bench_combo(label, c, which, shapes, device, iters)
-            for label, which, c in chosen(items, only)]
+            for label, which, c in items]
 
 
 def main(argv=None) -> int:
@@ -213,7 +216,7 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     cfg = test_config() if args.tiny else base_config()
     fn = run_defaults if args.what == "defaults" else run
-    fn(cfg, device, args.iters, os.environ.get("BENCH_ONLY", ""))
+    fn(cfg, device, args.iters)
     return 0
 
 

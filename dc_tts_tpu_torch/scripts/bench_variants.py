@@ -20,7 +20,13 @@ import os
 import sys
 import time
 
-from . import chosen
+
+def chosen(items, only: str) -> list:
+    """The (label, ...) items whose label holds one of ``only``'s
+    comma-separated substrings (``BENCH_ONLY``); every item for an empty
+    ``only``."""
+    keys = [k.strip() for k in only.split(",") if k.strip()]
+    return [it for it in items if not keys or any(k in it[0] for k in keys)]
 
 
 def variants(base) -> list:

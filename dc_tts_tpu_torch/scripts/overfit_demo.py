@@ -2,19 +2,18 @@
 production path and compare with the training target; the port of
 ``scripts/overfit_demo.py``:
 ``python -m dc_tts_tpu_torch.scripts.overfit_demo [--device cpu]
-[--steps N] [--use-pallas]``.
+[--steps N]``.
 
 At ``test_config()`` with B = 1 and a warm-up of 200 steps: the sentence
 "a quick brown fox." and a synthetic recording of it (a tone a character,
 so the audio follows the text), its features from the port's own
 ``wav_to_spectrograms``. Both networks train ``--steps`` steps
-(``DEMO_STEPS``, 3000 by default) from seeded parameters (``--use-pallas``:
-every HC block through kernel K4); then the default ``Synthesizer`` (the
-fused decode K1 at "highest", Griffin-Lim K2, 16-bit PCM, the chunked path)
-speaks the sentence. Prints the free-running mel L1 against the target, the
-attention cursor's monotonic fraction, the synthesized audio's mel
-correlation and L1 against the target, and PASS (mel L1 < 0.15 and
-correlation > 0.5, the JAX demo's bar) or WEAK.
+(``DEMO_STEPS``, 3000 by default) from seeded parameters; then the default
+``Synthesizer`` (the fused decode K1 at "highest", Griffin-Lim K2, 16-bit
+PCM, the chunked path) speaks the sentence. Prints the free-running mel L1
+against the target, the attention cursor's monotonic fraction, the
+synthesized audio's mel correlation and L1 against the target, and PASS
+(mel L1 < 0.15 and correlation > 0.5, the JAX demo's bar) or WEAK.
 """
 from __future__ import annotations
 
@@ -140,11 +139,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--steps", type=int,
                     default=int(os.environ.get("DEMO_STEPS", "3000")))
-    ap.add_argument("--use-pallas", action="store_true",
-                    help="every HC block through kernel K4 (on the card)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    cfg = demo_config().replace(use_pallas=args.use_pallas)
+    cfg = demo_config()
     data = utterance(cfg)
     s1 = TS.init_text2mel_state(cfg, torch.Generator().manual_seed(0),
                                 device)

@@ -9,10 +9,11 @@ SSRN, denormalize + Griffin-Lim (K2 by default), de-emphasis + pcm16. On the
 card each stage is timed with CUDA events (the best of ``--reps`` runs);
 under ``--device cpu`` with the host clock. Prints each stage's ms and share,
 then its algorithmic FLOPs (``utils/profiling``'s counters, the JAX
-package's; Griffin-Lim's FFT methods as real FFTs) and its MFU against the H100's peak for the arithmetic the stage
-runs: float32 (67 TFLOP/s) for TextEnc, the decode and Griffin-Lim's
-float32 methods; SSRN's 3-pass bf16 split and the bf16 Griffin-Lim methods
-at the dense bf16 peak (989 TFLOP/s) times their passes.
+package's; Griffin-Lim's FFT methods as real FFTs) and its MFU against the
+H100's peak for the arithmetic the stage runs: float32 (67 TFLOP/s) for
+TextEnc, the decode and Griffin-Lim's float32 methods; SSRN's 3-pass bf16
+split and the bf16 Griffin-Lim methods at the dense bf16 peak (989
+TFLOP/s) times their passes.
 """
 from __future__ import annotations
 

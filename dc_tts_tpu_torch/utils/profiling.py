@@ -96,9 +96,10 @@ def griffin_lim_flops(batch: int, frames: int, n_fft: int, n_iter: int,
 
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): dense
-# bf16 on the tensor cores (float32 sums), and float32 outside them (what
-# float32 products run at with TF32 off).
+# bf16 and dense TF32 on the tensor cores (float32 sums), and float32
+# outside them (what float32 products run at with TF32 off).
 H100_BF16_PEAK_FLOPS = 989e12
+H100_TF32_PEAK_FLOPS = 495e12
 H100_FP32_PEAK_FLOPS = 67e12
 
 
