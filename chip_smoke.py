@@ -1204,7 +1204,8 @@ def phase_e2e(results, smi):
         raise AssertionError(f"end to end failed: {wavs.shape} {wavs.dtype} "
                              f"{launches}")
     stages, wav_st = stage_times(synth, ids[:CHUNK])
-    # the stage-by-stage copy of the chain is held to the Synthesizer's own
+    # the span-timed call is held to an untimed one: recording changes
+    # nothing
     wav_sy = synth.synthesize_ids(ids[:CHUNK])[0]
     d_st = int((wav_st.int() - wav_sy.int()).abs().max())
     dev_s = sum(stages.values()) / 1e3

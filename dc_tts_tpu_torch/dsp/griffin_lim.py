@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Config
+from ..utils.profiling import span
 from .features import deemphasis
 from .stft import dft_consts, istft, stft
 
@@ -156,8 +157,10 @@ def spectrogram_to_wav(mag_norm: torch.Tensor, cfg: Config) -> torch.Tensor:
     """Normalized linear spectrogram (..., T, n_freq) -> waveform:
     denormalize -> Griffin-Lim (``cfg.stft_method``) -> de-emphasis. A
     float64 spectrogram under ``stft_method="fft"`` gives a float64
-    reference waveform."""
-    wav = griffin_lim(denormalize_mag(mag_norm, cfg), cfg.n_fft,
-                      cfg.hop_length, cfg.win_length, cfg.n_iter,
-                      method=cfg.stft_method)
+    reference waveform. Span ``vocoder.griffin_lim`` (``utils/profiling``)
+    around denormalize + Griffin-Lim."""
+    with span("vocoder.griffin_lim"):
+        wav = griffin_lim(denormalize_mag(mag_norm, cfg), cfg.n_fft,
+                          cfg.hop_length, cfg.win_length, cfg.n_iter,
+                          method=cfg.stft_method)
     return deemphasis(wav, cfg.preemphasis)

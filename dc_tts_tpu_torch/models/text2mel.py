@@ -35,6 +35,7 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import Config
+from ..utils.profiling import span
 from . import layers as L
 from .blocks import (C, HC, apply_stack, init_stack, init_stack_state,
                      operand_modes, stack_in_channels, step_stack, widen)
@@ -240,40 +241,44 @@ class Text2Mel:
         the CURRENT cursor re-masks every earlier query row too, and those
         rows feed AudioDec's causal history for frame t, so attention and
         AudioDec run again over the whole prefix each step (O(T^2)); Q is
-        cached frame by frame, since AudioEnc never sees the mask."""
-        from ..ops.decode import check_prec
+        cached frame by frame, since AudioEnc never sees the mask.
+
+        Spans (``utils/profiling``), in every mode: ``text2mel.text_encode``
+        around TextEnc and ``text2mel.decode`` around the decode (the
+        kernel's launch with its host-side preparation in "fused", the
+        step loop otherwise)."""
+        from ..ops.decode import check_prec, fused_decode, pack_decode_params
         check_prec(prec)
+        if mode not in ("incremental", "fused", "reference"):
+            raise ValueError(f"unknown decode mode {mode!r}; one of "
+                             "('incremental', 'fused', 'reference')")
         max_t = max_t or self.cfg.max_T
-        if mode == "incremental":
-            return self._decode_incremental(params, ids, max_t)
-        if mode == "reference":
-            return self._decode_reference(params, ids, max_t)
-        if mode == "fused":
-            from ..ops.decode import fused_decode, pack_decode_params
-            if packed is None:
-                packed = pack_decode_params(self.cfg, params, prec)
+        if mode == "fused" and packed is None:
+            packed = pack_decode_params(self.cfg, params, prec)
+        with span("text2mel.text_encode"):
             Kt, V = self.text_encode(params, ids)
+        with span("text2mel.decode"):
+            if mode == "incremental":
+                return self._decode_incremental(params, Kt, V, max_t)
+            if mode == "reference":
+                return self._decode_reference(params, Kt, V, max_t)
             return fused_decode(packed, Kt.contiguous(), V.contiguous(),
                                 max_t, self.cfg, prec)
-        raise ValueError(f"unknown decode mode {mode!r}; one of "
-                         "('incremental', 'fused', 'reference')")
 
-    def _decode_incremental(self, params, ids, max_t: int):
-        B, N = ids.shape
-        Kt, V = self.text_encode(params, ids)
-        state = self.init_decode_state(B, max_t, ids.device)
-        Y = torch.empty(B, max_t, self.cfg.n_mels, device=ids.device)
-        A = torch.empty(B, N, max_t, device=ids.device)
+    def _decode_incremental(self, params, Kt, V, max_t: int):
+        B, N = Kt.shape[:2]
+        state = self.init_decode_state(B, max_t, Kt.device)
+        Y = torch.empty(B, max_t, self.cfg.n_mels, device=Kt.device)
+        A = torch.empty(B, N, max_t, device=Kt.device)
         for t in range(max_t):
             Y[:, t], A[:, :, t], state = self.decode_step(params, Kt, V,
                                                           state, t)
         return Y, A
 
-    def _decode_reference(self, params, ids, max_t: int):
+    def _decode_reference(self, params, Kt, V, max_t: int):
         cfg = self.cfg
-        B, N = ids.shape
-        dev = ids.device
-        Kt, V = self.text_encode(params, ids)
+        B, N = Kt.shape[:2]
+        dev = Kt.device
         enc_specs = audio_enc_specs(cfg)
         enc_bufs = init_stack_state(
             enc_specs, stack_in_channels(enc_specs, cfg.n_mels), B, max_t,

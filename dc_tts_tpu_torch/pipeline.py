@@ -46,6 +46,7 @@ from .ops.decode import check_prec, pack_decode_params
 from .params import to_device
 from .parallel import distributed as D
 from .train.optimizer import tree_leaves
+from .utils.profiling import span
 
 DECODE_MODES = ("fused", "incremental", "reference")
 # ssrn_precision -> the compute_dtype SSRN runs under (None: the config's)
@@ -139,18 +140,22 @@ class Synthesizer:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def _synthesize_rows(self, ids):
-        ids = torch.as_tensor(np.asarray(ids), dtype=torch.long,
-                              device=self.device)
-        Y, align = self.text2mel.decode(self.t2m_params, ids,
-                                        mode=self.decode_mode,
-                                        prec=self.decode_prec,
-                                        packed=self.packed)
-        _, Z = self.ssrn.apply(self.ssrn_params, Y)
-        wav = spectrogram_to_wav(Z, self.cfg)
-        if self.pcm16:
-            wav = torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0
-                              ).to(torch.int16)
-        return wav, Y, Z, align
+        ids = np.asarray(ids)
+        with span("synth.rows", n=ids.shape[0]):
+            ids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+            with span("text2mel"):
+                Y, align = self.text2mel.decode(self.t2m_params, ids,
+                                                mode=self.decode_mode,
+                                                prec=self.decode_prec,
+                                                packed=self.packed)
+            with span("ssrn"):
+                _, Z = self.ssrn.apply(self.ssrn_params, Y)
+            with span("vocoder"):
+                wav = spectrogram_to_wav(Z, self.cfg)
+                if self.pcm16:
+                    wav = torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0
+                                      ).to(torch.int16)
+            return wav, Y, Z, align
 
     def _my_rows(self, ids) -> np.ndarray:
         """This rank's rows of a batch padded to the data axis."""
@@ -164,40 +169,61 @@ class Synthesizer:
 
     def synthesize_ids(self, ids):
         """ids (B, max_N) int -> (wavs (B, n_samples), Y, Z, align), all on
-        the device; wavs are int16 when pcm16 is set."""
-        if self.mesh is None:
-            return self._synthesize_rows(ids)
-        B = np.asarray(ids).shape[0]
-        return tuple(self._gather(o, B)
-                     for o in self._synthesize_rows(self._my_rows(ids)))
+        the device; wavs are int16 when pcm16 is set. Spans as
+        ``synthesize_ids_chunked``'s, without the copy to the host."""
+        with span("synth.call"):
+            if self.mesh is None:
+                return self._synthesize_rows(ids)
+            B = np.asarray(ids).shape[0]
+            return tuple(self._gather(o, B)
+                         for o in self._synthesize_rows(self._my_rows(ids)))
 
     def synthesize_ids_chunked(self, ids, chunk: int = 40) -> np.ndarray:
         """Any batch size, in chunks of ``chunk`` rows -> wavs (B, n_samples)
         on the host. Every chunk is enqueued before any result is copied
-        back; each copy is a non-blocking copy into pinned host memory, so
-        a chunk's transfer overlaps the next chunks' compute. Under a mesh
-        the chunk is first rounded up to a multiple of the data axis."""
+        back, each copy a non-blocking copy into pinned host memory. (The
+        host still waits for each chunk before it enqueues the next: de-
+        emphasis uploads its tables from pageable memory, which
+        synchronises the stream; the wait shows in ``vocoder``'s self
+        time.) Under a mesh the chunk is first rounded up to a multiple of
+        the data axis.
+
+        Spans (``utils/profiling``): ``synth.call`` around the call, the
+        tree's root; in it ``synth.rows`` a chunk (``n`` its rows), which
+        holds ``text2mel`` (``Text2Mel.decode``'s ``text2mel.text_encode``
+        and ``text2mel.decode``), ``ssrn`` and ``vocoder`` (``vocoder.
+        griffin_lim``, then de-emphasis and pcm16 in its self time); on the
+        card then ``synth.to_host``, the copy back: ``to_host.pin`` a chunk
+        (the pinned allocation), ``to_host.wait`` (the host waiting for the
+        device) and ``to_host.cat`` (the concatenation on the host)."""
         ids = np.asarray(ids)
         if self.mesh is not None:
             nd = self.mesh.shape["data"]
             chunk = -(-chunk // nd) * nd
         parts = [ids[i: i + chunk] for i in range(0, ids.shape[0], chunk)]
-        if self.mesh is None:
-            wavs = [self._synthesize_rows(p)[0] for p in parts]
-        else:
-            # every chunk enqueued before the first gather waits on one
-            local = [self._synthesize_rows(self._my_rows(p))[0]
-                     for p in parts]
-            wavs = [self._gather(w, len(p)) for w, p in zip(local, parts)]
-        if self.device.type != "cuda":
-            return torch.cat(wavs).numpy()
-        host = []
-        for w in wavs:
-            h = torch.empty(w.shape, dtype=w.dtype, pin_memory=True)
-            h.copy_(w, non_blocking=True)
-            host.append(h)
-        torch.cuda.synchronize(self.device)
-        return torch.cat(host).numpy()
+        with span("synth.call"):
+            if self.mesh is None:
+                wavs = [self._synthesize_rows(p)[0] for p in parts]
+            else:
+                # every chunk enqueued before the first gather waits on one
+                local = [self._synthesize_rows(self._my_rows(p))[0]
+                         for p in parts]
+                wavs = [self._gather(w, len(p))
+                        for w, p in zip(local, parts)]
+            if self.device.type != "cuda":
+                return torch.cat(wavs).numpy()
+            with span("synth.to_host"):
+                host = []
+                for w in wavs:
+                    with span("to_host.pin"):
+                        h = torch.empty(w.shape, dtype=w.dtype,
+                                        pin_memory=True)
+                    h.copy_(w, non_blocking=True)
+                    host.append(h)
+                with span("to_host.wait"):
+                    torch.cuda.synchronize(self.device)
+                with span("to_host.cat"):
+                    return torch.cat(host).numpy()
 
     def synthesize(self, sentences: Sequence[str], *, trim: bool = True):
         """Raw sentences -> list of float32 waveforms (host, trimmed)."""

@@ -4,22 +4,21 @@
 
 The 40 Harvard sentences in one batch through a seeded-weight
 ``Synthesizer`` (pcm16; K1 "highest", SSRN "high", ``cfg.stft_method``),
-run stage by stage as the Synthesizer chains them: TextEnc, the decode (K1),
-SSRN, denormalize + Griffin-Lim (K2 by default), de-emphasis + pcm16. On the
-card each stage is timed with CUDA events (the best of ``--reps`` runs);
-under ``--device cpu`` with the host clock. Prints each stage's ms and share,
-then its algorithmic FLOPs (``utils/profiling``'s counters, the JAX
-package's; Griffin-Lim's FFT methods as real FFTs) and its MFU against the
-H100's peak for the arithmetic the stage runs: float32 (67 TFLOP/s) for
-TextEnc, the decode and Griffin-Lim's float32 methods; SSRN's 3-pass bf16
-split and the bf16 Griffin-Lim methods at the dense bf16 peak (989
-TFLOP/s) times their passes.
+timed by the program's own spans (``utils/profiling``): TextEnc, the decode
+(K1), SSRN, denormalize + Griffin-Lim (K2 by default), de-emphasis + pcm16.
+On the card each stage's time is its spans' CUDA events (the best of
+``--reps`` runs); under ``--device cpu`` the host clock. Prints each stage's
+ms and share, then its algorithmic FLOPs (``utils/profiling``'s counters,
+the JAX package's; Griffin-Lim's FFT methods as real FFTs) and its MFU
+against the H100's peak for the arithmetic the stage runs: float32 (67
+TFLOP/s) for TextEnc, the decode and Griffin-Lim's float32 methods; SSRN's
+3-pass bf16 split and the bf16 Griffin-Lim methods at the dense bf16 peak
+(989 TFLOP/s) times their passes.
 """
 from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 import torch
 
@@ -28,47 +27,27 @@ STAGES = ("text_enc_ms", "decode_k1_ms", "ssrn_ms", "griffin_lim_ms",
 
 
 def stage_times(synth, ids):
-    """Milliseconds of each stage of ``synthesize_ids`` on one batch, run
-    stage by stage as the Synthesizer chains them (CUDA events on the card,
-    the host clock on the CPU), and the batch's int16 waveforms."""
-    from ..dsp.features import deemphasis
-    from ..dsp.griffin_lim import denormalize_mag, griffin_lim
-    from ..ops import decode as K1
+    """Milliseconds of each stage of one ``synthesize_ids`` call on one
+    batch, read from its spans (device ms on the card, host ms on the CPU),
+    and the batch's waveforms on the device."""
+    from ..utils import profiling
 
-    cfg, p = synth.cfg, synth.t2m_params
     cuda = synth.device.type == "cuda"
     if cuda:
-        def mark():
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            return e
-    else:
-        mark = time.perf_counter
-    with torch.no_grad():
-        ids = torch.as_tensor(ids, device=synth.device)
-        if cuda:
-            torch.cuda.synchronize()
-        ev = [mark()]
-        Kt, V = synth.text2mel.text_encode(p, ids)
-        ev.append(mark())
-        Y, _ = K1.fused_decode(synth.packed, Kt.contiguous(),
-                               V.contiguous(), cfg.max_T, cfg,
-                               synth.decode_prec)
-        ev.append(mark())
-        _, Z = synth.ssrn.apply(synth.ssrn_params, Y)
-        ev.append(mark())
-        wav = griffin_lim(denormalize_mag(Z, cfg), cfg.n_fft, cfg.hop_length,
-                          cfg.win_length, cfg.n_iter, method=cfg.stft_method)
-        ev.append(mark())
-        wav = deemphasis(wav, cfg.preemphasis)
-        wav = torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0
-                          ).to(torch.int16)
-        ev.append(mark())
-        if cuda:
-            torch.cuda.synchronize()
-    ms = (lambda a, b: a.elapsed_time(b)) if cuda else \
-        (lambda a, b: (b - a) * 1e3)
-    return {n: ms(ev[i], ev[i + 1]) for i, n in enumerate(STAGES)}, wav
+        torch.cuda.synchronize()
+    profiling.reset()
+    with profiling.collect():
+        wav = synth.synthesize_ids(ids)[0]
+    s = profiling.summary()
+    profiling.reset()
+    ms = "device_ms" if cuda else "host_ms"
+    return {"text_enc_ms": s["text2mel.text_encode"][ms],
+            "decode_k1_ms": s["text2mel.decode"][ms],
+            "ssrn_ms": s["ssrn"][ms],
+            "griffin_lim_ms": s["vocoder.griffin_lim"][ms],
+            # the vocoder's own time: de-emphasis and pcm16
+            "deemph_pcm16_ms": s["vocoder"][ms.replace("_ms", "_self_ms")]
+            }, wav
 
 
 def gl_arithmetic(cfg):

@@ -10,6 +10,12 @@ The update runs in place on the state's tensors, as the JAX step donates
 its state. ``metrics`` are 0-d tensors on the device; nothing waits for the
 device inside a step.
 
+Spans (``utils/profiling``): ``train.step`` around a step, the root of its
+tree with the step's number as the tree's id; in it ``train.forward`` (the
+network, the loss and the metrics), ``train.backward`` (the gradients) and
+``train.optimizer`` (clipping, Adam, Noam). A data-parallel step's
+gradient sum lies between the last two, in ``train.step``'s self time.
+
 Data parallelism (``group``, the data axis' process group): each rank's
 batch holds its rows of the global batch; the losses give this rank's
 share of the global batch's loss (``losses.py``), and the gradients and the
@@ -38,6 +44,7 @@ from ..models.text2mel import Text2Mel
 from ..params import requires_grad
 from ..parallel.distributed import all_reduce_sum_, broadcast_
 from ..parallel.tp import gather_params, shard_params
+from ..utils.profiling import span
 from .losses import attention_diagonality, ssrn_loss, text2mel_loss
 from .optimizer import apply_updates, init_opt_state, tree_leaves
 
@@ -81,27 +88,32 @@ def text2mel_grads(cfg: Config, params, batch: dict, gen=None, group=None,
     """(metrics, gradients as a leaf list) of the Text2Mel loss (of this
     rank's share of it under a data-parallel ``group``; of this rank's
     slices under ``model_group``)."""
-    mels = batch["mels"]
-    S = teacher_forcing_shift(mels)
-    logits, Y, align, _ = Text2Mel(cfg, model_group).apply(
-        params, batch["texts"], S, gen=gen, train=True)
-    loss, metrics = text2mel_loss(logits, Y, align, mels, cfg,
-                                  batch.get("text_lens"),
-                                  batch.get("mel_lens"), group)
-    grads = torch.autograd.grad(loss, tree_leaves(params))
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics["attention_diagonality"] = attention_diagonality(
-        align.detach(), batch.get("text_lens"), batch.get("mel_lens"), group)
+    with span("train.forward"):
+        mels = batch["mels"]
+        S = teacher_forcing_shift(mels)
+        logits, Y, align, _ = Text2Mel(cfg, model_group).apply(
+            params, batch["texts"], S, gen=gen, train=True)
+        loss, metrics = text2mel_loss(logits, Y, align, mels, cfg,
+                                      batch.get("text_lens"),
+                                      batch.get("mel_lens"), group)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["attention_diagonality"] = attention_diagonality(
+            align.detach(), batch.get("text_lens"), batch.get("mel_lens"),
+            group)
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, tree_leaves(params))
     return metrics, list(grads)
 
 
 def ssrn_grads(cfg: Config, params, batch: dict, gen=None, group=None,
                model_group=None):
     """(metrics, gradients as a leaf list) of the SSRN loss (share)."""
-    logits, Z = SSRN(cfg, model_group).apply(params, batch["mels"], gen=gen,
-                                             train=True)
-    loss, metrics = ssrn_loss(logits, Z, batch["mags"], cfg, group)
-    grads = torch.autograd.grad(loss, tree_leaves(params))
+    with span("train.forward"):
+        logits, Z = SSRN(cfg, model_group).apply(params, batch["mels"],
+                                                 gen=gen, train=True)
+        loss, metrics = ssrn_loss(logits, Z, batch["mags"], cfg, group)
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, tree_leaves(params))
     return {k: v.detach() for k, v in metrics.items()}, list(grads)
 
 
@@ -112,16 +124,20 @@ def _make_step(cfg: Config, grads_fn, seed: int, group, model_group):
 
     def step(state: TrainState, batch: dict,
              gen: Optional[torch.Generator] = None):
-        if gen is not None:
-            gen.manual_seed(step_seed(seed, state.step, shard))
-        metrics, grads = grads_fn(cfg, state.params, batch, gen, group,
-                                  model_group)
-        if group is not None:
-            # the global batch's gradient and metrics: the shares summed
-            all_reduce_sum_(grads, group)
-            all_reduce_sum_(list(metrics.values()), group)
-        opt_state = apply_updates(state.params, grads, state.opt_state, cfg)
-        return TrainState(state.params, opt_state, state.step + 1), metrics
+        with span("train.step", key=state.step):
+            if gen is not None:
+                gen.manual_seed(step_seed(seed, state.step, shard))
+            metrics, grads = grads_fn(cfg, state.params, batch, gen, group,
+                                      model_group)
+            if group is not None:
+                # the global batch's gradient and metrics: the shares summed
+                all_reduce_sum_(grads, group)
+                all_reduce_sum_(list(metrics.values()), group)
+            with span("train.optimizer"):
+                opt_state = apply_updates(state.params, grads,
+                                          state.opt_state, cfg)
+            return TrainState(state.params, opt_state, state.step + 1), \
+                metrics
 
     return step
 

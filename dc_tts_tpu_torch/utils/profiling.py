@@ -1,20 +1,214 @@
-"""Profiling helpers, the port of ``dc_tts_tpu/utils/profiling.py``.
+"""Profiling helpers, the port of ``dc_tts_tpu/utils/profiling.py``: the
+program's spans, the ``torch.profiler`` exporter, and the FLOP counters.
+
+Spans: ``with span("text2mel.decode"):`` marks a stage of the program.
+Recording is off by default, and a span then costs one check of the
+profiler's flag. It is on while ``torch.profiler`` records (the span then
+enters ``record_function``, so it lands in the same Chrome trace, on the
+same clock, as the operations and kernels it launched) and inside
+``collect()``. A recorded span keeps its name, the id of its tree (the
+outermost span's ``key``, or a running number), its parent, its host start
+and end (``time.perf_counter_ns``), the rows it handles (``n``) and, once
+CUDA is initialised, a pair of timing CUDA events on the current stream. No
+span waits for the device. ``summary()`` waits once and sums the spans by
+name; ``reset()`` empties the store. The stages each module records are
+named in its docstring: ``pipeline.Synthesizer.synthesize_ids_chunked``,
+``models/text2mel.Text2Mel.decode``, ``dsp/griffin_lim.spectrogram_to_wav``
+and ``train/steps.py``.
 
 ``trace(logdir)`` records a ``torch.profiler`` trace of a code region (CPU
-and, where present, CUDA activity) as a Chrome trace; ``time_fn`` times a
-callable with CUDA events on the card; the FLOP counters give the roofline
-numerators, equal to the JAX package's; ``mfu`` divides by the H100 SXM's
-published peaks.
+and, where present, CUDA activity) as a Chrome trace, the spans inside it as
+``user_annotation`` events; the FLOP counters give the roofline numerators,
+equal to the JAX package's; ``mfu`` divides by the H100 SXM's published
+peaks.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import os
+import sys
+import threading
 import time
-from typing import Callable
 
 import torch
+
+_profiling = torch._C._autograd._profiler_enabled
+
+# the kernels' launch counters (function attributes of their wrappers), as
+# summary() names them: module, wrapper, its counting attributes
+COUNTERS = {
+    "k1.launches": ("ops.decode", "fused_decode", ("launches",)),
+    "k2.launches": ("ops.gl2", "gl2_run", ("launches",)),
+    "k3a.launches": ("ops.gl", "k3a", ("launches",)),
+    "k3b.launches": ("ops.gl", "k3b", ("launches",)),
+    "k4.fwd.launches": ("ops.hc_vjp", "hc_block_fwd",
+                        ("launches", "launches_bf16")),
+    "k4.bwd.launches": ("ops.hc_vjp", "hc_block_bwd",
+                        ("launches", "launches_bf16")),
+    "x1.launches": ("ops.ct_fwd", "full_fwd", ("launches",)),
+    "x2.launches": ("ops.ct_fwd", "fact_fwd_tiled", ("launches",)),
+    "x3.launches": ("ops.ct_fwd", "fact_fwd", ("launches",)),
+    "x4.launches": ("ops.ct_fwd", "ablate_fwd", ("launches",)),
+}
+
+
+class _Record:
+    __slots__ = ("name", "sid", "tree", "parent", "n", "t0", "t1", "ev0",
+                 "ev1")
+
+
+class Recorder:
+    """The spans recorded so far, at most ``cap`` of them; spans past the
+    cap are counted in ``dropped`` and not kept."""
+
+    def __init__(self, cap: int = 65536):
+        self.cap = cap
+        self.collecting = 0          # open collect() blocks
+        self._ids = itertools.count()
+        self._trees = itertools.count()
+        self._local = threading.local()
+        self.reset()
+
+    def reset(self) -> None:
+        """Forget the kept spans (spans still open are not kept)."""
+        self.records: list = []
+        self.dropped = 0
+
+    def stack(self) -> list:
+        """This thread's open spans, innermost last."""
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def summary(self) -> dict:
+        """Per span name: ``count``, ``n`` (rows summed over the spans that
+        give them, else None), ``host_ms`` and ``host_self_ms`` (minus the
+        child spans' host ms), ``device_ms`` and ``device_self_ms`` (the
+        CUDA event pairs' stream time; None without events). Beside them
+        the kernels' launch counters as they stand (``k1.launches``, ...)
+        and ``spans.dropped``. Waits for the device once."""
+        done = [r for r in self.records if r.t1 is not None]
+        if any(r.ev0 is not None for r in done):
+            torch.cuda.synchronize()
+        host, dev, child_host, child_dev = {}, {}, {}, {}
+        for r in done:
+            host[r.sid] = h = (r.t1 - r.t0) / 1e6
+            dev[r.sid] = d = None if r.ev0 is None else \
+                r.ev0.elapsed_time(r.ev1)
+            if r.parent is not None:
+                child_host[r.parent] = child_host.get(r.parent, 0.0) + h
+                if d is not None:
+                    child_dev[r.parent] = child_dev.get(r.parent, 0.0) + d
+        out: dict = {}
+        for r in done:
+            s = out.setdefault(r.name, {
+                "count": 0, "n": None, "host_ms": 0.0, "host_self_ms": 0.0,
+                "device_ms": None, "device_self_ms": None})
+            s["count"] += 1
+            if r.n is not None:
+                s["n"] = (s["n"] or 0) + r.n
+            s["host_ms"] += host[r.sid]
+            s["host_self_ms"] += host[r.sid] - child_host.get(r.sid, 0.0)
+            if dev[r.sid] is not None:
+                s["device_ms"] = (s["device_ms"] or 0.0) + dev[r.sid]
+                s["device_self_ms"] = (s["device_self_ms"] or 0.0) \
+                    + dev[r.sid] - child_dev.get(r.sid, 0.0)
+        out.update(_launch_counts())
+        out["spans.dropped"] = self.dropped
+        return out
+
+
+RECORDER = Recorder()
+
+
+def _launch_counts() -> dict:
+    """The kernels' launch counters as their wrappers keep them (0 for a
+    module never imported: its kernels never ran)."""
+    pkg = __package__.rsplit(".", 1)[0]
+    out = {}
+    for key, (mod, fn, attrs) in COUNTERS.items():
+        m = sys.modules.get(f"{pkg}.{mod}")
+        f = getattr(m, fn, None)
+        out[key] = sum(sum(v.values()) if isinstance(v, dict) else v
+                       for v in (getattr(f, a, 0) for a in attrs))
+    return out
+
+
+class span:
+    """``with span(name, n=None, key=None):`` one stage of the program.
+    ``n``: the rows it handles; ``key``: the tree's id when this span is
+    outermost (a training step's number), a running number otherwise."""
+
+    __slots__ = ("name", "n", "key", "_rec", "_rf")
+
+    def __init__(self, name: str, n: int | None = None, key=None):
+        self.name, self.n, self.key = name, n, key
+        self._rec = self._rf = None
+
+    def __enter__(self):
+        rec = RECORDER
+        on_profiler = _profiling()
+        if not (on_profiler or rec.collecting):
+            return self
+        if on_profiler:
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        stack = rec.stack()
+        r = self._rec = _Record()
+        r.name, r.n, r.t1 = self.name, self.n, None
+        r.sid = next(rec._ids)
+        if stack:
+            r.parent, r.tree = stack[-1].sid, stack[-1].tree
+        else:
+            r.parent = None
+            r.tree = self.key if self.key is not None else next(rec._trees)
+        r.ev0 = r.ev1 = None
+        if torch.cuda.is_initialized():
+            r.ev0 = torch.cuda.Event(enable_timing=True)
+            r.ev1 = torch.cuda.Event(enable_timing=True)
+            r.ev0.record()
+        stack.append(r)
+        if len(rec.records) < rec.cap:
+            rec.records.append(r)
+        else:
+            rec.dropped += 1
+        r.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        r = self._rec
+        if r is None:
+            return False
+        r.t1 = time.perf_counter_ns()
+        if r.ev1 is not None:
+            r.ev1.record()
+        RECORDER.stack().pop()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        return False
+
+
+@contextlib.contextmanager
+def collect():
+    """Record spans inside the block without ``torch.profiler``."""
+    RECORDER.collecting += 1
+    try:
+        yield
+    finally:
+        RECORDER.collecting -= 1
+
+
+def summary() -> dict:
+    """``RECORDER.summary()``: the recorded spans summed by name."""
+    return RECORDER.summary()
+
+
+def reset() -> None:
+    """Forget every recorded span."""
+    RECORDER.reset()
 
 
 @contextlib.contextmanager
@@ -28,27 +222,6 @@ def trace(logdir: str):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def time_fn(fn: Callable, *args, iters: int = 3, warmup: int = 1) -> float:
-    """Mean seconds of fn(*args): CUDA events around ``iters`` calls on the
-    current stream after ``warmup`` calls, on the card; the host clock
-    otherwise (CPU only: no device time)."""
-    for _ in range(warmup):
-        fn(*args)
-    if not torch.cuda.is_available():
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn(*args)
-        return (time.perf_counter() - t0) / iters
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn(*args)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / 1e3 / iters
 
 
 def conv_stack_flops(batch: int, t: int, specs, in_ch: int) -> int:

@@ -24,7 +24,8 @@ versions run in float64, in both operand modes (float32; bf16 at the same
 rounding points). The forward-rDFT prototypes
 X1-X4 at 1e-5 of max |FFT| from their plain versions, 1e-3 for the
 factored kernels in bf16 (stage C rounds float32 sums taken in another
-order to bf16), the CPU tests' gates against JAX.
+order to bf16), the CPU tests' gates against JAX. The program's spans
+against ``torch.profiler``'s device trace of single requests: one clock.
 """
 import numpy as np
 import pytest
@@ -606,3 +607,69 @@ def test_ssrn_step_at_c10_launches_k4_on_every_block(cuda, monkeypatch):
     assert (K4.hc_block_fwd.launches - n[0],
             K4.hc_block_bwd.launches - n[1]) == (len(widths), len(widths))
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+
+
+# ------------------------------------------------------------------ spans
+
+
+def _innermost(t0, t1, notes):
+    """Name of the shortest annotation that holds [t0, t1], or None."""
+    held = [(b - a, n) for n, a, b in notes if a <= t0 and t1 <= b]
+    return min(held)[1] if held else None
+
+
+def test_spans_share_the_device_trace_clock(cuda, tmp_path):
+    """Three single-sentence requests at base_config under
+    ``utils/profiling.trace``: each K1 launch's runtime call lies inside a
+    ``text2mel.decode`` annotation, each wait of the host for the device
+    during the calls inside a program span (``cudaDeviceSynchronize`` in
+    ``to_host.wait``; ``-s`` prints where the stream synchronisations of
+    pageable copies lie), and ``text2mel.decode``'s device ms holds K1's
+    kernel time."""
+    import json
+
+    from dc_tts_tpu_torch.bench import seeded_nets
+    from dc_tts_tpu_torch.utils import profiling
+
+    cfg = base_config()
+    synth = Synthesizer(cfg, *seeded_nets(cfg), pcm16=True)
+    ids = _ids(cfg, 3).numpy()
+    synth.synthesize_ids_chunked(ids[:1], 1)                 # warm-up
+    profiling.reset()
+    with profiling.trace(str(tmp_path)):
+        for i in range(3):
+            synth.synthesize_ids_chunked(ids[i: i + 1], 1)
+    s = profiling.summary()
+    profiling.reset()
+    with open(tmp_path / "trace.json") as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+
+    def at(e):
+        return float(e["ts"]), float(e["ts"]) + float(e["dur"])
+    notes = [(e["name"], *at(e)) for e in events
+             if e.get("cat") == "user_annotation"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "decode_kernel" in e["name"]]
+    corr = {e["args"]["correlation"] for e in kernels}
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and e.get("args", {}).get("correlation") in corr]
+    assert len(kernels) == len(launches) == 3 == s["text2mel.decode"][
+        "count"]
+    assert [_innermost(*at(e), notes) for e in launches] == \
+        ["text2mel.decode"] * 3
+    calls = [(a, b) for n, a, b in notes if n == "synth.call"]
+    t0, t1 = min(a for a, _ in calls), max(b for _, b in calls)
+    waits = {}
+    for e in events:
+        if e.get("cat") == "cuda_runtime" and e["name"] in (
+                "cudaDeviceSynchronize", "cudaStreamSynchronize") \
+                and t0 <= float(e["ts"]) <= t1:
+            waits.setdefault(e["name"], []).append(
+                _innermost(*at(e), notes))
+    print("waits by innermost span:", waits)
+    assert waits["cudaDeviceSynchronize"] == ["to_host.wait"] * 3
+    assert None not in sum(waits.values(), [])
+    k_ms = sum(float(e["dur"]) for e in kernels) / 1e3
+    dec = s["text2mel.decode"]
+    assert 0.99 * k_ms <= dec["device_ms"] <= k_ms + dec["host_ms"] + 1.0
