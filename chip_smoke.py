@@ -18,13 +18,17 @@ line:
              step the kernel's cursor is the replayed plain version's own
              argmax or a tie (its two largest probabilities differ by less
              than 1e-6). The free-running plain version's first flip, if any,
-             is printed as information. With the kernel's grid (blocks, grid
-             barriers a step, µs a step) and the barrier floor: the ms of the
-             decode's grid barriers alone (csrc/decode.cu barrier_kernel).
-             Then (line K1-grid) the kernel's ms over 32, 64 and all blocks,
-             for information; (line K1-B72) bench.py's chunk, B=72, and
-             (line K1-win8) a window of 8 keys (past the 4 the kernel once
-             took), at the same gate.
+             is printed as information. With the kernel's grid (blocks, the
+             exchange the plan took, grid barriers a step, µs a step) and the
+             barrier floor: the ms of the decode's grid barriers alone
+             (csrc/decode.cu barrier_kernel). Then (line K1-B1) one sentence,
+             B=1, at the same gate, with the exchange it took (the flagged
+             one), the grid exchange's ms at B=1 beside it, and the exchange
+             floor: the ms of a B=1 decode's flagged exchanges alone
+             (csrc/decode.cu exchange_kernel); (line K1-grid) the kernel's ms
+             over 32, 64 and all blocks, for information; (line K1-B72)
+             bench.py's chunk, B=72, and (line K1-win8) a window of 8 keys
+             (past the 4 the kernel once took), at the same gate.
 3b. K1-<prec> - K1's reduced-precision bodies (high3, hybrid, default) on
              phase K1's inputs, each against the plain version of the same
              mode replayed on the kernel's cursors, over all T steps:
@@ -420,6 +424,7 @@ def reset_counts() -> None:
     from dc_tts_tpu_torch.ops import hc_vjp as K4
     K1.fused_decode.launches = K2.gl2_run.launches = 0
     K1.fused_decode.launches_by_prec = {p: 0 for p in K1.PRECS}
+    K1.fused_decode.launches_by_exchange = {x: 0 for x in K1.EXCHANGES}
     K3.k3a.launches, K3.k3b.launches = {1: 0, 3: 0}, {1: 0, 3: 0}
     K4.hc_block_fwd.launches = K4.hc_block_bwd.launches = 0
     K4.hc_block_fwd.launches_bf16 = K4.hc_block_bwd.launches_bf16 = 0
@@ -428,9 +433,9 @@ def reset_counts() -> None:
 
 
 def counts() -> dict:
-    """Every kernel wrapper's launch count (K1's in all and by precision,
-    K1_<prec>; K3's over both pass modes; K4's float32 and bf16-operand
-    launches apart)."""
+    """Every kernel wrapper's launch count (K1's in all, by precision,
+    K1_<prec>, and by exchange, K1_<exchange>; K3's over both pass modes;
+    K4's float32 and bf16-operand launches apart)."""
     from dc_tts_tpu_torch.ops import ct_fwd as X
     from dc_tts_tpu_torch.ops import decode as K1
     from dc_tts_tpu_torch.ops import gl as K3
@@ -439,6 +444,8 @@ def counts() -> dict:
     return {"K1": K1.fused_decode.launches,
             **{f"K1_{p}": n
                for p, n in K1.fused_decode.launches_by_prec.items()},
+            **{f"K1_{x}": n
+               for x, n in K1.fused_decode.launches_by_exchange.items()},
             "K2": K2.gl2_run.launches,
             "K3a": sum(K3.k3a.launches.values()),
             "K3b": sum(K3.k3b.launches.values()),
@@ -507,13 +514,33 @@ def _first_flip(A_k, A_p):
 
 
 def _k1_grid(cfg, B, prec, ms, T):
-    """The decode kernel's grid in this run: blocks (one per SM), grid
-    barriers a step, and µs a step from the kernel's ``ms``."""
+    """The decode kernel's grid in this run: blocks (one per SM), the
+    exchange the plan takes, grid barriers a step, and µs a step from the
+    kernel's ``ms``."""
     from dc_tts_tpu_torch.ops import decode as K1
     blocks = K1.decode_blocks(torch.device("cuda", 0))
     plan = K1.decode_plan(cfg, B, blocks, prec)
-    return dict(blocks=blocks, barriers_per_step=plan.barriers_per_step,
+    return dict(blocks=blocks, exchange=plan.exchange,
+                barriers_per_step=plan.barriers_per_step,
                 us_per_step=f"{ms * 1e3 / T:.2f}")
+
+
+def _exchange_floor_ms(n, blocks, C):
+    """ms of ``n`` flagged exchanges of an HC layer's pre-norm row (2 x C
+    words) over ``blocks`` blocks alone, as the decode kernel runs them at
+    B = 1 (csrc/decode.cu ``exchange_kernel``): the floor that the flagged
+    exchange sets."""
+    from dc_tts_tpu_torch.ops._build import check, load_library
+    lib = load_library()
+    words = torch.zeros(8 * C, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        words.zero_()
+        check(lib.dctts_decode_exchanges(words.data_ptr(), n, C, blocks,
+                                         stream), "exchange probe")
+
+    return cuda_ms(run, 3)
 
 
 def _barrier_floor_ms(n, blocks):
@@ -619,6 +646,44 @@ def phase_k1(results):
     results["K1"] = dict(max_abs_err=max(dY, dA), ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by,
                          barrier_floor_ms=floor, **grid)
+    # one sentence, B = 1 (the interactive request): the plan's exchange at
+    # the same gate, the grid exchange's ms beside it, and the floor of the
+    # flagged exchanges alone
+    ids = torch.as_tensor(harvard_ids(cfg, 1), device=dev)
+    with torch.no_grad():
+        Kt, V = (x.contiguous() for x in model.text_encode(params, ids))
+        before = dict(K1.fused_decode.launches_by_exchange)
+        Y, A = K1.fused_decode(packed, Kt, V, T, cfg)
+        torch.cuda.synchronize()
+        took = [x for x, n in K1.fused_decode.launches_by_exchange.items()
+                if n != before[x]]
+        Yp, Ap = K1.fused_decode_plain(packed, Kt, V, T, cfg)
+        Yr, Ar = _k1_replay(packed, Kt, V, T, cfg, "highest", A)
+        ms1 = cuda_ms(lambda: K1.fused_decode(packed, Kt, V, T, cfg), 3)
+        Yg, Ag = K1.launch_decode(packed, Kt, V, T, cfg, exchange="grid")
+        ms1_grid = cuda_ms(lambda: K1.launch_decode(packed, Kt, V, T, cfg,
+                                                    exchange="grid"), 3)
+    dY, dA, note = _k1_check("K1-B1", A, Ar, Y, Yr, _first_flip(A, Ap), 1e-6)
+    same = bool(torch.equal(Y, Yg) and torch.equal(A, Ag))
+    grid1 = _k1_grid(cfg, 1, "highest", ms1, T)
+    ok = (dY <= 2e-5 and dA <= 2e-5 and bool(torch.isfinite(Y).all())
+          and took == [grid1["exchange"]] and same)
+    xfloor = _exchange_floor_ms(len(enc + dec) * T, grid1["blocks"], cfg.d)
+    line("K1-B1", ok=ok, B=1, T=T, max_dY=f"{dY:.3e}", max_dA=f"{dA:.3e}",
+         tol="2e-5", compared_steps=T, note=repr(note), ms=f"{ms1:.3f}",
+         took=",".join(took), grid_exchange_ms=f"{ms1_grid:.3f}",
+         bitwise_grid_exchange=same, exchange_floor_ms=f"{xfloor:.3f}",
+         **grid1)
+    if not ok:
+        raise AssertionError(f"K1 at B=1 disagrees with its plain version or"
+                             f" its grid exchange: dY={dY} dA={dA} took="
+                             f"{took} bitwise={same}")
+    results["K1_B1"] = dict(max_abs_err=max(dY, dA), ms=ms1,
+                            grid_exchange_ms=ms1_grid, exchange=took[0],
+                            exchange_floor_ms=xfloor)
+    ids = torch.as_tensor(harvard_ids(cfg, B_MAIN), device=dev)
+    with torch.no_grad():
+        Kt, V = (x.contiguous() for x in model.text_encode(params, ids))
     # the grid sizes, for information (B_MAIN, the kernel's own time only)
     sweep = {g: cuda_ms(lambda: K1.launch_decode(packed, Kt, V, T, cfg,
                                                  blocks=g), 3)

@@ -11,15 +11,24 @@
 // pack_decode_params) sits in shared memory where the host's plan found
 // room and streams from L2 otherwise. A product task is RG rows x 4 columns
 // (2 under the split), one warp; the lanes split k and the task's sums are
-// reduced together. Each block writes its columns of the pre-norm rows h to
-// a global buffer; one grid barrier (a counter in global memory; a wait of
-// more than 10 s traps, so the launch fails instead of hanging); then the
-// block of cluster rank r reads the full rows b = r, r + CL, ... of h,
-// normalises them, and stores the layer's output rows into the copies of
-// every block of its cluster (distributed shared memory), and a cluster
-// barrier closes the layer: 24 grid and 24 cluster barriers a step at
-// base_config. The attention row is computed in every block for every row:
-// the arithmetic is identical, so the cursors agree without a barrier. The
+// reduced together. The pre-norm rows h are exchanged in one of two ways
+// (the wrapper's plan picks one; separate instantiations, FLAG):
+// - the grid exchange (large B): each block writes its columns of h to a
+//   global buffer; one grid barrier (a counter in global memory; a wait of
+//   more than 10 s traps, so the launch fails instead of hanging); then the
+//   block of cluster rank r reads the full rows b = r, r + CL, ... of h,
+//   normalises them, and stores the layer's output rows into the copies of
+//   every block of its cluster (distributed shared memory), and a cluster
+//   barrier closes the layer: 24 grid and 24 cluster barriers a step at
+//   base_config;
+// - the flagged exchange (small B, every row in shared memory): each block
+//   publishes its columns of h as 8-byte words of a value and the
+//   exchange's epoch, then gathers the full rows, waiting on each word until
+//   it carries the epoch (NCCL's "LL" protocol), and normalises every row
+//   into its own copy: one L2 round trip a layer and no barrier. Every
+//   block computes the same bits, so the copies agree.
+// The attention row is computed in every block for every row: the
+// arithmetic is identical, so the cursors agree without a barrier. The
 // config's widths are free, as the TPU kernel's are (only its VMEM bounds
 // it): the attention walks the window in register chunks of MAX_WIN keys
 // and the features in chunks of 256; each tap of a weight slot is padded to
@@ -27,7 +36,8 @@
 // any d and n_mels run; a row wider than a lane's registers hold (C > 512,
 // HC > 256) is normalised by a second loop. Those paths live in a second
 // instantiation of the kernel (GEN), launched only for a config that needs
-// them: code the common case never runs still cost it 2-13 % (PERF.md).
+// them: code the common case never runs still cost it 2-13 % (PERF.md);
+// such a config takes the grid exchange.
 // Only shared memory and co-residency refuse a config
 // (ops/decode.py:decode_plan). An
 // HC layer's product x_t @ W is three products, one per tap; the block
@@ -80,6 +90,7 @@ namespace cg = cooperative_groups;
 #define FCH 8           // attention features a lane holds, a chunk of 256
 #define LAYER_INTS 12   // ints per layer in the host's program array
 #define LAYER_PTRS 4    // pointers per layer
+#define XG 4            // words a thread has in flight in gather_rows
 
 #define WK_F32 0        // WKINDS in ops/decode.py, in order
 #define WK_BF16 1
@@ -116,13 +127,15 @@ struct Args {
   const float* v;   // (B, N, d)
   float* y;         // (B, T, n_mels)
   float* a;         // (B, N, T)
-  float* hbuf;      // 2 x (B, ldh): the pre-norm rows of a layer
+  float* hbuf;      // grid exchange: 2 x (B, ldh), the pre-norm rows
+  uint2* words;     // flagged exchange: 2 x (B, ldx) {value, epoch} words
   float* ring;      // blocks x ring_floats: each block's tap products
   float* spill;     // blocks x spill_floats: activation rows past rows_sh
   unsigned* bar;    // the grid barrier's counter, 0 at launch
   int B, N, d, n_mels, T, win, cmo, xw, ldh;
   int rows_sh, ring_floats, spill_floats, part_off, prev_off, ln_off;
-  int z_off, nv_max;
+  int z_off, nv_max, ldx;
+  unsigned epoch0;  // the flagged exchange's first epoch
   float eps, scale;
 };
 
@@ -160,6 +173,57 @@ __device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
     }
   }
   __syncthreads();
+}
+
+// The flagged exchange: a value travels with its exchange's epoch in one
+// aligned 8-byte word, stored and loaded whole (NCCL's "LL" protocol), so a
+// reader that finds the epoch it waits for also holds the value, with no
+// fence and no barrier. The wrapper zeroes the words (0 is no epoch) and
+// hands each launch fresh epochs, one an exchange, so no word of an earlier
+// exchange passes. Two parities suffice: no block publishes layer l + 2
+// before every block has gathered layer l (it waits on their layer l + 1).
+__device__ __forceinline__ void publish(uint2* w, float v, unsigned e) {
+  asm volatile("st.volatile.global.v2.u32 [%0], {%1, %2};\n" ::"l"(w),
+               "r"(__float_as_uint(v)), "r"(e) : "memory");
+}
+
+__device__ __forceinline__ uint2 peek(const uint2* w) {
+  uint2 q;
+  asm volatile("ld.volatile.global.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(q.x), "=r"(q.y) : "l"(w) : "memory");
+  return q;
+}
+
+// Rows of RW values from their words at hw (a pitch of ldx) into z (a
+// pitch of ldz) once each word carries epoch e: the block's threads take
+// words i, i + NT, ..., XG of them in flight, and read a stale word again
+// until it carries e; a wait of more than 10 s traps. (Reading all of a
+// thread's stale words again together costs more at B = 1 and 2, the
+// batches this exchange serves, than it saves past them: PERF.md.)
+__device__ void gather_rows(const uint2* hw, int ldx, int rows, int RW,
+                            unsigned e, float* z, int ldz) {
+  const int n = rows * RW;
+  uint64_t t0 = 0;
+  for (int i0 = threadIdx.x; i0 < n; i0 += XG * NT) {
+    uint2 q[XG];
+#pragma unroll
+    for (int u = 0; u < XG; ++u) {
+      const int i = i0 + u * NT;
+      if (i < n) q[u] = peek(hw + (size_t)(i / RW) * ldx + i % RW);
+    }
+#pragma unroll
+    for (int u = 0; u < XG; ++u) {
+      const int i = i0 + u * NT;
+      if (i >= n) break;
+      while (q[u].y != e) {
+        const uint64_t now = sm90::global_ns();
+        if (!t0) t0 = now;
+        else if (now - t0 > 10000000000ull) __trap();
+        q[u] = peek(hw + (size_t)(i / RW) * ldx + i % RW);
+      }
+      z[(size_t)(i / RW) * ldz + i % RW] = __uint_as_float(q[u].x);
+    }
+  }
 }
 
 // A batch row of the activations: in shared memory for the first rows_sh
@@ -323,8 +387,9 @@ __device__ void product(const Args& p, const Layer& L, int c0, int n,
   }
 }
 
-// The block's columns of the pre-norm rows h (+ bias) into hb; an HC
-// column adds its older taps' products from the ring and stores this step's.
+// The block's columns of the pre-norm rows h (+ bias) into hb, or, under
+// the flagged exchange, published into hw with epoch e; an HC column adds
+// its older taps' products from the ring and stores this step's.
 // What combine adds to element i = (b, j) of the block's columns: the
 // older taps' products from the ring (HC) and the bias. The first element
 // of each thread is loaded before the product, to arrive under it.
@@ -348,9 +413,10 @@ __device__ __forceinline__ Addends addends(const Args& p, const Layer& L,
   return a;
 }
 
+template <bool FLAG>
 __device__ void combine(const Args& p, const Layer& L, int t, int c0, int n,
                         const float* part, float* ring, float* hb,
-                        Addends first) {
+                        uint2* hw, unsigned e, Addends first) {
   const bool hc = L.kind == 1;
   const int R = 2 * L.rate + 1, wi = t % R;
   for (int i = threadIdx.x; i < p.B * n; i += NT) {
@@ -369,7 +435,10 @@ __device__ void combine(const Args& p, const Layer& L, int t, int c0, int n,
     } else {
       h = pp[j] + a.bias;
     }
-    __stcg(hb + (size_t)b * p.ldh + c, h);
+    if constexpr (FLAG)
+      publish(hw + (size_t)b * p.ldx + c, h, e);
+    else
+      __stcg(hb + (size_t)b * p.ldh + c, h);
   }
 }
 
@@ -474,11 +543,50 @@ __device__ __noinline__ void normalise_wide(const float* h, int W, float eps,
   }
 }
 
+// Column c of a row's output from its normalised row z: HC, the gate over
+// the residual x; C, the norm's affine map and the activation (the last
+// layer's sigmoid). apply_row: a row's into each of the ND copies dst, one
+// warp, and Y from the row's owner block.
+__device__ __forceinline__ float apply1(const Args& p, const Layer& L,
+                                       const float* z, const float* lnb,
+                                       const float* x, bool last, int c) {
+  const int W = L.cout;
+  float o;
+  if (L.kind == 1) {
+    const float gt = sigmoidf(z[c] * lnb[c] + lnb[W + c]);
+    const float v2 = z[W + c] * lnb[2 * W + c] + lnb[3 * W + c];
+    o = gt * v2 + (1.f - gt) * x[c];
+  } else {
+    o = z[c] * lnb[c] + lnb[p.cmo + c];
+    if (L.act == 1) o = fmaxf(o, 0.f);
+#pragma unroll 1
+    for (int s = (L.act == 2) + last; s > 0; --s) o = sigmoidf(o);
+  }
+  return o;
+}
+
+template <int ND>
+__device__ __forceinline__ void apply_row(const Args& p, const Layer& L,
+                                          const float* z, const float* lnb,
+                                          const float* x,
+                                          float* const (&dst)[ND], bool last,
+                                          int t, int b) {
+  const int lane = threadIdx.x & 31;
+  const bool own = last && b % gridDim.x == blockIdx.x;
+#pragma unroll 2
+  for (int c = lane; c < L.cout; c += 32) {
+    const float o = apply1(p, L, z, lnb, x, last, c);
+#pragma unroll
+    for (int q = 0; q < ND; ++q) dst[q][c] = o;
+    if (own) p.y[((size_t)b * p.T + t) * p.n_mels + c] = o;
+  }
+}
+
 template <bool GEN>
 __device__ void post(const Args& p, const Layer& L, const float* hb,
                      const float* lnb, float* zs, bool last, int t,
                      float* xs, float* xg) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int rank = (int)cg::this_cluster().block_rank();
   const bool hc = L.kind == 1;
   const int W = L.cout;  // output columns (HC: C, of 2C pre-norm ones)
@@ -501,29 +609,62 @@ __device__ void post(const Args& p, const Layer& L, const float* hb,
       normalise_wide<1>(hr, W, p.eps, z);
     }
     __syncwarp();
-    const float* x = xrow(p, xs, xg, b);  // this block's copy: the residual
     float* dst[CL];
 #pragma unroll
     for (int q = 0; q < CL; ++q) dst[q] = xrow_in(p, xs, q, b);
-    const bool own = last && b % gridDim.x == blockIdx.x;
-#pragma unroll 2
-    for (int c = lane; c < W; c += 32) {
-      float o;
-      if (hc) {
-        const float gt = sigmoidf(z[c] * lnb[c] + lnb[W + c]);
-        const float v2 = z[W + c] * lnb[2 * W + c] + lnb[3 * W + c];
-        o = gt * v2 + (1.f - gt) * x[c];
-      } else {
-        o = z[c] * lnb[c] + lnb[p.cmo + c];
-        if (L.act == 1) o = fmaxf(o, 0.f);
-#pragma unroll 1
-        for (int s = (L.act == 2) + last; s > 0; --s) o = sigmoidf(o);
-      }
-#pragma unroll
-      for (int q = 0; q < CL; ++q) dst[q][c] = o;
-      if (own) p.y[((size_t)b * p.T + t) * p.n_mels + c] = o;
-    }
+    // this block's copy holds the residual
+    apply_row(p, L, z, lnb, xrow(p, xs, xg, b), dst, last, t, b);
     __syncwarp();
+  }
+}
+
+// The flagged exchange's norms, in every block for every row, into its
+// own copy: the block's threads gather the rows (gather_rows) into the
+// staging zs (a row at a pitch of ldh), one warp a row takes post's
+// statistics in place (the same lane order, so the same bits as post and in
+// every block), and the threads apply the norms' parameters, gates and
+// activations element by element (apply1); the row's owner block writes Y.
+// Every row lies in shared memory and fits a lane's registers (not GEN), and
+// the staging holds every row. (Each warp taking a row's statistics itself
+// and applying its own columns from registers, with no staged z and one
+// barrier fewer, was slower: PERF.md.)
+__device__ void post_flag(const Args& p, const Layer& L, const uint2* hw,
+                          unsigned e, const float* lnb, float* zs, bool last,
+                          int t, float* xs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool hc = L.kind == 1;
+  const int W = L.cout;
+  gather_rows(hw, p.ldx, p.B, hc ? 2 * W : W, e, zs, p.ldh);
+  sm90::cp_async_wait_all();  // lnb
+  __syncthreads();
+  for (int b = warp; b < p.B; b += NW) {
+    float* z = zs + (size_t)b * p.ldh;
+    if (hc) {
+      float h[2][8];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          h[j][i] = lane + 32 * i < W ? z[j * W + lane + 32 * i] : 0.f;
+      __syncwarp();
+      normalise<2, 8>(h, W, p.eps, z);
+    } else {
+      float h[1][16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        h[0][i] = lane + 32 * i < W ? z[lane + 32 * i] : 0.f;
+      __syncwarp();
+      normalise<1, 16>(h, W, p.eps, z);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < p.B * W; i += NT) {
+    const int b = i / W, c = i % W;
+    float* x = xs + (size_t)b * p.xw;
+    const float o = apply1(p, L, zs + (size_t)b * p.ldh, lnb, x, last, c);
+    x[c] = o;
+    if (last && b % gridDim.x == blockIdx.x)
+      p.y[((size_t)b * p.T + t) * p.n_mels + c] = o;
   }
 }
 
@@ -755,7 +896,9 @@ __device__ __forceinline__ void columns(const Layer& L, int& c0, int& n) {
 // GEN: the general kernel, for configs past the common case (a window of
 // more than ROW_WIN keys, d > 256, a row wider than a lane's registers,
 // norm parameters off 16 bytes); the common kernel compiles none of it.
-template <bool GEN>
+// FLAG: the flagged exchange (common configs only); the grid exchange's
+// kernels compile none of it.
+template <bool GEN, bool FLAG>
 __global__ void __launch_bounds__(NT, 1)
 decode_kernel(const __grid_constant__ Args p,
               const __grid_constant__ Program prog) {
@@ -816,12 +959,20 @@ decode_kernel(const __grid_constant__ Args p,
       else
         product<WK_SPLIT>(p, L, c0, n, xs, xg, part, smem);
       __syncthreads();
-      float* hb = p.hbuf + (size_t)parity * p.B * p.ldh;
-      combine(p, L, t, c0, n, part, ring, hb, first);
-      sm90::cp_async_wait_all();  // lnb
-      grid_sync(p.bar, target);
-      post<GEN>(p, L, hb, lnb, zs, li == nl - 1, t, xs, xg);
-      cluster.sync();  // every member's copy holds the layer's output
+      if constexpr (FLAG) {
+        uint2* hw = p.words + (size_t)parity * p.B * p.ldx;
+        const unsigned e = p.epoch0 + (unsigned)(t * nl + li);
+        combine<true>(p, L, t, c0, n, part, ring, nullptr, hw, e, first);
+        post_flag(p, L, hw, e, lnb, zs, li == nl - 1, t, xs);
+        __syncthreads();  // this block's copy holds the layer's output
+      } else {
+        float* hb = p.hbuf + (size_t)parity * p.B * p.ldh;
+        combine<false>(p, L, t, c0, n, part, ring, hb, nullptr, 0, first);
+        sm90::cp_async_wait_all();  // lnb
+        grid_sync(p.bar, target);
+        post<GEN>(p, L, hb, lnb, zs, li == nl - 1, t, xs, xg);
+        cluster.sync();  // every member's copy holds the layer's output
+      }
       parity ^= 1;
     }
   }
@@ -834,13 +985,37 @@ __global__ void __launch_bounds__(NT, 1) barrier_kernel(unsigned* bar, int n) {
   for (int i = 0; i < n; ++i) grid_sync(bar, target);
 }
 
-cudaError_t set_smem(int smem) {
-  cudaError_t e = cudaFuncSetAttribute(
-      decode_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(decode_kernel<true>,
+// The flagged exchanges of a B = 1 decode alone, for the floor they set: n
+// exchanges of an HC layer's pre-norm row (2 x C words) over the launch's
+// blocks, as the decode kernel runs them (each block publishes its columns,
+// then gathers the whole row into shared memory), nothing else (words:
+// zeroed).
+__global__ void __launch_bounds__(NT, 1) exchange_kernel(uint2* words, int n,
+                                                         int C) {
+  extern __shared__ float zrow[];
+  const int c0 = (int)((long long)blockIdx.x * 2 * C / gridDim.x);
+  const int c1 = (int)((long long)(blockIdx.x + 1) * 2 * C / gridDim.x);
+  for (int i = 0; i < n; ++i) {
+    uint2* hw = words + (size_t)(i & 1) * 2 * C;
+    for (int c = c0 + threadIdx.x; c < c1; c += NT)
+      publish(hw + c, (float)c, (unsigned)i + 1);
+    gather_rows(hw, 2 * C, 1, 2 * C, (unsigned)i + 1, zrow, 2 * C);
+    __syncthreads();
+  }
+}
+
+template <typename K>
+cudaError_t set_smem1(K kernel, int smem) {
+  return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem);
+}
+
+cudaError_t set_smem(int smem) {
+  cudaError_t e = set_smem1(decode_kernel<false, false>, smem);
+  if (e == cudaSuccess) e = set_smem1(decode_kernel<true, false>, smem);
+  if (e == cudaSuccess) e = set_smem1(decode_kernel<false, true>, smem);
+  return e;
 }
 
 // A cooperative launch of `blocks` blocks in clusters of CL.
@@ -879,7 +1054,7 @@ extern "C" int dctts_decode_coresident(int smem, int* blocks, int* sms) {
   e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   LaunchConfig lc(*sms / CL * CL, smem, 0);
-  e = cudaOccupancyMaxActiveClusters(&clusters, decode_kernel<false>,
+  e = cudaOccupancyMaxActiveClusters(&clusters, decode_kernel<false, false>,
                                      &lc.cfg);
   if (e != cudaSuccess) return (int)e;
   *blocks = clusters * CL;
@@ -889,9 +1064,13 @@ extern "C" int dctts_decode_coresident(int smem, int* blocks, int* sms) {
 // layer_ints: LAYER_INTS a layer (kind, cin, cout, rate, act, ring_off,
 // wkind, ldw, woff, nmax, kp, lnv); layer_ptrs: LAYER_PTRS a layer (w, wl,
 // bias, ln); AudioEnc's layers first. The plan's sizes and offsets come from
-// ops/decode.py:decode_plan.
+// ops/decode.py:decode_plan. flag 0: the grid exchange (hbuf: 2 x B x ldh
+// floats; bar: a zeroed counter); flag 1: the flagged exchange (hbuf: 2 x B
+// x ldx zeroed 8-byte words; bar unused; epochs epoch0 .. epoch0 + T x
+// layers - 1), for a config of the common kernel whose rows all lie in
+// shared memory.
 extern "C" int dctts_decode(const float* kt, const float* v, float* y,
-                            float* a, float* hbuf, float* ring, float* spill,
+                            float* a, void* hbuf, float* ring, float* spill,
                             unsigned* bar, const int* layer_ints,
                             const void* const* layer_ptrs, int n_enc,
                             int n_dec, int B, int N, int d, int n_mels, int T,
@@ -899,9 +1078,10 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
                             int rows_sh, int ring_floats, int spill_floats,
                             int part_off, int prev_off, int ln_off,
                             int z_off, int nv_max, int smem, int blocks,
+                            int flag, int ldx, unsigned epoch0,
                             void* stream) {
   if (n_enc + n_dec > MAX_LAYERS || win < 1 || B < 1 || blocks < CL ||
-      blocks % CL || xw % 4)
+      blocks % CL || xw % 4 || (flag && (rows_sh < B || ldx < ldh)))
     return (int)cudaErrorInvalidValue;
   Program prog;
   prog.n_enc = n_enc;
@@ -926,20 +1106,44 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
   }
   Args p;
   p.kt = kt; p.v = v; p.y = y; p.a = a;
-  p.hbuf = hbuf; p.ring = ring; p.spill = spill; p.bar = bar;
+  p.hbuf = flag ? nullptr : static_cast<float*>(hbuf);
+  p.words = flag ? static_cast<uint2*>(hbuf) : nullptr;
+  p.ring = ring; p.spill = spill; p.bar = bar;
   p.B = B; p.N = N; p.d = d; p.n_mels = n_mels; p.T = T; p.win = win;
   p.cmo = cmo; p.xw = xw; p.ldh = ldh;
   p.rows_sh = rows_sh; p.ring_floats = ring_floats;
   p.spill_floats = spill_floats; p.part_off = part_off;
   p.prev_off = prev_off; p.ln_off = ln_off; p.z_off = z_off;
-  p.nv_max = nv_max;
+  p.nv_max = nv_max; p.ldx = ldx; p.epoch0 = epoch0;
   p.eps = eps;
   p.scale = (float)(1.0 / sqrt((double)d));
   cudaError_t e = set_smem(smem);
   if (e != cudaSuccess) return (int)e;
   LaunchConfig lc(blocks, smem, (cudaStream_t)stream);
-  e = general ? cudaLaunchKernelEx(&lc.cfg, decode_kernel<true>, p, prog)
-              : cudaLaunchKernelEx(&lc.cfg, decode_kernel<false>, p, prog);
+  if (flag && general) return (int)cudaErrorInvalidValue;
+  e = flag      ? cudaLaunchKernelEx(&lc.cfg, decode_kernel<false, true>, p,
+                                     prog)
+      : general ? cudaLaunchKernelEx(&lc.cfg, decode_kernel<true, false>, p,
+                                     prog)
+                : cudaLaunchKernelEx(&lc.cfg, decode_kernel<false, false>, p,
+                                     prog);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// n flagged exchanges of a 2 x C word row over `blocks` co-resident blocks
+// of NT threads, as the decode kernel runs them at B = 1 (words: 4 x C
+// zeroed 8-byte words).
+extern "C" int dctts_decode_exchanges(void* words, int n, int C, int blocks,
+                                      void* stream) {
+  void* args[] = {&words, &n, &C};
+  cudaError_t e = cudaFuncSetAttribute(
+      exchange_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      8 * C);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchCooperativeKernel((const void*)exchange_kernel, dim3(blocks),
+                                  dim3(NT), args, 8 * C,
+                                  (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -34,12 +34,14 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P = ctypes.c_void_p
 I = ctypes.c_int
 Fl = ctypes.c_float
+U = ctypes.c_uint
 
 # argument types of each C entry, in order (see the sources)
 _SIGNATURES = {
-    "dctts_decode": [P] * 10 + [I] * 8 + [Fl] + [I] * 13 + [P],
+    "dctts_decode": [P] * 10 + [I] * 8 + [Fl] + [I] * 15 + [U, P],
     "dctts_decode_coresident": [I, ctypes.POINTER(I), ctypes.POINTER(I)],
     "dctts_decode_barriers": [P, I, I, P],
+    "dctts_decode_exchanges": [P, I, I, I, P],
     "dctts_gl2": [P] * 8 + [ctypes.POINTER(I)] + [I] * 12
                  + [ctypes.POINTER(I), P],
     "dctts_gl_k3a": [P] * 9 + [I] * 12 + [P],

@@ -19,19 +19,27 @@ weight is read once a step on the whole card; its slice of the weights
 (the transposed slots ``cw_t``, ``hcw_t``, ... below: a column's weights
 contiguous) stays in shared memory where ``decode_plan`` finds room, and
 streams from L2 otherwise. A product task is ``RG`` rows of a few columns
-(of one tap each, for an HC layer), one warp; the lanes split k. Each block
-writes its columns of the pre-norm rows to a global buffer and all blocks
-meet at a grid barrier (one a layer); then each block normalises the rows
-``cluster_rows`` of its cluster rank, gates them, and stores the layer's
-output rows into the shared memory of every block of its cluster, and a
-cluster barrier closes the layer. The attention row is computed
-redundantly in every block: the same arithmetic gives the same cursor
-everywhere. An HC layer's three taps are three products of the current
-input; each block keeps the older taps' products of its columns in a ring
-in a global scratch the wrapper allocates, so only x_t is read. The
-activation rows sit in shared memory up to what it holds, the rest in a
-per-block global spill; any B runs. Only the <= win unmasked attention
-scores are computed: the masked ones are exactly zero after the softmax.
+(of one tap each, for an HC layer), one warp; the lanes split k. The
+pre-norm rows are exchanged in one of two ways (``EXCHANGES``; the plan
+picks one from B and the widest row, ``decode_plan``). "grid", for large
+B: each block writes its columns of the pre-norm rows to a global buffer
+and all blocks meet at a grid barrier (one a layer); then each block
+normalises the rows ``cluster_rows`` of its cluster rank, gates them, and
+stores the layer's output rows into the shared memory of every block of
+its cluster, and a cluster barrier closes the layer. "flag", for small B
+whose rows all lie in shared memory: each block publishes its columns as
+8-byte words of a value and the exchange's epoch, gathers every row,
+waiting on each word until it carries the epoch, and normalises every row
+into its own copy: one L2 round trip a layer, no barrier, at the cost of
+B x the widest row read by every block. The attention row, and under
+"flag" every norm, is computed redundantly in every block: the same
+arithmetic gives the same bits everywhere. An HC layer's three taps are
+three products of the current input; each block keeps the older taps'
+products of its columns in a ring in a global scratch the wrapper
+allocates, so only x_t is read. The activation rows sit in shared memory
+up to what it holds, the rest in a per-block global spill; any B runs.
+Only the <= win unmasked attention scores are computed: the masked ones
+are exactly zero after the softmax.
 
 Precisions (``prec``), as the JAX kernel's ``mm``: every layer product is
 float32 under "highest"; under "high3" it is xh@Wh + xh@Wl + xl@Wh on bf16
@@ -83,6 +91,15 @@ SMEM_MAX = 232448
 # the kernel's copies move 16 bytes (4 float32): a weight slot's depth (a
 # tap's inputs) is padded to a multiple of this with zero weights
 PAD = 4
+# the ways the kernel exchanges a layer's pre-norm rows (decode_plan)
+EXCHANGES = ("grid", "flag")
+# the flagged exchange's most words (B x the widest pre-norm row) that
+# every block gathers a layer: past it the grid exchange is faster on the
+# H100 (PERF.md, the B sweep of both exchanges: B <= 2 at base_config)
+FLAG_WORDS = 1024
+# words of a row of the flagged exchange's buffer: a multiple of a
+# 128-byte line
+LINE_WORDS = 16
 
 
 class _Layer(NamedTuple):
@@ -418,12 +435,28 @@ def cluster_rows(B: int, rank: int) -> Tuple[int, ...]:
     return tuple(range(rank, B, CLUSTER))
 
 
+def general_kernel(cfg) -> bool:
+    """Whether ``cfg`` needs the kernel's general instantiation (GEN in
+    csrc/decode.cu; the grid exchange only): a window of more than 4 keys,
+    d > 256, a C layer wider than 512 or an HC layer wider than 256, or
+    the C layers' norm parameters off 16-byte boundaries (the widest C
+    layer odd)."""
+    enc, dec = _programs(cfg)
+    cmo = max(l.cout for l in enc + dec if l.kind == "C")
+    return (cfg.attention_win_size > 4 or cfg.d > 256 or cmo % 2 == 1
+            or any(l.cout > (256 if l.kind == "HC" else 512)
+                   for l in enc + dec))
+
+
 class DecodePlan(NamedTuple):
     """The kernel's partition and shared-memory layout for one launch."""
     blocks: int
     B: int
+    exchange: str         # one of EXCHANGES
     xw: int               # floats per activation row
     ldh: int              # floats per pre-norm row
+    ldx: int              # elements per row of the exchange buffer
+    exchange_bytes: int   # the exchange buffer, both parities
     rows_sh: int          # activation rows in shared memory; the rest spill
     nv_max: int           # most product columns (taps x columns) a block has
     part_off: int         # bytes: the product sums (B x nv_max floats)
@@ -438,15 +471,30 @@ class DecodePlan(NamedTuple):
     barriers_per_step: int
 
 
-def decode_plan(cfg, B: int, blocks: int, prec: str = "highest"
-                ) -> DecodePlan:
+def staged_rows(B: int, exchange: str) -> int:
+    """Rows of ``ldh`` floats a block stages in shared memory: under
+    "grid" one a warp for its cluster rank's rows, under "flag" every row
+    (gathered, normalised in place, then applied by every thread)."""
+    return B if exchange == "flag" else min(WARPS, len(cluster_rows(B, 0)))
+
+
+def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
+                exchange: str | None = None) -> DecodePlan:
     """Where the kernel keeps what, at batch B over ``blocks`` blocks: the
     activation rows first (as many as shared memory holds), then each
     layer's weight slice, in program order, where it still fits (the rest
     stream from L2). Rows and weight slots are padded to ``PAD`` floats
     (``layer_depth``, ``kernel_slot``), so any d, n_mels and layer width
     run; only shared memory (here) and co-residency (``launch_decode``)
-    refuse a config."""
+    refuse a config.
+
+    The exchange (``exchange`` None): "flag" where the common kernel takes
+    the config (``general_kernel``), every row lies in shared memory and
+    every block's gather, B x the widest pre-norm row, is at most
+    ``FLAG_WORDS`` words; "grid" otherwise. Given "flag" where it cannot
+    run, raises ValueError."""
+    if exchange is not None and exchange not in EXCHANGES:
+        raise ValueError(f"unknown exchange {exchange!r}; one of {EXCHANGES}")
     enc, dec = _programs(cfg)
     layers = [(False, l) for l in enc] + [(True, l) for l in dec]
     xw = _up(max(2 * cfg.d, cfg.n_mels), PAD)
@@ -456,13 +504,29 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest"
                  for (_, l), n in zip(layers, nmax))
     cmo = max(l.cout for _, l in layers if l.kind == "C")
     ln_bytes = _up(4 * max(4 * cfg.d, 2 * cmo), 16)
-    z_bytes = _up(4 * ldh * min(WARPS, len(cluster_rows(B, 0))), 16)
-    fixed = _up(4 * B * nv_max, 16) + _up(4 * B, 16) + ln_bytes + z_bytes
+
+    def layout(exchange):
+        """(staging bytes, bytes before the activation rows, rows in
+        shared memory)."""
+        z_bytes = _up(4 * ldh * staged_rows(B, exchange), 16)
+        fixed = _up(4 * B * nv_max, 16) + _up(4 * B, 16) + ln_bytes + z_bytes
+        return z_bytes, fixed, min(B, max(0, (SMEM_MAX - fixed) // (4 * xw)))
+
+    if exchange != "grid":
+        flag_fits = not general_kernel(cfg) and layout("flag")[2] == B
+        if exchange == "flag" and not flag_fits:
+            raise ValueError(f"fused_decode: the flagged exchange needs the "
+                             f"common kernel and all {B} rows in shared "
+                             "memory")
+        if exchange is None:
+            exchange = ("flag" if flag_fits and B * ldh <= FLAG_WORDS
+                        else "grid")
+    z_bytes, fixed, rows_sh = layout(exchange)
     if fixed > SMEM_MAX:
         raise ValueError(f"fused_decode: B={B} over {blocks} blocks needs "
                          f"{fixed} bytes of shared memory before any "
                          "activation row; take more blocks")
-    rows_sh = min(B, max(0, (SMEM_MAX - fixed) // (4 * xw)))
+    ldx = _up(ldh, LINE_WORDS) if exchange == "flag" else ldh
     part_off = 4 * xw * rows_sh
     prev_off = part_off + _up(4 * B * nv_max, 16)
     ln_off = prev_off + _up(4 * B, 16)
@@ -480,11 +544,35 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest"
             woff.append(-1)
     hc = [n for (_, l), n in zip(layers, nmax) if l.kind == "HC"]
     return DecodePlan(
-        blocks=blocks, B=B, xw=xw, ldh=ldh, rows_sh=rows_sh, nv_max=nv_max,
+        blocks=blocks, B=B, exchange=exchange, xw=xw, ldh=ldh, ldx=ldx,
+        exchange_bytes=2 * B * ldx * (8 if exchange == "flag" else 4),
+        rows_sh=rows_sh, nv_max=nv_max,
         part_off=part_off, prev_off=prev_off, ln_off=ln_off, z_off=z_off,
         nmax=nmax, woff=tuple(woff), smem=cur,
         ring_floats=ring_rows(cfg) * B * max(hc, default=0) * 2,
-        spill_floats=(B - rows_sh) * xw, barriers_per_step=len(layers))
+        spill_floats=(B - rows_sh) * xw,
+        barriers_per_step=len(layers) if exchange == "grid" else 0)
+
+
+# the next launch's first epoch of the flagged exchange
+_EPOCH0 = [1]
+
+
+def next_epoch0(n: int) -> int:
+    """The first of the ``n`` epochs of a launch's flagged exchanges, one
+    an exchange (``exchange_epoch``): each launch takes the n after the last
+    launch's, none 0 (the zeroed buffer's words), below 2**32."""
+    e0 = _EPOCH0[0]
+    if e0 + n > 2 ** 32:
+        e0 = 1
+    _EPOCH0[0] = e0 + n
+    return e0
+
+
+def exchange_epoch(epoch0: int, t: int, layer: int, n_layers: int) -> int:
+    """The epoch that the flagged exchange of ``layer`` at step ``t``
+    carries (the kernel's ``epoch0 + t * nl + li``)."""
+    return (epoch0 + t * n_layers + layer) % 2 ** 32
 
 
 def ring_rows(cfg) -> int:
@@ -556,8 +644,10 @@ def fused_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
     """Run the whole autoregressive decode. Kt/V (B, N, d) float32 ->
     (Y (B, T, n_mels), A (B, N, T)). ``packed`` is ``pack_decode_params(cfg,
     params, prec)``. CUDA tensors launch the kernel over one block per SM
-    (``decode_blocks``; and count the launch, in ``launches`` and in
-    ``launches_by_prec[prec]``); CPU tensors take ``fused_decode_plain``.
+    (``decode_blocks``), with the exchange ``decode_plan`` picks, and count
+    the launch, in ``launches``, ``launches_by_prec[prec]`` and
+    ``launches_by_exchange[exchange]``; CPU tensors take
+    ``fused_decode_plain``.
     An unknown ``prec`` raises, and so does a packed array of another shape
     or type than ``prec`` reads: nothing is converted quietly."""
     check_prec(prec)
@@ -569,11 +659,13 @@ def fused_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
 
 
 def launch_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
-                  cfg, prec: str = "highest", blocks: int | None = None
+                  cfg, prec: str = "highest", blocks: int | None = None,
+                  exchange: str | None = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``fused_decode``'s launch on CUDA tensors, over ``blocks`` blocks, a
-    multiple of ``CLUSTER`` (``decode_blocks`` if None). Raises, before
-    launching, if the grid cannot be co-resident."""
+    multiple of ``CLUSTER`` (``decode_blocks`` if None), with ``exchange``
+    (``decode_plan``'s choice if None). Raises, before launching, if the
+    grid cannot be co-resident or the exchange cannot run."""
     from ._build import check, load_library
 
     B, N, d = Kt.shape
@@ -592,7 +684,7 @@ def launch_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
     if blocks < CLUSTER or blocks % CLUSTER:
         raise ValueError(f"fused_decode: {blocks} blocks are not whole "
                          f"clusters of {CLUSTER}")
-    plan = decode_plan(cfg, B, blocks, prec)
+    plan = decode_plan(cfg, B, blocks, prec, exchange)
     fits, _ = coresident_blocks(plan.smem, Kt.device)
     if blocks > fits:
         raise RuntimeError(f"fused_decode: {blocks} blocks of {plan.smem} "
@@ -601,26 +693,43 @@ def launch_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
     dev = Kt.device
     Y = torch.empty(B, T, cfg.n_mels, device=dev)
     A = torch.empty(B, N, T, device=dev)
-    hbuf = torch.empty(2, B, plan.ldh, device=dev)
+    flag = plan.exchange == "flag"
+    # one memset either way: the flagged exchange's words (0 is no epoch),
+    # or the grid barrier's counter
+    if flag:
+        hbuf, bar = exchange_buffer(plan, dev), None
+        epoch0 = next_epoch0(T * len(plan.nmax))
+    else:
+        hbuf = torch.empty(2, B, plan.ldh, device=dev)
+        bar, epoch0 = torch.zeros(1, dtype=torch.int32, device=dev), 0
     ring = torch.empty(max(1, blocks * plan.ring_floats), device=dev)
     spill = torch.empty(max(1, blocks * plan.spill_floats), device=dev)
-    bar = torch.zeros(1, dtype=torch.int32, device=dev)
     cmo = packed["cb"].shape[-1]
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = load_library().dctts_decode(
         Kt.data_ptr(), V.data_ptr(), Y.data_ptr(), A.data_ptr(),
-        hbuf.data_ptr(), ring.data_ptr(), spill.data_ptr(), bar.data_ptr(),
+        hbuf.data_ptr(), ring.data_ptr(), spill.data_ptr(),
+        None if bar is None else bar.data_ptr(),
         ctypes.addressof(ints), ctypes.addressof(ptrs), len(enc_prog),
         len(dec_prog), B, N, d, cfg.n_mels, T, cfg.attention_win_size,
         cfg.ln_eps, cmo, plan.xw, plan.ldh,
         plan.rows_sh, plan.ring_floats, plan.spill_floats, plan.part_off,
         plan.prev_off, plan.ln_off, plan.z_off, plan.nv_max, plan.smem,
-        blocks, stream)
-    check(code, f"decode kernel ({prec})")
+        blocks, int(flag), plan.ldx, epoch0, stream)
+    check(code, f"decode kernel ({prec}, {plan.exchange} exchange)")
     fused_decode.launches += 1
     fused_decode.launches_by_prec[prec] += 1
+    fused_decode.launches_by_exchange[plan.exchange] += 1
     return Y, A
+
+
+def exchange_buffer(plan: DecodePlan, device) -> torch.Tensor:
+    """The flagged exchange's words, zeroed: both parities of B rows of
+    ``ldx`` 8-byte words {value, epoch} (int32 pairs)."""
+    return torch.zeros(plan.exchange_bytes // 4, dtype=torch.int32,
+                       device=device)
 
 
 fused_decode.launches = 0
 fused_decode.launches_by_prec = {p: 0 for p in PRECS}
+fused_decode.launches_by_exchange = {x: 0 for x in EXCHANGES}

@@ -37,9 +37,14 @@ import torch
 _profiling = torch._C._autograd._profiler_enabled
 
 # the kernels' launch counters (function attributes of their wrappers), as
-# summary() names them: module, wrapper, its counting attributes
+# summary() names them: module, wrapper, its counting attributes (an
+# (attribute, key) pair counts one entry of a dict)
 COUNTERS = {
     "k1.launches": ("ops.decode", "fused_decode", ("launches",)),
+    "k1.grid.launches": ("ops.decode", "fused_decode",
+                         (("launches_by_exchange", "grid"),)),
+    "k1.flag.launches": ("ops.decode", "fused_decode",
+                         (("launches_by_exchange", "flag"),)),
     "k2.launches": ("ops.gl2", "gl2_run", ("launches",)),
     "k3a.launches": ("ops.gl", "k3a", ("launches",)),
     "k3b.launches": ("ops.gl", "k3b", ("launches",)),
@@ -133,7 +138,9 @@ def _launch_counts() -> dict:
         m = sys.modules.get(f"{pkg}.{mod}")
         f = getattr(m, fn, None)
         out[key] = sum(sum(v.values()) if isinstance(v, dict) else v
-                       for v in (getattr(f, a, 0) for a in attrs))
+                       for v in (getattr(f, a, 0) if isinstance(a, str)
+                                 else getattr(f, a[0], {}).get(a[1], 0)
+                                 for a in attrs))
     return out
 
 

@@ -7,7 +7,8 @@ Tolerances: the decode kernel at the JAX fused-decode test's 2e-5 with an
 identical cursor trajectory (past its old domain limits: against the plain
 version replayed on the kernel's cursors, a cursor differing only in a
 tie below 1e-6); its reduced-precision bodies at chip_smoke.py's
-gate (max(2e-5, 2 x the plain version's float32-vs-float64 distance)). The
+gate (max(2e-5, 2 x the plain version's float32-vs-float64 distance)); its
+flagged exchange bit for bit the grid exchange's (the same arithmetic). The
 Griffin-Lim kernel at 1e-5 from its plain version run in float64 (also at
 a non-power-of-two n_fft, 480 = 32 x 15): the phase normalisation of
 near-zero bins amplifies rounding, so the float32 plain version is itself
@@ -83,11 +84,14 @@ def test_decode_kernel_matches_plain(cuda, B, prec):
     Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, B).to(cuda))
     packed = K1.pack_decode_params(cfg, p, prec)
     n, n_p = K1.fused_decode.launches, K1.fused_decode.launches_by_prec[prec]
+    x = K1.decode_plan(cfg, B, K1.decode_blocks(cuda), prec).exchange
+    n_x = K1.fused_decode.launches_by_exchange[x]
     Y, A = K1.fused_decode(packed, Kt.contiguous(), V.contiguous(),
                            cfg.max_T, cfg, prec)
     torch.cuda.synchronize()
     assert K1.fused_decode.launches == n + 1
     assert K1.fused_decode.launches_by_prec[prec] == n_p + 1
+    assert K1.fused_decode.launches_by_exchange[x] == n_x + 1
     Yp, Ap = K1.fused_decode_plain(packed, Kt, V, cfg.max_T, cfg, prec)
     if prec == "highest":
         assert torch.equal(A.argmax(1), Ap.argmax(1))
@@ -144,6 +148,52 @@ def test_decode_kernel_past_the_old_limits(cuda, name):
     torch.testing.assert_close(A, Ar, atol=2e-5, rtol=0)
     if name == "win9":
         assert int((A > 0).sum(1).max()) == 9
+
+
+# the flagged exchange against the grid exchange: base_config, and a config
+# past one of the kernel's old limits that the common kernel takes (d 18:
+# each tap padded to the copy width)
+EXCHANGE_CONFIGS = {"base": base_config,
+                    "d18": lambda: test_config().replace(d=18)}
+
+
+@pytest.mark.parametrize("prec", K1.PRECS)
+@pytest.mark.parametrize("name", sorted(EXCHANGE_CONFIGS))
+def test_flag_exchange_matches_grid_bitwise(cuda, name, prec):
+    """Y and A through the flagged exchange equal the grid exchange's
+    bit for bit at B = 1, 2, 3, 5 and 8 (``launch_decode`` given each):
+    every block's norms take the same arithmetic as the cluster ranks'."""
+    cfg = EXCHANGE_CONFIGS[name]()
+    p = Text2Mel(cfg).init(torch.Generator().manual_seed(11), cuda)
+    packed = K1.pack_decode_params(cfg, p, prec)
+    for B in (1, 2, 3, 5, 8):
+        Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, B, seed=B).to(cuda))
+        Kt, V = Kt.contiguous(), V.contiguous()
+        n = dict(K1.fused_decode.launches_by_exchange)
+        Yg, Ag = K1.launch_decode(packed, Kt, V, cfg.max_T, cfg, prec,
+                                  exchange="grid")
+        Yf, Af = K1.launch_decode(packed, Kt, V, cfg.max_T, cfg, prec,
+                                  exchange="flag")
+        torch.cuda.synchronize()
+        assert K1.fused_decode.launches_by_exchange == {
+            "grid": n["grid"] + 1, "flag": n["flag"] + 1}
+        assert torch.equal(Yf, Yg) and torch.equal(Af, Ag), B
+
+
+def test_decode_counts_launches_by_exchange(cuda):
+    """At base_config ``fused_decode`` takes the flagged exchange at
+    B = 1, one launch a call, and the grid exchange at B = 72."""
+    cfg = base_config()
+    p = Text2Mel(cfg).init(torch.Generator().manual_seed(4), cuda)
+    packed = K1.pack_decode_params(cfg, p)
+    for B, x in ((1, "flag"), (72, "grid")):
+        Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, B).to(cuda))
+        n = dict(K1.fused_decode.launches_by_exchange)
+        for _ in range(2):
+            K1.fused_decode(packed, Kt.contiguous(), V.contiguous(), 8, cfg)
+        torch.cuda.synchronize()
+        assert K1.fused_decode.launches_by_exchange == {
+            **n, x: n[x] + 2}, B
 
 
 def test_decode_kernel_spills_rows(cuda):

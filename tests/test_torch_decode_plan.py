@@ -75,7 +75,7 @@ def test_plan_fits_shared_memory(name, B, blocks):
         spans = [(plan.prev_off, plan.prev_off + 4 * B),
                  (plan.ln_off, plan.ln_off + 4 * 4 * cfg.d),
                  (plan.z_off, plan.z_off + 4 * plan.ldh
-                  * min(K1.WARPS, len(K1.cluster_rows(B, 0))))]
+                  * K1.staged_rows(B, plan.exchange))]
         for (is_dec, l), n, off in zip(_layers(cfg), plan.nmax, plan.woff):
             width = K1.layer_width(l)
             assert n == max(c1 - c0 for c0, c1 in (
@@ -94,11 +94,134 @@ def test_plan_fits_shared_memory(name, B, blocks):
         hc = [l for _, l in _layers(cfg) if l.kind == "HC"]
         assert plan.ring_floats == K1.ring_rows(cfg) * B * 2 * \
             -(-2 * cfg.d // blocks) * bool(hc)
-        assert plan.barriers_per_step == len(_layers(cfg))
-        # the staging (sized for rank 0) holds a row for every warp that
-        # normalises one, in every rank
+        assert plan.barriers_per_step == (
+            len(_layers(cfg)) if plan.exchange == "grid" else 0)
+        # the staging holds a row for every warp that normalises one: under
+        # "grid" (sized for rank 0) in every rank, under "flag" every row
         assert len(K1.cluster_rows(B, 0)) == max(
             len(K1.cluster_rows(B, r)) for r in range(K1.CLUSTER))
+        assert K1.staged_rows(B, "flag") == B
+
+
+# the exchange decode_plan picks at base_config over the H100's 132 blocks
+RULE = {1: "flag", 2: "flag", 3: "grid", 8: "grid", 20: "grid", 72: "grid"}
+
+
+@pytest.mark.parametrize("B", sorted(RULE))
+def test_plan_picks_the_exchange(B):
+    """The flagged exchange at small B, the grid exchange from the B
+    where every block's gather (B x the widest pre-norm row) passes
+    ``FLAG_WORDS``, in every precision; either is taken when asked."""
+    cfg = base_config()
+    for prec in K1.PRECS:
+        plan = K1.decode_plan(cfg, B, 132, prec)
+        assert plan.exchange == RULE[B]
+        assert (plan.exchange == "flag") == (B * plan.ldh <= K1.FLAG_WORDS)
+        assert K1.decode_plan(cfg, B, 132, prec, "grid").exchange == "grid"
+        if B <= 20:
+            assert K1.decode_plan(cfg, B, 132, prec, "flag").exchange == \
+                "flag"
+        else:  # B rows staged besides B rows: past shared memory
+            with pytest.raises(ValueError, match="shared memory"):
+                K1.decode_plan(cfg, B, 132, prec, "flag")
+    with pytest.raises(ValueError, match="exchange"):
+        K1.decode_plan(cfg, B, 132, "highest", "ring")
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 5, 8, 20])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_exchange_buffer_size_and_alignment(name, B):
+    """The flagged exchange's buffer: two parities of B rows of ``ldx``
+    8-byte words, each row on a 128-byte line and at least the widest
+    pre-norm row, zeroed (0 is no epoch); the grid exchange's: two parities
+    of B rows of ``ldh`` floats."""
+    cfg = CONFIGS[name]()
+    flag = K1.decode_plan(cfg, B, 132, exchange="flag")
+    assert flag.ldx >= flag.ldh and (8 * flag.ldx) % 128 == 0
+    assert flag.exchange_bytes == 2 * B * flag.ldx * 8
+    words = K1.exchange_buffer(flag, "cpu")
+    assert words.dtype == torch.int32 and words.numel() * 4 == \
+        flag.exchange_bytes and not bool(words.any())
+    assert words.data_ptr() % 8 == 0
+    grid = K1.decode_plan(cfg, B, 132, exchange="grid")
+    assert grid.ldx == grid.ldh and grid.exchange_bytes == 2 * B * grid.ldh * 4
+
+
+def test_exchange_epochs_are_unique():
+    """A launch's 5040 exchanges (210 steps x 24 layers at base_config)
+    carry distinct epochs, none 0, and two launches share none; past 2**32
+    the epochs start again at 1."""
+    cfg = base_config()
+    nl = len(_layers(cfg))
+    T = cfg.max_T
+    launches = []
+    for _ in range(2):
+        e0 = K1.next_epoch0(T * nl)
+        launches.append({K1.exchange_epoch(e0, t, li, nl)
+                         for t in range(T) for li in range(nl)})
+    assert T * nl == 5040
+    assert all(len(e) == 5040 and 0 not in e for e in launches)
+    assert not launches[0] & launches[1]
+    saved = K1._EPOCH0[0]
+    try:
+        K1._EPOCH0[0] = 2 ** 32 - 100
+        e0 = K1.next_epoch0(T * nl)
+        assert e0 == 1 and K1.next_epoch0(T * nl) == 1 + T * nl
+    finally:
+        K1._EPOCH0[0] = saved
+
+
+def test_rows_that_spill_take_the_grid_exchange(monkeypatch):
+    """From the B whose rows (with the flagged exchange's staging of
+    every row) no longer all fit in shared memory, the plan takes the grid
+    exchange, however many words a gather may read, and refuses the flagged
+    one; past that the grid exchange's own rows spill too."""
+    cfg = base_config()
+    monkeypatch.setattr(K1, "FLAG_WORDS", 10 ** 9)
+    B = next(b for b in range(1, 1000)
+             if K1.decode_plan(cfg, b, 132).exchange == "grid")
+    assert B > 1 and K1.decode_plan(cfg, B - 1, 132).rows_sh == B - 1
+    with pytest.raises(ValueError, match="shared memory"):
+        K1.decode_plan(cfg, B, 132, exchange="flag")
+    spill = next(b for b in range(B, 1000)
+                 if K1.decode_plan(cfg, b, 132).spill_floats)
+    plan = K1.decode_plan(cfg, spill, 132)
+    assert plan.exchange == "grid" and plan.rows_sh < spill
+    with pytest.raises(ValueError, match="shared memory"):
+        K1.decode_plan(cfg, spill, 132, exchange="flag")
+
+
+# configs of the general kernel (GEN), and two of the common one
+GENERAL = {"win5": (dict(attention_win_size=5), True),
+           "d264": (dict(d=264), True), "d17": (dict(d=17), True),
+           "c520": (dict(n_mels=520), True), "d18": (dict(d=18), False),
+           "n_mels10": (dict(n_mels=10), False)}
+
+
+@pytest.mark.parametrize("name", sorted(GENERAL))
+def test_general_configs_take_the_grid_exchange(name):
+    """``general_kernel`` agrees with the condition the C entry takes
+    from the layer program (a window past 4 keys, d > 256, a C layer wider
+    than 512, an HC layer wider than 256, norm parameters off 16 bytes);
+    such a config takes the grid exchange at every B and refuses the
+    flagged one."""
+    kw, general = GENERAL[name]
+    cfg = test_config().replace(**kw)
+    params = Text2Mel(cfg).init(torch.Generator().manual_seed(3), "cpu")
+    packed = K1.pack_decode_params(cfg, params)
+    plan = K1.decode_plan(cfg, 1, 132)
+    ints = np.asarray(K1._layer_arrays(packed, cfg, "highest", plan)[0][:])
+    kind, cout, lnv = ints.reshape(-1, 12)[:, [0, 2, 11]].T
+    c_side = (cfg.attention_win_size > 4 or cfg.d > 256 or not lnv.all()
+              or bool((cout > np.where(kind == 1, 256, 512)).any()))
+    assert K1.general_kernel(cfg) == c_side == general
+    if general:
+        assert all(K1.decode_plan(cfg, B, 132).exchange == "grid"
+                   for B in (1, 2, 8))
+        with pytest.raises(ValueError, match="common kernel"):
+            K1.decode_plan(cfg, 1, 132, exchange="flag")
+    else:
+        assert plan.exchange == "flag"
 
 
 def test_plan_refuses_too_few_blocks():

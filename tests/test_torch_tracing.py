@@ -255,3 +255,13 @@ def test_summary_reads_the_launch_counters(monkeypatch):
     s = profiling.summary()
     assert set(profiling.COUNTERS) <= set(s)
     assert s["k1.launches"] == 7 and s["k4.bwd.launches"] == 5
+
+
+def test_summary_reads_k1_launches_by_exchange(monkeypatch):
+    """K1's launches by exchange are counted apart, each from its own
+    entry of ``fused_decode.launches_by_exchange``."""
+    from dc_tts_tpu_torch.ops import decode as K1
+    monkeypatch.setattr(K1.fused_decode, "launches_by_exchange",
+                        {"grid": 2, "flag": 3})
+    s = profiling.summary()
+    assert (s["k1.grid.launches"], s["k1.flag.launches"]) == (2, 3)
