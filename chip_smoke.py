@@ -29,6 +29,10 @@ line:
              over 32, 64 and all blocks, for information; (line K1-B72)
              bench.py's chunk, B=72, and (line K1-win8) a window of 8 keys
              (past the 4 the kernel once took), at the same gate.
+3a. TextEnc - (lines TextEnc-B1, TextEnc-B72) TextEnc eager against the
+             Synthesizer's captured graph of it at B=1 and B=72, N=180:
+             device ms and host ms of a call (medians of 20, each started
+             on an idle device), K and V bitwise equal, one capture.
 3b. K1-<prec> - K1's reduced-precision bodies (high3, hybrid, default) on
              phase K1's inputs, each against the plain version of the same
              mode replayed on the kernel's cursors, over all T steps:
@@ -66,7 +70,9 @@ line:
              CUDA-event times of each stage of one chunk, whose output is
              held equal to synthesize_ids' on the same chunk. Every launch
              count is set to 0 before and read after the 40 sentences: K3's
-             must stay 0 on this default (dft_pallas2) path. Then (line
+             must stay 0 on this default (dft_pallas2) path, and TextEnc's
+             graph (captured in the warm-up) is replayed once a chunk,
+             captured never. Then (line
              e2e-ssrn) SSRN on that chunk's decoded mels under each
              ssrn_precision of the Synthesizer (highest, high - the
              default - and bf16): CUDA-event ms and Z's max and mean distance
@@ -456,6 +462,14 @@ def counts() -> dict:
             **{fn: getattr(X, fn).launches for fn in CT_KERNELS}}
 
 
+def _textenc_graphs():
+    """[captures, replays] of the Synthesizer's TextEnc graphs so far, or
+    None for a ``--package`` that predates them."""
+    from dc_tts_tpu_torch import pipeline
+    G = getattr(pipeline, "text_encode_graphs", None)
+    return None if G is None else [G.captures, G.replays]
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -734,6 +748,65 @@ def phase_k1(results):
         raise AssertionError(f"K1 at win=8 disagrees with its plain version:"
                              f" dY={dY} dA={dA}")
     results["K1_win8"] = dict(max_abs_err=max(dY, dA), ms=ms8)
+
+
+def _call_ms(fn, reps: int = 20):
+    """Medians over ``reps`` calls of fn(), each started on an idle device:
+    (device ms between CUDA events around the call, host ms from the call's
+    start until it returns)."""
+    dev_ms, host_ms = [], []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        b.record()
+        torch.cuda.synchronize()
+        dev_ms.append(a.elapsed_time(b))
+    return float(np.median(dev_ms)), float(np.median(host_ms))
+
+
+def phase_textenc(results):
+    """TextEnc eager (``Text2Mel.text_encode``) against its captured graph
+    (``pipeline.text_encode_graphs``, the Synthesizer's on the card) at
+    B = 1 and B = 72, N = max_N, base_config with seeded weights moved by
+    0.1 x N(0, 1) (biases and norm shifts away from 0): device and host ms
+    of a call (``_call_ms``), K and V bitwise equal, one capture."""
+    from dc_tts_tpu_torch.config import base_config
+    from dc_tts_tpu_torch.models import Text2Mel
+    from dc_tts_tpu_torch.pipeline import text_encode_graphs
+    from dc_tts_tpu_torch.train.optimizer import tree_map
+
+    cfg = base_config()
+    dev = torch.device("cuda")
+    model = Text2Mel(cfg)
+    gen = torch.Generator().manual_seed(1)
+    params = tree_map(lambda t: (t + 0.1 * torch.randn(
+        t.shape, generator=gen)).to(dev), model.init(gen))
+    for B in (1, 72):
+        graphs = text_encode_graphs(model, params)
+        ids = torch.as_tensor(harvard_ids(cfg, B), device=dev)
+        c0 = text_encode_graphs.captures
+        with torch.no_grad():
+            Ke, Ve = model.text_encode(params, ids)
+            K, V = graphs(ids)
+            same = bool(torch.equal(K, Ke) and torch.equal(V, Ve))
+            eager = _call_ms(lambda: model.text_encode(params, ids))
+            graph = _call_ms(lambda: graphs(ids))
+        captures = text_encode_graphs.captures - c0
+        ok = same and captures == 1
+        line(f"TextEnc-B{B}", ok=ok, B=B, N=cfg.max_N,
+             eager_device_ms=f"{eager[0]:.3f}",
+             eager_host_ms=f"{eager[1]:.3f}",
+             graph_device_ms=f"{graph[0]:.3f}",
+             graph_host_ms=f"{graph[1]:.3f}", bitwise=same,
+             captures=captures)
+        if not ok:
+            raise AssertionError(f"TextEnc's graph at B={B}: bitwise={same}"
+                                 f" captures={captures}")
+        results[f"TextEnc_B{B}"] = dict(eager_ms=eager, graph_ms=graph)
 
 
 def _k1_bound(cfg, prec, B, T, A, tensors):
@@ -1251,18 +1324,23 @@ def phase_e2e(results, smi):
     ids = harvard_ids(cfg, 40)
     synth.synthesize_ids_chunked(ids[:CHUNK], CHUNK)      # warm-up
     reset_counts()
+    graphs0 = _textenc_graphs()
     t0 = time.perf_counter()
     wavs = synth.synthesize_ids_chunked(ids, CHUNK)
     wall = time.perf_counter() - t0
     launches = counts()
+    graphs = graphs0 and [n - n0 for n, n0 in zip(_textenc_graphs(),
+                                                  graphs0)]
     n_samples = cfg.hop_length * (cfg.max_T_full - 1)
     ok = (wavs.dtype == np.int16 and wavs.shape == (40, n_samples)
           and launches["K1"] > 0 and launches["K2"] > 0
           and launches["K3a"] == launches["K3b"] == 0
+          and graphs in (None, [0, launches["K1"]])
           and int(np.abs(wavs).max()) > 0)
     audio_s = wavs.size / cfg.sr
     line("e2e", ok=ok, shape=wavs.shape, dtype=wavs.dtype,
          launches=json.dumps(launches).replace(" ", ""),
+         textenc_graphs=graphs,
          wall_s=f"{wall:.3f}", audio_s=f"{audio_s:.1f}",
          audio_s_per_s=f"{audio_s / wall:.1f}", card=repr(smi))
     if not ok:
@@ -3425,7 +3503,8 @@ def _only(names, smi) -> int:
     their lines, then their results as one JSON line (no ``ok`` line)."""
     import importlib.util
     results = {}
-    phases = {"K1": phase_k1, "K1-prec": phase_k1_prec, "K2": phase_k2,
+    phases = {"K1": phase_k1, "TextEnc": phase_textenc,
+              "K1-prec": phase_k1_prec, "K2": phase_k2,
               "e2e": lambda r: phase_e2e(r, smi), "K3": phase_k3,
               "e2e-dft_pallas": lambda r: phase_e2e_dft_pallas(r, smi),
               "K4": phase_k4, "K4-bf16": lambda r: phase_k4(r, bf16=True),
@@ -3461,8 +3540,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="", help="comma-separated phases to "
-                    "run alone (K1, K1-prec, K2, e2e, K3, e2e-dft_pallas, "
-                    "K4, K4-bf16, ct-fwd, train-routes, parallel, "
+                    "run alone (K1, TextEnc, K1-prec, K2, e2e, K3, "
+                    "e2e-dft_pallas, K4, K4-bf16, ct-fwd, train-routes, "
+                    "parallel, "
                     "parallel-tp, bench, learn, bench-train, "
                     "profile-stages, bench-variants, scaling), e.g. to "
                     "time them on another commit's package in the same "
@@ -3487,6 +3567,7 @@ def main(argv=None) -> int:
         return _only(args.only.split(","), smi)
     results = {}
     phase_k1(results)
+    phase_textenc(results)
     phase_k1_prec(results)
     phase_k2(results)
     phase_e2e(results, smi)

@@ -225,7 +225,7 @@ class Text2Mel:
 
     def decode(self, params, ids: torch.Tensor, max_t: Optional[int] = None,
                *, mode: str = "incremental", prec: str = "highest",
-               packed: Optional[dict] = None
+               packed: Optional[dict] = None, text_encoder=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Autoregressive synthesis of ids (B,N) -> (Y (B, max_T, n_mels),
         alignments (B, N, max_T)).
@@ -243,6 +243,10 @@ class Text2Mel:
         AudioDec run again over the whole prefix each step (O(T^2)); Q is
         cached frame by frame, since AudioEnc never sees the mask.
 
+        ``text_encoder``, a callable ids -> (K, V), takes TextEnc's place
+        (the Synthesizer's captured graph on the card); by default
+        ``self.text_encode(params, ids)``.
+
         Spans (``utils/profiling``), in every mode: ``text2mel.text_encode``
         around TextEnc and ``text2mel.decode`` around the decode (the
         kernel's launch with its host-side preparation in "fused", the
@@ -256,7 +260,10 @@ class Text2Mel:
         if mode == "fused" and packed is None:
             packed = pack_decode_params(self.cfg, params, prec)
         with span("text2mel.text_encode"):
-            Kt, V = self.text_encode(params, ids)
+            if text_encoder is None:
+                Kt, V = self.text_encode(params, ids)
+            else:
+                Kt, V = text_encoder(ids)
         with span("text2mel.decode"):
             if mode == "incremental":
                 return self._decode_incremental(params, Kt, V, max_t)

@@ -27,9 +27,15 @@ take ``decode_prec`` (``ops.decode.PRECS``): "highest" (the default, float32),
 everywhere) or "default" (one bf16 pass). The reduced ones are opt-in: at
 random init their rounding flips attention cursors (argmax ties of a
 diffuse attention), as the JAX package measured; TextEnc stays float32.
+
+On the card the Synthesizer runs TextEnc as one captured CUDA graph a batch
+shape (``text_encode_graphs``): at one sentence a call its ~360 eager
+launches took longer on the host than the encoder takes on the device, and
+the decode kernel, which needs its K and V, waited for them.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Sequence
 
 import numpy as np
@@ -74,6 +80,79 @@ def _pad_rows(ids: np.ndarray, multiple: int) -> np.ndarray:
         [ids, np.zeros((padded - ids.shape[0], ids.shape[1]), ids.dtype)])
 
 
+# batch shapes whose TextEnc graph the Synthesizer keeps: a chunk size, its
+# tail and single requests, with room to spare
+TEXTENC_GRAPHS = 4
+
+
+class GraphCache:
+    """``fn(x)`` -> a tuple of tensors, replayed from one captured CUDA graph
+    a shape of ``x``; the ``capacity`` shapes used last are kept, the least
+    recently used evicted. ``counts`` (an object) takes the process-wide
+    ``captures`` and ``replays``.
+
+    A shape's first call runs ``fn`` once eagerly on a side stream (cuBLAS
+    picks its algorithms and allocates its workspace there), then captures
+    it into a graph with a memory pool of its own; every call copies ``x``
+    into the graph's static input and replays it on the current stream. The
+    outputs are the graph's static tensors, overwritten by the shape's next
+    replay."""
+
+    def __init__(self, fn, capacity: int, counts):
+        self.fn, self.capacity, self.counts = fn, capacity, counts
+        self.graphs: OrderedDict = OrderedDict()  # shape -> (x, graph, outs)
+
+    def __call__(self, x: torch.Tensor):
+        key = tuple(x.shape)
+        entry = self.graphs.get(key)
+        if entry is None:
+            while len(self.graphs) >= self.capacity:
+                self.graphs.popitem(last=False)
+            entry = self.graphs[key] = self._capture(x)
+            self.counts.captures += 1
+        else:
+            self.graphs.move_to_end(key)
+        static_x, graph, outs = entry
+        static_x.copy_(x)
+        graph.replay()
+        self.counts.replays += 1
+        return outs
+
+    def _capture(self, x: torch.Tensor):
+        static_x = x.clone()
+        here = torch.cuda.current_stream(x.device)
+        side = torch.cuda.Stream(x.device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            self.fn(static_x)
+        here.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # "thread_local": only this thread's calls are held to the capture's
+        # rules, so another thread's CUDA calls (the profiler's, a loader's)
+        # neither fail it nor are failed by it
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            outs = self.fn(static_x)
+        return static_x, graph, outs
+
+
+def text_encode_graphs(text2mel: Text2Mel, params) -> GraphCache:
+    """Inference TextEnc on the card, ids (B, N) -> (K, V) contiguous, from
+    a ``GraphCache`` of ``TEXTENC_GRAPHS`` batch shapes (the encoder of
+    ``text2mel.text_encode(params, ids)``: the same kernels, bit for bit).
+    Its counters are this function's ``captures`` and ``replays``."""
+
+    @torch.no_grad()
+    def encode(ids):
+        Kt, V = text2mel.text_encode(params, ids)
+        return Kt.contiguous(), V.contiguous()
+
+    return GraphCache(encode, TEXTENC_GRAPHS, text_encode_graphs)
+
+
+text_encode_graphs.captures = 0
+text_encode_graphs.replays = 0
+
+
 def _replicate(trees, src: int, group) -> None:
     """The same parameter values on every rank of ``group``: global rank
     ``src``'s (the JAX package's contract, "the same value on every
@@ -94,7 +173,11 @@ class Synthesizer:
     With a ``mesh`` (``parallel.make_mesh``) this rank synthesizes its
     rows of every batch, padded with PAD rows to a multiple of the data
     axis, and every rank returns the whole batch. The parameters are rank
-    0's of the data axis, broadcast here."""
+    0's of the data axis, broadcast here.
+
+    On CUDA, TextEnc runs from ``text_encode_graphs``: a graph captured at
+    the first call of each batch shape (a warm-up call of the shape takes
+    the capture out of later timing)."""
 
     def __init__(self, cfg: Config, t2m_params, ssrn_params, *,
                  device="cuda", mesh=None, decode_mode: str = "auto",
@@ -127,6 +210,10 @@ class Synthesizer:
         if decode_mode == "fused":
             self.packed = pack_decode_params(cfg, self.t2m_params,
                                              decode_prec)
+        self.text_encoder = None
+        if self.device.type == "cuda":
+            self.text_encoder = text_encode_graphs(self.text2mel,
+                                                   self.t2m_params)
 
     @classmethod
     def from_checkpoints(cls, cfg: Config, logdir1: str, logdir2: str,
@@ -144,10 +231,13 @@ class Synthesizer:
         with span("synth.rows", n=ids.shape[0]):
             ids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
             with span("text2mel"):
-                Y, align = self.text2mel.decode(self.t2m_params, ids,
-                                                mode=self.decode_mode,
-                                                prec=self.decode_prec,
-                                                packed=self.packed)
+                # K and V are the graph's outputs, which the next call's
+                # replay overwrites: every consumer (K1, or the step loop)
+                # is enqueued on this stream before that replay
+                Y, align = self.text2mel.decode(
+                    self.t2m_params, ids, mode=self.decode_mode,
+                    prec=self.decode_prec, packed=self.packed,
+                    text_encoder=self.text_encoder)
             with span("ssrn"):
                 _, Z = self.ssrn.apply(self.ssrn_params, Y)
             with span("vocoder"):

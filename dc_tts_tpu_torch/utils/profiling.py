@@ -36,9 +36,10 @@ import torch
 
 _profiling = torch._C._autograd._profiler_enabled
 
-# the kernels' launch counters (function attributes of their wrappers), as
-# summary() names them: module, wrapper, its counting attributes (an
-# (attribute, key) pair counts one entry of a dict)
+# the kernels' launch counters and the TextEnc graphs' captures and replays
+# (function attributes of their wrappers), as summary() names them: module,
+# wrapper, its counting attributes (an (attribute, key) pair counts one
+# entry of a dict)
 COUNTERS = {
     "k1.launches": ("ops.decode", "fused_decode", ("launches",)),
     "k1.grid.launches": ("ops.decode", "fused_decode",
@@ -56,6 +57,10 @@ COUNTERS = {
     "x2.launches": ("ops.ct_fwd", "fact_fwd_tiled", ("launches",)),
     "x3.launches": ("ops.ct_fwd", "fact_fwd", ("launches",)),
     "x4.launches": ("ops.ct_fwd", "ablate_fwd", ("launches",)),
+    "textenc.graph.captures": ("pipeline", "text_encode_graphs",
+                               ("captures",)),
+    "textenc.graph.replays": ("pipeline", "text_encode_graphs",
+                              ("replays",)),
 }
 
 
@@ -93,8 +98,8 @@ class Recorder:
         give them, else None), ``host_ms`` and ``host_self_ms`` (minus the
         child spans' host ms), ``device_ms`` and ``device_self_ms`` (the
         CUDA event pairs' stream time; None without events). Beside them
-        the kernels' launch counters as they stand (``k1.launches``, ...)
-        and ``spans.dropped``. Waits for the device once."""
+        the ``COUNTERS`` as they stand (``k1.launches``, ...,
+        ``textenc.graph.replays``) and ``spans.dropped``. Waits for the device once."""
         done = [r for r in self.records if r.t1 is not None]
         if any(r.ev0 is not None for r in done):
             torch.cuda.synchronize()

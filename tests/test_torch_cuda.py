@@ -27,6 +27,8 @@ X1-X4 at 1e-5 of max |FFT| from their plain versions, 1e-3 for the
 factored kernels in bf16 (stage C rounds float32 sums taken in another
 order to bf16), the CPU tests' gates against JAX. The program's spans
 against ``torch.profiler``'s device trace of single requests: one clock.
+TextEnc replayed from its captured graph (``pipeline.text_encode_graphs``)
+bit for bit the eager encoder, alone and through the Synthesizer.
 """
 import numpy as np
 import pytest
@@ -723,3 +725,106 @@ def test_spans_share_the_device_trace_clock(cuda, tmp_path):
     k_ms = sum(float(e["dur"]) for e in kernels) / 1e3
     dec = s["text2mel.decode"]
     assert 0.99 * k_ms <= dec["device_ms"] <= k_ms + dec["host_ms"] + 1.0
+
+
+# ------------------------------------------------------------------ TextEnc graphs
+
+
+def _biased_t2m(cfg, dev, seed=7):
+    """Text2Mel's initial weights with every leaf moved by 0.1 x N(0, 1):
+    biases, norm shifts and gains away from 0 and 1."""
+    from dc_tts_tpu_torch.train.optimizer import tree_map
+    gen = torch.Generator().manual_seed(seed)
+    p = Text2Mel(cfg).init(gen)
+    return tree_map(lambda t: (t + 0.1 * torch.randn(t.shape, generator=gen)
+                               ).to(dev), p)
+
+
+@pytest.mark.parametrize("B,N", [(1, 180), (72, 180), (3, 40)])
+def test_textenc_graph_bitwise_equals_eager(cuda, B, N):
+    """The captured TextEnc's K and V equal eager ``text_encode``'s bit for
+    bit, at its capture and at a replay with other ids."""
+    from dc_tts_tpu_torch.pipeline import text_encode_graphs
+    cfg = base_config().replace(max_N=N)
+    model = Text2Mel(cfg)
+    p = _biased_t2m(cfg, cuda)
+    graphs = text_encode_graphs(model, p)
+    for seed in (0, 1):
+        ids = _ids(cfg, B, seed=seed).to(cuda)
+        K, V = graphs(ids)
+        Ke, Ve = model.text_encode(p, ids)
+        assert K.is_contiguous() and V.is_contiguous()
+        assert torch.equal(K, Ke) and torch.equal(V, Ve), seed
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_synthesizer_textenc_graph_matches_eager_chain(cuda, B):
+    """Two batches of other ids through the Synthesizer back to back, with
+    no wait between: Y, A and pcm16 bitwise the eager TextEnc's (a stale
+    static input would give the second the first's); one capture for the
+    shape, one replay a call."""
+    from dc_tts_tpu_torch.bench import seeded_nets
+    from dc_tts_tpu_torch.pipeline import text_encode_graphs as G
+    cfg = base_config()
+    synth = Synthesizer(cfg, _biased_t2m(cfg, "cpu"), seeded_nets(cfg)[1],
+                        pcm16=True)
+    batches = [_ids(cfg, B, seed=10 + B + i).numpy() for i in range(2)]
+    c0, r0 = G.captures, G.replays
+    graphed = [synth.synthesize_ids(ids) for ids in batches]
+    torch.cuda.synchronize()
+    assert (G.captures - c0, G.replays - r0) == (1, 2)
+    encoder, synth.text_encoder = synth.text_encoder, None
+    eager = [synth.synthesize_ids(ids) for ids in batches]
+    synth.text_encoder = encoder
+    for (w, Y, _, A), (we, Ye, _, Ae) in zip(graphed, eager):
+        assert w.dtype == torch.int16
+        assert torch.equal(Y, Ye) and torch.equal(A, Ae)
+        assert torch.equal(w, we)
+    assert not torch.equal(graphed[0][1], graphed[1][1])
+
+
+def test_textenc_graph_cache_evicts_and_recaptures(cuda):
+    """One shape past ``TEXTENC_GRAPHS``: the least recently used shape is
+    evicted, and on its next call captured again, bitwise the eager K, V."""
+    from dc_tts_tpu_torch.pipeline import TEXTENC_GRAPHS
+    from dc_tts_tpu_torch.pipeline import text_encode_graphs as G
+    cfg = test_config()
+    model = Text2Mel(cfg)
+    p = _biased_t2m(cfg, cuda)
+    graphs = G(model, p)
+    ids = {B: _ids(cfg, B, seed=B).to(cuda)
+           for B in range(1, TEXTENC_GRAPHS + 2)}
+    c0 = G.captures
+    for B in range(1, TEXTENC_GRAPHS + 1):
+        graphs(ids[B])
+    graphs(ids[1])                         # shape 2 is now the oldest
+    graphs(ids[TEXTENC_GRAPHS + 1])
+    assert G.captures - c0 == TEXTENC_GRAPHS + 1
+    assert (2, cfg.max_N) not in graphs.graphs
+    assert len(graphs.graphs) == TEXTENC_GRAPHS
+    K, V = graphs(ids[2])
+    assert G.captures - c0 == TEXTENC_GRAPHS + 2
+    Ke, Ve = model.text_encode(p, ids[2])
+    assert torch.equal(K, Ke) and torch.equal(V, Ve)
+
+
+def test_textenc_graph_captured_under_the_profiler(cuda):
+    """A shape's first call while ``torch.profiler`` records (capture and
+    replay inside the trace) gives the eager K, V bit for bit, and a
+    replay's kernels appear in the trace."""
+    from dc_tts_tpu_torch.pipeline import text_encode_graphs
+    cfg = test_config()
+    model = Text2Mel(cfg)
+    p = _biased_t2m(cfg, cuda)
+    graphs = text_encode_graphs(model, p)
+    ids = _ids(cfg, 2).to(cuda)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        K, V = graphs(ids)
+        K, V = graphs(ids)
+        torch.cuda.synchronize()
+    Ke, Ve = model.text_encode(p, ids)
+    assert torch.equal(K, Ke) and torch.equal(V, Ve)
+    assert any(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())
