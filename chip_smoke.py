@@ -70,7 +70,8 @@ line:
              CUDA-event times of each stage of one chunk, whose output is
              held equal to synthesize_ids' on the same chunk. Every launch
              count is set to 0 before and read after the 40 sentences: K3's
-             must stay 0 on this default (dft_pallas2) path, and TextEnc's
+             must stay 0 on this default (dft_pallas2) path, K5 launches
+             twice for each of SSRN's 16 blocks a chunk, and TextEnc's
              graph (captured in the warm-up) is replayed once a chunk,
              captured never. Then (line
              e2e-ssrn) SSRN on that chunk's decoded mels under each
@@ -90,6 +91,24 @@ line:
              Synthesizer(base_config(), decode_mode="reference", pcm16=True)
              on one chunk of 20: K1 never launched, K2 once, every output
              finite, int16 (20, 230725), and the decode's CUDA-event ms.
+5d. ssrn-block - SSRN in synthesis's "high" mode through kernel K5
+             (ops/ssrn_block.py: a prologue and an epilogue launch a block
+             around its three bf16 products) against the eager chain of
+             blocks.apply_stack on the card (the path every call took
+             before K5), at base_config with seeded weights whose biases,
+             norm gains and shifts are moved by 0.1 x N(0, 1), Y uniform in
+             [0, 1), at B=72 (the bulk cell's chunk) and B=1: Z within
+             max(1e-5, 2 x the distance between the eager chain with
+             float32 sums and its plain version with float64 sums; K1's
+             gate) of the eager chain's, the prologue's halves bitwise
+             its plain version's at every block, K5 launched twice a block;
+             CUDA-event ms of both paths, host ms a call at B=1,
+             torch.profiler's device ms of one call by kind (K5's two
+             kernels, the products, the rest) and K5's bytes bound: each
+             block's x, the taps' halves, the summed products and y moved
+             once, at 3.35 TB/s. The kernels line's K5 row: B=72, its ms
+             the two kernels' device ms a call, its plain ms the eager
+             chain's kernels other than the products.
 6. K3      - the Griffin-Lim round kernels K3a (inverse rDFT GEMM +
              overlap-add) and K3b (re-frame + forward rDFT GEMM + phase) at
              the production geometry (n_fft 2048, hop 275, win 1102, F=840,
@@ -436,12 +455,24 @@ def reset_counts() -> None:
     K4.hc_block_fwd.launches_bf16 = K4.hc_block_bwd.launches_bf16 = 0
     for fn in CT_KERNELS:
         getattr(X, fn).launches = 0
+    if _k5() is not None:
+        _k5().launches = 0
+
+
+def _k5():
+    """K5's wrapper, or None for a ``--package`` that predates it."""
+    try:
+        from dc_tts_tpu_torch.ops import ssrn_block
+    except ImportError:
+        return None
+    return ssrn_block.ssrn_block
 
 
 def counts() -> dict:
     """Every kernel wrapper's launch count (K1's in all, by precision,
     K1_<prec>, and by exchange, K1_<exchange>; K3's over both pass modes;
-    K4's float32 and bf16-operand launches apart)."""
+    K4's float32 and bf16-operand launches apart; K5's prologues and
+    epilogues)."""
     from dc_tts_tpu_torch.ops import ct_fwd as X
     from dc_tts_tpu_torch.ops import decode as K1
     from dc_tts_tpu_torch.ops import gl as K3
@@ -459,7 +490,8 @@ def counts() -> dict:
             "hc_block_bwd": K4.hc_block_bwd.launches,
             "hc_block_fwd_bf16": K4.hc_block_fwd.launches_bf16,
             "hc_block_bwd_bf16": K4.hc_block_bwd.launches_bf16,
-            **{fn: getattr(X, fn).launches for fn in CT_KERNELS}}
+            **{fn: getattr(X, fn).launches for fn in CT_KERNELS},
+            "K5": _k5().launches if _k5() is not None else 0}
 
 
 def _textenc_graphs():
@@ -1332,9 +1364,11 @@ def phase_e2e(results, smi):
     graphs = graphs0 and [n - n0 for n, n0 in zip(_textenc_graphs(),
                                                   graphs0)]
     n_samples = cfg.hop_length * (cfg.max_T_full - 1)
+    k5_want = 2 * 16 * launches["K1"] if _k5() is not None else 0
     ok = (wavs.dtype == np.int16 and wavs.shape == (40, n_samples)
           and launches["K1"] > 0 and launches["K2"] > 0
           and launches["K3a"] == launches["K3b"] == 0
+          and launches["K5"] == k5_want
           and graphs in (None, [0, launches["K1"]])
           and int(np.abs(wavs).max()) > 0)
     audio_s = wavs.size / cfg.sr
@@ -1382,7 +1416,7 @@ def phase_e2e(results, smi):
     if not ok:
         raise AssertionError("tiny synthesis on the card disagrees with the "
                              "CPU")
-    results["launches"] = {k: launches[k] for k in ("K1", "K2")}
+    results["launches"] = {k: launches[k] for k in ("K1", "K2", "K5")}
     results["e2e"] = dict(wall_s=wall, audio_s=audio_s,
                           audio_s_per_s=audio_s / wall, stages_ms=stages,
                           ssrn_precision=_ssrn_precisions(synth,
@@ -1402,8 +1436,10 @@ def _ssrn_precisions(synth, ids):
         for prec in ("highest", "high", "bf16"):
             s = Synthesizer(synth.cfg, synth.t2m_params, synth.ssrn_params,
                             decode_mode="incremental", ssrn_precision=prec)
-            Z[prec] = s.ssrn.apply(s.ssrn_params, Y)[1]
-            ms = cuda_ms(lambda: s.ssrn.apply(s.ssrn_params, Y), 5)
+            packed = getattr(s, "ssrn_packed", None)
+            kw = {} if packed is None else {"packed": packed}
+            Z[prec] = s.ssrn.apply(s.ssrn_params, Y, **kw)[1]
+            ms = cuda_ms(lambda: s.ssrn.apply(s.ssrn_params, Y, **kw), 5)
             d = (Z[prec] - Z["highest"]).abs()
             out[prec] = dict(ms=ms, max_dZ=float(d.max()),
                              mean_dZ=float(d.mean()),
@@ -1632,6 +1668,147 @@ def phase_e2e_dft_pallas(results, smi):
         sc_mean=float(s3.mean()), sc_dft_pallas2_mean=float(s2.mean()),
         launches=launches, stages_ms=stages, gl_trace_busy_ms=busy_ms,
         gl_trace_wall_ms=traced_ms, gl_trace_top=top)
+
+
+# ---------------------------------------------------------------------------
+# K5: SSRN's blocks in synthesis
+
+# K5's kernels, the products around them (cuBLAS), every other kernel
+K5_KINDS = {"k5": ("ssrn_prologue", "ssrn_epilogue"),
+            "products": ("gemm", "nvjet", "xmma", "cutlass", "splitK"),
+            "other": ("",)}
+
+
+def _biased_ssrn(cfg, dev, seed=11):
+    """SSRN's initial weights with every bias, norm gain and shift moved by
+    0.1 x N(0, 1), the convs kept (the benchmark's kind of weights)."""
+    from dc_tts_tpu_torch.models import SSRN
+    from dc_tts_tpu_torch.train.optimizer import tree_map
+    gen = torch.Generator().manual_seed(seed)
+    p = SSRN(cfg).init(gen)
+    stack = [{k: {n: (t if n == "w" else
+                      t + 0.1 * torch.randn(t.shape, generator=gen))
+                  for n, t in v.items()} for k, v in blk.items()}
+             for blk in p["stack"]]
+    return tree_map(lambda t: t.to(dev), {"stack": stack})
+
+
+def _k5_bytes(specs, params, B, T, cin):
+    """Bytes K5 moves in one SSRN call, each read or written once: a
+    block's x, the taps' bf16 halves, the summed products, y and the
+    block's vectors."""
+    from dc_tts_tpu_torch.models.blocks import D, HC
+    from dc_tts_tpu_torch.ops.ssrn_block import _taps_width
+    total = 0
+    for spec, p in zip(specs, params):
+        N = p["conv"]["b"].shape[0]
+        M, K = B * T, _taps_width(spec, cin)
+        rows = 2 * M if isinstance(spec, D) else M
+        prods = 3 * M * N if isinstance(spec, D) else M * N
+        out = N // 2 if isinstance(spec, HC) else N
+        T = 2 * T if isinstance(spec, D) else T
+        vecs = sum(t.numel() for k, v in p.items() if k != "conv"
+                   for t in v.values()) + N
+        total += 4 * M * cin + 2 * 2 * rows * K + 4 * prods \
+            + 4 * B * T * out + 4 * vecs
+        cin = out
+    return total
+
+
+def phase_ssrn_block(results):
+    """Phase ssrn-block: SSRN through K5 against the eager chain on the
+    card (module docstring, 5d)."""
+    from dc_tts_tpu_torch.config import base_config
+    from dc_tts_tpu_torch.models import SSRN
+    from dc_tts_tpu_torch.models.blocks import apply_stack
+    from dc_tts_tpu_torch.models.ssrn import ssrn_specs
+    from dc_tts_tpu_torch.ops import ssrn_block as K5
+
+    cfg = base_config().replace(compute_dtype="float32_high")
+    dev = torch.device("cuda")
+    model, specs = SSRN(cfg), ssrn_specs(cfg)
+    params = _biased_ssrn(cfg, dev)
+    packed = model.pack(params)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for B in (72, 1):
+        Y = torch.rand(B, cfg.max_T, cfg.n_mels, generator=gen, device=dev)
+
+        def fused():
+            return model.apply(params, Y, packed=packed)[0]
+
+        def plain():
+            return apply_stack(params["stack"], specs, Y, ln_eps=cfg.ln_eps,
+                               dtype="high")
+
+        with torch.no_grad():
+            # the prologue's halves at every block's input
+            x, halves_equal = Y, True
+            for p, spec, h in zip(params["stack"], specs, packed):
+                got = K5.prologue(x, spec, h.hi.shape[-2])
+                want = K5.prologue_plain(x, spec, h.hi.shape[-2])
+                halves_equal &= all(torch.equal(g, w)
+                                    for g, w in zip(got, want))
+                x = apply_stack([p], [spec], x, ln_eps=cfg.ln_eps,
+                                dtype="high")
+            n0 = K5.ssrn_block.launches
+            lf = fused()
+            torch.cuda.synchronize()
+            launches = K5.ssrn_block.launches - n0
+            lp = plain()
+            l64 = K5.ssrn_stack_plain(params["stack"], specs, Y, packed,
+                                      cfg.ln_eps, torch.float64)
+            Zf, Zp, Z64 = (torch.sigmoid(t) for t in (lf, lp, l64))
+            dZ = float((Zf - Zp).abs().max())
+            d64 = float((Zf - Z64).abs().max())
+            gate = max(1e-5, 2 * float((Zp - Z64).abs().max()))
+            dL = float((lf - lp).abs().max())
+            reps = 10 if B > 1 else 50
+            ms_f, ms_p = cuda_ms(fused, reps), cuda_ms(plain, reps)
+            host_f = _call_ms(fused)[1] if B == 1 else None
+            host_p = _call_ms(plain)[1] if B == 1 else None
+            kf, kp = _kinds(fused, K5_KINDS), _kinds(plain, K5_KINDS)
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated()
+            peaks = []
+            for fn in (fused, plain):
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
+                peaks.append((torch.cuda.max_memory_allocated() - m0) / 1e9)
+        n_bytes = _k5_bytes(specs, params["stack"], B, cfg.max_T, cfg.n_mels)
+        bound_ms = n_bytes / PEAK_BYTES * 1e3
+        ok = (dZ <= gate and halves_equal and launches == 2 * len(specs))
+        r = dict(max_dZ=dZ, max_dZ_f64=d64, gate=gate, max_dlogits=dL,
+                 fused_ms=ms_f, plain_ms=ms_p,
+                 fused_host_ms=host_f, plain_host_ms=host_p, kinds=kf,
+                 plain_kinds=kp, bound_ms=bound_ms, bytes=n_bytes,
+                 launches=launches, peak_GB=peaks)
+        line(f"ssrn-block-B{B}", ok=ok, B=B, max_dZ=f"{dZ:.3e}",
+             max_dZ_vs_f64=f"{d64:.3e}", gate=f"{gate:.3e}",
+             max_dlogits=f"{dL:.3e}", halves_bitwise=halves_equal,
+             launches=launches, fused_ms=f"{ms_f:.3f}",
+             plain_ms=f"{ms_p:.3f}",
+             **({} if host_f is None else
+                {"fused_host_ms": f"{host_f:.3f}",
+                 "plain_host_ms": f"{host_p:.3f}"}),
+             fused_kinds_ms=json.dumps(kf and {k: round(v, 3) for k, v in
+                                                 kf.items()}).replace(" ", ""),
+             plain_kinds_ms=json.dumps(kp and {k: round(v, 3) for k, v in
+                                                 kp.items()}).replace(" ", ""),
+             k5_bound_ms=f"{bound_ms:.3f}", k5_GB=f"{n_bytes / 1e9:.3f}",
+             peak_GB=json.dumps([round(v, 3) for v in peaks]),
+             tol="'Z max(1e-5, 2 x the eager chain float32-float64)'")
+        if not ok:
+            raise AssertionError(f"K5 at B={B}: {r}")
+        out[B] = r
+    r = out[72]
+    results["K5"] = dict(max_abs_err=r["max_dZ"],
+                         ms=r["kinds"] and r["kinds"]["k5"],
+                         plain_ms=r["plain_kinds"] and
+                         r["plain_kinds"]["other"],
+                         bound_ms=r["bound_ms"], bound_by="bytes",
+                         library_ms=None, by_batch=out)
 
 
 # ---------------------------------------------------------------------------
@@ -3507,6 +3684,7 @@ def _only(names, smi) -> int:
               "K1-prec": phase_k1_prec, "K2": phase_k2,
               "e2e": lambda r: phase_e2e(r, smi), "K3": phase_k3,
               "e2e-dft_pallas": lambda r: phase_e2e_dft_pallas(r, smi),
+              "ssrn-block": phase_ssrn_block,
               "K4": phase_k4, "K4-bf16": lambda r: phase_k4(r, bf16=True),
               "ct-fwd": phase_ct_fwd,
               "parallel": lambda r: phase_parallel(r, smi),
@@ -3540,7 +3718,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="", help="comma-separated phases to "
-                    "run alone (K1, TextEnc, K1-prec, K2, e2e, K3, "
+                    "run alone (K1, TextEnc, K1-prec, K2, e2e, "
+                    "ssrn-block, K3, "
                     "e2e-dft_pallas, K4, K4-bf16, ct-fwd, train-routes, "
                     "parallel, "
                     "parallel-tp, bench, learn, bench-train, "
@@ -3573,6 +3752,7 @@ def main(argv=None) -> int:
     phase_e2e(results, smi)
     phase_e2e_prec(results, smi)
     phase_reference(results, smi)
+    phase_ssrn_block(results)
     phase_k3(results)
     phase_e2e_dft_pallas(results, smi)
     phase_k4(results)
@@ -3624,7 +3804,9 @@ def main(argv=None) -> int:
              "dc_tts_tpu_torch/csrc/hc_vjp.cu",
              "dc_tts_tpu/ops/pallas_hc_vjp.py:269"),
             *((k, k, "dc_tts_tpu_torch/csrc/ct_fwd.cu", CT_REPLACES[k])
-              for k in CT_KERNELS)):
+              for k in CT_KERNELS),
+            ("K5", "ssrn_block", "dc_tts_tpu_torch/csrc/ssrn_block.cu",
+             "none (XLA fused this chain on the TPU)")):
         r = results[key]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": results["launches"][key],

@@ -50,6 +50,8 @@ _SIGNATURES = {
     "dctts_hc_bwd": [P] * 17 + [I] * 7 + [Fl, I, I, I, P],
     "dctts_ct_full": [P] * 5 + [I] * 2 + [P],
     "dctts_ct_fact": [P] * 8 + [I] * 5 + [P],
+    "dctts_ssrn_prologue": [P] * 3 + [I] * 9 + [P],
+    "dctts_ssrn_epilogue": [I] + [P] * 10 + [I] * 4 + [Fl, P],
 }
 
 

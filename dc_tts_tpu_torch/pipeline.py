@@ -20,7 +20,9 @@ ranks and vocodes on the other, microbatch after microbatch.
 
 SSRN's conv matmuls take ``ssrn_precision`` in synthesis, as in the JAX
 package: "high" (the default: the 3-pass bf16 hi/lo split, the config's
-``compute_dtype="float32_high"``), "highest" (the config as given) or
+``compute_dtype="float32_high"``; on the card each block runs kernel K5
+around its products, the weight halves split once when the synthesizer is
+built), "highest" (the config as given) or
 "bf16" (``compute_dtype="bfloat16"``). The decode kernel's layer products
 take ``decode_prec`` (``ops.decode.PRECS``): "highest" (the default, float32),
 "hybrid" (AudioEnc float32, AudioDec the 3-pass split), "high3" (the split
@@ -210,6 +212,10 @@ class Synthesizer:
         if decode_mode == "fused":
             self.packed = pack_decode_params(cfg, self.t2m_params,
                                              decode_prec)
+        # SSRN's kernel halves for K5 (~120 MB at base_config), split once
+        # here rather than on every batch; None under ssrn_precision other
+        # than "high"
+        self.ssrn_packed = self.ssrn.pack(self.ssrn_params)
         self.text_encoder = None
         if self.device.type == "cuda":
             self.text_encoder = text_encode_graphs(self.text2mel,
@@ -239,7 +245,8 @@ class Synthesizer:
                     prec=self.decode_prec, packed=self.packed,
                     text_encoder=self.text_encoder)
             with span("ssrn"):
-                _, Z = self.ssrn.apply(self.ssrn_params, Y)
+                _, Z = self.ssrn.apply(self.ssrn_params, Y,
+                                       packed=self.ssrn_packed)
             with span("vocoder"):
                 wav = spectrogram_to_wav(Z, self.cfg)
                 if self.pcm16:
@@ -416,6 +423,7 @@ class PipelinedSynthesizer:
             self.ssrn = _ssrn(cfg, ssrn_precision)
             self.ssrn_params = to_device(ssrn_params, self.device)
             _replicate((self.ssrn_params,), half, self.mesh2.groups["data"])
+            self.ssrn_packed = self.ssrn.pack(self.ssrn_params)
 
     def _routes(self, j: int, k: int):
         """Rows [lo, hi) of a microbatch that stage-1 rank j decodes and
@@ -464,7 +472,8 @@ class PipelinedSynthesizer:
             mine = []
             for parts in recvs:
                 Y = torch.cat([p.wait() for p in parts])
-                _, Z = self.ssrn.apply(self.ssrn_params, Y)
+                _, Z = self.ssrn.apply(self.ssrn_params, Y,
+                                       packed=self.ssrn_packed)
                 mine.append(spectrogram_to_wav(Z, cfg))
         out = torch.empty(n_mb, mb, n_samples, device=dev)
         for k in range(n2):

@@ -57,6 +57,7 @@ COUNTERS = {
     "x2.launches": ("ops.ct_fwd", "fact_fwd_tiled", ("launches",)),
     "x3.launches": ("ops.ct_fwd", "fact_fwd", ("launches",)),
     "x4.launches": ("ops.ct_fwd", "ablate_fwd", ("launches",)),
+    "k5.launches": ("ops.ssrn_block", "ssrn_block", ("launches",)),
     "textenc.graph.captures": ("pipeline", "text_encode_graphs",
                                ("captures",)),
     "textenc.graph.replays": ("pipeline", "text_encode_graphs",

@@ -28,7 +28,13 @@ factored kernels in bf16 (stage C rounds float32 sums taken in another
 order to bf16), the CPU tests' gates against JAX. The program's spans
 against ``torch.profiler``'s device trace of single requests: one clock.
 TextEnc replayed from its captured graph (``pipeline.text_encode_graphs``)
-bit for bit the eager encoder, alone and through the Synthesizer.
+bit for bit the eager encoder, alone and through the Synthesizer. SSRN's
+blocks through K5 (``ops/ssrn_block.py``): the prologue's bf16 halves bit
+for bit its plain version's; each block's y within 1e-5 x max(1, max|y|)
+of the eager chain's; the whole SSRN's Z within max(1e-5, 2 x the eager
+chain's distance between float32 and float64 sums) of it (K1's gate): only
+float32 sums run in another order, the layer norms' and, on the padded
+shapes' cuBLAS kernels, the products'.
 """
 import numpy as np
 import pytest
@@ -828,3 +834,137 @@ def test_textenc_graph_captured_under_the_profiler(cuda):
     assert torch.equal(K, Ke) and torch.equal(V, Ve)
     assert any(e.device_type == torch.autograd.DeviceType.CUDA
                for e in prof.events())
+
+
+# ------------------------------------------------------------------ K5
+
+
+def _biased_ssrn(cfg, dev, seed=11):
+    """SSRN's initial weights with every bias, norm gain and shift moved by
+    0.1 x N(0, 1), the convs kept (the benchmark's kind of weights)."""
+    from dc_tts_tpu_torch.train.optimizer import tree_map
+    gen = torch.Generator().manual_seed(seed)
+    p = SSRN(cfg).init(gen)
+    stack = [{k: {n: (t if n == "w" else
+                      t + 0.1 * torch.randn(t.shape, generator=gen))
+                  for n, t in v.items()} for k, v in blk.items()}
+             for blk in p["stack"]]
+    return tree_map(lambda t: t.to(dev), {"stack": stack})
+
+
+def _k5_case(dev, B, seed=3):
+    cfg = base_config().replace(compute_dtype="float32_high")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Y = torch.rand(B, cfg.max_T, cfg.n_mels, generator=gen, device=dev)
+    return cfg, _biased_ssrn(cfg, dev), Y
+
+
+@pytest.mark.parametrize("B", [1, 72])
+def test_k5_blocks_match_the_eager_chain(cuda, B, monkeypatch):
+    """Every SSRN block through K5 on its input in the eager chain: the
+    prologue's halves bitwise its plain version's; y within 1e-5 x max(1,
+    max|y|) of ``apply_block``'s (the layer norms' sums run in another
+    order; the products' sums are added in the next product's epilogue);
+    two launches a block, and never the plain version on CUDA."""
+    from dc_tts_tpu_torch.models import blocks
+    from dc_tts_tpu_torch.models.ssrn import ssrn_specs
+    from dc_tts_tpu_torch.ops import ssrn_block as K5
+
+    def refuse(*a):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(K5, "ssrn_block_plain", refuse)
+    cfg, params, x = _k5_case(cuda, B)
+    specs = ssrn_specs(cfg)
+    packed = SSRN(cfg).pack(params)
+    worst = {}
+    with torch.no_grad():
+        for i, (p, spec, h) in enumerate(zip(params["stack"], specs,
+                                             packed)):
+            Kp = h.hi.shape[-2]
+            for got, want in zip(K5.prologue(x, spec, Kp),
+                                 K5.prologue_plain(x, spec, Kp)):
+                assert torch.equal(got, want), (i, spec)
+            n0 = K5.ssrn_block.launches
+            y = K5.ssrn_block(p, spec, x, h, cfg.ln_eps)
+            assert K5.ssrn_block.launches - n0 == 2
+            want = blocks.apply_block(p, spec, x, ln_eps=cfg.ln_eps,
+                                      dtype="high")
+            d = float((y - want).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            worst[f"{i}:{type(spec).__name__}"] = (d, scale)
+            assert y.shape == want.shape and d <= 1e-5 * scale, (i, spec, d)
+            x = want
+    print({k: f"{d:.2e}/{s:.1f}" for k, (d, s) in worst.items()})
+
+
+def _k5_gate(params, specs, Y, ln_eps, packed):
+    """(the eager chain's Z, the gate for K5's Z against it): max(1e-5, 2 x
+    the distance between the plain version with float32 sums and with
+    float64 sums), the gate of K1's reduced bodies. K5 reorders float32
+    sums only (the layer norms', and the products' inside cuBLAS, whose
+    kernels differ with the padded shapes), so it lies within the float32
+    noise of the chain, which over 16 blocks is ~1e-5 of Z."""
+    from dc_tts_tpu_torch.models.blocks import apply_stack
+    from dc_tts_tpu_torch.ops import ssrn_block as K5
+    with torch.no_grad():
+        Zp = torch.sigmoid(apply_stack(params["stack"], specs, Y,
+                                       ln_eps=ln_eps, dtype="high"))
+        Z64 = torch.sigmoid(K5.ssrn_stack_plain(
+            params["stack"], specs, Y, packed, ln_eps, torch.float64))
+    return Zp, Z64, max(1e-5, 2 * float((Zp - Z64).abs().max()))
+
+
+@pytest.mark.parametrize("B", [1, 72])
+def test_k5_ssrn_matches_the_eager_chain(cuda, B):
+    """``SSRN.apply`` in synthesis's "high" mode on the card takes K5 (32
+    launches a call, the halves packed when not given, bitwise the same):
+    Z within ``_k5_gate`` of the eager chain's."""
+    from dc_tts_tpu_torch.models.ssrn import ssrn_specs
+    from dc_tts_tpu_torch.ops import ssrn_block as K5
+
+    cfg, params, Y = _k5_case(cuda, B, seed=4)
+    model = SSRN(cfg)
+    packed = model.pack(params)
+    with torch.no_grad():
+        n0 = K5.ssrn_block.launches
+        _, Z = model.apply(params, Y, packed=packed)
+        assert K5.ssrn_block.launches - n0 == 32
+        _, Z2 = model.apply(params, Y)
+    Zp, Z64, gate = _k5_gate(params, ssrn_specs(cfg), Y, cfg.ln_eps, packed)
+    dZ = float((Z - Zp).abs().max())
+    print(f"B={B} max|dZ| K5-eager {dZ:.3e}, K5-float64 "
+          f"{float((Z - Z64).abs().max()):.3e}, eager-float64 "
+          f"{float((Zp - Z64).abs().max()):.3e}; gate {gate:.3e}")
+    assert torch.equal(Z, Z2)
+    assert Z.shape == (B, cfg.max_T * cfg.r, cfg.n_freq) and dZ <= gate
+
+
+def test_k5_not_taken_with_gradients_or_other_modes(cuda):
+    """Gradients on, training, float32 and bf16 operands: no K5 launch."""
+    from dc_tts_tpu_torch.ops import ssrn_block as K5
+
+    cfg, params, Y = _k5_case(cuda, 1, seed=5)
+    n0 = K5.ssrn_block.launches
+    SSRN(cfg).apply(params, Y)                          # gradients on
+    with torch.no_grad():
+        SSRN(cfg.replace(dropout_rate=0.0)).apply(params, Y, train=True)
+        for compute in ("float32", "bfloat16", "bfloat16_full"):
+            SSRN(cfg.replace(compute_dtype=compute)).apply(params, Y)
+    assert K5.ssrn_block.launches == n0
+
+
+def test_synthesizer_runs_k5_once_a_block(cuda):
+    """The default Synthesizer on the card: 32 K5 launches a chunk, Z
+    within ``_k5_gate`` of the eager chain on the chunk's own Y."""
+    from dc_tts_tpu_torch.bench import seeded_nets
+    from dc_tts_tpu_torch.models.ssrn import ssrn_specs
+    from dc_tts_tpu_torch.ops import ssrn_block as K5
+    cfg = base_config()
+    synth = Synthesizer(cfg, *seeded_nets(cfg), pcm16=True)
+    n0 = K5.ssrn_block.launches
+    _, Y, Z, _ = synth.synthesize_ids(_ids(cfg, 3).numpy())
+    assert K5.ssrn_block.launches - n0 == 32
+    Zp, _, gate = _k5_gate(synth.ssrn_params, ssrn_specs(cfg), Y,
+                           cfg.ln_eps, synth.ssrn_packed)
+    assert float((Z - Zp).abs().max()) <= gate
