@@ -334,7 +334,10 @@ line:
 phases alone (after device and build) and prints their results as one JSON
 line instead of the kernels and ``ok`` lines; with ``--package`` the
 kernels and wrappers come from DIR's dc_tts_tpu_torch (a ``git archive`` of
-another commit), so two commits are timed in one call on one card.
+another commit), so two commits are timed in one call on one card. The
+phases read launch counts from ``utils/profiling``'s store (``counts()``,
+under its names: ``k1.launches``, ``k1.<prec>.launches``, ...), so DIR
+must be a commit that counts its launches there.
 
 Kernel times are CUDA-event means over repeated calls on the same inputs.
 ``bound_ms`` is the larger of (bytes each input read once + each output
@@ -410,10 +413,18 @@ TIME_STEPS, EQUIV_GRAD_TOL = 10, 1e-4
 # the forward-rDFT prototypes' wrappers (X1, X2, X3, X4), the TPU kernels
 # they replace, and their CLI's variants
 CT_KERNELS = ("full_fwd", "fact_fwd_tiled", "fact_fwd", "ablate_fwd")
+# their launch counters (utils/profiling), in CT_KERNELS' order
+CT_LAUNCHES = ("x1.launches", "x2.launches", "x3.launches", "x4.launches")
 CT_REPLACES = dict(zip(CT_KERNELS, ("scripts/ct_kernel_exp.py:82",
                                     "scripts/ct_kernel_exp.py:131",
                                     "scripts/ct_kernel_exp.py:151",
                                     "scripts/ct_kernel_exp.py:284")))
+
+
+# K4's launch counters: in all (float32 and bf16 operands), then the bf16
+# body's alone
+K4_LAUNCHES = ("k4.fwd.launches", "k4.bwd.launches", "k4.fwd.bf16.launches",
+               "k4.bwd.bf16.launches")
 
 
 def line(phase: str, **kw) -> None:
@@ -438,68 +449,6 @@ def cuda_ms(fn, reps: int) -> float:
 def bound(n_bytes: float, n_flops: float, peak: float = PEAK_FP32):
     tb, tf = n_bytes / PEAK_BYTES * 1e3, n_flops / peak * 1e3
     return (tf, "operations") if tf >= tb else (tb, "bytes")
-
-
-def reset_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
-    from dc_tts_tpu_torch.ops import ct_fwd as X
-    from dc_tts_tpu_torch.ops import decode as K1
-    from dc_tts_tpu_torch.ops import gl as K3
-    from dc_tts_tpu_torch.ops import gl2 as K2
-    from dc_tts_tpu_torch.ops import hc_vjp as K4
-    K1.fused_decode.launches = K2.gl2_run.launches = 0
-    K1.fused_decode.launches_by_prec = {p: 0 for p in K1.PRECS}
-    K1.fused_decode.launches_by_exchange = {x: 0 for x in K1.EXCHANGES}
-    K3.k3a.launches, K3.k3b.launches = {1: 0, 3: 0}, {1: 0, 3: 0}
-    K4.hc_block_fwd.launches = K4.hc_block_bwd.launches = 0
-    K4.hc_block_fwd.launches_bf16 = K4.hc_block_bwd.launches_bf16 = 0
-    for fn in CT_KERNELS:
-        getattr(X, fn).launches = 0
-    if _k5() is not None:
-        _k5().launches = 0
-
-
-def _k5():
-    """K5's wrapper, or None for a ``--package`` that predates it."""
-    try:
-        from dc_tts_tpu_torch.ops import ssrn_block
-    except ImportError:
-        return None
-    return ssrn_block.ssrn_block
-
-
-def counts() -> dict:
-    """Every kernel wrapper's launch count (K1's in all, by precision,
-    K1_<prec>, and by exchange, K1_<exchange>; K3's over both pass modes;
-    K4's float32 and bf16-operand launches apart; K5's prologues and
-    epilogues)."""
-    from dc_tts_tpu_torch.ops import ct_fwd as X
-    from dc_tts_tpu_torch.ops import decode as K1
-    from dc_tts_tpu_torch.ops import gl as K3
-    from dc_tts_tpu_torch.ops import gl2 as K2
-    from dc_tts_tpu_torch.ops import hc_vjp as K4
-    return {"K1": K1.fused_decode.launches,
-            **{f"K1_{p}": n
-               for p, n in K1.fused_decode.launches_by_prec.items()},
-            **{f"K1_{x}": n
-               for x, n in K1.fused_decode.launches_by_exchange.items()},
-            "K2": K2.gl2_run.launches,
-            "K3a": sum(K3.k3a.launches.values()),
-            "K3b": sum(K3.k3b.launches.values()),
-            "hc_block_fwd": K4.hc_block_fwd.launches,
-            "hc_block_bwd": K4.hc_block_bwd.launches,
-            "hc_block_fwd_bf16": K4.hc_block_fwd.launches_bf16,
-            "hc_block_bwd_bf16": K4.hc_block_bwd.launches_bf16,
-            **{fn: getattr(X, fn).launches for fn in CT_KERNELS},
-            "K5": _k5().launches if _k5() is not None else 0}
-
-
-def _textenc_graphs():
-    """[captures, replays] of the Synthesizer's TextEnc graphs so far, or
-    None for a ``--package`` that predates them."""
-    from dc_tts_tpu_torch import pipeline
-    G = getattr(pipeline, "text_encode_graphs", None)
-    return None if G is None else [G.captures, G.replays]
 
 
 def nbytes(*ts) -> int:
@@ -645,6 +594,7 @@ def phase_k1(results):
     from dc_tts_tpu_torch.config import base_config
     from dc_tts_tpu_torch.models import Text2Mel
     from dc_tts_tpu_torch.ops import decode as K1
+    from dc_tts_tpu_torch.utils import profiling
 
     cfg = base_config()
     dev = torch.device("cuda")
@@ -698,11 +648,11 @@ def phase_k1(results):
     ids = torch.as_tensor(harvard_ids(cfg, 1), device=dev)
     with torch.no_grad():
         Kt, V = (x.contiguous() for x in model.text_encode(params, ids))
-        before = dict(K1.fused_decode.launches_by_exchange)
+        before = profiling.counts()
         Y, A = K1.fused_decode(packed, Kt, V, T, cfg)
         torch.cuda.synchronize()
-        took = [x for x, n in K1.fused_decode.launches_by_exchange.items()
-                if n != before[x]]
+        n = profiling.counts() - before
+        took = [x for x in K1.EXCHANGES if n[f"k1.{x}.launches"]]
         Yp, Ap = K1.fused_decode_plain(packed, Kt, V, T, cfg)
         Yr, Ar = _k1_replay(packed, Kt, V, T, cfg, "highest", A)
         ms1 = cuda_ms(lambda: K1.fused_decode(packed, Kt, V, T, cfg), 3)
@@ -810,6 +760,7 @@ def phase_textenc(results):
     from dc_tts_tpu_torch.models import Text2Mel
     from dc_tts_tpu_torch.pipeline import text_encode_graphs
     from dc_tts_tpu_torch.train.optimizer import tree_map
+    from dc_tts_tpu_torch.utils import profiling
 
     cfg = base_config()
     dev = torch.device("cuda")
@@ -820,14 +771,14 @@ def phase_textenc(results):
     for B in (1, 72):
         graphs = text_encode_graphs(model, params)
         ids = torch.as_tensor(harvard_ids(cfg, B), device=dev)
-        c0 = text_encode_graphs.captures
+        c0 = profiling.counts()
         with torch.no_grad():
             Ke, Ve = model.text_encode(params, ids)
             K, V = graphs(ids)
             same = bool(torch.equal(K, Ke) and torch.equal(V, Ve))
             eager = _call_ms(lambda: model.text_encode(params, ids))
             graph = _call_ms(lambda: graphs(ids))
-        captures = text_encode_graphs.captures - c0
+        captures = (profiling.counts() - c0)["textenc.graph.captures"]
         ok = same and captures == 1
         line(f"TextEnc-B{B}", ok=ok, B=B, N=cfg.max_N,
              eager_device_ms=f"{eager[0]:.3f}",
@@ -1349,32 +1300,30 @@ def phase_e2e(results, smi):
     from dc_tts_tpu_torch.dsp.griffin_lim import spectrogram_to_wav
     from dc_tts_tpu_torch.models import SSRN, Text2Mel
     from dc_tts_tpu_torch.scripts.profile_stages import stage_times
+    from dc_tts_tpu_torch.utils import profiling
 
     cfg = base_config()
     synth = Synthesizer(cfg, *seeded_nets(cfg),
                         pcm16=True)
     ids = harvard_ids(cfg, 40)
     synth.synthesize_ids_chunked(ids[:CHUNK], CHUNK)      # warm-up
-    reset_counts()
-    graphs0 = _textenc_graphs()
+    profiling.reset_counts()
     t0 = time.perf_counter()
     wavs = synth.synthesize_ids_chunked(ids, CHUNK)
     wall = time.perf_counter() - t0
-    launches = counts()
-    graphs = graphs0 and [n - n0 for n, n0 in zip(_textenc_graphs(),
-                                                  graphs0)]
+    launches = profiling.counts()
     n_samples = cfg.hop_length * (cfg.max_T_full - 1)
-    k5_want = 2 * 16 * launches["K1"] if _k5() is not None else 0
+    chunks = launches["k1.launches"]
     ok = (wavs.dtype == np.int16 and wavs.shape == (40, n_samples)
-          and launches["K1"] > 0 and launches["K2"] > 0
-          and launches["K3a"] == launches["K3b"] == 0
-          and launches["K5"] == k5_want
-          and graphs in (None, [0, launches["K1"]])
+          and chunks > 0 and launches["k2.launches"] > 0
+          and launches["k3a.launches"] == launches["k3b.launches"] == 0
+          and launches["k5.launches"] == 2 * 16 * chunks
+          and launches["textenc.graph.captures"] == 0
+          and launches["textenc.graph.replays"] == chunks
           and int(np.abs(wavs).max()) > 0)
     audio_s = wavs.size / cfg.sr
     line("e2e", ok=ok, shape=wavs.shape, dtype=wavs.dtype,
          launches=json.dumps(launches).replace(" ", ""),
-         textenc_graphs=graphs,
          wall_s=f"{wall:.3f}", audio_s=f"{audio_s:.1f}",
          audio_s_per_s=f"{audio_s / wall:.1f}", card=repr(smi))
     if not ok:
@@ -1416,7 +1365,9 @@ def phase_e2e(results, smi):
     if not ok:
         raise AssertionError("tiny synthesis on the card disagrees with the "
                              "CPU")
-    results["launches"] = {k: launches[k] for k in ("K1", "K2", "K5")}
+    results.setdefault("launches", {}).update(
+        {k: launches[k] for k in ("k1.launches", "k2.launches",
+                                  "k5.launches")})
     results["e2e"] = dict(wall_s=wall, audio_s=audio_s,
                           audio_s_per_s=audio_s / wall, stages_ms=stages,
                           ssrn_precision=_ssrn_precisions(synth,
@@ -1463,6 +1414,7 @@ def phase_e2e_prec(results, smi):
     from dc_tts_tpu_torch import Synthesizer, base_config
     from dc_tts_tpu_torch.bench import seeded_nets
     from dc_tts_tpu_torch.scripts.profile_stages import stage_times
+    from dc_tts_tpu_torch.utils import profiling
 
     cfg = base_config()
     p1, p2 = seeded_nets(cfg)
@@ -1472,18 +1424,19 @@ def phase_e2e_prec(results, smi):
     for prec in ("high3", "hybrid", "default"):
         synth = Synthesizer(cfg, p1, p2, pcm16=True, decode_prec=prec)
         synth.synthesize_ids_chunked(ids[:CHUNK], CHUNK)      # warm-up
-        reset_counts()
+        profiling.reset_counts()
         t0 = time.perf_counter()
         wavs = synth.synthesize_ids_chunked(ids, CHUNK)
         wall = time.perf_counter() - t0
-        launches = counts()
+        launches = profiling.counts()
         others = [p for p in ("highest", "high3", "hybrid", "default")
                   if p != prec]
         ok = (wavs.dtype == np.int16 and wavs.shape == (40, n_samples)
-              and launches["K1"] == launches[f"K1_{prec}"] == 2
-              and all(launches[f"K1_{p}"] == 0 for p in others)
-              and launches["K2"] == 2
-              and launches["K3a"] == launches["K3b"] == 0
+              and launches["k1.launches"] == 2
+              and launches[f"k1.{prec}.launches"] == 2
+              and all(launches[f"k1.{p}.launches"] == 0 for p in others)
+              and launches["k2.launches"] == 2
+              and launches["k3a.launches"] == launches["k3b.launches"] == 0
               and int(np.abs(wavs).max()) > 0)
         stages, wav_st = stage_times(synth, ids[:CHUNK])
         wav_sy = synth.synthesize_ids(ids[:CHUNK])[0]
@@ -1501,7 +1454,8 @@ def phase_e2e_prec(results, smi):
         if not ok or d_st != 0:
             raise AssertionError(f"e2e {prec} failed: {wavs.shape} "
                                  f"{wavs.dtype} {launches} dpcm {d_st}")
-        results["launches"][f"K1_{prec}"] = launches[f"K1_{prec}"]
+        key = f"k1.{prec}.launches"
+        results.setdefault("launches", {})[key] = launches[key]
         out[prec] = dict(wall_s=wall, audio_s=audio_s,
                          audio_s_per_s=audio_s / wall, stages_ms=stages,
                          launches=launches)
@@ -1518,6 +1472,7 @@ def phase_reference(results, smi):
     from dc_tts_tpu_torch.convert import convert
     from dc_tts_tpu_torch.models import SSRN, Text2Mel
     from dc_tts_tpu_torch.params import to_device
+    from dc_tts_tpu_torch.utils import profiling
 
     dev = torch.device("cuda")
     with np.load(os.path.join(HERE, "tests", "goldens",
@@ -1547,10 +1502,10 @@ def phase_reference(results, smi):
     synth = Synthesizer(cfg, *seeded_nets(cfg),
                         pcm16=True, decode_mode="reference")
     ids = harvard_ids(cfg, CHUNK)
-    reset_counts()
+    profiling.reset_counts()
     wav, Y, Z, A = synth.synthesize_ids(ids)
     torch.cuda.synchronize()
-    launches = counts()
+    launches = profiling.counts()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     with torch.no_grad():
         tids = torch.as_tensor(ids, device=dev)
@@ -1561,8 +1516,8 @@ def phase_reference(results, smi):
     decode_ms = ev[0].elapsed_time(ev[1])
     n_samples = cfg.hop_length * (cfg.max_T_full - 1)
     ok = (wav.dtype == torch.int16 and tuple(wav.shape) == (CHUNK, n_samples)
-          and launches["K1"] == 0 and launches["K2"] == 1
-          and launches["K3a"] == launches["K3b"] == 0
+          and launches["k1.launches"] == 0 and launches["k2.launches"] == 1
+          and launches["k3a.launches"] == launches["k3b.launches"] == 0
           and all(bool(torch.isfinite(t).all()) for t in (Y, Z, A))
           and int(wav.abs().max()) > 0)
     line("reference", ok=ok, shape=tuple(wav.shape), dtype=wav.dtype,
@@ -1584,18 +1539,18 @@ def phase_e2e_dft_pallas(results, smi):
     from dc_tts_tpu_torch.dsp.features import deemphasis
     from dc_tts_tpu_torch.dsp.griffin_lim import denormalize_mag, griffin_lim
     from dc_tts_tpu_torch.scripts.profile_stages import stage_times
-    from dc_tts_tpu_torch.utils.profiling import trace
+    from dc_tts_tpu_torch.utils import profiling
 
     cfg = base_config().replace(stft_method="dft_pallas")
     synth = Synthesizer(cfg, *seeded_nets(cfg),
                         pcm16=True)
     ids = harvard_ids(cfg, 40)
     synth.synthesize_ids_chunked(ids[:CHUNK], CHUNK)      # warm-up
-    reset_counts()
+    profiling.reset_counts()
     t0 = time.perf_counter()
     wavs = synth.synthesize_ids_chunked(ids, CHUNK)
     wall = time.perf_counter() - t0
-    launches = counts()
+    launches = profiling.counts()
     n_samples = cfg.hop_length * (cfg.max_T_full - 1)
     audio_s = wavs.size / cfg.sr
     # quality: each utterance's Griffin-Lim against its own Z, dft_pallas
@@ -1617,8 +1572,8 @@ def phase_e2e_dft_pallas(results, smi):
     s3, s2 = torch.cat(s3), torch.cat(s2)
     ratio = float((s3 - 0.01).div(s2).max())
     ok = (wavs.dtype == np.int16 and wavs.shape == (40, n_samples)
-          and launches["K1"] > 0 and launches["K2"] == 0
-          and launches["K3a"] > 0 and launches["K3b"] > 0
+          and launches["k1.launches"] > 0 and launches["k2.launches"] == 0
+          and launches["k3a.launches"] > 0 and launches["k3b.launches"] > 0
           and int(np.abs(wavs).max()) > 0 and d_pcm == 0
           and bool(torch.isfinite(s3).all())
           and bool((s3 <= 1.10 * s2 + 0.01).all()))
@@ -1642,7 +1597,8 @@ def phase_e2e_dft_pallas(results, smi):
     # that chunk's Griffin-Lim
     stages, wav_st = stage_times(synth, ids[:CHUNK])
     d_st = int((wav_st.int() - first[0].int()).abs().max())
-    with trace(os.path.join(HERE, "chiprun_out", "trace_dft_pallas")) as prof:
+    with profiling.trace(os.path.join(HERE, "chiprun_out",
+                                      "trace_dft_pallas")) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         griffin_lim(first[1], *gl, method="dft_pallas")
@@ -1661,8 +1617,8 @@ def phase_e2e_dft_pallas(results, smi):
         raise AssertionError(f"the stage-timed dft_pallas chain differs from "
                              f"synthesize_ids by {d_st} pcm steps, or the "
                              f"trace holds no kernel ({busy_ms} ms)")
-    results.setdefault("launches", {}).update(K3a=launches["K3a"],
-                                              K3b=launches["K3b"])
+    results.setdefault("launches", {}).update(
+        {k: launches[k] for k in ("k3a.launches", "k3b.launches")})
     results["e2e-dft_pallas"] = dict(
         wall_s=wall, audio_s=audio_s, audio_s_per_s=audio_s / wall,
         sc_mean=float(s3.mean()), sc_dft_pallas2_mean=float(s2.mean()),
@@ -1723,6 +1679,7 @@ def phase_ssrn_block(results):
     from dc_tts_tpu_torch.models.blocks import apply_stack
     from dc_tts_tpu_torch.models.ssrn import ssrn_specs
     from dc_tts_tpu_torch.ops import ssrn_block as K5
+    from dc_tts_tpu_torch.utils import profiling
 
     cfg = base_config().replace(compute_dtype="float32_high")
     dev = torch.device("cuda")
@@ -1751,10 +1708,10 @@ def phase_ssrn_block(results):
                                     for g, w in zip(got, want))
                 x = apply_stack([p], [spec], x, ln_eps=cfg.ln_eps,
                                 dtype="high")
-            n0 = K5.ssrn_block.launches
+            c0 = profiling.counts()
             lf = fused()
             torch.cuda.synchronize()
-            launches = K5.ssrn_block.launches - n0
+            launches = (profiling.counts() - c0)["k5.launches"]
             lp = plain()
             l64 = K5.ssrn_stack_plain(params["stack"], specs, Y, packed,
                                       cfg.ln_eps, torch.float64)
@@ -2233,9 +2190,9 @@ def phase_train(results, net, data, feats, n_steps):
     from dc_tts_tpu_torch.data.dataset import (TrainLoader,
                                                compute_bucket_shapes,
                                                load_dataset_index)
-    from dc_tts_tpu_torch.ops import hc_vjp as K4
     from dc_tts_tpu_torch.train import steps as TS
     from dc_tts_tpu_torch.train.__main__ import prefetch_to_device
+    from dc_tts_tpu_torch.utils import profiling
 
     dev = torch.device(DEV)
     cfg = base_config().replace(data=data, use_pallas=True, B=B_TRAIN)
@@ -2252,7 +2209,7 @@ def phase_train(results, net, data, feats, n_steps):
     batches = prefetch_to_device(loader, dev)
 
     losses, shapes, full = [], [], None
-    K4.hc_block_fwd.launches = K4.hc_block_bwd.launches = 0
+    profiling.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_steps):
@@ -2264,8 +2221,8 @@ def phase_train(results, net, data, feats, n_steps):
             full = batch
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fwd": K4.hc_block_fwd.launches,
-                "bwd": K4.hc_block_bwd.launches}
+    n = profiling.counts()
+    launches = {k: n[k] for k in K4_LAUNCHES[:2]}
     loader.stop()
     by_shape = {}
     for sh, lo in zip(shapes, losses):
@@ -2277,7 +2234,8 @@ def phase_train(results, net, data, feats, n_steps):
                             float(np.mean(v[-min(5, len(v) // 2):])))
                for sh, v in by_shape.items() if len(v) >= 2}
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    ok = (launches["fwd"] == launches["bwd"] == per_step * n_steps
+    ok = (launches["k4.fwd.launches"] == launches["k4.bwd.launches"]
+          == per_step * n_steps
           and all(np.isfinite(losses)) and full is not None)
     if net == "t2m":
         # SSRN's few steps at the warm-up learning rate (~1e-6) move its
@@ -2325,7 +2283,7 @@ def phase_train(results, net, data, feats, n_steps):
     line(f"train-{net}", ok=ok, steps=n_steps, B=cfg.B,
          buckets=json.dumps(buckets).replace(" ", ""),
          launches=json.dumps(launches).replace(" ", ""),
-         launches_per_step=f"{launches['fwd'] / n_steps:g}",
+         launches_per_step=f"{launches['k4.fwd.launches'] / n_steps:g}",
          loss_first5=f"{first:.5f}", loss_last5=f"{last:.5f}",
          per_bucket_first_last=json.dumps(
              {k_: [round(a, 5), round(b, 5)] for k_, (a, b)
@@ -2368,9 +2326,9 @@ def phase_train(results, net, data, feats, n_steps):
         equiv_loss_rel=eq["loss"], frozen_grad_on_vs_off=d_grad,
         own_grad_on_vs_off=o_grad, switched=eq["flips"],
         block_worst_dist_over_tol=b_ratio, wall_s=wall)
-    for key in ("fwd", "bwd"):
-        results.setdefault("k4_launches", {"fwd": 0, "bwd": 0})
-        results["k4_launches"][key] += launches[key]
+    total = results.setdefault("launches", {})
+    for key, n in launches.items():
+        total[key] = total.get(key, 0) + n
     del state
     torch.cuda.empty_cache()
 
@@ -2409,7 +2367,7 @@ def phase_train_routes(results, data, feats):
     from dc_tts_tpu_torch.data.dataset import TrainLoader, load_dataset_index
     from dc_tts_tpu_torch.train import steps as TS
     from dc_tts_tpu_torch.train.__main__ import prefetch_to_device
-    from dc_tts_tpu_torch.utils.profiling import trace
+    from dc_tts_tpu_torch.utils import profiling
 
     dev = torch.device(DEV)
     base = base_config().replace(data=data, use_pallas=True, B=B_TRAIN)
@@ -2430,20 +2388,18 @@ def phase_train_routes(results, data, feats):
             n = ROUTE_STEPS[net]
             losses = []
             torch.cuda.synchronize()
-            reset_counts()
+            profiling.reset_counts()
             for _ in range(n):
                 batch = next(batches)
                 state, metrics = step(state, batch, gen)
                 losses.append(float(metrics["loss"]))
             torch.cuda.synchronize()
-            launches = counts()
+            launches = profiling.counts()
             loader.stop()
             want = per_block[net] * n
-            k4 = {k: launches.pop(k) for k in (
-                "hc_block_fwd", "hc_block_bwd", "hc_block_fwd_bf16",
-                "hc_block_bwd_bf16")}
+            k4 = {k: launches.pop(k, 0) for k in K4_LAUNCHES}
             expect = {"float32": (0, 0, 0, 0),
-                      "bfloat16": (0, 0, want, want),
+                      "bfloat16": (want, want, want, want),
                       "bfloat16_full": (0, 0, 0, 0),
                       # the forward runs again in the recompute
                       "remat": (2 * want, want, 0, 0)}[route]
@@ -2464,8 +2420,9 @@ def phase_train_routes(results, data, feats):
             same = [float(v) for v in same]
             ok = ok and all(np.isfinite(same))
             # one more step under torch.profiler: the device's busy share
-            with trace(os.path.join(HERE, "chiprun_out",
-                                    f"trace_train_{route}_{net}")) as prof:
+            with profiling.trace(os.path.join(
+                    HERE, "chiprun_out",
+                    f"trace_train_{route}_{net}")) as prof:
                 t0 = time.perf_counter()
                 state, _ = step(state, batch, gen)
                 torch.cuda.synchronize()
@@ -2478,9 +2435,9 @@ def phase_train_routes(results, data, feats):
                                               True)[:2]
                 extra["k4_bf16_ms_per_step"] = f"{k4_ms:.2f}"
                 extra["k4_bf16_bound_ms_per_step"] = f"{k4_bound:.3f}"
-                results.setdefault("k4_bf16_launches", {"fwd": 0, "bwd": 0})
-                results["k4_bf16_launches"]["fwd"] += k4["hc_block_fwd_bf16"]
-                results["k4_bf16_launches"]["bwd"] += k4["hc_block_bwd_bf16"]
+                total = results.setdefault("launches", {})
+                for key in K4_LAUNCHES[2:]:
+                    total[key] = total.get(key, 0) + k4[key]
             if route == "remat":
                 params = state.params
                 runs = []
@@ -2631,16 +2588,17 @@ def phase_synth_cli(root):
 def _timed(fn):
     """(fn(), host seconds, every launch count) with the counts set to 0
     just before and the card synchronised on both sides."""
+    from dc_tts_tpu_torch.utils import profiling
     torch.cuda.synchronize()
-    reset_counts()
+    profiling.reset_counts()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, counts()
+    return out, time.perf_counter() - t0, profiling.counts()
 
 
 def _k12(launches):
-    return {k: launches[k] for k in ("K1", "K2")}
+    return {k: launches[k] for k in ("k1.launches", "k2.launches")}
 
 
 def _parallel_rank(rank, n, ts_ids, pipe_ids, Z1):
@@ -2719,7 +2677,7 @@ def _dp_train(mesh):
 
             loss, secs, n = _timed(steps)
             runs[name] = dict(loss=loss, ms_step=secs / 3 * 1e3,
-                              k4=n["hc_block_fwd"] + n["hc_block_bwd"],
+                              k4=n["k4.fwd.launches"] + n["k4.bwd.launches"],
                               leaves=[t.detach().clone() for t in
                                       tree_leaves(state.params)])
         a, b = runs["dp"].pop("leaves"), runs["plain"].pop("leaves")
@@ -2776,8 +2734,8 @@ def phase_parallel(results, smi):
                 lambda: dp.synthesize_ids_chunked(ids, CHUNK))
             ok = (backend == ("nccl" if DEV == "cuda" else "gloo")
                   and got.dtype == want.dtype
-                  and np.array_equal(got, want) and n["K1"] == 2
-                  and n["K2"] == 2)
+                  and np.array_equal(got, want) and n["k1.launches"] == 2
+                  and n["k2.launches"] == 2)
             line("parallel-dp-synth", ok=ok, backend=backend, ranks=1,
                  equal_to_single_card=np.array_equal(got, want),
                  launches=json.dumps(_k12(n)).replace(" ", ""),
@@ -2797,7 +2755,8 @@ def phase_parallel(results, smi):
                              ssrn_precision="highest", device=DEV
                              ).synthesize_ids(ts_ids)[0]
             d1 = _max_rel(w1, rw)
-            ok = d1 <= 1e-4 and n["K1"] == 1 and n["K2"] == 0
+            ok = d1 <= 1e-4 and n["k1.launches"] == 1 \
+                and n["k2.launches"] == 0
             line("parallel-ts1", ok=ok, shards=1, max_rel_vs_unsharded=
                  f"{d1:.3e}", tol="1e-4 x max (float32 SSRN, dft GL)",
                  launches=json.dumps(_k12(n)).replace(" ", ""),
@@ -2819,8 +2778,8 @@ def phase_parallel(results, smi):
     dw = max(float(np.abs(r["ts_wav"] - w1).max()) for r in ranks)
     dz = float(np.abs(ranks[0]["ts_Z"] - Z1).max())
     ok = (d_voc <= 2e-3 and dz <= 2e-5
-          and ranks[0]["ts"] == {"K1": 1, "K2": 0}
-          and ranks[1]["ts"] == {"K1": 0, "K2": 0})
+          and ranks[0]["ts"] == {"k1.launches": 1, "k2.launches": 0}
+          and ranks[1]["ts"] == {"k1.launches": 0, "k2.launches": 0})
     line("parallel-ts2", ok=ok, shards=2, backend="gloo", device=RANKS_DEV,
          max_dwav_same_Z=f"{d_voc:.3e}", max_dZ=f"{dz:.3e}",
          tol="wav on the same Z 2e-3, Z 2e-5",
@@ -2835,8 +2794,9 @@ def phase_parallel(results, smi):
     single = Synthesizer(cfg, p1, p2, device=DEV).synthesize_ids_chunked(
         ids[:4], 2)
     dp_ = max(float(np.abs(r["pipe_wav"] - single).max()) for r in ranks)
-    ok = (dp_ <= 2e-3 and ranks[0]["pipe"] == {"K1": 2, "K2": 0}
-          and ranks[1]["pipe"] == {"K1": 0, "K2": 2})
+    ok = (dp_ <= 2e-3
+          and ranks[0]["pipe"] == {"k1.launches": 2, "k2.launches": 0}
+          and ranks[1]["pipe"] == {"k1.launches": 0, "k2.launches": 2})
     line("parallel-pipeline", ok=ok, stages="1+1", microbatch=2,
          sentences=4, max_dwav_vs_single_card=f"{dp_:.3e}", tol="2e-3",
          launches=json.dumps([r["pipe"] for r in ranks]).replace(" ", ""),
@@ -2974,8 +2934,7 @@ def _tp_train(net, cfg, params_cpu, batch, steps, mesh=None):
             state, _ = step(state, batch, gen)
 
     _, secs, n = _timed(run)
-    k4 = {k: n[k] for k in ("hc_block_fwd", "hc_block_bwd",
-                            "hc_block_fwd_bf16", "hc_block_bwd_bf16")}
+    k4 = {k: n[k] for k in K4_LAUNCHES}
     if mesh is not None:
         grads = gather_params(grads, mesh)
         params = gather_params(state.params, mesh)
@@ -3080,10 +3039,9 @@ def phase_parallel_tp(results, smi):
         key = f"{net}-{dtype}"
         r0, r1 = ranks[0][key], ranks[1][key]
         bf16 = dtype == "bfloat16"
-        sfx = "_bf16" if bf16 else ""
-        want = {k: 0 for k in r0["k4"]}
-        want.update({f"hc_block_fwd{sfx}": per_step[net] * steps,
-                     f"hc_block_bwd{sfx}": per_step[net] * steps})
+        on = K4_LAUNCHES[:4 if bf16 else 2]
+        want = {k: per_step[net] * steps if k in on else 0
+                for k in K4_LAUNCHES}
         if bf16:
             close = r0["grad_l2"] <= 3e-2 and r0["grad_leaf"] <= 5e-2 \
                 and r0["params_finite"]
@@ -3204,6 +3162,7 @@ def phase_ct_fwd(results):
     and as subprocesses."""
     from dc_tts_tpu_torch.ops import ct_fwd as X
     from dc_tts_tpu_torch.scripts import ct_kernel_exp as CLI
+    from dc_tts_tpu_torch.utils import profiling
 
     dev = torch.device(DEV)
     # milliseconds a launch inside a CUDA graph of 50 (the device's time),
@@ -3312,7 +3271,7 @@ def phase_ct_fwd(results):
 
     # the main path: the CLI's main in this process, every launch count set
     # to 0 just before and read just after
-    reset_counts()
+    profiling.reset_counts()
     cli = {}
     for variant in CLI.VARIANTS:
         F = CT_F_TILED if variant == "fact-tiled" else CT_F
@@ -3321,21 +3280,21 @@ def phase_ct_fwd(results):
             cli[f"{variant}/{prec}"] = _ct_cli_check(out, variant, prec)
     out = _ct_cli(["ablate"], CT_F)
     ablate = _ct_ablate_check(out)
-    launches = counts()
+    launches = profiling.counts()
     # each run's CUDA graph replays its 50 captured launches 6 times, none of
     # which a wrapper counts
     replayed = 6 * 50 * (2 * len(CLI.VARIANTS) + len(X.STAGE_SETS))
-    ok = all(launches[k] > 0 for k in CT_KERNELS)
-    line("ct-fwd-main", ok=ok, launches=json.dumps(
-        {k: launches[k] for k in CT_KERNELS}).replace(" ", ""),
+    ct = {k: launches.pop(k, 0) for k in CT_LAUNCHES}
+    ok = all(ct.values()) and not any(launches.values())
+    line("ct-fwd-main", ok=ok, launches=json.dumps(ct).replace(" ", ""),
         graph_replayed_launches=replayed,
-        other_kernels=json.dumps({k: v for k, v in launches.items()
-                                  if k not in CT_KERNELS}).replace(" ", ""),
+        other_kernels=json.dumps(launches).replace(" ", ""),
         **{k.replace("/", "_"): "{:.2e},{:.3f},{:.4f}".format(*v)
            for k, v in cli.items()},
         ablate_ms=json.dumps(ablate).replace(" ", ""))
-    if not ok or any(launches[k] for k in launches if k not in CT_KERNELS):
-        raise AssertionError(f"ct_kernel_exp's main path launched {launches}")
+    if not ok:
+        raise AssertionError(f"ct_kernel_exp's main path launched {ct}, "
+                             f"and besides {launches}")
 
     # the CLI as a user runs it: every variant and ablate as subprocesses
     t0 = time.perf_counter()
@@ -3355,8 +3314,7 @@ def phase_ct_fwd(results):
                                   if k != "ablate" else json.dumps(v)
                                   .replace(" ", "")) for k, v in sub.items()})
 
-    results.setdefault("launches", {}).update(
-        {k: launches[k] for k in CT_KERNELS})
+    results.setdefault("launches", {}).update(ct)
     for kernel in CT_KERNELS:
         rows = [r for r in cases if r["kernel"] == kernel]
         head = next(r for r in rows if r["prec"] == "bf16" and (
@@ -3367,7 +3325,7 @@ def phase_ct_fwd(results):
             bound_by=head["bound_by"], library_ms=head["library_ms"])
     results["ct-fwd"] = dict(cases=cases, library=libs, cli_main=cli,
                              cli_ablate_ms=ablate, cli_subprocess=sub,
-                             launches={k: launches[k] for k in CT_KERNELS},
+                             launches=ct,
                              graph_replayed_launches=replayed)
 
 
@@ -3505,11 +3463,13 @@ def phase_learn(results, smi):
             "mels": b1["mels"][:1].cpu().numpy()}
     r, synth_s, synth_n = _timed(
         lambda: demo.evaluate(cfg, data, s1.params, s2.params, dev))
-    k4_ok = (train_n["hc_block_fwd"] == train_n["hc_block_bwd"]
-             == per_step * LEARN_STEPS and train_n["K1"] == 0)
-    synth_ok = (synth_n["K1"] == synth_n["K1_highest"] == 2
-                and synth_n["K2"] == 2 and synth_n["hc_block_fwd"] == 0
-                and synth_n["K3a"] == 0 and np.isfinite(r["wav"]).all()
+    k4_ok = (train_n["k4.fwd.launches"] == train_n["k4.bwd.launches"]
+             == per_step * LEARN_STEPS and train_n["k1.launches"] == 0)
+    synth_ok = (synth_n["k1.launches"] == synth_n["k1.highest.launches"] == 2
+                and synth_n["k2.launches"] == 2
+                and synth_n["k4.fwd.launches"] == 0
+                and synth_n["k3a.launches"] == 0
+                and np.isfinite(r["wav"]).all()
                 and np.abs(r["wav"]).max() > 1e-3)
     # for information: the same trained nets on the CPU (plain versions)
     cpu = demo.evaluate(cfg, data, s1.params, s2.params, "cpu")
@@ -3571,10 +3531,12 @@ def phase_bench_train(results, smi):
         r, _, n = _timed(lambda: BT.bench_step(label, vcfg, which, batch,
                                                dev, iters=2))
         bf16 = vcfg.compute_dtype == "bfloat16"
-        k4 = ("hc_block_fwd_bf16", "hc_block_bwd_bf16") if bf16 else (
-            "hc_block_fwd", "hc_block_bwd")
-        want = set(k4) if vcfg.use_pallas else set()
-        if {k for k, v in n.items() if v} != want or not (
+        want = set(K4_LAUNCHES[:4 if bf16 else 2]) if vcfg.use_pallas \
+            else set()
+        # with bf16 operands every K4 launch is the bf16 body's
+        body = not bf16 or all(n[k] == n[k16] for k, k16 in
+                               zip(K4_LAUNCHES[:2], K4_LAUNCHES[2:]))
+        if {k for k, v in n.items() if v} != want or not body or not (
                 0 < r["mfu"] < 1):
             bad.append((label, n, r["mfu"]))
         rows[label] = dict(ms_per_step=r["ms_per_step"],
@@ -3628,9 +3590,9 @@ def phase_bench_variants(results, smi):
     for label, cfg in BV.chosen(BV.variants(base), BENCH_VARIANTS):
         r, _, n = _timed(lambda: BV.bench(cfg, ids, dev, reps=1))
         m = cfg.stft_method
-        ok = ok and r["audio_s_per_s"] > 0 and n["K1"] == 2 and (
-            n["K2"] > 0) == (m == "dft_pallas2") and (
-            n["K3a"] > 0) == (m == "dft_pallas")
+        ok = ok and r["audio_s_per_s"] > 0 and n["k1.launches"] == 2 and (
+            n["k2.launches"] > 0) == (m == "dft_pallas2") and (
+            n["k3a.launches"] > 0) == (m == "dft_pallas")
         rows[m] = dict(r, launches={k: v for k, v in n.items() if v})
     ok = ok and len(rows) == 3
     line("bench-variants", ok=ok, reps=1, variants=BENCH_VARIANTS,
@@ -3774,42 +3736,36 @@ def main(argv=None) -> int:
         entry_s[name] = round(time.perf_counter() - t0, 1)
     line("entry-points", seconds=json.dumps(entry_s).replace(" ", ""),
          total_s=f"{sum(entry_s.values()):.1f}")
-    results["launches"].update(
-        {"hc_block_fwd": results["k4_launches"]["fwd"],
-         "hc_block_bwd": results["k4_launches"]["bwd"],
-         "hc_block_fwd_bf16": results["k4_bf16_launches"]["fwd"],
-         "hc_block_bwd_bf16": results["k4_bf16_launches"]["bwd"]})
     kernels = []
-    for key, name, src, rep in (
-            ("K1", "fused_decode", "dc_tts_tpu_torch/csrc/decode.cu",
+    for key, name, counter, src, rep in (
+            ("K1", "fused_decode", "k1.launches",
+             "dc_tts_tpu_torch/csrc/decode.cu",
              "dc_tts_tpu/ops/pallas_decode.py:274"),
-            *((f"K1_{p}", f"fused_decode[{p}]",
+            *((f"K1_{p}", f"fused_decode[{p}]", f"k1.{p}.launches",
                "dc_tts_tpu_torch/csrc/decode.cu",
                f"dc_tts_tpu/ops/pallas_decode.py:274 (prec={p})")
               for p in ("high3", "hybrid", "default")),
-            ("K2", "gl2_run", "dc_tts_tpu_torch/csrc/gl2.cu",
+            ("K2", "gl2_run", "k2.launches", "dc_tts_tpu_torch/csrc/gl2.cu",
              "dc_tts_tpu/ops/pallas_gl2.py:407"),
-            ("K3a", "k3a", "dc_tts_tpu_torch/csrc/gl.cu",
+            ("K3a", "k3a", "k3a.launches", "dc_tts_tpu_torch/csrc/gl.cu",
              "dc_tts_tpu/ops/pallas_gl.py:141"),
-            ("K3b", "k3b", "dc_tts_tpu_torch/csrc/gl.cu",
+            ("K3b", "k3b", "k3b.launches", "dc_tts_tpu_torch/csrc/gl.cu",
              "dc_tts_tpu/ops/pallas_gl.py:192"),
-            ("hc_block_fwd", "hc_block_fwd", "dc_tts_tpu_torch/csrc/hc_vjp.cu",
-             "dc_tts_tpu/ops/pallas_hc_vjp.py:236"),
-            ("hc_block_bwd", "hc_block_bwd", "dc_tts_tpu_torch/csrc/hc_vjp.cu",
-             "dc_tts_tpu/ops/pallas_hc_vjp.py:269"),
-            ("hc_block_fwd_bf16", "hc_block_fwd_bf16",
-             "dc_tts_tpu_torch/csrc/hc_vjp.cu",
-             "dc_tts_tpu/ops/pallas_hc_vjp.py:236"),
-            ("hc_block_bwd_bf16", "hc_block_bwd_bf16",
-             "dc_tts_tpu_torch/csrc/hc_vjp.cu",
-             "dc_tts_tpu/ops/pallas_hc_vjp.py:269"),
-            *((k, k, "dc_tts_tpu_torch/csrc/ct_fwd.cu", CT_REPLACES[k])
-              for k in CT_KERNELS),
-            ("K5", "ssrn_block", "dc_tts_tpu_torch/csrc/ssrn_block.cu",
+            *((k, k, counter, "dc_tts_tpu_torch/csrc/hc_vjp.cu",
+               f"dc_tts_tpu/ops/pallas_hc_vjp.py:{at}")
+              for k, counter, at in zip(
+                  ("hc_block_fwd", "hc_block_bwd", "hc_block_fwd_bf16",
+                   "hc_block_bwd_bf16"), K4_LAUNCHES, (236, 269) * 2)),
+            *((k, k, counter, "dc_tts_tpu_torch/csrc/ct_fwd.cu",
+               CT_REPLACES[k])
+              for k, counter in zip(CT_KERNELS, CT_LAUNCHES)),
+            ("K5", "ssrn_block", "k5.launches",
+             "dc_tts_tpu_torch/csrc/ssrn_block.cu",
              "none (XLA fused this chain on the TPU)")):
         r = results[key]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": results["launches"][key],
+                        "replaces": rep,
+                        "launches": results["launches"][counter],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

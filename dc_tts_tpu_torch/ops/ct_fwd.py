@@ -63,13 +63,15 @@ in float32 the operations (28 us on the FMA units). The design
 
 Every wrapper launches its kernel for CUDA tensors (and raises on what it
 cannot take) and runs its plain version for CPU tensors only; each counts
-its launches in ``.launches`` (a CUDA graph's replays do not count).
+its launches as ``x1.launches`` ... ``x4.launches`` (a CUDA graph's
+replays do not count).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..utils.profiling import count
 from .gl import _check, _device
 
 N_FFT, N1, N2 = 2048, 16, 128
@@ -276,7 +278,7 @@ def full_fwd(x, m, bf16: bool):
         xb.data_ptr(), F, int(bf16),
         torch.cuda.current_stream(dev).cuda_stream)
     check(code, "forward rDFT kernel X1")
-    full_fwd.launches += 1
+    count("x1.launches")
     return xr, xi
 
 
@@ -320,7 +322,7 @@ def fact_fwd(x, m, bf16: bool, transpose_mode: str = "swap"):
         return fact_fwd_plain(x, m, bf16)
     xr, xi, launched = _fact("fact_fwd", x, m, bf16, max(x.shape[0], 1),
                              "TAWC")
-    fact_fwd.launches += launched
+    count("x3.launches", launched)
     return xr, xi
 
 
@@ -331,7 +333,7 @@ def fact_fwd_tiled(x, m, bf16: bool, tf: int = 512):
     if not _device("fact_fwd_tiled", x):
         return fact_fwd_tiled_plain(x, m, bf16, tf)
     xr, xi, launched = _fact("fact_fwd_tiled", x, m, bf16, tf, "TAWC")
-    fact_fwd_tiled.launches += launched
+    count("x2.launches", launched)
     return xr, xi
 
 
@@ -345,9 +347,5 @@ def ablate_fwd(x, m, bf16: bool, stages: str, tf: int = 512):
     if not _device("ablate_fwd", x):
         return ablate_fwd_plain(x, m, bf16, stages, tf)
     xr, xi, launched = _fact("ablate_fwd", x, m, bf16, tf, stages)
-    ablate_fwd.launches += launched
+    count("x4.launches", launched)
     return xr, xi
-
-
-full_fwd.launches = fact_fwd.launches = 0
-fact_fwd_tiled.launches = ablate_fwd.launches = 0

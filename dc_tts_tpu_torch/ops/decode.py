@@ -73,6 +73,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..dsp.stft import split_bf16
+from ..utils.profiling import count
 
 NEG_INF = -(2.0 ** 32 - 1.0)
 
@@ -645,9 +646,8 @@ def fused_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
     (Y (B, T, n_mels), A (B, N, T)). ``packed`` is ``pack_decode_params(cfg,
     params, prec)``. CUDA tensors launch the kernel over one block per SM
     (``decode_blocks``), with the exchange ``decode_plan`` picks, and count
-    the launch, in ``launches``, ``launches_by_prec[prec]`` and
-    ``launches_by_exchange[exchange]``; CPU tensors take
-    ``fused_decode_plain``.
+    the launch as ``k1.launches``, ``k1.<prec>.launches`` and
+    ``k1.<exchange>.launches``; CPU tensors take ``fused_decode_plain``.
     An unknown ``prec`` raises, and so does a packed array of another shape
     or type than ``prec`` reads: nothing is converted quietly."""
     check_prec(prec)
@@ -717,9 +717,8 @@ def launch_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
         plan.prev_off, plan.ln_off, plan.z_off, plan.nv_max, plan.smem,
         blocks, int(flag), plan.ldx, epoch0, stream)
     check(code, f"decode kernel ({prec}, {plan.exchange} exchange)")
-    fused_decode.launches += 1
-    fused_decode.launches_by_prec[prec] += 1
-    fused_decode.launches_by_exchange[plan.exchange] += 1
+    for name in ("k1", f"k1.{prec}", f"k1.{plan.exchange}"):
+        count(name + ".launches")
     return Y, A
 
 
@@ -728,8 +727,3 @@ def exchange_buffer(plan: DecodePlan, device) -> torch.Tensor:
     ``ldx`` 8-byte words {value, epoch} (int32 pairs)."""
     return torch.zeros(plan.exchange_bytes // 4, dtype=torch.int32,
                        device=device)
-
-
-fused_decode.launches = 0
-fused_decode.launches_by_prec = {p: 0 for p in PRECS}
-fused_decode.launches_by_exchange = {x: 0 for x in EXCHANGES}

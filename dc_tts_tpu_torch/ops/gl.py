@@ -60,6 +60,7 @@ import torch.nn.functional as F
 from ..dsp.stft import (_dft_mats, _idft_mats, _ola_window_sq, _overlap_add,
                         hann_window, split_bf16)
 from ..dsp.stft import window_span as stft_window_span
+from ..utils.profiling import count
 
 # csrc/bf16_wgmma.cuh's block tile (N) and k-tile: the constant matrices
 # are padded to these
@@ -249,11 +250,16 @@ def _weights(name: str, consts: dict, shape, dev):
     return hi, lo
 
 
+def _count(kernel: str, three_pass: bool) -> None:
+    count(f"{kernel}.launches")
+    count(f"{kernel}.{3 if three_pass else 1}pass.launches")
+
+
 def k3a(Xr, Xi, consts: dict, g: GLGeom, three_pass: bool = False):
     """Kernel K3a and the overlap-add: (B, fp1, n_freq) float32 spectrum
     (rows >= F read as zero, as in the plain version) -> (B, ly) signal.
-    Counts its launches per pass mode in
-    ``k3a.launches[1]`` and ``k3a.launches[3]``."""
+    Counts its launches as ``k3a.launches`` and, per pass mode,
+    ``k3a.1pass.launches`` or ``k3a.3pass.launches``."""
     if not _device("k3a", Xr):
         return k3a_plain(Xr, Xi, consts, g, three_pass)
     from ._build import check, load_library
@@ -278,13 +284,13 @@ def k3a(Xr, Xi, consts: dict, g: GLGeom, three_pass: bool = False):
         *window_span(g, _BN), int(three_pass),
         torch.cuda.current_stream(dev).cuda_stream)
     check(code, "Griffin-Lim round kernel K3a")
-    k3a.launches[3 if three_pass else 1] += 1
+    _count("k3a", three_pass)
     return yp
 
 
 def k3b(yp, mag_p, consts: dict, g: GLGeom, three_pass: bool = False):
     """Kernel K3b: (B, ly) signal and (B, f2, n_freq) float32 magnitude ->
-    (Xr, Xi). Counts its launches per pass mode in ``k3b.launches``."""
+    (Xr, Xi). Counts its launches as K3a does, under ``k3b``."""
     if not _device("k3b", yp):
         return k3b_plain(yp, mag_p, consts, g, three_pass)
     from ._build import check, load_library
@@ -307,12 +313,8 @@ def k3b(yp, mag_p, consts: dict, g: GLGeom, three_pass: bool = False):
         B, n, g.n_freq, g.F, g.f2, g.hop, g.ly, hi.shape[1], hi.shape[0],
         kt0, kt1, int(three_pass), torch.cuda.current_stream(dev).cuda_stream)
     check(code, "Griffin-Lim round kernel K3b")
-    k3b.launches[3 if three_pass else 1] += 1
+    _count("k3b", three_pass)
     return Xr, Xi
-
-
-k3a.launches = {1: 0, 3: 0}
-k3b.launches = {1: 0, 3: 0}
 
 
 def fused_gl_round(Xr, Xi, mag_p, consts: dict, g: GLGeom,

@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from ..dsp.stft import _ola_window_sq, hann_window, window_span
+from ..utils.profiling import count
 
 _N1 = 16
 
@@ -258,11 +259,10 @@ def gl2_run(mag_scr: torch.Tensor, consts: dict, g: GL2Geom,
                          len(passes), B, n, g.hop, g.F, g.F2, g.pad, g.L_sig,
                          n_iter, n_tw, off, span, ctypes.byref(grid), stream)
     check(code, "Griffin-Lim kernels")
-    gl2_run.launches += 1
+    count("k2.launches")
     gl2_run.grid = grid.value
     return out
 
 
-# launches: counted calls; grid: the frame kernel's blocks in the last one
-gl2_run.launches = 0
+# the frame kernel's blocks in the last launch
 gl2_run.grid = None

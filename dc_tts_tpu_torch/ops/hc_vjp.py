@@ -89,14 +89,16 @@ gather as the float32 core's feeds to shared memory; bf16 ``wgmma`` reads
 each operand K-major or MN-major, so W (forward B), dh (dW's B) and x (dW's
 A) are read as they lie, with no transposed copy. 64-deep k-tiles, float32
 register sums promoted every 2 k-tiles. The copies need C % 8 == 0 (other
-widths are padded as above). The wrappers count these launches apart, in
-``launches_bf16``.
+widths are padded as above). The wrappers count these launches also
+under ``k4.fwd.bf16.launches`` and ``k4.bwd.bf16.launches``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
+
+from ..utils.profiling import count
 
 _GEMM_TILE = 128          # csrc/hc_vjp.cu TBM = TBN, and the bf16 BM = BN
 _GEMM_DEPTH = 32          # csrc/hc_vjp.cu TBK, the float32 core's k-tile
@@ -310,19 +312,18 @@ def _dw_splits(K: int, C: int, M: int, bf16: bool = False) -> int:
     return max(1, min(-(-2 * _SMS // tiles), M // min_rows))
 
 
-def _count(fn, bf16: bool) -> None:
+def _count(direction: str, bf16: bool) -> None:
+    count(f"k4.{direction}.launches")
     if bf16:
-        fn.launches_bf16 += 1
-    else:
-        fn.launches += 1
+        count(f"k4.{direction}.bf16.launches")
 
 
 def hc_block_fwd(x, w, b, g1, b1, g2, b2, size: int, rate: int, causal: bool,
                  eps: float, bf16: bool = False) -> torch.Tensor:
     """y = HC(x). x (B, T, C), w (K, C, 2C), b (2C,), g1/b1/g2/b2 (C,).
     CUDA tensors launch the forward kernels (one counted launch per call,
-    in ``launches`` or, with bf16 operands, ``launches_bf16``); CPU tensors
-    take ``hc_block_fwd_plain``."""
+    as ``k4.fwd.launches`` and, with bf16 operands, also
+    ``k4.fwd.bf16.launches``); CPU tensors take ``hc_block_fwd_plain``."""
     if x.device.type == "cpu":
         return hc_block_fwd_plain(x, w, b, g1, b1, g2, b2, size, rate,
                                   causal, eps, bf16)
@@ -351,7 +352,7 @@ def hc_block_fwd(x, w, b, g1, b1, g2, b2, size: int, rate: int, causal: bool,
                             y.data_ptr(), wsplit.data_ptr(), B, T, C, Cv,
                             size, rate, left, float(eps), int(bf16), stream)
     check(code, "HC forward kernels")
-    _count(hc_block_fwd, bf16)
+    _count("fwd", bf16)
     return y if C == Cv else y[..., :Cv].contiguous()
 
 
@@ -405,13 +406,9 @@ def hc_block_bwd(x, w, b, g1, b1, g2, b2, dy, size: int, rate: int,
                             Cv, size, rate, left, float(eps), R, S,
                             int(bf16), stream)
     check(code, "HC backward kernels")
-    _count(hc_block_bwd, bf16)
+    _count("bwd", bf16)
     db, dg1, db1, dg2, db2 = dparams.split([2 * C, C, C, C, C])
     return unpad_grads(Cv, dx, dw, db, dg1, db1, dg2, db2)
-
-
-hc_block_fwd.launches = hc_block_fwd.launches_bf16 = 0
-hc_block_bwd.launches = hc_block_bwd.launches_bf16 = 0
 
 
 class HCBlockTrainable(torch.autograd.Function):

@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from ..dsp.stft import split_bf16
 from ..models import layers as L
 from ..models.blocks import C, D, HC, _act, _highway
+from ..utils.profiling import count
 
 # a row of taps or of a product is padded to this many values (16 bytes of
 # bf16): cuBLAS's fast kernels need aligned rows
@@ -208,7 +209,8 @@ def ssrn_block(p: dict, spec, x: torch.Tensor, halves: Halves,
     """One SSRN block in the "high" mode. x (B, T, C_in) float32 contiguous
     -> y (B, T, C_out), a D block's (B, 2T, C_out). CUDA tensors launch the
     prologue, the products and the epilogue on the current stream (two
-    counted launches); CPU tensors take ``ssrn_block_plain``."""
+    launches, counted as ``k5.launches``); CPU tensors take
+    ``ssrn_block_plain``."""
     if x.device.type == "cpu":
         return ssrn_block_plain(p, spec, x, halves, ln_eps)
     if x.device.type != "cuda":
@@ -259,12 +261,8 @@ def ssrn_block(p: dict, spec, x: torch.Tensor, halves: Halves,
         kind, *ptrs, y.data_ptr(), M, y.shape[-1], P[0].shape[1], act,
         float(ln_eps), torch.cuda.current_stream(x.device).cuda_stream),
         "K5 epilogue")
-    ssrn_block.launches += 2
+    count("k5.launches", 2)
     return y
-
-
-# launches: prologue and epilogue launches since the process began
-ssrn_block.launches = 0
 
 
 def ssrn_stack_plain(params: Sequence[dict], specs: Sequence,

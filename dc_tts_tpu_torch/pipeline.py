@@ -54,7 +54,7 @@ from .ops.decode import check_prec, pack_decode_params
 from .params import to_device
 from .parallel import distributed as D
 from .train.optimizer import tree_leaves
-from .utils.profiling import span
+from .utils.profiling import count, span
 
 DECODE_MODES = ("fused", "incremental", "reference")
 # ssrn_precision -> the compute_dtype SSRN runs under (None: the config's)
@@ -90,8 +90,8 @@ TEXTENC_GRAPHS = 4
 class GraphCache:
     """``fn(x)`` -> a tuple of tensors, replayed from one captured CUDA graph
     a shape of ``x``; the ``capacity`` shapes used last are kept, the least
-    recently used evicted. ``counts`` (an object) takes the process-wide
-    ``captures`` and ``replays``.
+    recently used evicted. Captures and replays are counted as
+    ``<prefix>.captures`` and ``<prefix>.replays``.
 
     A shape's first call runs ``fn`` once eagerly on a side stream (cuBLAS
     picks its algorithms and allocates its workspace there), then captures
@@ -100,8 +100,8 @@ class GraphCache:
     outputs are the graph's static tensors, overwritten by the shape's next
     replay."""
 
-    def __init__(self, fn, capacity: int, counts):
-        self.fn, self.capacity, self.counts = fn, capacity, counts
+    def __init__(self, fn, capacity: int, prefix: str):
+        self.fn, self.capacity, self.prefix = fn, capacity, prefix
         self.graphs: OrderedDict = OrderedDict()  # shape -> (x, graph, outs)
 
     def __call__(self, x: torch.Tensor):
@@ -111,13 +111,13 @@ class GraphCache:
             while len(self.graphs) >= self.capacity:
                 self.graphs.popitem(last=False)
             entry = self.graphs[key] = self._capture(x)
-            self.counts.captures += 1
+            count(self.prefix + ".captures")
         else:
             self.graphs.move_to_end(key)
         static_x, graph, outs = entry
         static_x.copy_(x)
         graph.replay()
-        self.counts.replays += 1
+        count(self.prefix + ".replays")
         return outs
 
     def _capture(self, x: torch.Tensor):
@@ -141,18 +141,14 @@ def text_encode_graphs(text2mel: Text2Mel, params) -> GraphCache:
     """Inference TextEnc on the card, ids (B, N) -> (K, V) contiguous, from
     a ``GraphCache`` of ``TEXTENC_GRAPHS`` batch shapes (the encoder of
     ``text2mel.text_encode(params, ids)``: the same kernels, bit for bit).
-    Its counters are this function's ``captures`` and ``replays``."""
+    Its counters are ``textenc.graph.captures`` and ``.replays``."""
 
     @torch.no_grad()
     def encode(ids):
         Kt, V = text2mel.text_encode(params, ids)
         return Kt.contiguous(), V.contiguous()
 
-    return GraphCache(encode, TEXTENC_GRAPHS, text_encode_graphs)
-
-
-text_encode_graphs.captures = 0
-text_encode_graphs.replays = 0
+    return GraphCache(encode, TEXTENC_GRAPHS, "textenc.graph")
 
 
 def _replicate(trees, src: int, group) -> None:

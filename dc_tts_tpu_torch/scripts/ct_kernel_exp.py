@@ -56,7 +56,7 @@ def timeit_looped(kernel_fn, x, m, rounds: int = 50, reps: int = 5) -> float:
     after one warm-up replay. Stream order sequences the launches (the
     script's scalar feedback is not needed). A replay runs the kernels
     without calling the wrappers: (reps + 1) * rounds launches that no
-    ``.launches`` counts."""
+    launch counter (``x1.launches`` ... ``x4.launches``) counts."""
     kernel_fn(x, m)     # builds and sets up the kernel outside the capture
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()

@@ -11,10 +11,14 @@ outermost span's ``key``, or a running number), its parent, its host start
 and end (``time.perf_counter_ns``), the rows it handles (``n``) and, once
 CUDA is initialised, a pair of timing CUDA events on the current stream. No
 span waits for the device. ``summary()`` waits once and sums the spans by
-name; ``reset()`` empties the store. The stages each module records are
-named in its docstring: ``pipeline.Synthesizer.synthesize_ids_chunked``,
-``models/text2mel.Text2Mel.decode``, ``dsp/griffin_lim.spectrogram_to_wav``
-and ``train/steps.py``.
+name; ``reset()`` empties the store. A module that records stages names
+them in its own docstring.
+
+Counters: the code that launches a kernel, or captures or replays a graph,
+calls ``count(name)`` once it has; ``counts()`` reads them and
+``reset_counts()`` sets them to 0. A launch counts under its kernel's name
+and under its variant's, if it has one (``k1.launches`` and
+``k1.high3.launches``), so nothing is summed at read time.
 
 ``trace(logdir)`` records a ``torch.profiler`` trace of a code region (CPU
 and, where present, CUDA activity) as a Chrome trace, the spans inside it as
@@ -24,11 +28,11 @@ peaks.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import math
 import os
-import sys
 import threading
 import time
 
@@ -36,33 +40,23 @@ import torch
 
 _profiling = torch._C._autograd._profiler_enabled
 
-# the kernels' launch counters and the TextEnc graphs' captures and replays
-# (function attributes of their wrappers), as summary() names them: module,
-# wrapper, its counting attributes (an (attribute, key) pair counts one
-# entry of a dict)
-COUNTERS = {
-    "k1.launches": ("ops.decode", "fused_decode", ("launches",)),
-    "k1.grid.launches": ("ops.decode", "fused_decode",
-                         (("launches_by_exchange", "grid"),)),
-    "k1.flag.launches": ("ops.decode", "fused_decode",
-                         (("launches_by_exchange", "flag"),)),
-    "k2.launches": ("ops.gl2", "gl2_run", ("launches",)),
-    "k3a.launches": ("ops.gl", "k3a", ("launches",)),
-    "k3b.launches": ("ops.gl", "k3b", ("launches",)),
-    "k4.fwd.launches": ("ops.hc_vjp", "hc_block_fwd",
-                        ("launches", "launches_bf16")),
-    "k4.bwd.launches": ("ops.hc_vjp", "hc_block_bwd",
-                        ("launches", "launches_bf16")),
-    "x1.launches": ("ops.ct_fwd", "full_fwd", ("launches",)),
-    "x2.launches": ("ops.ct_fwd", "fact_fwd_tiled", ("launches",)),
-    "x3.launches": ("ops.ct_fwd", "fact_fwd", ("launches",)),
-    "x4.launches": ("ops.ct_fwd", "ablate_fwd", ("launches",)),
-    "k5.launches": ("ops.ssrn_block", "ssrn_block", ("launches",)),
-    "textenc.graph.captures": ("pipeline", "text_encode_graphs",
-                               ("captures",)),
-    "textenc.graph.replays": ("pipeline", "text_encode_graphs",
-                              ("replays",)),
-}
+# the counters: name -> count (kernel launches, graph captures and replays)
+_COUNTS: collections.Counter = collections.Counter()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    _COUNTS[name] += n
+
+
+def counts() -> collections.Counter:
+    """A copy of the counters (a name never counted reads 0)."""
+    return collections.Counter(_COUNTS)
+
+
+def reset_counts() -> None:
+    """Set every counter to 0."""
+    _COUNTS.clear()
 
 
 class _Record:
@@ -99,8 +93,8 @@ class Recorder:
         give them, else None), ``host_ms`` and ``host_self_ms`` (minus the
         child spans' host ms), ``device_ms`` and ``device_self_ms`` (the
         CUDA event pairs' stream time; None without events). Beside them
-        the ``COUNTERS`` as they stand (``k1.launches``, ...,
-        ``textenc.graph.replays``) and ``spans.dropped``. Waits for the device once."""
+        the counters counted so far (``counts()``) and ``spans.dropped``.
+        Waits for the device once."""
         done = [r for r in self.records if r.t1 is not None]
         if any(r.ev0 is not None for r in done):
             torch.cuda.synchronize()
@@ -127,27 +121,12 @@ class Recorder:
                 s["device_ms"] = (s["device_ms"] or 0.0) + dev[r.sid]
                 s["device_self_ms"] = (s["device_self_ms"] or 0.0) \
                     + dev[r.sid] - child_dev.get(r.sid, 0.0)
-        out.update(_launch_counts())
+        out.update(counts())
         out["spans.dropped"] = self.dropped
         return out
 
 
 RECORDER = Recorder()
-
-
-def _launch_counts() -> dict:
-    """The kernels' launch counters as their wrappers keep them (0 for a
-    module never imported: its kernels never ran)."""
-    pkg = __package__.rsplit(".", 1)[0]
-    out = {}
-    for key, (mod, fn, attrs) in COUNTERS.items():
-        m = sys.modules.get(f"{pkg}.{mod}")
-        f = getattr(m, fn, None)
-        out[key] = sum(sum(v.values()) if isinstance(v, dict) else v
-                       for v in (getattr(f, a, 0) if isinstance(a, str)
-                                 else getattr(f, a[0], {}).get(a[1], 0)
-                                 for a in attrs))
-    return out
 
 
 class span:

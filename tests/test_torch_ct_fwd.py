@@ -29,6 +29,7 @@ from jax.experimental import pallas as pl
 
 from dc_tts_tpu_torch.ops import ct_fwd as X
 from dc_tts_tpu_torch.scripts import ct_kernel_exp as cli
+from dc_tts_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -197,11 +198,6 @@ def _port_run(variant, x, bf16):
     return X.fact_fwd(xt, m, bf16, variant.split("-")[1])
 
 
-def _counts():
-    return (X.full_fwd.launches, X.fact_fwd.launches,
-            X.fact_fwd_tiled.launches, X.ablate_fwd.launches)
-
-
 @pytest.mark.parametrize("variant", cli.VARIANTS)
 @pytest.mark.parametrize("bf16", [False, True])
 def test_plain_matches_jax_kernel(script, monkeypatch, variant, bf16):
@@ -209,9 +205,9 @@ def test_plain_matches_jax_kernel(script, monkeypatch, variant, bf16):
     plain versions, no launch counted, against the script's kernels."""
     monkeypatch.setattr(script, "F", F_SMALL)
     x = _frames(F_SMALL)
-    before = _counts()
+    before = profiling.counts()
     got = _port_run(variant, x, bf16)
-    assert _counts() == before
+    assert profiling.counts() == before
     want = _jax_run(script, variant, x, bf16)
     assert tuple(got[0].shape) == np.asarray(want[0]).shape
     tol = 1e-3 if bf16 and variant != "full" else 1e-5

@@ -47,6 +47,7 @@ from dc_tts_tpu_torch.models import SSRN, Text2Mel
 from dc_tts_tpu_torch.ops import decode as K1
 from dc_tts_tpu_torch.ops import gl2 as K2
 from dc_tts_tpu_torch.pipeline import Synthesizer
+from dc_tts_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -66,6 +67,11 @@ def _ids(cfg, B, seed=0):
         n = int(rng.integers(5, cfg.max_N))
         ids[i, :n] = rng.integers(2, cfg.vocab_size, n)
     return torch.as_tensor(ids)
+
+
+def _counted(before):
+    """Each counter's increase since ``before`` (a ``profiling.counts()``)."""
+    return profiling.counts() - before
 
 
 def _first_flip(A_k, A_p):
@@ -91,15 +97,14 @@ def test_decode_kernel_matches_plain(cuda, B, prec):
     p = Text2Mel(cfg).init(torch.Generator().manual_seed(B), cuda)
     Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, B).to(cuda))
     packed = K1.pack_decode_params(cfg, p, prec)
-    n, n_p = K1.fused_decode.launches, K1.fused_decode.launches_by_prec[prec]
     x = K1.decode_plan(cfg, B, K1.decode_blocks(cuda), prec).exchange
-    n_x = K1.fused_decode.launches_by_exchange[x]
+    c0 = profiling.counts()
     Y, A = K1.fused_decode(packed, Kt.contiguous(), V.contiguous(),
                            cfg.max_T, cfg, prec)
     torch.cuda.synchronize()
-    assert K1.fused_decode.launches == n + 1
-    assert K1.fused_decode.launches_by_prec[prec] == n_p + 1
-    assert K1.fused_decode.launches_by_exchange[x] == n_x + 1
+    n = _counted(c0)
+    assert (n["k1.launches"], n[f"k1.{prec}.launches"],
+            n[f"k1.{x}.launches"]) == (1, 1, 1)
     Yp, Ap = K1.fused_decode_plain(packed, Kt, V, cfg.max_T, cfg, prec)
     if prec == "highest":
         assert torch.equal(A.argmax(1), Ap.argmax(1))
@@ -143,10 +148,10 @@ def test_decode_kernel_past_the_old_limits(cuda, name):
     Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, 5).to(cuda))
     Kt, V = Kt.contiguous(), V.contiguous()
     packed = K1.pack_decode_params(cfg, p)
-    n = K1.fused_decode.launches
+    c0 = profiling.counts()
     Y, A = K1.fused_decode(packed, Kt, V, cfg.max_T, cfg)
     torch.cuda.synchronize()
-    assert K1.fused_decode.launches == n + 1
+    assert _counted(c0)["k1.launches"] == 1
     Yr, Ar = K1.fused_decode_plain(packed, Kt, V, cfg.max_T, cfg,
                                    cursors=A.argmax(1))
     for b, t in (A.argmax(1) != Ar.argmax(1)).nonzero().tolist():
@@ -177,14 +182,14 @@ def test_flag_exchange_matches_grid_bitwise(cuda, name, prec):
     for B in (1, 2, 3, 5, 8):
         Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, B, seed=B).to(cuda))
         Kt, V = Kt.contiguous(), V.contiguous()
-        n = dict(K1.fused_decode.launches_by_exchange)
+        c0 = profiling.counts()
         Yg, Ag = K1.launch_decode(packed, Kt, V, cfg.max_T, cfg, prec,
                                   exchange="grid")
         Yf, Af = K1.launch_decode(packed, Kt, V, cfg.max_T, cfg, prec,
                                   exchange="flag")
         torch.cuda.synchronize()
-        assert K1.fused_decode.launches_by_exchange == {
-            "grid": n["grid"] + 1, "flag": n["flag"] + 1}
+        n = _counted(c0)
+        assert (n["k1.grid.launches"], n["k1.flag.launches"]) == (1, 1)
         assert torch.equal(Yf, Yg) and torch.equal(Af, Ag), B
 
 
@@ -196,12 +201,13 @@ def test_decode_counts_launches_by_exchange(cuda):
     packed = K1.pack_decode_params(cfg, p)
     for B, x in ((1, "flag"), (72, "grid")):
         Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, B).to(cuda))
-        n = dict(K1.fused_decode.launches_by_exchange)
+        c0 = profiling.counts()
         for _ in range(2):
             K1.fused_decode(packed, Kt.contiguous(), V.contiguous(), 8, cfg)
         torch.cuda.synchronize()
-        assert K1.fused_decode.launches_by_exchange == {
-            **n, x: n[x] + 2}, B
+        n = _counted(c0)
+        assert {e: n[f"k1.{e}.launches"] for e in K1.EXCHANGES} == {
+            e: 2 * (e == x) for e in K1.EXCHANGES}, B
 
 
 def test_decode_kernel_spills_rows(cuda):
@@ -237,10 +243,10 @@ def test_decode_refuses_grid_not_coresident(cuda, monkeypatch):
         return K1.decode_blocks(device) - 1, sms
 
     monkeypatch.setattr(K1, "coresident_blocks", fewer)
-    n = K1.fused_decode.launches
+    c0 = profiling.counts()
     with pytest.raises(RuntimeError, match="co-resident"):
         K1.fused_decode(packed, Kt.contiguous(), V.contiguous(), 4, cfg)
-    assert K1.fused_decode.launches == n
+    assert profiling.counts() == c0
 
 
 def test_decode_kernel_refuses_bad_packing(cuda):
@@ -249,13 +255,13 @@ def test_decode_kernel_refuses_bad_packing(cuda):
     cfg = test_config()
     p = Text2Mel(cfg).init(torch.Generator().manual_seed(0), cuda)
     Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, 2).to(cuda))
-    n = K1.fused_decode.launches
+    c0 = profiling.counts()
     for prec, other in (("high3", "highest"), ("hybrid", "high3"),
                         ("default", "hybrid")):
         with pytest.raises(ValueError, match="packed"):
             K1.fused_decode(K1.pack_decode_params(cfg, p, other),
                             Kt.contiguous(), V.contiguous(), 4, cfg, prec)
-    assert K1.fused_decode.launches == n
+    assert profiling.counts() == c0
 
 
 # the JAX gl2 test's geometry, and a non-power-of-two n_fft (32 * 15) with
@@ -321,12 +327,13 @@ def test_k3_matches_plain(cuda, three, geom=(512, 69, 275), F=160):
     from dc_tts_tpu_torch.ops import gl as K3
     g, consts, Xr, Xi, mag = _k3_inputs(cuda, F=F, geom=geom)
     npass = 3 if three else 1
-    n_a, n_b = K3.k3a.launches[npass], K3.k3b.launches[npass]
+    c0 = profiling.counts()
     got = K3.fused_gl_round(Xr, Xi, mag, consts, g, three)
     y = K3.k3a(Xr, Xi, consts, g, three)
     torch.cuda.synchronize()
-    assert (K3.k3a.launches[npass], K3.k3b.launches[npass]) == \
-        (n_a + 2, n_b + 1)
+    n = _counted(c0)
+    assert (n[f"k3a.{npass}pass.launches"],
+            n[f"k3b.{npass}pass.launches"]) == (2, 1)
     want = K3.fused_gl_round_plain(Xr, Xi, mag, consts, g, three)
     d = torch.cat([(a - b).abs().flatten() for a, b in zip(got, want)])
     assert float(d.max()) <= 2e-2 and float(d.mean()) <= 1e-5, \
@@ -359,10 +366,12 @@ def test_k3_launch_counts_and_bad_input(cuda):
     from dc_tts_tpu_torch.dsp.griffin_lim import griffin_lim
     from dc_tts_tpu_torch.ops import gl as K3
     g, consts, Xr, Xi, mag = _k3_inputs(cuda, B=2)
-    K3.k3a.launches, K3.k3b.launches = {1: 0, 3: 0}, {1: 0, 3: 0}
+    want = {f"{k}{mode}.launches": n for k in ("k3a", "k3b")
+            for mode, n in (("", 4), (".1pass", 1), (".3pass", 3))}
+    profiling.reset_counts()
     wav = griffin_lim(mag[:, :g.F], 512, 69, 275, 4, method="dft_pallas")
     torch.cuda.synchronize()
-    assert K3.k3a.launches == K3.k3b.launches == {1: 1, 3: 3}
+    assert profiling.counts() == want
     assert wav.shape == (2, g.L_sig) and bool(torch.isfinite(wav).all())
     with pytest.raises(ValueError):
         K3.fused_gl_round(Xr.double(), Xi.double(), mag.double(), consts, g)
@@ -371,7 +380,7 @@ def test_k3_launch_counts_and_bad_input(cuda):
     with pytest.raises(ValueError):
         K3.fused_gl_round(Xr, Xi, mag, {k: v.cpu() for k, v in
                                         consts.items()}, g)
-    assert K3.k3a.launches == K3.k3b.launches == {1: 1, 3: 3}
+    assert profiling.counts() == want
 
 
 # ------------------------------------------------------------------ K4
@@ -405,11 +414,10 @@ def test_hc_kernels_match_plain(cuda, B, T, C, size, rate, causal):
     from dc_tts_tpu_torch.ops import hc_vjp as K4
     *args, dy = _hc_inputs(B, T, C, size, 7, cuda)
     geo = (size, rate, causal, 1e-5)
-    n_f, n_b = K4.hc_block_fwd.launches, K4.hc_block_bwd.launches
+    c0 = profiling.counts()
     outs = (K4.hc_block_fwd(*args, *geo), *K4.hc_block_bwd(*args, dy, *geo))
     torch.cuda.synchronize()
-    assert (K4.hc_block_fwd.launches, K4.hc_block_bwd.launches) == \
-        (n_f + 1, n_b + 1)
+    assert _counted(c0) == {"k4.fwd.launches": 1, "k4.bwd.launches": 1}
     a64 = [a.double() for a in args]
     ref = (K4.hc_block_fwd_plain(*a64, *geo),
            *K4.hc_block_bwd_plain(*a64, dy.double(), *geo))
@@ -442,16 +450,14 @@ def test_hc_bf16_kernels_match_plain(cuda, B, T, C, size, rate, causal):
     from dc_tts_tpu_torch.ops import hc_vjp as K4
     *args, dy = _hc_inputs(B, T, C, size, 8, cuda)
     geo = (size, rate, causal, 1e-5, True)
-    n32 = (K4.hc_block_fwd.launches, K4.hc_block_bwd.launches)
-    n16 = (K4.hc_block_fwd.launches_bf16, K4.hc_block_bwd.launches_bf16)
+    c0 = profiling.counts()
     leaves = [a.clone().requires_grad_(True) for a in args]
     y = K4.hc_block_trainable(*leaves, *geo)
     outs = (y.detach(), *torch.autograd.grad(y, leaves, dy))
     again = K4.hc_block_bwd(*args, dy, *geo)
     torch.cuda.synchronize()
-    assert (K4.hc_block_fwd.launches, K4.hc_block_bwd.launches) == n32
-    assert (K4.hc_block_fwd.launches_bf16, K4.hc_block_bwd.launches_bf16) \
-        == (n16[0] + 1, n16[1] + 2)
+    assert _counted(c0) == {"k4.fwd.launches": 1, "k4.fwd.bf16.launches": 1,
+                            "k4.bwd.launches": 2, "k4.bwd.bf16.launches": 2}
     assert all(torch.equal(a, b) for a, b in zip(outs[1:], again))
     a64 = [a.double() for a in args]
     ref = (K4.hc_block_fwd_plain(*a64, *geo),
@@ -477,12 +483,12 @@ def test_hc_narrow_channels_launch_the_kernels(cuda):
     from dc_tts_tpu_torch.ops import hc_vjp as K4
     for C, bf16 in ((12, True), (10, False)):
         *args, dy = _hc_inputs(2, 30, C, 3, 12, cuda)
-        key = "launches_bf16" if bf16 else "launches"
-        n = (getattr(K4.hc_block_fwd, key), getattr(K4.hc_block_bwd, key))
+        c0 = profiling.counts()
         y = K4.hc_block_fwd(*args, 3, 1, False, 1e-5, bf16)
         grads = K4.hc_block_bwd(*args, dy, 3, 1, False, 1e-5, bf16)
-        assert (getattr(K4.hc_block_fwd, key),
-                getattr(K4.hc_block_bwd, key)) == (n[0] + 1, n[1] + 1)
+        assert _counted(c0) == {
+            f"k4.{d}{v}.launches": 1 for d in ("fwd", "bwd")
+            for v in ("", ".bf16")[:1 + bf16]}
         assert y.shape == args[0].shape
         assert [g.shape for g in grads] == [a.shape for a in args]
         assert all(bool(torch.isfinite(t).all()) for t in (y, *grads))
@@ -505,11 +511,10 @@ def test_hc_autograd_uses_kernels_and_raises_on_bad_input(cuda):
     from dc_tts_tpu_torch.ops import hc_vjp as K4
     *args, dy = _hc_inputs(2, 40, 32, 3, 11, cuda)
     leaves = [a.clone().requires_grad_(True) for a in args]
-    n_f, n_b = K4.hc_block_fwd.launches, K4.hc_block_bwd.launches
+    c0 = profiling.counts()
     y = K4.hc_block_trainable(*leaves, 3, 1, True, 1e-5)
     grads = torch.autograd.grad(y, leaves, dy)
-    assert (K4.hc_block_fwd.launches, K4.hc_block_bwd.launches) == \
-        (n_f + 1, n_b + 1)
+    assert _counted(c0) == {"k4.fwd.launches": 1, "k4.bwd.launches": 1}
     direct = K4.hc_block_bwd(*args, dy, 3, 1, True, 1e-5)
     assert all(torch.equal(a, b) for a, b in zip(grads, direct))
     # a float64 input or a weight of the wrong shape raises on the card
@@ -519,7 +524,7 @@ def test_hc_autograd_uses_kernels_and_raises_on_bad_input(cuda):
     with pytest.raises(ValueError):
         K4.hc_block_trainable(args[0], args[1][:2], *args[2:], 3, 1, True,
                               1e-5)
-    assert K4.hc_block_fwd.launches == n_f + 1
+    assert _counted(c0)["k4.fwd.launches"] == 1
 
 
 # ------------------------------------------------------------------ X1-X4
@@ -545,7 +550,7 @@ def test_ct_full_and_fact_match_plain(cuda, F, bf16):
     stage C rounds float32 sums taken in another order to bf16)."""
     from dc_tts_tpu_torch.ops import ct_fwd as X
     x, m, scale = _ct_case(F, bf16, cuda)
-    n1, n3 = X.full_fwd.launches, X.fact_fwd.launches
+    c0 = profiling.counts()
     got = X.full_fwd(x, m, bf16)
     assert got[0].shape == (F, 1025)
     assert _ct_dist(got, X.full_fwd_plain(x, m, bf16), scale) <= 1e-5
@@ -555,7 +560,8 @@ def test_ct_full_and_fact_match_plain(cuda, F, bf16):
         assert got[0].shape == (16, F, 128)
         assert _ct_dist(got, want, scale) <= (1e-3 if bf16 else 1e-5)
     torch.cuda.synchronize()
-    assert (X.full_fwd.launches, X.fact_fwd.launches) == (n1 + 1, n3 + 2)
+    n = _counted(c0)
+    assert (n["x1.launches"], n["x3.launches"]) == (1, 2)
 
 
 @pytest.mark.parametrize("F,tf", [(64, 32), (1024, 512)])
@@ -563,14 +569,14 @@ def test_ct_full_and_fact_match_plain(cuda, F, bf16):
 def test_ct_tiled_matches_plain(cuda, F, tf, bf16):
     from dc_tts_tpu_torch.ops import ct_fwd as X
     x, m, scale = _ct_case(F, bf16, cuda)
-    n = X.fact_fwd_tiled.launches
+    c0 = profiling.counts()
     got = X.fact_fwd_tiled(x, m, bf16, tf)
-    assert X.fact_fwd_tiled.launches == n + 1
+    assert _counted(c0)["x2.launches"] == 1
     want = X.fact_fwd_tiled_plain(x, m, bf16, tf)
     assert _ct_dist(got, want, scale) <= (1e-3 if bf16 else 1e-5)
     with pytest.raises(ValueError):
         X.fact_fwd_tiled(x[:-1], m, bf16, tf)
-    assert X.fact_fwd_tiled.launches == n + 1
+    assert _counted(c0)["x2.launches"] == 1
 
 
 @pytest.mark.parametrize("F,tf", [(80, 32), (840, 512)])
@@ -582,9 +588,9 @@ def test_ct_ablate_matches_plain(cuda, F, tf, bf16):
     x, m, scale = _ct_case(F, bf16, cuda)
     Fc = F // tf * tf
     for stages in X.STAGE_SETS:
-        n = X.ablate_fwd.launches
+        c0 = profiling.counts()
         got = X.ablate_fwd(x, m, bf16, stages, tf)
-        assert X.ablate_fwd.launches == n + 1
+        assert _counted(c0)["x4.launches"] == 1
         want = X.ablate_fwd_plain(x, m, bf16, stages, tf)
         tol = 1e-3 if bf16 and "C" in stages else 1e-5
         assert _ct_dist(got, want, scale) <= tol, stages
@@ -621,7 +627,7 @@ def test_ct_bad_input_raises(cuda):
     the CPU, raise on the card (never the plain version)."""
     from dc_tts_tpu_torch.ops import ct_fwd as X
     x, m, _ = _ct_case(64, True, cuda)
-    n = (X.full_fwd.launches, X.fact_fwd.launches)
+    c0 = profiling.counts()
     with pytest.raises(ValueError):
         X.full_fwd(x.double(), m, True)
     with pytest.raises(ValueError):
@@ -630,7 +636,7 @@ def test_ct_bad_input_raises(cuda):
         X.fact_fwd(x, {k: v.cpu() for k, v in m.items()}, True)
     with pytest.raises(ValueError):
         X.fact_fwd(x.flatten()[1:-2047].view(63, 2048), m, True)
-    assert (X.full_fwd.launches, X.fact_fwd.launches) == n
+    assert profiling.counts() == c0
 
 
 def test_ssrn_step_at_c10_launches_k4_on_every_block(cuda, monkeypatch):
@@ -657,13 +663,14 @@ def test_ssrn_step_at_c10_launches_k4_on_every_block(cuda, monkeypatch):
         b = {k: torch.tensor(v, dtype=torch.float32, device=dev)
              for k, v in batch.items()}
         widths.clear()
-        n = (K4.hc_block_fwd.launches, K4.hc_block_bwd.launches)
+        c0 = profiling.counts()
         _, m = TS.make_ssrn_step(cfg)(state, b, None)
         losses[str(dev)] = float(m["loss"])
     torch.cuda.synchronize()
     assert set(widths) == {10, 20}
-    assert (K4.hc_block_fwd.launches - n[0],
-            K4.hc_block_bwd.launches - n[1]) == (len(widths), len(widths))
+    n = _counted(c0)
+    assert (n["k4.fwd.launches"], n["k4.bwd.launches"]) == (len(widths),
+                                                            len(widths))
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
 
 
@@ -687,7 +694,6 @@ def test_spans_share_the_device_trace_clock(cuda, tmp_path):
     import json
 
     from dc_tts_tpu_torch.bench import seeded_nets
-    from dc_tts_tpu_torch.utils import profiling
 
     cfg = base_config()
     synth = Synthesizer(cfg, *seeded_nets(cfg), pcm16=True)
@@ -770,15 +776,15 @@ def test_synthesizer_textenc_graph_matches_eager_chain(cuda, B):
     static input would give the second the first's); one capture for the
     shape, one replay a call."""
     from dc_tts_tpu_torch.bench import seeded_nets
-    from dc_tts_tpu_torch.pipeline import text_encode_graphs as G
     cfg = base_config()
     synth = Synthesizer(cfg, _biased_t2m(cfg, "cpu"), seeded_nets(cfg)[1],
                         pcm16=True)
     batches = [_ids(cfg, B, seed=10 + B + i).numpy() for i in range(2)]
-    c0, r0 = G.captures, G.replays
+    c0 = profiling.counts()
     graphed = [synth.synthesize_ids(ids) for ids in batches]
     torch.cuda.synchronize()
-    assert (G.captures - c0, G.replays - r0) == (1, 2)
+    n = _counted(c0)
+    assert (n["textenc.graph.captures"], n["textenc.graph.replays"]) == (1, 2)
     encoder, synth.text_encoder = synth.text_encoder, None
     eager = [synth.synthesize_ids(ids) for ids in batches]
     synth.text_encoder = encoder
@@ -793,23 +799,23 @@ def test_textenc_graph_cache_evicts_and_recaptures(cuda):
     """One shape past ``TEXTENC_GRAPHS``: the least recently used shape is
     evicted, and on its next call captured again, bitwise the eager K, V."""
     from dc_tts_tpu_torch.pipeline import TEXTENC_GRAPHS
-    from dc_tts_tpu_torch.pipeline import text_encode_graphs as G
+    from dc_tts_tpu_torch.pipeline import text_encode_graphs
     cfg = test_config()
     model = Text2Mel(cfg)
     p = _biased_t2m(cfg, cuda)
-    graphs = G(model, p)
+    graphs = text_encode_graphs(model, p)
     ids = {B: _ids(cfg, B, seed=B).to(cuda)
            for B in range(1, TEXTENC_GRAPHS + 2)}
-    c0 = G.captures
+    c0 = profiling.counts()
     for B in range(1, TEXTENC_GRAPHS + 1):
         graphs(ids[B])
     graphs(ids[1])                         # shape 2 is now the oldest
     graphs(ids[TEXTENC_GRAPHS + 1])
-    assert G.captures - c0 == TEXTENC_GRAPHS + 1
+    assert _counted(c0)["textenc.graph.captures"] == TEXTENC_GRAPHS + 1
     assert (2, cfg.max_N) not in graphs.graphs
     assert len(graphs.graphs) == TEXTENC_GRAPHS
     K, V = graphs(ids[2])
-    assert G.captures - c0 == TEXTENC_GRAPHS + 2
+    assert _counted(c0)["textenc.graph.captures"] == TEXTENC_GRAPHS + 2
     Ke, Ve = model.text_encode(p, ids[2])
     assert torch.equal(K, Ke) and torch.equal(V, Ve)
 
@@ -885,9 +891,9 @@ def test_k5_blocks_match_the_eager_chain(cuda, B, monkeypatch):
             for got, want in zip(K5.prologue(x, spec, Kp),
                                  K5.prologue_plain(x, spec, Kp)):
                 assert torch.equal(got, want), (i, spec)
-            n0 = K5.ssrn_block.launches
+            c0 = profiling.counts()
             y = K5.ssrn_block(p, spec, x, h, cfg.ln_eps)
-            assert K5.ssrn_block.launches - n0 == 2
+            assert _counted(c0)["k5.launches"] == 2
             want = blocks.apply_block(p, spec, x, ln_eps=cfg.ln_eps,
                                       dtype="high")
             d = float((y - want).abs().max())
@@ -921,15 +927,14 @@ def test_k5_ssrn_matches_the_eager_chain(cuda, B):
     launches a call, the halves packed when not given, bitwise the same):
     Z within ``_k5_gate`` of the eager chain's."""
     from dc_tts_tpu_torch.models.ssrn import ssrn_specs
-    from dc_tts_tpu_torch.ops import ssrn_block as K5
 
     cfg, params, Y = _k5_case(cuda, B, seed=4)
     model = SSRN(cfg)
     packed = model.pack(params)
     with torch.no_grad():
-        n0 = K5.ssrn_block.launches
+        c0 = profiling.counts()
         _, Z = model.apply(params, Y, packed=packed)
-        assert K5.ssrn_block.launches - n0 == 32
+        assert _counted(c0)["k5.launches"] == 32
         _, Z2 = model.apply(params, Y)
     Zp, Z64, gate = _k5_gate(params, ssrn_specs(cfg), Y, cfg.ln_eps, packed)
     dZ = float((Z - Zp).abs().max())
@@ -942,16 +947,14 @@ def test_k5_ssrn_matches_the_eager_chain(cuda, B):
 
 def test_k5_not_taken_with_gradients_or_other_modes(cuda):
     """Gradients on, training, float32 and bf16 operands: no K5 launch."""
-    from dc_tts_tpu_torch.ops import ssrn_block as K5
-
     cfg, params, Y = _k5_case(cuda, 1, seed=5)
-    n0 = K5.ssrn_block.launches
+    c0 = profiling.counts()
     SSRN(cfg).apply(params, Y)                          # gradients on
     with torch.no_grad():
         SSRN(cfg.replace(dropout_rate=0.0)).apply(params, Y, train=True)
         for compute in ("float32", "bfloat16", "bfloat16_full"):
             SSRN(cfg.replace(compute_dtype=compute)).apply(params, Y)
-    assert K5.ssrn_block.launches == n0
+    assert _counted(c0)["k5.launches"] == 0
 
 
 def test_synthesizer_runs_k5_once_a_block(cuda):
@@ -959,12 +962,11 @@ def test_synthesizer_runs_k5_once_a_block(cuda):
     within ``_k5_gate`` of the eager chain on the chunk's own Y."""
     from dc_tts_tpu_torch.bench import seeded_nets
     from dc_tts_tpu_torch.models.ssrn import ssrn_specs
-    from dc_tts_tpu_torch.ops import ssrn_block as K5
     cfg = base_config()
     synth = Synthesizer(cfg, *seeded_nets(cfg), pcm16=True)
-    n0 = K5.ssrn_block.launches
+    c0 = profiling.counts()
     _, Y, Z, _ = synth.synthesize_ids(_ids(cfg, 3).numpy())
-    assert K5.ssrn_block.launches - n0 == 32
+    assert _counted(c0)["k5.launches"] == 32
     Zp, _, gate = _k5_gate(synth.ssrn_params, ssrn_specs(cfg), Y,
                            cfg.ln_eps, synth.ssrn_packed)
     assert float((Z - Zp).abs().max()) <= gate

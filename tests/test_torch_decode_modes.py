@@ -39,6 +39,7 @@ from dc_tts_tpu_torch.config import test_config
 from dc_tts_tpu_torch.models import Text2Mel
 from dc_tts_tpu_torch.ops import decode as K1
 from dc_tts_tpu_torch.params import from_jax_params
+from dc_tts_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -218,11 +219,10 @@ def test_wrapper_takes_plain_version_on_cpu(t2m, prec):
     _, tp, ids = t2m
     Kt, V = Text2Mel(CFG).text_encode(tp, torch.as_tensor(ids))
     packed = K1.pack_decode_params(CFG, tp, prec)
-    before = (K1.fused_decode.launches, dict(K1.fused_decode.launches_by_prec))
+    before = profiling.counts()
     Y, A = K1.fused_decode(packed, Kt, V, 4, CFG, prec)
     Yp, Ap = K1.fused_decode_plain(packed, Kt, V, 4, CFG, prec)
-    assert (K1.fused_decode.launches,
-            dict(K1.fused_decode.launches_by_prec)) == before
+    assert profiling.counts() == before
     assert torch.equal(Y, Yp) and torch.equal(A, Ap)
     other = "high3" if prec != "high3" else "highest"
     with pytest.raises(ValueError, match="packed"):

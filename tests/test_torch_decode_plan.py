@@ -16,6 +16,7 @@ import torch
 from dc_tts_tpu_torch.config import base_config, test_config
 from dc_tts_tpu_torch.models import Text2Mel
 from dc_tts_tpu_torch.ops import decode as K1
+from dc_tts_tpu_torch.utils import profiling
 
 CONFIGS = {"test": test_config, "base": base_config}
 # grid sizes the kernel takes: whole clusters (one block per SM: 132 on
@@ -301,10 +302,10 @@ def test_launch_refuses_cpu_tensors(packed_test):
     before the library is loaded."""
     cfg, packed = packed_test
     Kt = torch.zeros(2, cfg.max_N, cfg.d)
-    n = K1.fused_decode.launches
+    before = profiling.counts()
     with pytest.raises(ValueError, match="CUDA"):
         K1.launch_decode(packed["highest"], Kt, Kt.clone(), 4, cfg)
-    assert K1.fused_decode.launches == n
+    assert profiling.counts() == before
 
 
 # ---------------------------------------------------------------------------

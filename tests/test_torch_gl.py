@@ -31,6 +31,7 @@ from dc_tts_tpu_torch.config import test_config
 from dc_tts_tpu_torch.dsp import griffin_lim as tgl
 from dc_tts_tpu_torch.dsp import stft as tstft
 from dc_tts_tpu_torch.ops import gl as K3
+from dc_tts_tpu_torch.utils import profiling
 
 jgl = import_module("dc_tts_tpu.dsp.griffin_lim")
 jstft = import_module("dc_tts_tpu.dsp.stft")
@@ -109,10 +110,10 @@ def _gate(got, want):
 def test_plain_round_matches_jax_kernel(three):
     g = K3.gl_geometry(N_FFT, HOP, WIN_L, F)
     mag, Xr, Xi = _round_inputs(0, F)
-    before = (dict(K3.k3a.launches), dict(K3.k3b.launches))
+    before = profiling.counts()
     got = _port_round(g, K3.gl_fused_consts(N_FFT, HOP, WIN_L, F), mag, Xr,
                       Xi, three)
-    assert (K3.k3a.launches, K3.k3b.launches) == before
+    assert profiling.counts() == before
     jc = jax.tree.map(jnp.asarray, jk3.gl_fused_consts(N_FFT, HOP, WIN_L, F))
     want = jk3.fused_gl_round(*(jnp.asarray(a) for a in _padded(g, Xr, Xi,
                                                                 mag)),

@@ -27,6 +27,7 @@ from dc_tts_tpu_torch.ops import decode as K1
 from dc_tts_tpu_torch.ops import gl2 as K2
 from dc_tts_tpu_torch.params import from_jax_params
 from dc_tts_tpu_torch.pipeline import Synthesizer, restore_synthesis_params
+from dc_tts_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -113,9 +114,9 @@ def test_synthesizer_decode_modes_and_precisions(params, mode, prec):
             == (torch.float32 if prec == "highest" else torch.bfloat16)
     else:
         assert synth.packed is None
-    n = K1.fused_decode.launches
+    before = profiling.counts()
     wav, Y, Z, A = synth.synthesize_ids(ids)
-    assert K1.fused_decode.launches == n
+    assert profiling.counts() == before
     Yd, Ad = Text2Mel(test_config()).decode(t1, torch.as_tensor(ids),
                                             mode=mode, prec=prec)
     assert torch.equal(Y, Yd) and torch.equal(A, Ad)
@@ -285,10 +286,10 @@ def test_wrappers_take_plain_versions_on_cpu():
     g = K2.gl2_geometry(cfg.n_fft, cfg.hop_length, cfg.win_length, 40)
     mag = K2.scramble_mag(torch.rand(2, 40, cfg.n_freq, generator=gen), g)
     consts = K2.gl2_consts(cfg.n_fft, cfg.hop_length, cfg.win_length, 40)
-    n1, n2 = K1.fused_decode.launches, K2.gl2_run.launches
+    before = profiling.counts()
     assert all(torch.equal(a, b) for a, b in zip(
         K1.fused_decode(packed, Kt, V, 4, cfg),
         K1.fused_decode_plain(packed, Kt, V, 4, cfg)))
     assert torch.equal(K2.gl2_run(mag, consts, g, 2),
                        K2.gl2_run_plain(mag, consts, g, 2))
-    assert (K1.fused_decode.launches, K2.gl2_run.launches) == (n1, n2)
+    assert profiling.counts() == before

@@ -5,8 +5,6 @@ the cache's rule (a graph a shape, the least recently used shape evicted,
 each call's input copied in before the replay) with capture stubbed out.
 The captured graphs themselves run on the card (``tests/test_torch_cuda.py``).
 """
-from types import SimpleNamespace
-
 import numpy as np
 import pytest
 import torch
@@ -56,14 +54,10 @@ def test_decode_text_encoder_hook_matches_default(mode):
 def test_cpu_synthesizer_never_captures():
     synth = Synthesizer(CFG, *seeded_nets(CFG), device="cpu",
                         decode_mode="incremental")
-    before = profiling.summary()
+    before = profiling.counts()
     synth.synthesize_ids(_ids(1))
-    after = profiling.summary()
     assert synth.text_encoder is None
-    for key in ("textenc.graph.captures", "textenc.graph.replays"):
-        assert after[key] == before[key]
-    assert profiling.COUNTERS["textenc.graph.captures"] == (
-        "pipeline", "text_encode_graphs", ("captures",))
+    assert profiling.counts() == before
 
 
 class _Replay:
@@ -86,19 +80,24 @@ class _StubCache(GraphCache):
 
 
 def _cache(capacity):
-    counts = SimpleNamespace(captures=0, replays=0)
-    return _StubCache(lambda x: (2 * x, x + 1), capacity, counts), counts
+    profiling.reset_counts()
+    return _StubCache(lambda x: (2 * x, x + 1), capacity, "stub")
+
+
+def _graph_counts():
+    c = profiling.counts()
+    return c["stub.captures"], c["stub.replays"]
 
 
 def test_graph_cache_one_graph_a_shape_fresh_input_each_call():
     """Two inputs of one shape: one capture, two replays, the static
     outputs handed back each time and holding the second input's result."""
-    cache, counts = _cache(2)
+    cache = _cache(2)
     a, b = torch.arange(6.).reshape(2, 3), -torch.arange(6.).reshape(2, 3)
     first = cache(a)
     assert torch.equal(first[0], 2 * a)
     second = cache(b)
-    assert (counts.captures, counts.replays) == (1, 2)
+    assert _graph_counts() == (1, 2)
     assert all(s is f for s, f in zip(second, first))
     assert torch.equal(second[0], 2 * b) and torch.equal(second[1], b + 1)
     assert list(cache.graphs) == [(2, 3)]
@@ -107,24 +106,27 @@ def test_graph_cache_one_graph_a_shape_fresh_input_each_call():
 def test_graph_cache_evicts_the_least_recently_used_shape():
     """Capacity 2, shapes a b a c b: c evicts b (a was used after it), b
     evicts a and is captured again, and computes from its own input."""
-    cache, counts = _cache(2)
+    cache = _cache(2)
     x = {k: torch.full((k, 2), float(k)) for k in (1, 2, 3)}
     for k in (1, 2, 1, 3):
         cache(x[k])
     assert list(cache.graphs) == [(1, 2), (3, 2)]
     out = cache(x[2] + 5)
     assert list(cache.graphs) == [(3, 2), (2, 2)]
-    assert (counts.captures, counts.replays) == (4, 5)
+    assert _graph_counts() == (4, 5)
     assert torch.equal(out[0], 2 * (x[2] + 5))
 
 
 def test_text_encode_graphs_counts_on_the_function(monkeypatch):
-    """The Synthesizer's cache counts on ``text_encode_graphs`` (what
+    """The Synthesizer's cache counts its captures and replays as
+    ``textenc.graph.captures`` and ``.replays`` (what
     ``profiling.summary()`` reads), and holds ``TEXTENC_GRAPHS`` shapes."""
-    monkeypatch.setattr(pipeline.text_encode_graphs, "captures", 3)
-    monkeypatch.setattr(pipeline.text_encode_graphs, "replays", 8)
+    monkeypatch.setattr(GraphCache, "_capture", _StubCache._capture)
     cache = pipeline.text_encode_graphs(Text2Mel(CFG), seeded_nets(CFG)[0])
+    ids = torch.as_tensor(_ids(1))
+    profiling.reset_counts()
+    cache(ids)
+    cache(ids)
     s = profiling.summary()
-    assert (s["textenc.graph.captures"], s["textenc.graph.replays"]) == (3, 8)
-    assert cache.counts is pipeline.text_encode_graphs
+    assert (s["textenc.graph.captures"], s["textenc.graph.replays"]) == (1, 2)
     assert cache.capacity == pipeline.TEXTENC_GRAPHS

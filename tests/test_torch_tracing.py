@@ -246,22 +246,34 @@ def test_the_cap_counts_dropped_spans(monkeypatch):
     assert profiling.summary()["spans.dropped"] == 0
 
 
-def test_summary_reads_the_launch_counters(monkeypatch):
-    from dc_tts_tpu_torch.ops import decode as K1
-    from dc_tts_tpu_torch.ops import hc_vjp as K4
-    monkeypatch.setattr(K1.fused_decode, "launches", 7)
-    monkeypatch.setattr(K4.hc_block_bwd, "launches", 2)
-    monkeypatch.setattr(K4.hc_block_bwd, "launches_bf16", 3)
-    s = profiling.summary()
-    assert set(profiling.COUNTERS) <= set(s)
-    assert s["k1.launches"] == 7 and s["k4.bwd.launches"] == 5
+def test_summary_reads_the_launch_counters():
+    """What ``count()`` counts reads back in ``counts()`` and
+    ``summary()``; ``counts()`` is a copy, in which a name never counted
+    reads 0; ``reset_counts()`` clears the store."""
+    profiling.reset_counts()
+    profiling.count("k1.launches", 7)
+    profiling.count("k4.bwd.launches", 2)
+    profiling.count("k4.bwd.launches")
+    s, c = profiling.summary(), profiling.counts()
+    assert s["k1.launches"] == 7 and s["k4.bwd.launches"] == 3
+    assert c == {"k1.launches": 7, "k4.bwd.launches": 3}
+    assert c["k2.launches"] == 0
+    c["k1.launches"] += 1
+    assert profiling.counts()["k1.launches"] == 7
+    profiling.reset_counts()
+    assert profiling.counts() == {}
+    assert "k1.launches" not in profiling.summary()
 
 
-def test_summary_reads_k1_launches_by_exchange(monkeypatch):
-    """K1's launches by exchange are counted apart, each from its own
-    entry of ``fused_decode.launches_by_exchange``."""
-    from dc_tts_tpu_torch.ops import decode as K1
-    monkeypatch.setattr(K1.fused_decode, "launches_by_exchange",
-                        {"grid": 2, "flag": 3})
+def test_summary_reads_k1_launches_by_exchange():
+    """K1's launches by exchange are names of their own beside its total,
+    each read back as counted."""
+    profiling.reset_counts()
+    for exchange, n in (("grid", 2), ("flag", 3)):
+        for name in ("k1", f"k1.{exchange}"):
+            profiling.count(name + ".launches", n)
     s = profiling.summary()
     assert (s["k1.grid.launches"], s["k1.flag.launches"]) == (2, 3)
+    assert s["k1.launches"] == 5
+    profiling.reset_counts()
+    assert profiling.counts()["k1.grid.launches"] == 0
