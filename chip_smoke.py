@@ -71,9 +71,12 @@ line:
              held equal to synthesize_ids' on the same chunk. Every launch
              count is set to 0 before and read after the 40 sentences: K3's
              must stay 0 on this default (dft_pallas2) path, K5 launches
-             twice for each of SSRN's 16 blocks a chunk, and TextEnc's
+             twice for each of SSRN's 16 blocks a chunk, TextEnc's
              graph (captured in the warm-up) is replayed once a chunk,
-             captured never. Then (line
+             captured never, and the copy back's pinned staging pair
+             (to_host.staging.allocs) and de-emphasis's tables
+             (deemphasis.table_uploads), made in the warm-up, are made
+             again never. Then (line
              e2e-ssrn) SSRN on that chunk's decoded mels under each
              ssrn_precision of the Synthesizer (highest, high - the
              default - and bf16): CUDA-event ms and Z's max and mean distance
@@ -1320,10 +1323,14 @@ def phase_e2e(results, smi):
           and launches["k5.launches"] == 2 * 16 * chunks
           and launches["textenc.graph.captures"] == 0
           and launches["textenc.graph.replays"] == chunks
+          and launches["to_host.staging.allocs"] == 0
+          and launches["deemphasis.table_uploads"] == 0
           and int(np.abs(wavs).max()) > 0)
     audio_s = wavs.size / cfg.sr
     line("e2e", ok=ok, shape=wavs.shape, dtype=wavs.dtype,
          launches=json.dumps(launches).replace(" ", ""),
+         staging_allocs=launches["to_host.staging.allocs"],
+         table_uploads=launches["deemphasis.table_uploads"],
          wall_s=f"{wall:.3f}", audio_s=f"{audio_s:.1f}",
          audio_s_per_s=f"{audio_s / wall:.1f}", card=repr(smi))
     if not ok:

@@ -9,7 +9,11 @@ The de-emphasis IIR y[t] = x[t] + coef*y[t-1] (``scipy.signal.lfilter([1],
 [1, -coef], x)``) is computed blocked, without a sequential loop: within a
 block of L samples it is an upper-triangular Toeplitz matmul, and the carry
 between blocks (c_f = coef^L c_{f-1} + last of block f) is the same
-recurrence over the n/L block ends, again one Toeplitz matmul.
+recurrence over the n/L block ends, again one Toeplitz matmul. The two
+matrices and the decay are made once a (coef, L, nb, dtype, device) and kept
+on the device (``_deemphasis_tables``): an upload from pageable memory would
+make the host wait for the stream on every call. Each upload is counted as
+``deemphasis.table_uploads`` (``utils/profiling``).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import count
 from .mel import mel_filterbank
 from .stft import stft
 
@@ -38,6 +43,19 @@ def _iir_toeplitz(coef: float, L: int) -> np.ndarray:
     return K.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=32)
+def _deemphasis_tables(coef: float, L: int, nb: int, dtype: torch.dtype,
+                       device: torch.device):
+    """De-emphasis's (L, L) block Toeplitz, (nb, nb) carry Toeplitz and (L,)
+    decay coef^(1..L), float32 values in ``dtype`` on ``device``."""
+    count("deemphasis.table_uploads")
+    kw = {"device": device, "dtype": dtype}
+    return (torch.as_tensor(_iir_toeplitz(coef, L), **kw),
+            torch.as_tensor(_iir_toeplitz(coef ** L, nb), **kw),
+            torch.as_tensor((coef ** np.arange(1, L + 1)).astype(np.float32),
+                            **kw))
+
+
 def deemphasis(x: torch.Tensor, coef: float, block: int = 512
                ) -> torch.Tensor:
     """Inverse pre-emphasis filter along the last axis, blocked as two
@@ -49,13 +67,10 @@ def deemphasis(x: torch.Tensor, coef: float, block: int = 512
     L = min(block, max(1, n))
     nb = -(-n // L)
     xb = F.pad(x, (0, nb * L - n)).reshape(*x.shape[:-1], nb, L)
-    kw = {"device": x.device, "dtype": x.dtype}
-    local = xb @ torch.as_tensor(_iir_toeplitz(coef, L), **kw)
-    carry = local[..., -1] @ torch.as_tensor(_iir_toeplitz(coef ** L, nb),
-                                             **kw)
+    K, Kc, decay = _deemphasis_tables(coef, L, nb, x.dtype, x.device)
+    local = xb @ K
+    carry = local[..., -1] @ Kc
     prev = F.pad(carry[..., :-1], (1, 0))
-    decay = torch.as_tensor((coef ** np.arange(1, L + 1)).astype(np.float32),
-                            **kw)
     y = local + prev[..., None] * decay
     return y.reshape(*x.shape[:-1], nb * L)[..., :n]
 

@@ -7,8 +7,9 @@ and "reference" are plain torch) -> SSRN -> denormalize -> Griffin-Lim
 (``cfg.stft_method``: kernel K2 under the default "dft_pallas2", kernel K3
 under "dft_pallas", plain torch transforms otherwise) -> de-emphasis ->
 optional 16-bit PCM quantisation on the device. Every step is enqueued on
-the current CUDA stream; nothing waits for the device until results are
-copied back.
+the current CUDA stream; the host waits for the device only in a batch's
+ids upload and in the copy back, which ``synthesize_ids_chunked`` overlaps
+with the next chunk.
 
 The parallel modes run on ``torch.distributed``, one device a rank
 (``parallel/``): ``Synthesizer(mesh=)`` splits each batch's rows over the
@@ -212,6 +213,10 @@ class Synthesizer:
         # here rather than on every batch; None under ssrn_precision other
         # than "high"
         self.ssrn_packed = self.ssrn.pack(self.ssrn_params)
+        # synthesize_ids_chunked's pinned staging pair, (bytes, event) a
+        # slot, and the chunk whose copy back is pending: (event, slot, rows)
+        self._staging, self._staging_bytes = [], 0
+        self._pending = None
         self.text_encoder = None
         if self.device.type == "cuda":
             self.text_encoder = text_encode_graphs(self.text2mel,
@@ -240,6 +245,8 @@ class Synthesizer:
                     self.t2m_params, ids, mode=self.decode_mode,
                     prec=self.decode_prec, packed=self.packed,
                     text_encoder=self.text_encoder)
+            # the chunk before's copy back, while the card decodes this one
+            self._drain()
             with span("ssrn"):
                 _, Z = self.ssrn.apply(self.ssrn_params, Y,
                                        packed=self.ssrn_packed)
@@ -273,22 +280,33 @@ class Synthesizer:
 
     def synthesize_ids_chunked(self, ids, chunk: int = 40) -> np.ndarray:
         """Any batch size, in chunks of ``chunk`` rows -> wavs (B, n_samples)
-        on the host. Every chunk is enqueued before any result is copied
-        back, each copy a non-blocking copy into pinned host memory. (The
-        host still waits for each chunk before it enqueues the next: de-
-        emphasis uploads its tables from pageable memory, which
-        synchronises the stream; the wait shows in ``vocoder``'s self
-        time.) Under a mesh the chunk is first rounded up to a multiple of
-        the data axis.
+        on the host, an array of the caller's own. Under a mesh the chunk is
+        first rounded up to a multiple of the data axis.
+
+        On the card each chunk's waveform is copied, non-blocking, into one
+        slot of a pinned staging pair that the Synthesizer keeps (grown to
+        the largest chunk seen; each pinned allocation counted as
+        ``to_host.staging.allocs``), and an event is recorded after the
+        copy. The next chunk's rows, once its decode is enqueued, wait for
+        that event and copy the slot into its rows of the output while the
+        card decodes; after the last chunk the host waits for that one. So
+        a caller that waits for each chunk (one that reads a chunk's
+        outputs) waits for no copy. The host's one other wait a chunk is
+        the ids' upload at its start. Under a mesh every chunk is enqueued
+        before the first gather, as the gathers are collectives, and each
+        chunk is copied back after the next one's gather. On the CPU each
+        chunk is copied into its rows directly.
 
         Spans (``utils/profiling``): ``synth.call`` around the call, the
         tree's root; in it ``synth.rows`` a chunk (``n`` its rows), which
         holds ``text2mel`` (``Text2Mel.decode``'s ``text2mel.text_encode``
         and ``text2mel.decode``), ``ssrn`` and ``vocoder`` (``vocoder.
-        griffin_lim``, then de-emphasis and pcm16 in its self time); on the
-        card then ``synth.to_host``, the copy back: ``to_host.pin`` a chunk
-        (the pinned allocation), ``to_host.wait`` (the host waiting for the
-        device) and ``to_host.cat`` (the concatenation on the host)."""
+        griffin_lim``, then de-emphasis and pcm16 in its self time). On the
+        card the copy back, in ``synth.to_host`` spans: ``to_host.pin``
+        (obtaining a staging slot) after each chunk, then for each chunk
+        ``to_host.wait`` (the host waiting for its copy) and
+        ``to_host.cat`` (its slot copied into the output), in the next
+        chunk's ``synth.rows`` or after the last."""
         ids = np.asarray(ids)
         if self.mesh is not None:
             nd = self.mesh.shape["data"]
@@ -296,27 +314,69 @@ class Synthesizer:
         parts = [ids[i: i + chunk] for i in range(0, ids.shape[0], chunk)]
         with span("synth.call"):
             if self.mesh is None:
-                wavs = [self._synthesize_rows(p)[0] for p in parts]
+                wavs = (self._synthesize_rows(p)[0] for p in parts)
             else:
                 # every chunk enqueued before the first gather waits on one
                 local = [self._synthesize_rows(self._my_rows(p))[0]
                          for p in parts]
-                wavs = [self._gather(w, len(p))
-                        for w, p in zip(local, parts)]
-            if self.device.type != "cuda":
-                return torch.cat(wavs).numpy()
-            with span("synth.to_host"):
-                host = []
-                for w in wavs:
+                wavs = (self._gather(w, len(p))
+                        for w, p in zip(local, parts))
+            return self._copy_back(wavs, ids.shape[0])
+
+    def _copy_back(self, wavs, B: int) -> np.ndarray:
+        """The chunks' device waveforms, in row order, -> (B, n_samples) on
+        the host, each chunk's copy left pending for the next chunk's rows
+        to finish (``synthesize_ids_chunked``)."""
+        out, row = None, 0
+        try:
+            for k, w in enumerate(wavs):
+                if out is None:
+                    out = torch.empty((B, *w.shape[1:]), dtype=w.dtype)
+                dst = out[row: row + w.shape[0]]
+                row += w.shape[0]
+                if self.device.type != "cuda":
+                    dst.copy_(w)
+                    continue
+                with span("synth.to_host"):
                     with span("to_host.pin"):
-                        h = torch.empty(w.shape, dtype=w.dtype,
-                                        pin_memory=True)
-                    h.copy_(w, non_blocking=True)
-                    host.append(h)
-                with span("to_host.wait"):
-                    torch.cuda.synchronize(self.device)
-                with span("to_host.cat"):
-                    return torch.cat(host).numpy()
+                        slot, event = self._staging_slot(k % 2, w)
+                    slot.copy_(w, non_blocking=True)
+                    event.record(torch.cuda.current_stream(self.device))
+                # the chunk before's, if this chunk's rows did not take it
+                # (a mesh's gathers synthesize no rows)
+                self._drain()
+                self._pending = event, slot, dst
+            self._drain()
+        finally:
+            self._pending = None
+        return out.numpy()
+
+    def _drain(self) -> None:
+        """The pending chunk's copy back, if any: wait for its copy into its
+        staging slot, then copy the slot into its rows of the output."""
+        if self._pending is None:
+            return
+        event, slot, dst = self._pending
+        self._pending = None
+        with span("synth.to_host"):
+            with span("to_host.wait"):
+                event.synchronize()
+            with span("to_host.cat"):
+                dst.copy_(slot)
+
+    def _staging_slot(self, i: int, w: torch.Tensor):
+        """Slot ``i`` of the pinned staging pair as a tensor shaped like
+        ``w``, and the slot's event. Both slots are reallocated when ``w``
+        outgrows them; a copy still pending keeps its old slot alive."""
+        nbytes = w.numel() * w.element_size()
+        if nbytes > self._staging_bytes:
+            self._staging = [(torch.empty(nbytes, dtype=torch.uint8,
+                                          pin_memory=True),
+                              torch.cuda.Event()) for _ in range(2)]
+            self._staging_bytes = nbytes
+            count("to_host.staging.allocs", 2)
+        buf, event = self._staging[i]
+        return buf[:nbytes].view(w.dtype).view(w.shape), event
 
     def synthesize(self, sentences: Sequence[str], *, trim: bool = True):
         """Raw sentences -> list of float32 waveforms (host, trimmed)."""

@@ -27,6 +27,9 @@ X1-X4 at 1e-5 of max |FFT| from their plain versions, 1e-3 for the
 factored kernels in bf16 (stage C rounds float32 sums taken in another
 order to bf16), the CPU tests' gates against JAX. The program's spans
 against ``torch.profiler``'s device trace of single requests: one clock.
+The chunked copy back through the pinned staging pair bit for bit
+``synthesize_ids`` over the chunks, overlapped with the next chunk, its
+host waits outside the vocoder.
 TextEnc replayed from its captured graph (``pipeline.text_encode_graphs``)
 bit for bit the eager encoder, alone and through the Synthesizer. SSRN's
 blocks through K5 (``ops/ssrn_block.py``): the prologue's bf16 halves bit
@@ -683,16 +686,48 @@ def _innermost(t0, t1, notes):
     return min(held)[1] if held else None
 
 
+# the runtime calls in which the host waits for the device
+HOST_WAITS = ("cudaDeviceSynchronize", "cudaStreamSynchronize",
+              "cudaEventSynchronize")
+
+
+def _traced(logdir):
+    """The complete events of ``utils/profiling.trace``'s trace in
+    ``logdir``, and its annotations as (name, start, end)."""
+    import json
+    with open(logdir / "trace.json") as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    return events, [(e["name"], *_at(e)) for e in events
+                    if e.get("cat") == "user_annotation"]
+
+
+def _at(e):
+    return float(e["ts"]), float(e["ts"]) + float(e["dur"])
+
+
+def _host_waits(events, notes):
+    """{runtime call: [innermost annotation of each]} of the host's waits
+    inside the ``synth.call`` annotations' span."""
+    calls = [(a, b) for n, a, b in notes if n == "synth.call"]
+    t0, t1 = min(a for a, _ in calls), max(b for _, b in calls)
+    waits = {}
+    for e in events:
+        if e.get("cat") == "cuda_runtime" and e["name"] in HOST_WAITS \
+                and t0 <= float(e["ts"]) <= t1:
+            waits.setdefault(e["name"], []).append(
+                _innermost(*_at(e), notes))
+    return waits
+
+
 def test_spans_share_the_device_trace_clock(cuda, tmp_path):
     """Three single-sentence requests at base_config under
     ``utils/profiling.trace``: each K1 launch's runtime call lies inside a
     ``text2mel.decode`` annotation, each wait of the host for the device
-    during the calls inside a program span (``cudaDeviceSynchronize`` in
-    ``to_host.wait``; ``-s`` prints where the stream synchronisations of
-    pageable copies lie), and ``text2mel.decode``'s device ms holds K1's
-    kernel time."""
-    import json
-
+    during the calls inside a program span (the copy back's
+    ``cudaEventSynchronize`` in ``to_host.wait``, one a request; ``-s``
+    prints where the stream synchronisations of pageable copies lie), and
+    ``text2mel.decode``'s device ms holds K1's kernel time."""
     from dc_tts_tpu_torch.bench import seeded_nets
 
     cfg = base_config()
@@ -705,14 +740,7 @@ def test_spans_share_the_device_trace_clock(cuda, tmp_path):
             synth.synthesize_ids_chunked(ids[i: i + 1], 1)
     s = profiling.summary()
     profiling.reset()
-    with open(tmp_path / "trace.json") as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X"]
-
-    def at(e):
-        return float(e["ts"]), float(e["ts"]) + float(e["dur"])
-    notes = [(e["name"], *at(e)) for e in events
-             if e.get("cat") == "user_annotation"]
+    events, notes = _traced(tmp_path)
     kernels = [e for e in events if e.get("cat") == "kernel"
                and "decode_kernel" in e["name"]]
     corr = {e["args"]["correlation"] for e in kernels}
@@ -720,23 +748,70 @@ def test_spans_share_the_device_trace_clock(cuda, tmp_path):
                 and e.get("args", {}).get("correlation") in corr]
     assert len(kernels) == len(launches) == 3 == s["text2mel.decode"][
         "count"]
-    assert [_innermost(*at(e), notes) for e in launches] == \
+    assert [_innermost(*_at(e), notes) for e in launches] == \
         ["text2mel.decode"] * 3
-    calls = [(a, b) for n, a, b in notes if n == "synth.call"]
-    t0, t1 = min(a for a, _ in calls), max(b for _, b in calls)
-    waits = {}
-    for e in events:
-        if e.get("cat") == "cuda_runtime" and e["name"] in (
-                "cudaDeviceSynchronize", "cudaStreamSynchronize") \
-                and t0 <= float(e["ts"]) <= t1:
-            waits.setdefault(e["name"], []).append(
-                _innermost(*at(e), notes))
+    waits = _host_waits(events, notes)
     print("waits by innermost span:", waits)
-    assert waits["cudaDeviceSynchronize"] == ["to_host.wait"] * 3
+    assert waits["cudaEventSynchronize"] == ["to_host.wait"] * 3
     assert None not in sum(waits.values(), [])
     k_ms = sum(float(e["dur"]) for e in kernels) / 1e3
     dec = s["text2mel.decode"]
     assert 0.99 * k_ms <= dec["device_ms"] <= k_ms + dec["host_ms"] + 1.0
+
+
+def test_chunked_copy_back_overlaps_and_vocoder_never_waits(cuda, tmp_path):
+    """Five rows at base_config in chunks of 2 (a tail of 1): the pcm16
+    output bit for bit the concatenation of ``synthesize_ids`` over the
+    chunks, and the caller's own (a later call leaves it as it was). The
+    staging pair is allocated in the first call and de-emphasis's tables
+    are uploaded there, never in the second. Under ``utils/profiling.trace``
+    the second call's host waits lie in ``to_host.wait`` (one event wait a
+    chunk) or in ``synth.rows`` (the ids' upload, at most one a chunk),
+    none in ``vocoder``, and chunk k's copy into the output runs inside
+    chunk k + 1's ``synth.rows``, once its decode is enqueued, or after the
+    last chunk."""
+    from dc_tts_tpu_torch.bench import seeded_nets
+
+    cfg = base_config()
+    synth = Synthesizer(cfg, *seeded_nets(cfg), pcm16=True)
+    ids = _ids(cfg, 5, seed=5).numpy()
+    c0 = profiling.counts()
+    first = synth.synthesize_ids_chunked(ids, 2)
+    assert _counted(c0)["to_host.staging.allocs"] == 2
+    want = torch.cat([synth.synthesize_ids(ids[i: i + 2])[0].cpu()
+                      for i in range(0, 5, 2)]).numpy()
+    assert first.dtype == np.int16 and first.shape == want.shape
+    np.testing.assert_array_equal(first, want)
+    kept = first.copy()
+    other = _ids(cfg, 5, seed=6).numpy()
+    c1 = profiling.counts()
+    profiling.reset()
+    with profiling.trace(str(tmp_path)):
+        second = synth.synthesize_ids_chunked(other, 2)
+    profiling.reset()
+    n = _counted(c1)
+    assert n["to_host.staging.allocs"] == n["deemphasis.table_uploads"] == 0
+    np.testing.assert_array_equal(first, kept)
+    assert not np.shares_memory(first, second)
+    events, notes = _traced(tmp_path)
+    waits = _host_waits(events, notes)
+    print("waits by innermost span:", waits)
+    assert waits["cudaEventSynchronize"] == ["to_host.wait"] * 3
+    assert "cudaDeviceSynchronize" not in waits
+    uploads = waits.get("cudaStreamSynchronize", [])
+    assert set(uploads) <= {"synth.rows"} and len(uploads) <= 3
+
+    def spans(name):
+        return sorted((a, b) for m, a, b in notes if m == name)
+    rows, decodes = spans("synth.rows"), spans("text2mel.decode")
+    cats = spans("to_host.cat")
+    assert len(rows) == len(decodes) == len(cats) == 3
+    for k in range(2):
+        assert decodes[k + 1][1] <= cats[k][0] and cats[k][1] <= rows[k + 1][1]
+    assert cats[2][0] >= rows[2][1]
+    np.testing.assert_array_equal(
+        second, torch.cat([synth.synthesize_ids(other[i: i + 2])[0].cpu()
+                           for i in range(0, 5, 2)]).numpy())
 
 
 # ------------------------------------------------------------------ TextEnc graphs
