@@ -11,8 +11,12 @@
 // pack_decode_params) sits in shared memory where the host's plan found
 // room and streams from L2 otherwise. A product task is RG rows x 4 columns
 // (2 under the split), one warp; the lanes split k and the task's sums are
-// reduced together. The pre-norm rows h are exchanged in one of two ways
-// (the wrapper's plan picks one; separate instantiations, FLAG):
+// reduced together. At large B the plan takes the wide kernel (WIDE; the
+// grid exchange's common configs, e.g. B = 72): its float32 and bf16
+// products take tasks of RG_WIDE rows (an HC layer's 27 tasks at B = 72 are
+// 2 rounds of the 16 warps, not 54 tasks in 4). The pre-norm rows h are
+// exchanged in one of two ways (the wrapper's plan picks one;
+// separate instantiations, FLAG):
 // - the grid exchange (large B): each block writes its columns of h to a
 //   global buffer; one grid barrier (a counter in global memory; a wait of
 //   more than 10 s traps, so the launch fails instead of hanging); then the
@@ -83,12 +87,13 @@ namespace cg = cooperative_groups;
 #define NT 512          // threads per block
 #define NW (NT / 32)    // warps per block
 #define RG 4            // batch rows of one product task; RG in ops/decode.py
+#define RG_WIDE 8       // the grid exchange's wide tasks; RG_WIDE there
 #define CL 2            // blocks of a cluster; CLUSTER in ops/decode.py
 #define MAX_LAYERS 32
 #define MAX_WIN 8       // attention keys of a register chunk (any window)
 #define ROW_WIN 4       // the most keys attention_row takes
 #define FCH 8           // attention features a lane holds, a chunk of 256
-#define LAYER_INTS 12   // ints per layer in the host's program array
+#define LAYER_INTS 13   // ints per layer in the host's program array
 #define LAYER_PTRS 4    // pointers per layer
 #define XG 4            // words a thread has in flight in gather_rows
 
@@ -115,6 +120,7 @@ struct Layer {
   int nmax;          // most columns a block owns
   int kp;            // a tap's depth, padded to 4 with zero weights
   int lnv;           // 1: the norm parameters copy as aligned 16-byte chunks
+  int rg;            // rows of a product task: RG, or RG_WIDE
 };
 
 struct Program {
@@ -272,7 +278,7 @@ __device__ __forceinline__ void load4(const bf16_t* w, float (&o)[4]) {
 template <int WK> struct WType { typedef bf16_t type; };
 template <> struct WType<WK_F32> { typedef float type; };
 
-// v[0..M) of every lane (M = 8 or 16) -> the sum over the 32 lanes of
+// v[0..M) of every lane (M = 8, 16 or 32) -> the sum over the 32 lanes of
 // v[j] lands in lanes j * 32 / M .. (j + 1) * 32 / M - 1: a reduce-scatter
 // over xor distances O = 16, 8, ... while more than one value is left (a
 // compile-time recursion, so that v stays in registers), then butterfly
@@ -384,6 +390,71 @@ __device__ void product(const Args& p, const Layer& L, int c0, int n,
     const int i = lane / (32 / M), r = i / VG, c = i % VG;
     if (lane % (32 / M) == 0 && r < rows && c < cols)
       part[(r0 + r) * p.nv_max + v0 + c] = s;
+  }
+}
+
+// product in tasks of RG_WIDE rows x 4 virtual columns (not WK_SPLIT),
+// for the wide kernel, whose plan found every row in shared memory and
+// that the wide tasks take fewer rounds of the warps: at
+// B = 72 an HC layer's 54 tasks of RG rows take 4 rounds of the 16 warps,
+// its 27 wide ones 2. Each column's sums are product's, in its order, so
+// Y and A keep their bits; a k-chunk's weights are loaded first and each
+// row's activations used as they arrive, so that 32 sums, 16 weights and
+// a row's 4 activations are live, not every row's (the kernel's 128
+// registers a thread spill otherwise).
+template <int WK>
+__device__ void product_wide(const Args& p, const Layer& L, int c0, int n,
+                             const float* xs, float* part,
+                             const char* smem) {
+  typedef typename WType<WK>::type wt;
+  constexpr int VG = 4, M = RG_WIDE * VG;
+  static_assert(WK != WK_SPLIT, "the split keeps tasks of RG rows");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int K = L.kp;
+  const int taps = L.kind == 1 ? 3 : 1;
+  const int nv = taps * n;
+  const int nvg = (nv + VG - 1) / VG;
+  const int nrg = (p.B + RG_WIDE - 1) / RG_WIDE;
+  const bool res = L.woff >= 0;
+  const int pitch = res ? taps * K : L.ldw;
+  const wt* wbase = res ? reinterpret_cast<const wt*>(smem + L.woff)
+                        : static_cast<const wt*>(L.w) + (size_t)c0 * L.ldw;
+  for (int task = warp; task < nrg * nvg; task += NW) {
+    const int v0 = (task % nvg) * VG, r0 = (task / nvg) * RG_WIDE;
+    const int rows = min(RG_WIDE, p.B - r0), cols = min(VG, nv - v0);
+    const float* xb = xs + (size_t)r0 * p.xw;
+    int wo[VG];  // elements from the slice's start to each column's taps
+#pragma unroll
+    for (int c = 0; c < VG; ++c) {
+      const int v = v0 + min(c, cols - 1);
+      wo[c] = (v / taps) * pitch + (v % taps) * K;
+    }
+    float hh[M];  // sums [r * VG + c]
+#pragma unroll
+    for (int i = 0; i < M; ++i) hh[i] = 0.f;
+#pragma unroll 1
+    for (int k = 4 * lane; k < K; k += 128) {
+      float w[VG][4];
+#pragma unroll
+      for (int c = 0; c < VG; ++c) load4(wbase + wo[c] + k, w[c]);
+#pragma unroll
+      for (int r = 0; r < RG_WIDE; ++r) {
+        const float4 q = *reinterpret_cast<const float4*>(
+            xb + (size_t)min(r, rows - 1) * p.xw + k);
+        float xa[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (WK == WK_BF16) xa[e] = bf16_round(xa[e]);
+#pragma unroll
+        for (int c = 0; c < VG; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            hh[r * VG + c] = fmaf(xa[e], w[c][e], hh[r * VG + c]);
+      }
+    }
+    const float s = reduce_scatter<M>(hh);
+    const int r = lane / VG, c = lane % VG;
+    if (r < rows && c < cols) part[(r0 + r) * p.nv_max + v0 + c] = s;
   }
 }
 
@@ -893,12 +964,35 @@ __device__ __forceinline__ void columns(const Layer& L, int& c0, int& n) {
   n = (int)((long long)(blockIdx.x + 1) * W / gridDim.x) - c0;
 }
 
+// The layer's product in its operand kind and task shape: wide tasks only
+// in the wide kernel (the host's plan sets L.rg there).
+template <bool WIDE>
+__device__ __forceinline__ void layer_product(const Args& p, const Layer& L,
+                                              int c0, int n, float* xs,
+                                              float* xg, float* part,
+                                              const char* smem) {
+  if (WIDE && L.rg == RG_WIDE) {
+    if (L.wkind == WK_F32)
+      product_wide<WK_F32>(p, L, c0, n, xs, part, smem);
+    else
+      product_wide<WK_BF16>(p, L, c0, n, xs, part, smem);
+  } else if (L.wkind == WK_F32) {
+    product<WK_F32>(p, L, c0, n, xs, xg, part, smem);
+  } else if (L.wkind == WK_BF16) {
+    product<WK_BF16>(p, L, c0, n, xs, xg, part, smem);
+  } else {
+    product<WK_SPLIT>(p, L, c0, n, xs, xg, part, smem);
+  }
+}
+
 // GEN: the general kernel, for configs past the common case (a window of
 // more than ROW_WIN keys, d > 256, a row wider than a lane's registers,
 // norm parameters off 16 bytes); the common kernel compiles none of it.
 // FLAG: the flagged exchange (common configs only); the grid exchange's
-// kernels compile none of it.
-template <bool GEN, bool FLAG>
+// kernels compile none of it. WIDE: the grid exchange's wide kernel (common
+// configs only, every row in shared memory): wide product tasks; the
+// others compile none of it.
+template <bool GEN, bool FLAG, bool WIDE>
 __global__ void __launch_bounds__(NT, 1)
 decode_kernel(const __grid_constant__ Args p,
               const __grid_constant__ Program prog) {
@@ -952,12 +1046,7 @@ decode_kernel(const __grid_constant__ Args p,
       const Addends first =
           threadIdx.x < p.B * n
               ? addends(p, L, t, c0, n, threadIdx.x, ring) : Addends{};
-      if (L.wkind == WK_F32)
-        product<WK_F32>(p, L, c0, n, xs, xg, part, smem);
-      else if (L.wkind == WK_BF16)
-        product<WK_BF16>(p, L, c0, n, xs, xg, part, smem);
-      else
-        product<WK_SPLIT>(p, L, c0, n, xs, xg, part, smem);
+      layer_product<WIDE>(p, L, c0, n, xs, xg, part, smem);
       __syncthreads();
       if constexpr (FLAG) {
         uint2* hw = p.words + (size_t)parity * p.B * p.ldx;
@@ -1012,9 +1101,10 @@ cudaError_t set_smem1(K kernel, int smem) {
 }
 
 cudaError_t set_smem(int smem) {
-  cudaError_t e = set_smem1(decode_kernel<false, false>, smem);
-  if (e == cudaSuccess) e = set_smem1(decode_kernel<true, false>, smem);
-  if (e == cudaSuccess) e = set_smem1(decode_kernel<false, true>, smem);
+  cudaError_t e = set_smem1(decode_kernel<false, false, false>, smem);
+  if (e == cudaSuccess) e = set_smem1(decode_kernel<true, false, false>, smem);
+  if (e == cudaSuccess) e = set_smem1(decode_kernel<false, true, false>, smem);
+  if (e == cudaSuccess) e = set_smem1(decode_kernel<false, false, true>, smem);
   return e;
 }
 
@@ -1054,7 +1144,8 @@ extern "C" int dctts_decode_coresident(int smem, int* blocks, int* sms) {
   e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   LaunchConfig lc(*sms / CL * CL, smem, 0);
-  e = cudaOccupancyMaxActiveClusters(&clusters, decode_kernel<false, false>,
+  e = cudaOccupancyMaxActiveClusters(&clusters,
+                                     decode_kernel<false, false, false>,
                                      &lc.cfg);
   if (e != cudaSuccess) return (int)e;
   *blocks = clusters * CL;
@@ -1062,13 +1153,14 @@ extern "C" int dctts_decode_coresident(int smem, int* blocks, int* sms) {
 }
 
 // layer_ints: LAYER_INTS a layer (kind, cin, cout, rate, act, ring_off,
-// wkind, ldw, woff, nmax, kp, lnv); layer_ptrs: LAYER_PTRS a layer (w, wl,
-// bias, ln); AudioEnc's layers first. The plan's sizes and offsets come from
-// ops/decode.py:decode_plan. flag 0: the grid exchange (hbuf: 2 x B x ldh
-// floats; bar: a zeroed counter); flag 1: the flagged exchange (hbuf: 2 x B
-// x ldx zeroed 8-byte words; bar unused; epochs epoch0 .. epoch0 + T x
-// layers - 1), for a config of the common kernel whose rows all lie in
-// shared memory.
+// wkind, ldw, woff, nmax, kp, lnv, rg); layer_ptrs: LAYER_PTRS a
+// layer (w, wl, bias, ln); AudioEnc's layers first. The plan's sizes and
+// offsets come from ops/decode.py:decode_plan. flag 0: the grid exchange
+// (hbuf: 2 x B x ldh floats; bar: a zeroed counter); flag 1: the flagged
+// exchange (hbuf: 2 x B x ldx zeroed 8-byte words; bar unused; epochs
+// epoch0 .. epoch0 + T x layers - 1), for a config of the common kernel
+// whose rows all lie in shared memory. Wide tasks (rg RG_WIDE, every row
+// in shared memory) only on the grid exchange's common kernel.
 extern "C" int dctts_decode(const float* kt, const float* v, float* y,
                             float* a, void* hbuf, float* ring, float* spill,
                             unsigned* bar, const int* layer_ints,
@@ -1094,7 +1186,7 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
     Layer& L = prog.l[i];
     L.kind = f[0]; L.cin = f[1]; L.cout = f[2]; L.rate = f[3]; L.act = f[4];
     L.ring_off = f[5]; L.wkind = f[6]; L.ldw = f[7]; L.woff = f[8];
-    L.nmax = f[9]; L.kp = f[10]; L.lnv = f[11];
+    L.nmax = f[9]; L.kp = f[10]; L.lnv = f[11]; L.rg = f[12];
     L.w = q[0]; L.wl = q[1];
     L.bias = static_cast<const float*>(q[2]);
     L.ln = static_cast<const float*>(q[3]);
@@ -1103,6 +1195,15 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
         (L.lnv && reinterpret_cast<uintptr_t>(L.ln) % 16))
       return (int)cudaErrorInvalidValue;
     general = general || !L.lnv || L.cout > 32 * (L.kind == 1 ? 8 : 16);
+  }
+  bool wide_kernel = false;  // wide tasks
+  for (int i = 0; i < n_enc + n_dec; ++i) {
+    const Layer& L = prog.l[i];
+    const bool wide = L.rg == RG_WIDE;
+    wide_kernel = wide_kernel || wide;
+    if ((L.rg != RG && !wide) ||
+        (wide && (flag || general || rows_sh < B || L.wkind == WK_SPLIT)))
+      return (int)cudaErrorInvalidValue;
   }
   Args p;
   p.kt = kt; p.v = v; p.y = y; p.a = a;
@@ -1121,12 +1222,16 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
   if (e != cudaSuccess) return (int)e;
   LaunchConfig lc(blocks, smem, (cudaStream_t)stream);
   if (flag && general) return (int)cudaErrorInvalidValue;
-  e = flag      ? cudaLaunchKernelEx(&lc.cfg, decode_kernel<false, true>, p,
-                                     prog)
-      : general ? cudaLaunchKernelEx(&lc.cfg, decode_kernel<true, false>, p,
-                                     prog)
-                : cudaLaunchKernelEx(&lc.cfg, decode_kernel<false, false>, p,
-                                     prog);
+  e = flag ? cudaLaunchKernelEx(&lc.cfg, decode_kernel<false, true, false>, p,
+                                prog)
+      : general
+          ? cudaLaunchKernelEx(&lc.cfg, decode_kernel<true, false, false>, p,
+                               prog)
+      : wide_kernel
+          ? cudaLaunchKernelEx(&lc.cfg, decode_kernel<false, false, true>, p,
+                               prog)
+          : cudaLaunchKernelEx(&lc.cfg, decode_kernel<false, false, false>,
+                               p, prog);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

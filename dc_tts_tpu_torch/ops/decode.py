@@ -19,7 +19,10 @@ weight is read once a step on the whole card; its slice of the weights
 (the transposed slots ``cw_t``, ``hcw_t``, ... below: a column's weights
 contiguous) stays in shared memory where ``decode_plan`` finds room, and
 streams from L2 otherwise. A product task is ``RG`` rows of a few columns
-(of one tap each, for an HC layer), one warp; the lanes split k. The
+(of one tap each, for an HC layer), one warp; the lanes split k. At large
+B the plan takes the kernel's wide instantiation (``task_rows``, e.g.
+B = 72): the float32 and bf16 products take tasks of ``RG_WIDE`` rows,
+which halves the serial rounds of the block's warps. The
 pre-norm rows are exchanged in one of two ways (``EXCHANGES``; the plan
 picks one from B and the widest row, ``decode_plan``). "grid", for large
 B: each block writes its columns of the pre-norm rows to a global buffer
@@ -79,8 +82,12 @@ NEG_INF = -(2.0 ** 32 - 1.0)
 
 # the decode precisions
 PRECS = ("highest", "high3", "hybrid", "default")
-# batch rows of one product task (a warp); RG in csrc/decode.cu
+# batch rows of one product task (a warp); RG in csrc/decode.cu, and
+# RG_WIDE there: the kernel's wide instantiation takes tasks of RG_WIDE
+# rows for its float32 and bf16 products where that takes fewer serial
+# rounds of its warps (``decode_plan``'s ``task_rows``)
 RG = 4
+RG_WIDE = 8
 # blocks of a cluster, which split each layer's norm rows; CL there
 CLUSTER = 2
 # warps of a block; NW there
@@ -101,6 +108,9 @@ FLAG_WORDS = 1024
 # words of a row of the flagged exchange's buffer: a multiple of a
 # 128-byte line
 LINE_WORDS = 16
+# ints a layer of the program the wrapper hands the kernel; LAYER_INTS
+# there
+LAYER_INTS = 13
 
 
 class _Layer(NamedTuple):
@@ -423,10 +433,23 @@ def block_columns(width: int, blocks: int, g: int) -> Tuple[int, int]:
     return g * width // blocks, (g + 1) * width // blocks
 
 
-def row_groups(B: int) -> Tuple[Tuple[int, int], ...]:
-    """[r0, r1) of each product task's batch rows; every block computes its
-    columns for all of them."""
-    return tuple((r, min(r + RG, B)) for r in range(0, B, RG))
+def row_groups(B: int, rows: int = RG) -> Tuple[Tuple[int, int], ...]:
+    """[r0, r1) of each product task's batch rows, tasks of ``rows`` rows;
+    every block computes its columns for all of them."""
+    return tuple((r, min(r + rows, B)) for r in range(0, B, rows))
+
+
+def task_columns(wkind: str) -> int:
+    """Virtual columns of a product task (VG in csrc/decode.cu): 4, 2 for
+    the split, whose three sums a value take the registers."""
+    return 2 if wkind == "split" else 4
+
+
+def task_rounds(B: int, rows: int, nv: int, wkind: str) -> int:
+    """Serial rounds of a block's ``WARPS`` warps over a product of ``nv``
+    virtual columns for B rows in tasks of ``rows`` rows."""
+    tasks = len(row_groups(B, rows)) * -(-nv // task_columns(wkind))
+    return -(-tasks // WARPS)
 
 
 def cluster_rows(B: int, rank: int) -> Tuple[int, ...]:
@@ -470,6 +493,7 @@ class DecodePlan(NamedTuple):
     ring_floats: int      # per block: its HC columns' tap products
     spill_floats: int     # per block: the activation rows past rows_sh
     barriers_per_step: int
+    task_rows: Tuple[int, ...]  # per layer: rows of a product task
 
 
 def staged_rows(B: int, exchange: str) -> int:
@@ -477,6 +501,13 @@ def staged_rows(B: int, exchange: str) -> int:
     "grid" one a warp for its cluster rank's rows, under "flag" every row
     (gathered, normalised in place, then applied by every thread)."""
     return B if exchange == "flag" else min(WARPS, len(cluster_rows(B, 0)))
+
+
+def slice_bytes(l: _Layer, n: int, wkind: str) -> int:
+    """Bytes of a block's slice of ``n`` columns of layer l's slot(s) in
+    shared memory (the split's hi and lo halves), 16-byte aligned."""
+    return _up(n * layer_depth(l) * (4 if wkind == "f32" else 2)
+               * (2 if wkind == "split" else 1), 16)
 
 
 def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
@@ -488,6 +519,13 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
     (``layer_depth``, ``kernel_slot``), so any d, n_mels and layer width
     run; only shared memory (here) and co-residency (``launch_decode``)
     refuse a config.
+
+    The grid exchange's wide kernel, for a config of the common kernel
+    (not ``general_kernel``) whose float32 or bf16 products take fewer
+    serial rounds of the warps in tasks of ``RG_WIDE`` rows than of ``RG``
+    (``task_rounds``: from B = 33 at base_config over 132 blocks), where
+    every row lies in shared memory. Every other plan takes tasks of ``RG``
+    rows.
 
     The exchange (``exchange`` None): "flag" where the common kernel takes
     the config (``general_kernel``), every row lies in shared memory and
@@ -505,6 +543,10 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
                  for (_, l), n in zip(layers, nmax))
     cmo = max(l.cout for _, l in layers if l.kind == "C")
     ln_bytes = _up(4 * max(4 * cfg.d, 2 * cmo), 16)
+
+    wkinds = [layer_wkind(prec, is_dec) for is_dec, _ in layers]
+    sizes = [slice_bytes(l, n, k)
+             for (_, l), n, k in zip(layers, nmax, wkinds)]
 
     def layout(exchange):
         """(staging bytes, bytes before the activation rows, rows in
@@ -527,22 +569,30 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
         raise ValueError(f"fused_decode: B={B} over {blocks} blocks needs "
                          f"{fixed} bytes of shared memory before any "
                          "activation row; take more blocks")
-    ldx = _up(ldh, LINE_WORDS) if exchange == "flag" else ldh
+
+    def place(start):
+        """Each slice's offset in program order from ``start`` where it
+        still fits, else -1; and the end of the last placed."""
+        cur, offs = start, []
+        for size in sizes:
+            offs.append(cur if cur + size <= SMEM_MAX else -1)
+            cur += size if offs[-1] >= 0 else 0
+        return offs, cur
+
     part_off = 4 * xw * rows_sh
     prev_off = part_off + _up(4 * B * nv_max, 16)
     ln_off = prev_off + _up(4 * B, 16)
     z_off = ln_off + ln_bytes
-    cur = z_off + z_bytes
-    woff = []
-    for (is_dec, l), n in zip(layers, nmax):
-        kind = layer_wkind(prec, is_dec)
-        size = _up(n * layer_depth(l) * (4 if kind == "f32" else 2)
-                   * (2 if kind == "split" else 1), 16)
-        if cur + size <= SMEM_MAX:
-            woff.append(cur)
-            cur += size
-        else:
-            woff.append(-1)
+    woff, cur = place(z_off + z_bytes)
+    task_rows = [RG] * len(layers)
+    wide = [k != "split" and task_rounds(B, RG_WIDE, v, k)
+            < task_rounds(B, RG, v, k)
+            for (_, l), n, k in zip(layers, nmax, wkinds)
+            for v in [(3 if l.kind == "HC" else 1) * n]]
+    if (exchange == "grid" and not general_kernel(cfg) and any(wide)
+            and rows_sh == B):  # the wide kernel
+        task_rows = [RG_WIDE if w else RG for w in wide]
+    ldx = _up(ldh, LINE_WORDS) if exchange == "flag" else ldh
     hc = [n for (_, l), n in zip(layers, nmax) if l.kind == "HC"]
     return DecodePlan(
         blocks=blocks, B=B, exchange=exchange, xw=xw, ldh=ldh, ldx=ldx,
@@ -552,7 +602,8 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
         nmax=nmax, woff=tuple(woff), smem=cur,
         ring_floats=ring_rows(cfg) * B * max(hc, default=0) * 2,
         spill_floats=(B - rows_sh) * xw,
-        barriers_per_step=len(layers) if exchange == "grid" else 0)
+        barriers_per_step=len(layers) if exchange == "grid" else 0,
+        task_rows=tuple(task_rows))
 
 
 # the next launch's first epoch of the flagged exchange
@@ -584,11 +635,11 @@ def ring_rows(cfg) -> int:
 
 
 def _layer_arrays(packed: dict, cfg, prec: str, plan: DecodePlan):
-    """The layer program as the kernel reads it: 12 ints a layer (kind,
-    cin, cout, rate, act, ring_off, wkind, ldw, woff, nmax, kp: a tap's
-    depth padded to ``PAD``, lnv: 1 if the norm parameters lie on 16-byte
-    boundaries at a multiple of 4 floats) and 4 pointers (w, wl, bias, ln),
-    AudioEnc's layers first."""
+    """The layer program as the kernel reads it: ``LAYER_INTS`` ints a
+    layer (kind, cin, cout, rate, act, ring_off, wkind, ldw, woff, nmax, kp:
+    a tap's depth padded to ``PAD``, lnv: 1 if the norm parameters lie on
+    16-byte boundaries at a multiple of 4 floats, rg: its product's task
+    rows) and 4 pointers (w, wl, bias, ln), AudioEnc's layers first."""
     enc, dec = _programs(cfg)
     n_c_enc, n_hc_enc = _enc_counts(cfg)
     ints, ptrs, ring_off = [], [], 0
@@ -605,7 +656,8 @@ def _layer_arrays(packed: dict, cfg, prec: str, plan: DecodePlan):
         lnv = ln.numel() % 4 == 0 and ln.data_ptr() % 16 == 0
         ints += [int(hc), l.cin, l.cout, l.rate, _ACT[l.act], ring_off,
                  WKINDS.index(kind), w.shape[-1], plan.woff[li],
-                 plan.nmax[li], layer_depth(l) // (3 if hc else 1), int(lnv)]
+                 plan.nmax[li], layer_depth(l) // (3 if hc else 1), int(lnv),
+                 plan.task_rows[li]]
         ptrs += [hi.data_ptr(), lo.data_ptr() if lo is not None else None,
                  packed["hcb" if hc else "cb"][l.idx].data_ptr(), ln.data_ptr()]
         ring_off += 2 * l.rate + 1 if hc else 0

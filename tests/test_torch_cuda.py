@@ -98,9 +98,32 @@ def test_decode_kernel_matches_plain(cuda, B, prec):
     flip counting as a tie below max(1e-6, the gate for A)."""
     cfg = test_config()
     p = Text2Mel(cfg).init(torch.Generator().manual_seed(B), cuda)
-    Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, B).to(cuda))
+    _check_decode(cfg, p, _ids(cfg, B).to(cuda), prec)
+
+
+@pytest.mark.parametrize("prec", K1.PRECS)
+def test_decode_kernel_at_b72_matches_plain(cuda, prec):
+    """Bulk synthesis's chunk: base_config at B = 72 over all 210 steps,
+    where the plan takes the wide kernel (wide product tasks) but under
+    "high3" (every product split: tasks of RG rows, the common kernel), at
+    ``test_decode_kernel_matches_plain``'s gates, one grid-exchange launch
+    each."""
+    cfg = base_config()
+    plan = K1.decode_plan(cfg, 72, K1.decode_blocks(cuda), prec)
+    assert plan.exchange == "grid"
+    assert (K1.RG_WIDE in plan.task_rows) == (prec != "high3")
+    p = Text2Mel(cfg).init(torch.Generator().manual_seed(72), cuda)
+    _check_decode(cfg, p, _ids(cfg, 72).to(cuda), prec)
+
+
+def _check_decode(cfg, p, ids, prec):
+    """The decode kernel on ``ids`` against the plain version: "highest"
+    at 2e-5 with identical cursors, the reduced bodies at chip_smoke.py's
+    gate; one launch, counted under its precision and exchange."""
+    B = ids.shape[0]
+    Kt, V = Text2Mel(cfg).text_encode(p, ids)
     packed = K1.pack_decode_params(cfg, p, prec)
-    x = K1.decode_plan(cfg, B, K1.decode_blocks(cuda), prec).exchange
+    x = K1.decode_plan(cfg, B, K1.decode_blocks(ids.device), prec).exchange
     c0 = profiling.counts()
     Y, A = K1.fused_decode(packed, Kt.contiguous(), V.contiguous(),
                            cfg.max_T, cfg, prec)

@@ -80,7 +80,7 @@ def test_plan_takes_configs_past_the_old_limits(name):
                        and K1.layer_depth(l) <= (3 if l.kind == "HC" else 1)
                        * plan.xw for l in layers)
         ints, ptrs = K1._layer_arrays(packed, cfg, prec, plan)
-        ints = np.asarray(ints[:]).reshape(-1, 12)
+        ints = np.asarray(ints[:]).reshape(-1, K1.LAYER_INTS)
         ldw, kp, lnv = ints[:, 7], ints[:, 10], ints[:, 11]
         assert (ldw % K1.PAD == 0).all() and (kp % K1.PAD == 0).all()
         # 16-byte copies of the norm parameters only where they are aligned

@@ -104,6 +104,95 @@ def test_plan_fits_shared_memory(name, B, blocks):
         assert K1.staged_rows(B, "flag") == B
 
 
+@pytest.mark.parametrize("prec", K1.PRECS)
+@pytest.mark.parametrize("blocks", [32, 132])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_grid_plans_take_wide_tasks_where_they_pay(name, blocks, prec):
+    """For B = 1 .. 288: the layout fits shared memory, and every layer's
+    task shape is one the kernel reads: RG rows, or RG_WIDE (not the
+    split's products, every row in shared memory, the grid exchange only,
+    and fewer rounds of the warps than RG), its sums a divisor of the 32
+    lanes, its row groups covering B once."""
+    cfg = CONFIGS[name]()
+    layers = _layers(cfg)
+    for B in range(1, 289):
+        plan = K1.decode_plan(cfg, B, blocks, prec)
+        assert plan.smem <= K1.SMEM_MAX
+        for (d, l), n, rows in zip(layers, plan.nmax, plan.task_rows):
+            kind = K1.layer_wkind(prec, d)
+            assert rows in (K1.RG, K1.RG_WIDE)
+            assert 32 % (rows * K1.task_columns(kind)) == 0
+            covered = np.zeros(B, np.int64)
+            for r0, r1 in K1.row_groups(B, rows):
+                assert 0 < r1 - r0 <= rows
+                covered[r0:r1] += 1
+            assert (covered == 1).all()
+            if rows == K1.RG_WIDE:
+                nv = (3 if l.kind == "HC" else 1) * n
+                assert kind != "split" and plan.rows_sh == B
+                assert plan.exchange == "grid"
+                assert K1.task_rounds(B, K1.RG_WIDE, nv, kind) < \
+                    K1.task_rounds(B, K1.RG, nv, kind)
+
+
+def test_plan_at_b72_takes_wide_tasks():
+    """bulk synthesis's chunk at base_config over the H100's 132 blocks:
+    every activation row in shared memory and the float32 products in
+    tasks of RG_WIDE rows (an HC layer's 27 tasks take 2 rounds of the 16
+    warps, not 54 in 4)."""
+    plan = K1.decode_plan(base_config(), 72, 132)
+    assert plan.exchange == "grid" and plan.rows_sh == 72
+    assert set(plan.task_rows) == {K1.RG_WIDE}
+    assert K1.task_rounds(72, K1.RG_WIDE, 12, "f32") == 2
+    assert K1.task_rounds(72, K1.RG, 12, "f32") == 4
+    # the split's products keep RG rows
+    assert set(K1.decode_plan(base_config(), 72, 132, "high3").task_rows) \
+        == {K1.RG}
+
+
+# the flagged exchange's plans at base_config over 132 blocks, field for
+# field (neither staging nor wide tasks: that kernel's code is unchanged)
+_NMAX = (2, 2, 2, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 2, 4, 4, 4, 4, 4, 4, 2, 2,
+         2, 1)
+FLAG_PLANS = {
+    1: K1.DecodePlan(
+        blocks=132, B=1, exchange="flag", xw=512, ldh=512, ldx=512,
+        exchange_bytes=8192, rows_sh=1, nv_max=12, part_off=2048,
+        prev_off=2096, ln_off=2112, z_off=6208, nmax=_NMAX,
+        woff=(8256, 8896, 10944, 12992, 25280, 37568, 49856, 62144, 74432,
+              86720, 99008, 111296, 123584, 135872, 139968, 152256, 164544,
+              176832, 189120, 201408, 213696, 215744, 217792, 219840),
+        smem=220864, ring_floats=2176, spill_floats=0, barriers_per_step=0,
+        task_rows=(4,) * 24),
+    2: K1.DecodePlan(
+        blocks=132, B=2, exchange="flag", xw=512, ldh=512, ldx=512,
+        exchange_bytes=16384, rows_sh=2, nv_max=12, part_off=4096,
+        prev_off=4192, ln_off=4208, z_off=8304, nmax=_NMAX,
+        woff=(12400, 13040, 15088, 17136, 29424, 41712, 54000, 66288, 78576,
+              90864, 103152, 115440, 127728, 140016, 144112, 156400, 168688,
+              180976, 193264, 205552, 217840, 219888, 221936, 223984),
+        smem=225008, ring_floats=4352, spill_floats=0, barriers_per_step=0,
+        task_rows=(4,) * 24)}
+
+
+@pytest.mark.parametrize("B", sorted(FLAG_PLANS))
+def test_flag_plans_are_pinned(B):
+    """At B = 1 and 2 the plan is the flagged exchange's, literally (in
+    the precisions whose slices take 4 bytes a weight)."""
+    for prec in ("highest", "high3"):
+        assert K1.decode_plan(base_config(), B, 132, prec) == FLAG_PLANS[B]
+
+
+@pytest.mark.parametrize("name", ["win5", "d264", "c520"])
+def test_general_kernel_takes_no_wide_tasks(name):
+    """A config of the general kernel keeps its product and its slices as
+    before: tasks of RG rows, slices that find no room stream from L2."""
+    cfg = test_config().replace(**GENERAL[name][0])
+    for B in (20, 72, 200):
+        plan = K1.decode_plan(cfg, B, 32)
+        assert set(plan.task_rows) == {K1.RG}
+
+
 # the exchange decode_plan picks at base_config over the H100's 132 blocks
 RULE = {1: "flag", 2: "flag", 3: "grid", 8: "grid", 20: "grid", 72: "grid"}
 
@@ -212,7 +301,7 @@ def test_general_configs_take_the_grid_exchange(name):
     packed = K1.pack_decode_params(cfg, params)
     plan = K1.decode_plan(cfg, 1, 132)
     ints = np.asarray(K1._layer_arrays(packed, cfg, "highest", plan)[0][:])
-    kind, cout, lnv = ints.reshape(-1, 12)[:, [0, 2, 11]].T
+    kind, cout, lnv = ints.reshape(-1, K1.LAYER_INTS)[:, [0, 2, 11]].T
     c_side = (cfg.attention_win_size > 4 or cfg.d > 256 or not lnv.all()
               or bool((cout > np.where(kind == 1, 256, 512)).any()))
     assert K1.general_kernel(cfg) == c_side == general
@@ -268,12 +357,13 @@ def test_layer_program_by_prec(packed_test, prec):
     p = packed[prec]
     plan = K1.decode_plan(cfg, 5, 7, prec)
     ints, ptrs = K1._layer_arrays(p, cfg, prec, plan)
-    ints = np.asarray(ints[:]).reshape(-1, 12)
+    ints = np.asarray(ints[:]).reshape(-1, K1.LAYER_INTS)
     ptrs = [ptrs[i:i + 4] for i in range(0, len(ptrs), 4)]
     ring_off = 0
     for li, (is_dec, l) in enumerate(_layers(cfg)):
-        kind, cin, cout, rate, act, roff, wk, ldw, woff, nmax, kp, lnv = \
-            ints[li]
+        (kind, cin, cout, rate, act, roff, wk, ldw, woff, nmax, kp, lnv,
+         rg) = ints[li]
+        assert rg == plan.task_rows[li]
         hc = l.kind == "HC"
         assert (kind, cin, cout, rate) == (int(hc), l.cin, l.cout, l.rate)
         assert K1.WKINDS[wk] == K1.layer_wkind(prec, is_dec)
