@@ -29,8 +29,9 @@ line:
              over 32, 64 and all blocks, for information; (line K1-B72)
              bench.py's chunk, B=72, and (line K1-win8) a window of 8 keys
              (past the 4 the kernel once took), at the same gate; K1-B72
-             also prints its products' task shape and µs a layer-step
-             beside the barrier floor's.
+             also prints its plan (slices resident and staged, the
+             products' task shape) and µs a layer-step beside the barrier
+             floor's.
 3a. TextEnc - (lines TextEnc-B1, TextEnc-B72) TextEnc eager against the
              Synthesizer's captured graph of it at B=1 and B=72, N=180:
              device ms and host ms of a call (medians of 20, each started
@@ -707,15 +708,17 @@ def phase_k1(results):
     dY, dA, note = _k1_check("K1-B72", A, Ar, Y, Yr, _first_flip(A, Ap),
                              1e-6)
     ok = dY <= 2e-5 and dA <= 2e-5 and bool(torch.isfinite(Y).all())
-    # the plan at B = 72: the products' task shape (rows x virtual
-    # columns), and µs a layer-step beside the barrier floor's (5040 grid
-    # barriers alone, above)
+    # the plan at B = 72: slices resident and staged, the products' task
+    # shape (rows x virtual columns), and µs a layer-step beside the
+    # barrier floor's (5040 grid barriers alone, above)
     plan72 = K1.decode_plan(cfg, 72, grid["blocks"])
+    staged = sum(plan72.staged)
     layer_steps = T * len(enc + dec)
     line("K1-B72", ok=ok, B=72, T=T, max_dY=f"{dY:.3e}", max_dA=f"{dA:.3e}",
          tol="2e-5", compared_steps=T, note=repr(note), ms=f"{ms72:.3f}",
          **_k1_grid(cfg, 72, "highest", ms72, T),
-         resident_layers=sum(o >= 0 for o in plan72.woff),
+         resident_layers=sum(o >= 0 for o in plan72.woff) - staged,
+         staged_layers=staged,
          task_shape=",".join(sorted({f"{r}x{K1.task_columns('f32')}"
                                      for r in plan72.task_rows})),
          us_per_layer_step=f"{ms72 * 1e3 / layer_steps:.2f}",
@@ -724,6 +727,7 @@ def phase_k1(results):
         raise AssertionError(f"K1 at B=72 disagrees with its plain version: "
                              f"dY={dY} dA={dA}")
     results["K1_B72"] = dict(max_abs_err=max(dY, dA), ms=ms72,
+                             staged_layers=staged,
                              task_rows=sorted(set(plan72.task_rows)))
     # past one of the kernel's old limits at full width: a window of 8 keys
     # (it took 4), one register chunk of the attention's walk, same gate

@@ -298,25 +298,6 @@ __device__ __forceinline__ void fence36(float (&d)[36]) {
   for (int i = 0; i < 36; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// bulk copies (the copy engine, no thread per byte) whose completion is
-// counted in bytes on an mbarrier
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          sm90::smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(sm90::smem_u32(bar))
-      : "memory");
-}
-
 // named barrier `id` over `n` threads (whole warps)
 __device__ __forceinline__ void wg_sync_n(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
@@ -499,10 +480,10 @@ ct_fact(const float* __restrict__ x, const void* c16, const void* s16,
     if constexpr (NCW == 2) sm90::regs_dec<40>();
     if (tid != NCW * 128) return;
     if constexpr (C) {
-      mbar_expect_tx(cbar, FactC<BF16>::BYTES);
+      sm90::mbar_expect_tx(cbar, FactC<BF16>::BYTES);
       for (int o = 0; o < FactC<BF16>::BYTES; o += KC_TILE)
-        bulk_copy(sm90::smem_u32(smem + K::CONST_OFF + o),
-                  static_cast<const uint8_t*>(kc) + o, KC_TILE, cbar);
+        sm90::bulk_copy(sm90::smem_u32(smem + K::CONST_OFF + o),
+                        static_cast<const uint8_t*>(kc) + o, KC_TILE, cbar);
     }
     // each consumer warpgroup has its own RPW stages and takes its frames
     // in order, so no wait on a stage is ever two phases ahead of it
@@ -516,18 +497,19 @@ ct_fact(const float* __restrict__ x, const void* c16, const void* s16,
           if (f >= Fc) {
             sm90::mbar_arrive(&full[s]);
           } else if (T) {
-            mbar_expect_tx(&full[s], NFFT * 4);
-            bulk_copy(dst, x + (size_t)f * NFFT, NFFT * 4, &full[s]);
+            sm90::mbar_expect_tx(&full[s], NFFT * 4);
+            sm90::bulk_copy(dst, x + (size_t)f * NFFT, NFFT * 4, &full[s]);
           } else {
             // without T the tile's (tf, 2048) memory read as (16, tf, 128):
             // row n1*tf + fl of 128
             const int t = f / tf, fl = f - t * tf;
             const float* src =
                 x + (size_t)t * tf * NFFT + (size_t)fl * CT_N2;
-            mbar_expect_tx(&full[s], NFFT * 4);
+            sm90::mbar_expect_tx(&full[s], NFFT * 4);
             for (int n1 = 0; n1 < CT_N1; ++n1)
-              bulk_copy(dst + n1 * CT_N2 * 4, src + (size_t)n1 * tf * CT_N2,
-                        CT_N2 * 4, &full[s]);
+              sm90::bulk_copy(dst + n1 * CT_N2 * 4,
+                              src + (size_t)n1 * tf * CT_N2, CT_N2 * 4,
+                              &full[s]);
           }
         }
     return;

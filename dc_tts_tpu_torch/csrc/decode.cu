@@ -14,8 +14,11 @@
 // reduced together. At large B the plan takes the wide kernel (WIDE; the
 // grid exchange's common configs, e.g. B = 72): its float32 and bf16
 // products take tasks of RG_WIDE rows (an HC layer's 27 tasks at B = 72 are
-// 2 rounds of the 16 warps, not 54 tasks in 4). The pre-norm rows h are
-// exchanged in one of two ways (the wrapper's plan picks one;
+// 2 rounds of the 16 warps, not 54 tasks in 4), and every slice lies in
+// shared memory: the slices that find no room share one staging slot, into
+// which the copy engine brings each one step by step while the layer
+// before it in their cycle exchanges its rows (fetch_slice). The pre-norm
+// rows h are exchanged in one of two ways (the wrapper's plan picks one;
 // separate instantiations, FLAG):
 // - the grid exchange (large B): each block writes its columns of h to a
 //   global buffer; one grid barrier (a counter in global memory; a wait of
@@ -93,7 +96,7 @@ namespace cg = cooperative_groups;
 #define MAX_WIN 8       // attention keys of a register chunk (any window)
 #define ROW_WIN 4       // the most keys attention_row takes
 #define FCH 8           // attention features a lane holds, a chunk of 256
-#define LAYER_INTS 13   // ints per layer in the host's program array
+#define LAYER_INTS 14   // ints per layer in the host's program array
 #define LAYER_PTRS 4    // pointers per layer
 #define XG 4            // words a thread has in flight in gather_rows
 
@@ -116,10 +119,13 @@ struct Layer {
   int rate, act;     // act: 0 none, 1 relu, 2 sigmoid
   int ring_off;      // HC: first ring row
   int wkind, ldw;    // the slot rows' pitch in elements
-  int woff;          // byte offset of the block's resident slice, or -1
+  int woff;          // byte offset of the block's slice in shared memory
+                     // (resident, or the staging slot), or -1 (L2)
   int nmax;          // most columns a block owns
   int kp;            // a tap's depth, padded to 4 with zero weights
   int lnv;           // 1: the norm parameters copy as aligned 16-byte chunks
+  int fetch;         // the staged layer whose slice this layer fetches into
+                     // the staging slot under its exchange, or -1
   int rg;            // rows of a product task: RG, or RG_WIDE
 };
 
@@ -141,6 +147,8 @@ struct Args {
   int B, N, d, n_mels, T, win, cmo, xw, ldh;
   int rows_sh, ring_floats, spill_floats, part_off, prev_off, ln_off;
   int z_off, nv_max, ldx;
+  int stage0;       // the first staged layer (in the slot at launch), or -1
+  int sbar_off;     // bytes: the staging slot's mbarrier
   unsigned epoch0;  // the flagged exchange's first epoch
   float eps, scale;
 };
@@ -394,8 +402,8 @@ __device__ void product(const Args& p, const Layer& L, int c0, int n,
 }
 
 // product in tasks of RG_WIDE rows x 4 virtual columns (not WK_SPLIT),
-// for the wide kernel, whose plan found every row in shared memory and
-// that the wide tasks take fewer rounds of the warps: at
+// for the wide kernel, whose plan found every row and every slice in
+// shared memory and that the wide tasks take fewer rounds of the warps: at
 // B = 72 an HC layer's 54 tasks of RG rows take 4 rounds of the 16 warps,
 // its 27 wide ones 2. Each column's sums are product's, in its order, so
 // Y and A keep their bits; a k-chunk's weights are loaded first and each
@@ -415,10 +423,8 @@ __device__ void product_wide(const Args& p, const Layer& L, int c0, int n,
   const int nv = taps * n;
   const int nvg = (nv + VG - 1) / VG;
   const int nrg = (p.B + RG_WIDE - 1) / RG_WIDE;
-  const bool res = L.woff >= 0;
-  const int pitch = res ? taps * K : L.ldw;
-  const wt* wbase = res ? reinterpret_cast<const wt*>(smem + L.woff)
-                        : static_cast<const wt*>(L.w) + (size_t)c0 * L.ldw;
+  const int pitch = taps * K;
+  const wt* wbase = reinterpret_cast<const wt*>(smem + L.woff);
   for (int task = warp; task < nrg * nvg; task += NW) {
     const int v0 = (task % nvg) * VG, r0 = (task / nvg) * RG_WIDE;
     const int rows = min(RG_WIDE, p.B - r0), cols = min(VG, nv - v0);
@@ -964,6 +970,40 @@ __device__ __forceinline__ void columns(const Layer& L, int& c0, int& n) {
   n = (int)((long long)(blockIdx.x + 1) * W / gridDim.x) - c0;
 }
 
+// A staged layer's slice into the staging slot (F.woff), laid out as
+// load_slice lays a resident one, by the copy engine (bulk copies, one a
+// slice row, or one for the slice where its rows are contiguous: an HC
+// layer's), counted on the mbarrier bar; thread 0 issues them. The grid
+// exchange's layer before F in the cycle of staged layers issues it after
+// its product, once the slot's last reader is done, and its threads wait
+// on bar before its cluster barrier: the copy runs under that layer's
+// combine, grid barrier and norms. (cp.async by the block's threads cost
+// more than the copy saved: their issue, and thread 0's release at the
+// grid barrier waiting for its copies.)
+__device__ __forceinline__ void fetch_slice(const Layer& F, char* smem,
+                                            uint64_t* bar) {
+  int c0, n;
+  columns(F, c0, n);
+  const int esz = F.wkind == WK_F32 ? 4 : 2;
+  const int row_bytes = (F.kind == 1 ? 3 : 1) * F.kp * esz;
+  const size_t pitch = (size_t)F.ldw * esz;
+  const int halves = F.wkind == WK_SPLIT ? 2 : 1;
+  sm90::fence_proxy_async();  // after the generic proxy's reads and writes
+  sm90::mbar_expect_tx(bar, (uint32_t)(halves * n * row_bytes));
+  for (int half = 0; half < halves; ++half) {
+    const char* src =
+        static_cast<const char*>(half ? F.wl : F.w) + (size_t)c0 * pitch;
+    const uint32_t dst =
+        sm90::smem_u32(smem + F.woff + (size_t)half * F.nmax * row_bytes);
+    if (pitch == (size_t)row_bytes)
+      sm90::bulk_copy(dst, src, (uint32_t)(n * row_bytes), bar);
+    else
+      for (int j = 0; j < n; ++j)
+        sm90::bulk_copy(dst + j * row_bytes, src + j * pitch,
+                        (uint32_t)row_bytes, bar);
+  }
+}
+
 // The layer's product in its operand kind and task shape: wide tasks only
 // in the wide kernel (the host's plan sets L.rg there).
 template <bool WIDE>
@@ -990,8 +1030,8 @@ __device__ __forceinline__ void layer_product(const Args& p, const Layer& L,
 // norm parameters off 16 bytes); the common kernel compiles none of it.
 // FLAG: the flagged exchange (common configs only); the grid exchange's
 // kernels compile none of it. WIDE: the grid exchange's wide kernel (common
-// configs only, every row in shared memory): wide product tasks; the
-// others compile none of it.
+// configs only, every row and slice in shared memory): wide product tasks
+// and the staged slices; the others compile none of it.
 template <bool GEN, bool FLAG, bool WIDE>
 __global__ void __launch_bounds__(NT, 1)
 decode_kernel(const __grid_constant__ Args p,
@@ -1004,6 +1044,7 @@ decode_kernel(const __grid_constant__ Args p,
   float* zs = reinterpret_cast<float*>(smem + p.z_off);
   float* xg = p.spill + (size_t)blockIdx.x * p.spill_floats;
   float* ring = p.ring + (size_t)blockIdx.x * p.ring_floats;
+  uint64_t* sbar = reinterpret_cast<uint64_t*>(smem + p.sbar_off);  // WIDE
   const int nl = prog.n_enc + prog.n_dec;
 
   // zero start: the first input frame, the cursors and the ring (the
@@ -1012,9 +1053,14 @@ decode_kernel(const __grid_constant__ Args p,
   for (int i = threadIdx.x; i < p.spill_floats; i += NT) xg[i] = 0.f;
   for (int i = threadIdx.x; i < p.ring_floats; i += NT) ring[i] = 0.f;
   for (int i = threadIdx.x; i < p.B; i += NT) prev[i] = 0;
+  // the resident slices, and the first staged one into the staging slot
+  if (WIDE && p.stage0 >= 0 && threadIdx.x == 0) {
+    sm90::mbar_init(sbar, 1);
+    sm90::mbar_fence_init();
+  }
   for (int li = 0; li < nl; ++li) {
     const Layer& L = prog.l[li];
-    if (L.woff >= 0) {
+    if (L.woff >= 0 && (!WIDE || L.fetch < 0 || li == p.stage0)) {
       int c0, n;
       columns(L, c0, n);
       load_slice(L, c0, n, smem);
@@ -1025,6 +1071,7 @@ decode_kernel(const __grid_constant__ Args p,
 
   unsigned target = 0;
   int parity = 0;
+  uint32_t sphase = 0;  // the staging mbarrier's phase
   for (int t = 0; t < p.T; ++t) {
     for (int li = 0; li < nl; ++li) {
       if (li == prog.n_enc) {  // AudioEnc's output q -> [ctx; q]
@@ -1048,6 +1095,10 @@ decode_kernel(const __grid_constant__ Args p,
               ? addends(p, L, t, c0, n, threadIdx.x, ring) : Addends{};
       layer_product<WIDE>(p, L, c0, n, xs, xg, part, smem);
       __syncthreads();
+      // the next staged layer's slice, under the exchange (the slot's
+      // readers are done)
+      if (WIDE && L.fetch >= 0 && threadIdx.x == 0)
+        fetch_slice(prog.l[L.fetch], smem, sbar);
       if constexpr (FLAG) {
         uint2* hw = p.words + (size_t)parity * p.B * p.ldx;
         const unsigned e = p.epoch0 + (unsigned)(t * nl + li);
@@ -1060,6 +1111,10 @@ decode_kernel(const __grid_constant__ Args p,
         sm90::cp_async_wait_all();  // lnb
         grid_sync(p.bar, target);
         post<GEN>(p, L, hb, lnb, zs, li == nl - 1, t, xs, xg);
+        if (WIDE && L.fetch >= 0) {  // the slot holds the next staged slice
+          sm90::mbar_wait(sbar, sphase);
+          sphase ^= 1;
+        }
         cluster.sync();  // every member's copy holds the layer's output
       }
       parity ^= 1;
@@ -1153,14 +1208,17 @@ extern "C" int dctts_decode_coresident(int smem, int* blocks, int* sms) {
 }
 
 // layer_ints: LAYER_INTS a layer (kind, cin, cout, rate, act, ring_off,
-// wkind, ldw, woff, nmax, kp, lnv, rg); layer_ptrs: LAYER_PTRS a
+// wkind, ldw, woff, nmax, kp, lnv, fetch, rg); layer_ptrs: LAYER_PTRS a
 // layer (w, wl, bias, ln); AudioEnc's layers first. The plan's sizes and
 // offsets come from ops/decode.py:decode_plan. flag 0: the grid exchange
 // (hbuf: 2 x B x ldh floats; bar: a zeroed counter); flag 1: the flagged
 // exchange (hbuf: 2 x B x ldx zeroed 8-byte words; bar unused; epochs
 // epoch0 .. epoch0 + T x layers - 1), for a config of the common kernel
-// whose rows all lie in shared memory. Wide tasks (rg RG_WIDE, every row
-// in shared memory) only on the grid exchange's common kernel.
+// whose rows all lie in shared memory. Staged slices (fetch, stage0: the
+// first staged layer, or -1; sbar_off: the slot's mbarrier, 8 bytes) and
+// wide tasks (rg RG_WIDE, every row and slice in shared memory) only on
+// the grid exchange's common kernel; a staged slice's rows and pitch are
+// 16-byte multiples, on 16-byte boundaries.
 extern "C" int dctts_decode(const float* kt, const float* v, float* y,
                             float* a, void* hbuf, float* ring, float* spill,
                             unsigned* bar, const int* layer_ints,
@@ -1170,8 +1228,8 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
                             int rows_sh, int ring_floats, int spill_floats,
                             int part_off, int prev_off, int ln_off,
                             int z_off, int nv_max, int smem, int blocks,
-                            int flag, int ldx, unsigned epoch0,
-                            void* stream) {
+                            int flag, int ldx, int stage0, int sbar_off,
+                            unsigned epoch0, void* stream) {
   if (n_enc + n_dec > MAX_LAYERS || win < 1 || B < 1 || blocks < CL ||
       blocks % CL || xw % 4 || (flag && (rows_sh < B || ldx < ldh)))
     return (int)cudaErrorInvalidValue;
@@ -1186,7 +1244,7 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
     Layer& L = prog.l[i];
     L.kind = f[0]; L.cin = f[1]; L.cout = f[2]; L.rate = f[3]; L.act = f[4];
     L.ring_off = f[5]; L.wkind = f[6]; L.ldw = f[7]; L.woff = f[8];
-    L.nmax = f[9]; L.kp = f[10]; L.lnv = f[11]; L.rg = f[12];
+    L.nmax = f[9]; L.kp = f[10]; L.lnv = f[11]; L.fetch = f[12]; L.rg = f[13];
     L.w = q[0]; L.wl = q[1];
     L.bias = static_cast<const float*>(q[2]);
     L.ln = static_cast<const float*>(q[3]);
@@ -1196,15 +1254,28 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
       return (int)cudaErrorInvalidValue;
     general = general || !L.lnv || L.cout > 32 * (L.kind == 1 ? 8 : 16);
   }
-  bool wide_kernel = false;  // wide tasks
+  bool wide_kernel = false;  // wide tasks or staged slices
   for (int i = 0; i < n_enc + n_dec; ++i) {
     const Layer& L = prog.l[i];
-    const bool wide = L.rg == RG_WIDE;
-    wide_kernel = wide_kernel || wide;
+    const bool wide = L.rg == RG_WIDE, staged = L.fetch >= 0;
+    const int esz = L.wkind == WK_F32 ? 4 : 2;
+    wide_kernel = wide_kernel || wide || staged;
+    if (staged && ((L.kind == 1 ? 3 : 1) * L.kp * esz % 16 ||
+                   L.ldw * esz % 16 ||
+                   reinterpret_cast<uintptr_t>(L.w) % 16 ||
+                   reinterpret_cast<uintptr_t>(L.wl) % 16))
+      return (int)cudaErrorInvalidValue;
     if ((L.rg != RG && !wide) ||
-        (wide && (flag || general || rows_sh < B || L.wkind == WK_SPLIT)))
+        (wide && (flag || general || rows_sh < B || L.wkind == WK_SPLIT ||
+                  L.woff < 0)) ||
+        (staged && (flag || general || L.fetch >= n_enc + n_dec ||
+                    L.woff < 0 || prog.l[L.fetch].woff != L.woff)))
       return (int)cudaErrorInvalidValue;
   }
+  if (stage0 >= n_enc + n_dec ||
+      (stage0 >= 0 && (prog.l[stage0].fetch < 0 || sbar_off < 0 ||
+                       sbar_off % 8 || sbar_off + 8 > smem)))
+    return (int)cudaErrorInvalidValue;
   Args p;
   p.kt = kt; p.v = v; p.y = y; p.a = a;
   p.hbuf = flag ? nullptr : static_cast<float*>(hbuf);
@@ -1215,7 +1286,9 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
   p.rows_sh = rows_sh; p.ring_floats = ring_floats;
   p.spill_floats = spill_floats; p.part_off = part_off;
   p.prev_off = prev_off; p.ln_off = ln_off; p.z_off = z_off;
-  p.nv_max = nv_max; p.ldx = ldx; p.epoch0 = epoch0;
+  p.nv_max = nv_max; p.ldx = ldx; p.stage0 = stage0;
+  p.sbar_off = stage0 >= 0 ? sbar_off : 0;
+  p.epoch0 = epoch0;
   p.eps = eps;
   p.scale = (float)(1.0 / sqrt((double)d));
   cudaError_t e = set_smem(smem);

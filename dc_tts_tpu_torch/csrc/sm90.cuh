@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks as inline PTX, for pipelined tensor-core
 // GEMMs: mbarriers, 16-byte cp.async with zero fill whose completion
-// arrives on an mbarrier, the TF32 hi/lo split, shared-memory matrix
-// descriptors for K-major and MN-major tiles in the 128-byte swizzle,
-// wgmma m64n128k8 .f32.tf32.tf32 with A in registers and wgmma
-// m64n128k16 .f32.bf16.bf16 with both operands in shared memory. Used by
-// K4's float32 core (csrc/hc_vjp.cu tc_gemm), by the bf16 core of
-// csrc/bf16_wgmma.cuh (K4's bf16 body, K3 in csrc/gl.cu, X1) and by
-// csrc/ct_fwd.cu (X1's float32 body, the factored kernel); nothing here
-// depends on the kernel that uses it.
+// arrives on an mbarrier, bulk copies counted in bytes on an mbarrier, the
+// TF32 hi/lo split, shared-memory matrix descriptors for K-major and
+// MN-major tiles in the 128-byte swizzle, wgmma m64n128k8 .f32.tf32.tf32
+// with A in registers and wgmma m64n128k16 .f32.bf16.bf16 with both
+// operands in shared memory. Used by K4's float32 core (csrc/hc_vjp.cu
+// tc_gemm), by the bf16 core of csrc/bf16_wgmma.cuh (K4's bf16 body, K3 in
+// csrc/gl.cu, X1), by csrc/ct_fwd.cu (X1's float32 body, the factored
+// kernel) and by K1 (csrc/decode.cu: its staged weight slices); nothing
+// here depends on the kernel that uses it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -92,6 +93,29 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------- bulk copy
+
+// bulk copies (the copy engine, no thread per byte) whose completion is
+// counted in bytes on an mbarrier: the issuing thread's arrival announces
+// the bytes, each copy completes its share (16-byte aligned addresses and
+// sizes)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // order shared-memory writes seen through the generic proxy (cp.async)

@@ -22,7 +22,10 @@ streams from L2 otherwise. A product task is ``RG`` rows of a few columns
 (of one tap each, for an HC layer), one warp; the lanes split k. At large
 B the plan takes the kernel's wide instantiation (``task_rows``, e.g.
 B = 72): the float32 and bf16 products take tasks of ``RG_WIDE`` rows,
-which halves the serial rounds of the block's warps. The
+which halves the serial rounds of the block's warps, and every slice lies
+in shared memory, those that find no room staged in turn in one slot, each
+copied in by the copy engine while the layer before it exchanges its rows
+(``staged``, ``stage_cycle``). The
 pre-norm rows are exchanged in one of two ways (``EXCHANGES``; the plan
 picks one from B and the widest row, ``decode_plan``). "grid", for large
 B: each block writes its columns of the pre-norm rows to a global buffer
@@ -110,7 +113,7 @@ FLAG_WORDS = 1024
 LINE_WORDS = 16
 # ints a layer of the program the wrapper hands the kernel; LAYER_INTS
 # there
-LAYER_INTS = 13
+LAYER_INTS = 14
 
 
 class _Layer(NamedTuple):
@@ -488,11 +491,16 @@ class DecodePlan(NamedTuple):
     ln_off: int           # bytes: a layer's norm parameters
     z_off: int            # bytes: a warp's normalised row (ldh floats)
     nmax: Tuple[int, ...]  # per layer: most columns a block owns
-    woff: Tuple[int, ...]  # per layer: bytes to the resident slice, or -1
+    woff: Tuple[int, ...]  # per layer: bytes to its slice in shared memory
+    #                        (resident, or the staging slot), or -1 (L2)
     smem: int             # dynamic shared memory bytes
     ring_floats: int      # per block: its HC columns' tap products
     spill_floats: int     # per block: the activation rows past rows_sh
     barriers_per_step: int
+    staged: Tuple[bool, ...]  # per layer: fetched into the slot each step
+    stage_off: int        # bytes: the staging slot, or -1 (none)
+    stage_bytes: int      # the staging slot's size (0: none)
+    sbar_off: int         # bytes: the slot's mbarrier (8), or -1
     task_rows: Tuple[int, ...]  # per layer: rows of a product task
 
 
@@ -501,6 +509,14 @@ def staged_rows(B: int, exchange: str) -> int:
     "grid" one a warp for its cluster rank's rows, under "flag" every row
     (gathered, normalised in place, then applied by every thread)."""
     return B if exchange == "flag" else min(WARPS, len(cluster_rows(B, 0)))
+
+
+def stageable(l: _Layer, wkind: str, ldw: int) -> bool:
+    """Whether layer l's slice can be staged: the copy engine moves its
+    rows (``layer_depth`` weights) from a slot of pitch ``ldw`` weights
+    only in 16-byte multiples."""
+    esz = 4 if wkind == "f32" else 2
+    return layer_depth(l) * esz % 16 == 0 and ldw * esz % 16 == 0
 
 
 def slice_bytes(l: _Layer, n: int, wkind: str) -> int:
@@ -524,8 +540,12 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
     (not ``general_kernel``) whose float32 or bf16 products take fewer
     serial rounds of the warps in tasks of ``RG_WIDE`` rows than of ``RG``
     (``task_rounds``: from B = 33 at base_config over 132 blocks), where
-    every row lies in shared memory. Every other plan takes tasks of ``RG``
-    rows.
+    every row and every slice then lies in shared memory: the slices that
+    find no room (``staged``, each ``stageable``) share one staging slot,
+    laid out with its mbarrier before the rows, into which each is copied
+    every step while the layer before it in the cycle of staged layers
+    exchanges its rows (csrc/decode.cu). Every other plan keeps the layout
+    above, and tasks of ``RG`` rows.
 
     The exchange (``exchange`` None): "flag" where the common kernel takes
     the config (``general_kernel``), every row lies in shared memory and
@@ -547,12 +567,16 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
     wkinds = [layer_wkind(prec, is_dec) for is_dec, _ in layers]
     sizes = [slice_bytes(l, n, k)
              for (_, l), n, k in zip(layers, nmax, wkinds)]
+    pitch = {"C": _up(max(l.cin for _, l in layers if l.kind == "C"), PAD)}
+    can_stage = [stageable(l, k, pitch.get(l.kind, layer_depth(l)))
+                 for (_, l), k in zip(layers, wkinds)]
 
-    def layout(exchange):
+    def layout(exchange, slot=0):
         """(staging bytes, bytes before the activation rows, rows in
-        shared memory)."""
+        shared memory), with a weight staging slot of ``slot`` bytes."""
         z_bytes = _up(4 * ldh * staged_rows(B, exchange), 16)
-        fixed = _up(4 * B * nv_max, 16) + _up(4 * B, 16) + ln_bytes + z_bytes
+        fixed = (_up(4 * B * nv_max, 16) + _up(4 * B, 16) + ln_bytes
+                 + z_bytes + slot)
         return z_bytes, fixed, min(B, max(0, (SMEM_MAX - fixed) // (4 * xw)))
 
     if exchange != "grid":
@@ -579,19 +603,42 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
             cur += size if offs[-1] >= 0 else 0
         return offs, cur
 
-    part_off = 4 * xw * rows_sh
-    prev_off = part_off + _up(4 * B * nv_max, 16)
-    ln_off = prev_off + _up(4 * B, 16)
-    z_off = ln_off + ln_bytes
-    woff, cur = place(z_off + z_bytes)
+    def regions(rows_sh, slot):
+        """(part_off, prev_off, ln_off, z_off, stage_off, first free)."""
+        part_off = 4 * xw * rows_sh
+        prev_off = part_off + _up(4 * B * nv_max, 16)
+        ln_off = prev_off + _up(4 * B, 16)
+        z_off = ln_off + ln_bytes
+        return (part_off, prev_off, ln_off, z_off, z_off + z_bytes,
+                z_off + z_bytes + slot)
+
+    *offs, cur = regions(rows_sh, 0)
+    woff, cur = place(cur)
+    stage_off, slot, staged = -1, 0, [False] * len(layers)
     task_rows = [RG] * len(layers)
     wide = [k != "split" and task_rounds(B, RG_WIDE, v, k)
             < task_rounds(B, RG, v, k)
             for (_, l), n, k in zip(layers, nmax, wkinds)
             for v in [(3 if l.kind == "HC" else 1) * n]]
-    if (exchange == "grid" and not general_kernel(cfg) and any(wide)
-            and rows_sh == B):  # the wide kernel
-        task_rows = [RG_WIDE if w else RG for w in wide]
+    if exchange == "grid" and not general_kernel(cfg) and any(wide):
+        # the wide kernel: every row and every slice in shared memory, the
+        # slices that find no room staged in turn in one slot (with its
+        # mbarrier) laid out before the rows; one alone keeps it, resident
+        w_slot = 0 if min(woff) >= 0 or not any(can_stage) else max(
+            s_ for s_, ok in zip(sizes, can_stage) if ok) + 16
+        _, w_fixed, w_rows = layout(exchange, w_slot)
+        *w_offs, w_cur = regions(w_rows, w_slot)
+        w_woff, w_cur = place(w_cur)
+        w_staged = [o < 0 for o in w_woff]
+        if (w_fixed <= SMEM_MAX and w_rows == B and all(
+                ok for s_, ok in zip(w_staged, can_stage) if s_)):
+            rows_sh, offs, cur = w_rows, w_offs, w_cur
+            if w_slot:
+                stage_off, slot = offs[-1], w_slot - 16
+            woff = [stage_off if s_ else o for s_, o in zip(w_staged, w_woff)]
+            staged = w_staged if sum(w_staged) > 1 else [False] * len(layers)
+            task_rows = [RG_WIDE if w else RG for w in wide]
+    part_off, prev_off, ln_off, z_off, _ = offs
     ldx = _up(ldh, LINE_WORDS) if exchange == "flag" else ldh
     hc = [n for (_, l), n in zip(layers, nmax) if l.kind == "HC"]
     return DecodePlan(
@@ -603,6 +650,8 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
         ring_floats=ring_rows(cfg) * B * max(hc, default=0) * 2,
         spill_floats=(B - rows_sh) * xw,
         barriers_per_step=len(layers) if exchange == "grid" else 0,
+        staged=tuple(staged), stage_off=stage_off, stage_bytes=slot,
+        sbar_off=stage_off + slot if stage_off >= 0 else -1,
         task_rows=tuple(task_rows))
 
 
@@ -634,14 +683,24 @@ def ring_rows(cfg) -> int:
     return sum(2 * l.rate + 1 for l in enc_prog + dec_prog if l.kind == "HC")
 
 
+def stage_cycle(plan: DecodePlan) -> dict:
+    """{staged layer: the staged layer whose slice it fetches into the
+    staging slot under its exchange}: each the next in program order, the
+    last the first (the next step's)."""
+    staged = [i for i, s in enumerate(plan.staged) if s]
+    return dict(zip(staged, staged[1:] + staged[:1]))
+
+
 def _layer_arrays(packed: dict, cfg, prec: str, plan: DecodePlan):
     """The layer program as the kernel reads it: ``LAYER_INTS`` ints a
     layer (kind, cin, cout, rate, act, ring_off, wkind, ldw, woff, nmax, kp:
     a tap's depth padded to ``PAD``, lnv: 1 if the norm parameters lie on
-    16-byte boundaries at a multiple of 4 floats, rg: its product's task
+    16-byte boundaries at a multiple of 4 floats, fetch: the staged layer
+    whose slice it fetches (``stage_cycle``) or -1, rg: its product's task
     rows) and 4 pointers (w, wl, bias, ln), AudioEnc's layers first."""
     enc, dec = _programs(cfg)
     n_c_enc, n_hc_enc = _enc_counts(cfg)
+    fetch = stage_cycle(plan)
     ints, ptrs, ring_off = [], [], 0
     for li, (is_dec, l) in enumerate([(False, l) for l in enc]
                                      + [(True, l) for l in dec]):
@@ -657,7 +716,7 @@ def _layer_arrays(packed: dict, cfg, prec: str, plan: DecodePlan):
         ints += [int(hc), l.cin, l.cout, l.rate, _ACT[l.act], ring_off,
                  WKINDS.index(kind), w.shape[-1], plan.woff[li],
                  plan.nmax[li], layer_depth(l) // (3 if hc else 1), int(lnv),
-                 plan.task_rows[li]]
+                 fetch.get(li, -1), plan.task_rows[li]]
         ptrs += [hi.data_ptr(), lo.data_ptr() if lo is not None else None,
                  packed["hcb" if hc else "cb"][l.idx].data_ptr(), ln.data_ptr()]
         ring_off += 2 * l.rate + 1 if hc else 0
@@ -767,7 +826,8 @@ def launch_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
         cfg.ln_eps, cmo, plan.xw, plan.ldh,
         plan.rows_sh, plan.ring_floats, plan.spill_floats, plan.part_off,
         plan.prev_off, plan.ln_off, plan.z_off, plan.nv_max, plan.smem,
-        blocks, int(flag), plan.ldx, epoch0, stream)
+        blocks, int(flag), plan.ldx, min(stage_cycle(plan), default=-1),
+        plan.sbar_off, epoch0, stream)
     check(code, f"decode kernel ({prec}, {plan.exchange} exchange)")
     for name in ("k1", f"k1.{prec}", f"k1.{plan.exchange}"):
         count(name + ".launches")

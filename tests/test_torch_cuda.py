@@ -104,14 +104,15 @@ def test_decode_kernel_matches_plain(cuda, B, prec):
 @pytest.mark.parametrize("prec", K1.PRECS)
 def test_decode_kernel_at_b72_matches_plain(cuda, prec):
     """Bulk synthesis's chunk: base_config at B = 72 over all 210 steps,
-    where the plan takes the wide kernel (wide product tasks) but under
-    "high3" (every product split: tasks of RG rows, the common kernel), at
-    ``test_decode_kernel_matches_plain``'s gates, one grid-exchange launch
-    each."""
+    where the plan takes the wide kernel (wide product tasks, most layers'
+    slices staged) but under "high3" (every product split: tasks of RG
+    rows, the common kernel), at ``test_decode_kernel_matches_plain``'s
+    gates, one grid-exchange launch each."""
     cfg = base_config()
     plan = K1.decode_plan(cfg, 72, K1.decode_blocks(cuda), prec)
     assert plan.exchange == "grid"
-    assert (K1.RG_WIDE in plan.task_rows) == (prec != "high3")
+    assert any(plan.staged) == (K1.RG_WIDE in plan.task_rows) == (
+        prec != "high3")
     p = Text2Mel(cfg).init(torch.Generator().manual_seed(72), cuda)
     _check_decode(cfg, p, _ids(cfg, 72).to(cuda), prec)
 

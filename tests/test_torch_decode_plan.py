@@ -87,7 +87,12 @@ def test_plan_fits_shared_memory(name, B, blocks):
             size = n * K1.layer_depth(l) * (4 if kind == "f32" else 2) \
                 * (2 if kind == "split" else 1)
             assert off % 16 == 0
-            spans.append((off, off + size))
+            if off == plan.stage_off:  # the staging slot holds it
+                assert size <= plan.stage_bytes
+            else:
+                spans.append((off, off + size))
+        if plan.stage_off >= 0:
+            spans.append((plan.stage_off, plan.sbar_off + 8))
         spans.sort()
         for (_, e0), (s1, _) in zip(spans, spans[1:]):
             assert e0 <= s1
@@ -107,17 +112,44 @@ def test_plan_fits_shared_memory(name, B, blocks):
 @pytest.mark.parametrize("prec", K1.PRECS)
 @pytest.mark.parametrize("blocks", [32, 132])
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_grid_plans_take_wide_tasks_where_they_pay(name, blocks, prec):
-    """For B = 1 .. 288: the layout fits shared memory, and every layer's
-    task shape is one the kernel reads: RG rows, or RG_WIDE (not the
-    split's products, every row in shared memory, the grid exchange only,
-    and fewer rounds of the warps than RG), its sums a divisor of the 32
-    lanes, its row groups covering B once."""
+def test_grid_plans_stage_every_slice_that_finds_no_room(name, blocks, prec):
+    """For B = 1 .. 288: the layout fits shared memory; where the grid
+    exchange takes wide tasks (the wide kernel: wherever they take fewer
+    rounds of the warps and every row then fits) every layer's slice is
+    resident or staged, the staging slot holds the largest staged slice
+    and lies apart from the resident ones, and the staged layers fetch
+    each other in one cycle in program order; every other plan stages
+    nothing. Every layer's task shape is one the kernel reads: RG rows, or
+    RG_WIDE (not the split's products, every row and slice in shared
+    memory, the grid exchange only, and fewer rounds of the warps than
+    RG), its sums a divisor of the 32 lanes, its row groups covering B
+    once."""
     cfg = CONFIGS[name]()
     layers = _layers(cfg)
     for B in range(1, 289):
         plan = K1.decode_plan(cfg, B, blocks, prec)
         assert plan.smem <= K1.SMEM_MAX
+        sizes = [K1.slice_bytes(l, n, K1.layer_wkind(prec, d))
+                 for (d, l), n in zip(layers, plan.nmax)]
+        staged = [i for i, s in enumerate(plan.staged) if s]
+        if K1.RG_WIDE in plan.task_rows:
+            assert plan.exchange == "grid" and min(plan.woff) >= 0, B
+        else:
+            assert not staged and plan.stage_off == plan.sbar_off == -1
+        if plan.stage_off >= 0:
+            assert plan.stage_bytes == max(sizes)
+            assert plan.stage_off % 16 == 0
+            # the slot's mbarrier just past it
+            assert plan.sbar_off == plan.stage_off + plan.stage_bytes
+            assert plan.sbar_off % 8 == 0 and plan.sbar_off + 8 <= plan.smem
+            for i, (o, size) in enumerate(zip(plan.woff, sizes)):
+                if o != plan.stage_off:
+                    assert o >= plan.sbar_off + 8 or o + size <= plan.stage_off
+        assert all(plan.woff[i] == plan.stage_off for i in staged)
+        assert len(staged) != 1
+        cycle = K1.stage_cycle(plan)
+        assert sorted(cycle) == sorted(cycle.values()) == staged
+        assert all(cycle[a] == b for a, b in zip(staged, staged[1:]))
         for (d, l), n, rows in zip(layers, plan.nmax, plan.task_rows):
             kind = K1.layer_wkind(prec, d)
             assert rows in (K1.RG, K1.RG_WIDE)
@@ -130,18 +162,20 @@ def test_grid_plans_take_wide_tasks_where_they_pay(name, blocks, prec):
             if rows == K1.RG_WIDE:
                 nv = (3 if l.kind == "HC" else 1) * n
                 assert kind != "split" and plan.rows_sh == B
+                assert min(plan.woff) >= 0
                 assert plan.exchange == "grid"
                 assert K1.task_rounds(B, K1.RG_WIDE, nv, kind) < \
                     K1.task_rounds(B, K1.RG, nv, kind)
 
 
-def test_plan_at_b72_takes_wide_tasks():
+def test_plan_at_b72_stages_and_takes_wide_tasks():
     """bulk synthesis's chunk at base_config over the H100's 132 blocks:
-    every activation row in shared memory and the float32 products in
-    tasks of RG_WIDE rows (an HC layer's 27 tasks take 2 rounds of the 16
-    warps, not 54 in 4)."""
+    every activation row in shared memory, every layer's slice in it (most
+    staged), and the float32 products in tasks of RG_WIDE rows (an HC
+    layer's 27 tasks take 2 rounds of the 16 warps, not 54 in 4)."""
     plan = K1.decode_plan(base_config(), 72, 132)
     assert plan.exchange == "grid" and plan.rows_sh == 72
+    assert all(o >= 0 for o in plan.woff) and sum(plan.staged) >= 12
     assert set(plan.task_rows) == {K1.RG_WIDE}
     assert K1.task_rounds(72, K1.RG_WIDE, 12, "f32") == 2
     assert K1.task_rounds(72, K1.RG, 12, "f32") == 4
@@ -163,6 +197,7 @@ FLAG_PLANS = {
               86720, 99008, 111296, 123584, 135872, 139968, 152256, 164544,
               176832, 189120, 201408, 213696, 215744, 217792, 219840),
         smem=220864, ring_floats=2176, spill_floats=0, barriers_per_step=0,
+        staged=(False,) * 24, stage_off=-1, stage_bytes=0, sbar_off=-1,
         task_rows=(4,) * 24),
     2: K1.DecodePlan(
         blocks=132, B=2, exchange="flag", xw=512, ldh=512, ldx=512,
@@ -172,6 +207,7 @@ FLAG_PLANS = {
               90864, 103152, 115440, 127728, 140016, 144112, 156400, 168688,
               180976, 193264, 205552, 217840, 219888, 221936, 223984),
         smem=225008, ring_floats=4352, spill_floats=0, barriers_per_step=0,
+        staged=(False,) * 24, stage_off=-1, stage_bytes=0, sbar_off=-1,
         task_rows=(4,) * 24)}
 
 
@@ -184,12 +220,13 @@ def test_flag_plans_are_pinned(B):
 
 
 @pytest.mark.parametrize("name", ["win5", "d264", "c520"])
-def test_general_kernel_takes_no_wide_tasks(name):
+def test_general_kernel_neither_stages_nor_widens(name):
     """A config of the general kernel keeps its product and its slices as
     before: tasks of RG rows, slices that find no room stream from L2."""
     cfg = test_config().replace(**GENERAL[name][0])
     for B in (20, 72, 200):
         plan = K1.decode_plan(cfg, B, 32)
+        assert plan.stage_off == -1 and not any(plan.staged)
         assert set(plan.task_rows) == {K1.RG}
 
 
@@ -362,7 +399,8 @@ def test_layer_program_by_prec(packed_test, prec):
     ring_off = 0
     for li, (is_dec, l) in enumerate(_layers(cfg)):
         (kind, cin, cout, rate, act, roff, wk, ldw, woff, nmax, kp, lnv,
-         rg) = ints[li]
+         fetch, rg) = ints[li]
+        assert fetch == K1.stage_cycle(plan).get(li, -1)
         assert rg == plan.task_rows[li]
         hc = l.kind == "HC"
         assert (kind, cin, cout, rate) == (int(hc), l.cin, l.cout, l.rate)
