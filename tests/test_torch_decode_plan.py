@@ -2,8 +2,9 @@
 
 The CUDA kernel (``csrc/decode.cu``) splits every layer's output columns
 over the blocks of one cooperative launch and runs every batch row through
-each block in tasks of ``RG`` rows; ``decode_plan`` lays out its shared
-memory. These tests hold that host-side plan to covering every column and
+each block in tasks of ``RG`` rows (``RG_WIDE`` in its wide instantiation
+at large B); ``decode_plan`` lays out its shared memory, the wide kernel's
+staging slot among it. These tests hold that host-side plan to covering every column and
 row exactly once, the transposed packing to the JAX-layout keys bitwise,
 and an emulation of the kernel's product arithmetic (each block's column
 slice, each column summed over k in the kernel's lane order and butterfly)
