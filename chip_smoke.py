@@ -61,9 +61,14 @@ line:
              window's span), cuFFT's rfft + irfft of the same frames as a
              yardstick and the output's sha256 (two versions bitwise
              equal or not). Then (line K2-B72) bench.py's chunk, B=72,
-             every row equal to the B=20 run's, and (line K2-n1056) n_fft
-             1056 = 32 * 33, hop 142, win 568, F=61 at the same 1e-5 gate
-             ("skipped" under --package for a package that refuses it).
+             and (line K2-B1) the single cell's, B=1, each with every row
+             equal to the B=20 run's, and (line K2-n1056) n_fft 1056 = 32 *
+             33, hop 142, win 568, F=61 at the same 1e-5 gate ("skipped"
+             under --package for a package that refuses it). Each timed
+             line carries the frame kernel's launch: grid, threads a block
+             (one item each), resident blocks a SM, registers a thread and
+             items a SM a launch ("not reported" by a package that does not
+             report them).
 5. e2e     - Synthesizer(base_config(), random weights, pcm16=True) on the
              card: synthesize_ids_chunked over the 40 Harvard sentences in
              chunks of 20, with every launch counter set to 0 just before
@@ -1022,7 +1027,7 @@ def phase_k2(results):
          bytes_floor_ms_span_frames=f"{floors['span']:.3f}",
          span=f"[{int(nz[0])},{int(nz[-1]) + 1})", out_sha256=digest,
          cufft_rfft_irfft_ms=f"{lib_ms:.3f}",
-         grid=getattr(K2.gl2_run, "grid", "not reported"),
+         **_k2_frame(K2, B_MAIN, F),
          **{f"{k}_ms": "not measured" if kinds is None else f"{kinds[k]:.3f}"
             for k in K2_KINDS})
     if not ok:
@@ -1031,20 +1036,40 @@ def phase_k2(results):
     results["K2"] = dict(max_abs_err=err1, ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                          bytes_floor_ms=floors)
-    # bench.py's chunk, B = 72: every row is the probe, so every row must
-    # equal the B = 20 run's (an item's work does not depend on the batch)
-    B72 = 72
-    pscr72 = K2.scramble_mag(pmag.expand(B72, F, cfg.n_freq), g)
-    w72 = K2.gl2_run(pscr72, consts, g, n_iter)
-    same = bool((w72 == w[:1]).all())
-    ms72 = cuda_ms(lambda: K2.gl2_run(pscr72, consts, g, n_iter), 3)
-    line("K2-B72", ok=same, B=B72, rows_equal_B20=same, ms=f"{ms72:.3f}",
-         ratio_to_B20=f"{ms72 / ms:.3f}")
-    if not same:
-        raise AssertionError("K2 at B=72 differs from its B=20 rows")
-    results["K2_B72"] = dict(ms=ms72)
-    del pscr72, w72
+    # bench.py's chunk, B = 72, and the single cell's, B = 1: every row is
+    # the probe, so every row must equal the B = 20 run's (an item's work
+    # does not depend on the batch)
+    for B in (72, 1):
+        pscr_b = K2.scramble_mag(pmag.expand(B, F, cfg.n_freq), g)
+        w_b = K2.gl2_run(pscr_b, consts, g, n_iter)
+        same = bool((w_b == w[:1]).all())
+        frame = _k2_frame(K2, B, F)
+        ms_b = cuda_ms(lambda: K2.gl2_run(pscr_b, consts, g, n_iter),
+                       3 if B > 1 else 20)
+        kinds_b = _kinds(lambda: K2.gl2_run(pscr_b, consts, g, n_iter),
+                         K2_KINDS)
+        line(f"K2-B{B}", ok=same, B=B, rows_equal_B20=same, ms=f"{ms_b:.3f}",
+             ratio_to_B20=f"{ms_b / ms:.3f}", **frame,
+             **{f"{k}_ms": "not measured" if kinds_b is None
+                else f"{kinds_b[k]:.3f}" for k in K2_KINDS})
+        if not same:
+            raise AssertionError(f"K2 at B={B} differs from its B=20 rows")
+        results[f"K2_B{B}"] = dict(ms=ms_b)
+        del pscr_b, w_b
     _k2_n1056(K2, dev, results)
+
+
+def _k2_frame(K2, B, F):
+    """The frame kernel's launch in gl2_run's last call: grid, threads a
+    block, resident blocks a SM, registers a thread, and the items (frame
+    pairs) a SM takes a launch."""
+    frame = getattr(K2.gl2_run, "frame", None)
+    items = (F + 1) // 2 * B
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if frame is None:
+        return dict(grid=getattr(K2.gl2_run, "grid", "not reported"),
+                    frame="not reported", items_per_sm=f"{items / sms:.1f}")
+    return dict(**frame, items_per_sm=f"{items / sms:.1f}")
 
 
 def _k2_n1056(K2, dev, results):

@@ -310,6 +310,43 @@ def test_gl2_kernel_matches_plain(cuda, n_iter, geom):
     torch.testing.assert_close(y.double(), yp, atol=1e-5, rtol=0)
 
 
+# the cells' geometry (n_fft 2048, hop 275, win 1102, F 840) at their
+# batches (single B = 1, the smoke's B = 20, bulk72's B = 72) and a
+# non-power-of-two n_fft (32 * 33) in the base config's ratios
+@pytest.mark.parametrize("B,geom", [(1, (2048, 275, 1102, 840)),
+                                    (20, (2048, 275, 1102, 840)),
+                                    (72, (2048, 275, 1102, 840)),
+                                    (20, (1056, 142, 568, 61))])
+def test_gl2_kernel_at_the_cells_batches_matches_plain(cuda, B, geom):
+    """The 1e-5 gate against the float64 plain version after 1 and 3
+    rounds; each row's bits do not depend on the batch it came in; one
+    counted launch a call, of the one frame kernel: n_fft/16 threads an
+    item in whole warps, at most the items in blocks."""
+    n_fft, hop, win, F = geom
+    g = K2.gl2_geometry(n_fft, hop, win, F)
+    mag = torch.rand(B, F, n_fft // 2 + 1,
+                     generator=torch.Generator().manual_seed(B)) + 0.05
+    scr = K2.scramble_mag(mag.to(cuda), g)
+    consts = {k: torch.as_tensor(v, device=cuda)
+              for k, v in K2.gl2_consts(n_fft, hop, win, F).items()}
+    for n_iter in (1, 3):
+        c0 = profiling.counts()
+        y = K2.gl2_run(scr, consts, g, n_iter)
+        assert _counted(c0) == {"k2.launches": 1}
+        frame = K2.gl2_run.frame
+        assert frame["threads"] == -(-n_fft // 16 // 32) * 32
+        assert frame["grid"] == min(frame["blocks_per_sm"] * torch.cuda.
+                                    get_device_properties(cuda).
+                                    multi_processor_count, (F + 1) // 2 * B)
+        yp = K2.gl2_run_plain(scr.double(), consts, g, n_iter)
+        torch.testing.assert_close(y.double(), yp, atol=1e-5, rtol=0)
+        rows = [0, B - 1] if B > 1 else [0]
+        for b in rows:
+            one = K2.gl2_run(scr[b: b + 1].contiguous(), consts, g, n_iter)
+            assert torch.equal(one[0], y[b])
+        del y, yp
+
+
 def test_synthesizer_on_cuda_matches_cpu(cuda):
     """Y and Z against the CPU run; the waveform against the float64 plain
     vocoder on the card's own Z (see the module docstring)."""

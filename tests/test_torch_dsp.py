@@ -114,12 +114,12 @@ def test_gl2_geometry_consts_scramble_match_jax(geom):
     for k in ("win", "wsq"):
         assert got[k].dtype == np.float32
         np.testing.assert_array_equal(got[k], want[k])
-    # the port's own entry: the CUDA kernel's twiddle tables, float32 of
-    # float64 exp(-2 pi i ...) (tests/test_torch_gl2_plan.py holds them)
+    # the port's own entry: the CUDA kernel's twiddle tables, float64
+    # exp(-2 pi i ...) (tests/test_torch_gl2_plan.py holds them)
     tw = K2.fft_twiddles(geom[0])
-    assert got["fft_tw"].dtype == np.float32
-    np.testing.assert_allclose(got["fft_tw"][:, 0] + 1j * got["fft_tw"][:, 1],
-                               tw, atol=1e-7)
+    assert got["fft_tw"].dtype == np.float64
+    np.testing.assert_array_equal(
+        got["fft_tw"][:, 0] + 1j * got["fft_tw"][:, 1], tw)
     np.testing.assert_allclose(np.abs(tw), 1.0, atol=1e-15)
     n_f = geom[3]
     mag = np.random.default_rng(2).random(

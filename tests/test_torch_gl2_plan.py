@@ -2,11 +2,13 @@
 
 The CUDA frame kernel (``csrc/gl2.cu``) runs a mixed-radix Stockham FFT
 planned by ``fft_plan``, handed to it as the table of ``fft_passes`` with
-the twiddle tables of ``fft_twiddles``, and exchanges every pass's outputs
-through shared memory at the index ``xi``. These tests hold a numpy
-emulation of those passes (float64, the kernel's loads, twiddles,
-butterflies and stores) to ``numpy.fft.fft`` within 1e-12, the exchange
-index to at most 2-way bank conflicts on every pass's stores, and a float64
+the float64 twiddle tables of ``fft_twiddles``, and exchanges every pass's
+outputs in place through one shared-memory buffer at the index ``xi``.
+These tests hold a numpy emulation of those passes (float64, the kernel's
+loads, twiddles, butterflies and stores) to ``numpy.fft.fft`` within
+1e-12, the exchange index to at most 2-way bank conflicts on every pass's
+loads and stores, each warp's twiddle loads to consecutive addresses, the
+pass table's offsets to the float64 table, and a float64
 model of the kernel's two real frames per complex transform (pack, split,
 impose, merge) to one plain round, and the window's span (the frames'
 stored samples) to the window's nonzero samples, with the span
@@ -70,10 +72,13 @@ def ola_frame_range(s, off, span, hop, F):
 
 
 def _emulate_fft(x: np.ndarray) -> np.ndarray:
-    """The kernel's forward transform of x (n,) in float64: each pass reads
-    its butterfly's points, twiddles them from the tables, takes the DFT of
-    R points (a direct sum for the odd radix) and stores through the
-    exchange index into the other buffer."""
+    """The kernel's forward transform of x (n,) in float64: a pass of 16 or
+    8 (fast_pass) reads its butterfly's points, twiddles them by w^r, w^b
+    from the tables (b = 1, 2, 4, 8) and the other powers as the products
+    w^b w^(r - b), b the top bit of r, and takes the DFT of R points; a
+    pass of 4, 2 or odd radix (sum_pass) sums each output directly from
+    the n-entry table; each pass stores through the exchange index once
+    every point is read (the buffer is used in place)."""
     n = x.shape[0]
     tw = K2.fft_twiddles(n)
     src = x.astype(np.complex128)        # pass 0 reads natural order
@@ -85,27 +90,33 @@ def _emulate_fft(x: np.ndarray) -> np.ndarray:
     for R, ns, tw_off in passes.tolist():
         assert tw_off == off
         dst = np.empty(n, np.complex128)
-        if R % 2:
-            k = np.arange(n)
-            j = k & (ns - 1)
-            acc = src[j].copy()
-            for q in range(1, R):
-                acc += src[j + q * ns] * tw[off + (q * k) % n]
-            dst[xi[k]] = acc
-            off += n
-        else:
-            nb = n // R
-            j = np.arange(nb)
-            jm = j & (ns - 1)
+        nb = n // R
+        j = np.arange(nb)
+        jm = j & (ns - 1)
+        o = (j - jm) * R + jm
+        if R in (8, 16):
             v = np.stack([src[j + r * nb] for r in range(R)])
             if ns > 1:
-                t = tw[off: off + ns * (R - 1)].reshape(ns, R - 1)
-                v[1:] *= t[jm].T
-                off += ns * (R - 1)
+                rows = R.bit_length() - 1
+                t = tw[off: off + ns * rows].reshape(rows, ns)[:, jm]
+                w = {1 << b: t[b] for b in range(rows)}
+                for r in range(3, R):
+                    top = 1 << (r.bit_length() - 1)
+                    if r != top:
+                        w[r] = w[top] * w[r - top]
+                v[1:] *= np.stack([w[r] for r in range(1, R)])
+                off += ns * rows
             v = np.fft.fft(v, axis=0)    # the butterfly's DFT of R points
-            o = (j - jm) * R + jm
             for r in range(R):
                 dst[xi[o + r * ns]] = v[r]
+        else:
+            for k in range(R):
+                step = (jm + k * ns) * (n // (ns * R))
+                acc = src[j].copy()
+                for r in range(1, R):
+                    acc += src[j + r * nb] * tw[off + (r * step) % n]
+                dst[xi[o + k * ns]] = acc
+            off += n
         src = dst[xi]                    # the next pass reads through xi
     assert off == len(tw)
     return src
@@ -115,8 +126,14 @@ def _emulate_fft(x: np.ndarray) -> np.ndarray:
 def test_mixed_radix_plan_matches_numpy_fft(n):
     plan = K2.fft_plan(n)
     assert np.prod([R for R, _ in plan]) == n
-    assert plan[0] == (8, 1)
+    assert plan[0] == (16, 1)
+    # a thread of the item's n/16 (whole warps) holds at most 16 points of
+    # any pass: its butterflies' points, or the odd pass's outputs
+    nt = -(-n // 16 // WARP) * WARP
+    for R, _ in plan:
+        assert (-(-n // (R * nt)) * R if R % 2 == 0 else -(-n // nt)) <= 16
     assert sum(R % 2 for R, _ in plan) == (n & -n != n)   # one odd pass
+    assert all(R == 16 for R, _ in plan[:-2])
     x = np.random.default_rng(n).standard_normal(n) \
         + 1j * np.random.default_rng(n + 1).standard_normal(n)
     np.testing.assert_allclose(_emulate_fft(x), np.fft.fft(x), rtol=0,
@@ -124,8 +141,10 @@ def test_mixed_radix_plan_matches_numpy_fft(n):
 
 
 def test_plan_at_base_config_is_four_passes():
-    assert K2.fft_plan(2048) == [(8, 1), (8, 8), (8, 64), (4, 512)]
-    assert K2.fft_plan(1056) == [(8, 1), (4, 8), (33, 32)]
+    """Three passes at the base config's 2048 since radix 16 (four before
+    it, of radix 8, 8, 8 and 4)."""
+    assert K2.fft_plan(2048) == [(16, 1), (16, 16), (8, 256)]
+    assert K2.fft_plan(1056) == [(16, 1), (2, 16), (33, 32)]
     for bad in (16, 100, 1000):
         with pytest.raises(ValueError):
             K2.fft_plan(bad)
@@ -139,45 +158,97 @@ def _conflict(addresses) -> int:
     return int(np.bincount(a % 16, minlength=16).max())
 
 
-def _pass_stores(n):
-    """For every pass of the plan and every store instruction (one r of a
-    power-of-two pass; the odd pass's one), each warp's exchange indices."""
+def _pass_accesses(n):
+    """For every pass of the plan, every load and store instruction (one r
+    of a pass of 16 or 8; one term of a direct-sum pass's loads, its one
+    store) and each warp (32 consecutive butterflies, or outputs): ("load" or
+    "store", its exchange indices), keyed by (R, Ns), then the spectral
+    step's (bins k and n - k, k = k1 + 16 k2 with k2 fastest across the
+    threads)."""
     xi = exchange_index
     for R, ns in K2.fft_plan(n):
-        if R % 2:
-            k = np.arange(n)
+        nb = n // R
+        if R not in (8, 16):
+            # sum_pass: output t of the thread's is (j, k) = (t % nb, t //
+            # nb); one load instruction a term r
+            t = np.arange(n)
+            j, k = t % nb, t // nb
+            o = (j - (j & (ns - 1))) * R + (j & (ns - 1)) + k * ns
             for w in range(0, n, WARP):
-                yield (R, ns), xi(k[w: w + WARP])
+                for r in range(R):
+                    yield (R, ns), "load", xi(j[w: w + WARP] + r * nb)
+                yield (R, ns), "store", xi(o[w: w + WARP])
             continue
-        j = np.arange(n // R)
+        j = np.arange(nb)
         o = (j - (j & (ns - 1))) * R + (j & (ns - 1))
-        for w in range(0, len(j), WARP):
+        for w in range(0, nb, WARP):
             for r in range(R):
-                yield (R, ns), xi(o[w: w + WARP] + r * ns)
+                yield (R, ns), "load", xi(j[w: w + WARP] + r * nb)
+                yield (R, ns), "store", xi(o[w: w + WARP] + r * ns)
+    h2 = n // 32
+    i = np.arange(n // 2)
+    k = i // h2 + 16 * (i % h2)
+    for w in range(0, n // 2, WARP):
+        yield "spectral", "k", xi(k[w: w + WARP])
+        yield "spectral", "n-k", xi((n - k[w: w + WARP]) % n)
 
 
 @pytest.mark.parametrize("n", [2048, 1056])
 def test_exchange_stores_conflict_at_most_two_way(n):
+    """Every pass's loads and stores and the spectral step's accesses fall
+    at most 2 on a bank at a power-of-two n. At 1056 two kinds are held to
+    3: a radix-16 pass's loads, as n/16 = 66 is no multiple of 16 (a warp's
+    32 consecutive loads start inside a 16-point row and span three, and no
+    swizzle by rows keeps both those and the first pass's stores, 16 j + r,
+    at 2); and the spectral step's, as its warps' bins cross from one k1
+    to the next (n/32 = 33 bins each)."""
     worst = {}
-    for key, addr in _pass_stores(n):
-        worst[key] = max(worst.get(key, 0), _conflict(addr))
-    assert max(worst.values()) <= 2, worst
-    # without the swizzle the first pass's stores are 16-way
+    for key, kind, addr in _pass_accesses(n):
+        worst[key, kind] = max(worst.get((key, kind), 0), _conflict(addr))
+    assert len(worst) == 2 * len(K2.fft_plan(n)) + 2
+    for (key, kind), ways in worst.items():
+        looser = key == "spectral" and (n // 32) % WARP \
+            or kind == "load" and key[0] == 16 and (n // 16) % 16
+        assert ways <= (3 if looser else 2), worst
+    if n & (n - 1) == 0:
+        assert max(worst.values()) <= 2, worst
+    # without the swizzle the first pass's stores are 32-way
     j = np.arange(WARP)
-    assert _conflict(8 * j) == 16
+    assert _conflict(16 * j) == 32
 
 
 @pytest.mark.parametrize("n", [2048, 1056])
 def test_twiddle_loads_broadcast_or_distinct_banks(n):
-    """A pass's twiddle loads tw[jm][r - 1], one r a load instruction:
-    every warp's distinct addresses fall at most 2 on a bank."""
+    """A fast pass's twiddle loads, w^b at [log2 b][jm] (read through L1),
+    one b a load instruction: every warp's distinct addresses are
+    consecutive double2s (jm fastest), at most four 128-byte lines."""
+    offs = {tuple(p[:2]): p[2] for p in K2.fft_passes(n).tolist()}
     for R, ns in K2.fft_plan(n):
-        if R % 2 or ns == 1:
+        if R not in (8, 16) or ns == 1:
             continue
         jm = np.arange(n // R) & (ns - 1)
         for w in range(0, len(jm), WARP):
-            for r in range(1, R):
-                assert _conflict(jm[w: w + WARP] * (R - 1) + r - 1) <= 2
+            for row in range(R.bit_length() - 1):
+                a = np.unique(offs[R, ns] + row * ns + jm[w: w + WARP])
+                assert (np.diff(a) == 1).all()
+                assert len(np.unique(a * 16 // 128)) <= 4
+
+
+@pytest.mark.parametrize("n", [96, 1056, 2048, 8192])
+def test_pass_table_offsets_match_the_float64_table(n):
+    """Each pass's offset in ``fft_passes`` is where its table starts in
+    ``fft_twiddles``, the tables fill it, and ``gl2_consts`` hands the
+    kernel that table in float64."""
+    passes = K2.fft_passes(n)
+    tw = K2.fft_twiddles(n)
+    sizes = [n if R not in (8, 16) else ns * (R.bit_length() - 1)
+             if ns > 1 else 0 for R, ns in K2.fft_plan(n)]
+    assert passes[:, 2].tolist() == np.cumsum([0] + sizes[:-1]).tolist()
+    assert passes[-1, 2] + sizes[-1] == len(tw)
+    hop = n // 8
+    c = K2.gl2_consts(n, hop, n // 2, 9)["fft_tw"]
+    assert c.dtype == np.float64 and c.shape == (len(tw), 2)
+    np.testing.assert_array_equal(c[:, 0] + 1j * c[:, 1], tw)
 
 
 def _pair_round(x: torch.Tensor, mag: torch.Tensor) -> torch.Tensor:
