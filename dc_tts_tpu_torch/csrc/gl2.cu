@@ -50,7 +50,7 @@
 #include "gl_ola.cuh"  // gl_ola_kernel, GL_NT
 
 #define N1 16         // the scrambled magnitude's k1 extent: k = k1 + 16*k2
-#define MAX_PASSES 8  // 2^21 * m points at most: the thread count binds first
+#define MAX_PASSES 8  // n_fft <= 16 * NT_MAX takes five at most
 #define P_THREAD 16   // points a thread holds in a pass
 #define NT_MAX 512    // threads an item at most: n_fft <= 16 * NT_MAX
 
@@ -59,7 +59,7 @@ namespace {
 // The passes of one transform (ops/gl2.py:fft_passes): pass p combines R[p]
 // points after Ns[p] have been combined; its twiddles start at tw[p].
 struct Plan {
-  int n, np, n_tw;
+  int n, np;
   int R[MAX_PASSES], Ns[MAX_PASSES], tw[MAX_PASSES];
 };
 
@@ -410,7 +410,6 @@ static bool take_plan(int n, const int* passes, int np, int n_tw, Plan* pl) {
   }
   pl->n = n;
   pl->np = np;
-  pl->n_tw = n_tw;
   return Ns == n;
 }
 
