@@ -19,7 +19,8 @@ line:
              argmax or a tie (its two largest probabilities differ by less
              than 1e-6). The free-running plain version's first flip, if any,
              is printed as information. With the kernel's grid (blocks, the
-             exchange the plan took, grid barriers a step, µs a step) and the
+             blocks of a cluster, the exchange the plan took, grid barriers a
+             step, µs a step and a layer-step) and the
              barrier floor: the ms of the decode's grid barriers alone
              (csrc/decode.cu barrier_kernel). Then (line K1-B1) one sentence,
              B=1, at the same gate, with the exchange it took (the flagged
@@ -30,8 +31,11 @@ line:
              bench.py's chunk, B=72, and (line K1-win8) a window of 8 keys
              (past the 4 the kernel once took), at the same gate; K1-B72
              also prints its plan (slices resident and staged, the
-             products' task shape) and µs a layer-step beside the barrier
-             floor's.
+             products' task shape, the cluster width and blocks) and µs a
+             layer-step beside the barrier floor's, checks its clusters
+             against clusters of 2 bit for bit, and prints the sha256 of Y
+             and A at B=72, 20 and 1 (run it under --package on the parent
+             in the same call: equal digests are bitwise equal outputs).
 3a. TextEnc - (lines TextEnc-B1, TextEnc-B72) TextEnc eager against the
              Synthesizer's captured graph of it at B=1 and B=72, N=180:
              device ms and host ms of a call (medians of 20, each started
@@ -519,16 +523,36 @@ def _first_flip(A_k, A_p):
     return t, b, float(top[0] - top[1])
 
 
+def _k1_plan(cfg, B, prec):
+    """The decode kernel's plan at batch B on this card, as its launch takes
+    it (a package from before the plan's cluster width: ``decode_plan``
+    over ``decode_blocks``)."""
+    from dc_tts_tpu_torch.ops import decode as K1
+    dev = torch.device("cuda", 0)
+    if hasattr(K1, "launch_plan"):
+        return K1.launch_plan(cfg, B, prec, dev)
+    return K1.decode_plan(cfg, B, K1.decode_blocks(dev), prec)
+
+
 def _k1_grid(cfg, B, prec, ms, T):
     """The decode kernel's grid in this run: blocks (one per SM), the
-    exchange the plan takes, grid barriers a step, and µs a step from the
-    kernel's ``ms``."""
-    from dc_tts_tpu_torch.ops import decode as K1
-    blocks = K1.decode_blocks(torch.device("cuda", 0))
-    plan = K1.decode_plan(cfg, B, blocks, prec)
-    return dict(blocks=blocks, exchange=plan.exchange,
+    blocks of a cluster, the exchange the plan takes, grid barriers a step,
+    and µs a step and a layer-step from the kernel's ``ms``."""
+    plan = _k1_plan(cfg, B, prec)
+    return dict(blocks=plan.blocks, cluster=getattr(plan, "cluster", 2),
+                exchange=plan.exchange,
                 barriers_per_step=plan.barriers_per_step,
-                us_per_step=f"{ms * 1e3 / T:.2f}")
+                us_per_step=f"{ms * 1e3 / T:.2f}",
+                us_per_layer_step=f"{ms * 1e3 / (T * len(plan.nmax)):.2f}")
+
+
+def _digest(*ts):
+    """sha256 of the tensors' bytes, 16 hex digits: two packages' Y and A
+    compared bit for bit across runs (``--package``)."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def _exchange_floor_ms(n, blocks, C):
@@ -626,6 +650,7 @@ def phase_k1(results):
         ms = cuda_ms(lambda: K1.fused_decode(packed, Kt, V, T, cfg), 3)
     dY, dA, note = _k1_check("K1", A, Ar, Y, Yr, _first_flip(A, Ap), 1e-6)
     ok = dY <= 2e-5 and dA <= 2e-5 and bool(torch.isfinite(Y).all())
+    digests = {B_MAIN: _digest(Y, A)}
     # operations: the layer matmuls per row per step plus the unmasked
     # attention keys (scores + context) the cursors of this run select
     enc, dec = K1._programs(cfg)
@@ -672,6 +697,7 @@ def phase_k1(results):
                                                     exchange="grid"), 3)
     dY, dA, note = _k1_check("K1-B1", A, Ar, Y, Yr, _first_flip(A, Ap), 1e-6)
     same = bool(torch.equal(Y, Yg) and torch.equal(A, Ag))
+    digests[1] = _digest(Y, A)
     grid1 = _k1_grid(cfg, 1, "highest", ms1, T)
     ok = (dY <= 2e-5 and dA <= 2e-5 and bool(torch.isfinite(Y).all())
           and took == [grid1["exchange"]] and same)
@@ -702,7 +728,8 @@ def phase_k1(results):
          **{f"barrier_floor_ms_{g}_blocks": f"{m:.3f}"
             for g, m in floors.items()})
     results["K1_grid"] = sweep
-    # bench.py's chunk: B = 72, same gate
+    # bench.py's chunk: B = 72, same gate; its plan's cluster width against
+    # clusters of CLUSTER, bit for bit (a package without the width: n/a)
     ids = torch.as_tensor(harvard_ids(cfg, 72), device=dev)
     with torch.no_grad():
         Kt, V = (x.contiguous() for x in model.text_encode(params, ids))
@@ -710,15 +737,26 @@ def phase_k1(results):
         Yp, Ap = K1.fused_decode_plain(packed, Kt, V, T, cfg)
         Yr, Ar = _k1_replay(packed, Kt, V, T, cfg, "highest", A)
         ms72 = cuda_ms(lambda: K1.fused_decode(packed, Kt, V, T, cfg), 3)
+        narrow = "n/a"
+        if hasattr(K1, "launch_plan"):
+            Yn, An = K1.launch_decode(packed, Kt, V, T, cfg,
+                                      cluster=K1.CLUSTER)
+            narrow = bool(torch.equal(Y, Yn) and torch.equal(A, An))
     dY, dA, note = _k1_check("K1-B72", A, Ar, Y, Yr, _first_flip(A, Ap),
                              1e-6)
-    ok = dY <= 2e-5 and dA <= 2e-5 and bool(torch.isfinite(Y).all())
+    digests[72] = _digest(Y, A)
+    ok = (dY <= 2e-5 and dA <= 2e-5 and bool(torch.isfinite(Y).all())
+          and narrow is not False)
     # the plan at B = 72: slices resident and staged, the products' task
     # shape (rows x virtual columns), and µs a layer-step beside the
-    # barrier floor's (5040 grid barriers alone, above)
-    plan72 = K1.decode_plan(cfg, 72, grid["blocks"])
+    # barrier floor's (5040 grid barriers alone over its blocks); the
+    # digests of Y and A at B = 72, 20 and 1, to compare with another
+    # package's run
+    plan72 = _k1_plan(cfg, 72, "highest")
     staged = sum(plan72.staged)
     layer_steps = T * len(enc + dec)
+    floor72 = (floor if plan72.blocks == grid["blocks"] else
+               _barrier_floor_ms(layer_steps, plan72.blocks))
     line("K1-B72", ok=ok, B=72, T=T, max_dY=f"{dY:.3e}", max_dA=f"{dA:.3e}",
          tol="2e-5", compared_steps=T, note=repr(note), ms=f"{ms72:.3f}",
          **_k1_grid(cfg, 72, "highest", ms72, T),
@@ -726,14 +764,18 @@ def phase_k1(results):
          staged_layers=staged,
          task_shape=",".join(sorted({f"{r}x{K1.task_columns('f32')}"
                                      for r in plan72.task_rows})),
-         us_per_layer_step=f"{ms72 * 1e3 / layer_steps:.2f}",
-         barrier_floor_us_per_layer=f"{floor * 1e3 / layer_steps:.2f}")
+         barrier_floor_us_per_layer=f"{floor72 * 1e3 / layer_steps:.2f}",
+         bitwise_cluster2=narrow,
+         yA_sha256=",".join(f"B{b}:{digests[b]}" for b in (72, B_MAIN, 1)))
     if not ok:
-        raise AssertionError(f"K1 at B=72 disagrees with its plain version: "
-                             f"dY={dY} dA={dA}")
+        raise AssertionError(f"K1 at B=72 disagrees with its plain version "
+                             f"or its clusters of 2: dY={dY} dA={dA} "
+                             f"bitwise={narrow}")
     results["K1_B72"] = dict(max_abs_err=max(dY, dA), ms=ms72,
                              staged_layers=staged,
-                             task_rows=sorted(set(plan72.task_rows)))
+                             task_rows=sorted(set(plan72.task_rows)),
+                             cluster=getattr(plan72, "cluster", 2),
+                             blocks=plan72.blocks, yA_sha256=digests)
     # past one of the kernel's old limits at full width: a window of 8 keys
     # (it took 4), one register chunk of the attention's walk, same gate
     cfg8 = cfg.replace(attention_win_size=8)

@@ -3,7 +3,8 @@
 //
 // Replaces dc_tts_tpu/ops/pallas_decode.py:fused_decode (body
 // _decode_kernel). The design note is in dc_tts_tpu_torch/ops/decode.py.
-// One persistent 512-thread block per SM, in clusters of CL (a cooperative
+// One persistent 512-thread block per SM, in clusters of CLW blocks (a
+// template parameter: CL, or CL_WIDE in the wide kernel; a cooperative
 // launch, so all are co-resident). Block g owns the output columns
 // [g*W/G, (g+1)*W/G) of every layer of width W and computes them for all B
 // batch rows, so each weight is read once a step on the whole card; its
@@ -23,10 +24,13 @@
 // - the grid exchange (large B): each block writes its columns of h to a
 //   global buffer; one grid barrier (a counter in global memory; a wait of
 //   more than 10 s traps, so the launch fails instead of hanging); then the
-//   block of cluster rank r reads the full rows b = r, r + CL, ... of h,
-//   normalises them, and stores the layer's output rows into the copies of
-//   every block of its cluster (distributed shared memory), and a cluster
-//   barrier closes the layer: 24 grid and 24 cluster barriers a step at
+//   block of cluster rank r reads the full rows b = r, r + CLW, ... of h
+//   (B / CLW rows: 36 a block at B = 72 in clusters of 2, so some of its 16
+//   warps take three in turn, 9 in the wide kernel's of 8), normalises
+//   them, one warp a row, and stores the layer's
+//   output rows into the copies of every block of its cluster (distributed
+//   shared memory), and a cluster barrier of the CLW blocks closes the
+//   layer: a grid and a cluster barrier a layer, 24 of each a step at
 //   base_config;
 // - the flagged exchange (small B, every row in shared memory): each block
 //   publishes its columns of h as 8-byte words of a value and the
@@ -92,6 +96,7 @@ namespace cg = cooperative_groups;
 #define RG 4            // batch rows of one product task; RG in ops/decode.py
 #define RG_WIDE 8       // the grid exchange's wide tasks; RG_WIDE there
 #define CL 2            // blocks of a cluster; CLUSTER in ops/decode.py
+#define CL_WIDE 8       // the wide kernel's; WIDE_CLUSTER there
 #define MAX_LAYERS 32
 #define MAX_WIN 8       // attention keys of a register chunk (any window)
 #define ROW_WIN 4       // the most keys attention_row takes
@@ -522,8 +527,8 @@ __device__ void combine(const Args& p, const Layer& L, int t, int c0, int n,
 // The layer norm(s) of rows from the full pre-norm rows hb, one warp a
 // row: C: x <- act(LN(h)) (the last layer: sigmoid, the frame fed back, and
 // Y); HC: x <- sigmoid(LN1(h1)) * LN2(h2) + (1 - sigmoid) * x. A block
-// computes the rows b = rank + CL k of its cluster rank and stores each
-// into the copies of all CL blocks of its cluster. A warp loads its row
+// computes the rows b = rank + CLW k of its cluster rank and stores each
+// into the copies of all CLW blocks of its cluster. A warp loads its row
 // (lane l holds columns l + 32i), takes the statistics, stages the
 // normalised row z = (h - mean) * rsqrt(var + eps) in shared memory (zs,
 // ldh floats a warp), and then applies the norms' parameters (lnb, staged
@@ -659,7 +664,7 @@ __device__ __forceinline__ void apply_row(const Args& p, const Layer& L,
   }
 }
 
-template <bool GEN>
+template <bool GEN, int CLW>
 __device__ void post(const Args& p, const Layer& L, const float* hb,
                      const float* lnb, float* zs, bool last, int t,
                      float* xs, float* xg) {
@@ -668,8 +673,8 @@ __device__ void post(const Args& p, const Layer& L, const float* hb,
   const bool hc = L.kind == 1;
   const int W = L.cout;  // output columns (HC: C, of 2C pre-norm ones)
   float* z = zs + (size_t)warp * p.ldh;
-  for (int k = warp; rank + CL * k < p.B; k += NW) {
-    const int b = rank + CL * k;
+  for (int k = warp; rank + CLW * k < p.B; k += NW) {
+    const int b = rank + CLW * k;
     const float* hr = hb + (size_t)b * p.ldh;
     if (hc && (!GEN || W <= 32 * 8)) {  // the gate's half and the other
       float h[2][8];
@@ -686,9 +691,9 @@ __device__ void post(const Args& p, const Layer& L, const float* hb,
       normalise_wide<1>(hr, W, p.eps, z);
     }
     __syncwarp();
-    float* dst[CL];
+    float* dst[CLW];
 #pragma unroll
-    for (int q = 0; q < CL; ++q) dst[q] = xrow_in(p, xs, q, b);
+    for (int q = 0; q < CLW; ++q) dst[q] = xrow_in(p, xs, q, b);
     // this block's copy holds the residual
     apply_row(p, L, z, lnb, xrow(p, xs, xg, b), dst, last, t, b);
     __syncwarp();
@@ -1031,8 +1036,9 @@ __device__ __forceinline__ void layer_product(const Args& p, const Layer& L,
 // FLAG: the flagged exchange (common configs only); the grid exchange's
 // kernels compile none of it. WIDE: the grid exchange's wide kernel (common
 // configs only, every row and slice in shared memory): wide product tasks
-// and the staged slices; the others compile none of it.
-template <bool GEN, bool FLAG, bool WIDE>
+// and the staged slices; the others compile none of it. CLW: the blocks of
+// a cluster, which split the grid exchange's norm rows.
+template <bool GEN, bool FLAG, bool WIDE, int CLW>
 __global__ void __launch_bounds__(NT, 1)
 decode_kernel(const __grid_constant__ Args p,
               const __grid_constant__ Program prog) {
@@ -1110,7 +1116,7 @@ decode_kernel(const __grid_constant__ Args p,
         combine<false>(p, L, t, c0, n, part, ring, hb, nullptr, 0, first);
         sm90::cp_async_wait_all();  // lnb
         grid_sync(p.bar, target);
-        post<GEN>(p, L, hb, lnb, zs, li == nl - 1, t, xs, xg);
+        post<GEN, CLW>(p, L, hb, lnb, zs, li == nl - 1, t, xs, xg);
         if (WIDE && L.fetch >= 0) {  // the slot holds the next staged slice
           sm90::mbar_wait(sbar, sphase);
           sphase ^= 1;
@@ -1148,33 +1154,37 @@ __global__ void __launch_bounds__(NT, 1) exchange_kernel(uint2* words, int n,
   }
 }
 
-template <typename K>
-cudaError_t set_smem1(K kernel, int smem) {
+typedef void (*Kernel)(Args, Program);
+
+// The instantiation a launch takes (the flagged, general, wide or common
+// kernel) in clusters of cl blocks, or null where it is not built at cl.
+Kernel decode_instance(bool flag, bool general, bool wide, int cl) {
+  if (flag) return cl == CL ? decode_kernel<false, true, false, CL> : nullptr;
+  if (general) return cl == CL ? decode_kernel<true, false, false, CL> : nullptr;
+  if (wide)
+    return cl == CL_WIDE ? decode_kernel<false, false, true, CL_WIDE>
+         : cl == CL ? decode_kernel<false, false, true, CL> : nullptr;
+  return cl == CL ? decode_kernel<false, false, false, CL> : nullptr;
+}
+
+cudaError_t set_smem(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem);
 }
 
-cudaError_t set_smem(int smem) {
-  cudaError_t e = set_smem1(decode_kernel<false, false, false>, smem);
-  if (e == cudaSuccess) e = set_smem1(decode_kernel<true, false, false>, smem);
-  if (e == cudaSuccess) e = set_smem1(decode_kernel<false, true, false>, smem);
-  if (e == cudaSuccess) e = set_smem1(decode_kernel<false, false, true>, smem);
-  return e;
-}
-
-// A cooperative launch of `blocks` blocks in clusters of CL.
+// A cooperative launch of `blocks` blocks in clusters of cl.
 struct LaunchConfig {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[2];
-  LaunchConfig(int blocks, int smem, cudaStream_t stream) {
+  LaunchConfig(int blocks, int smem, cudaStream_t stream, int cl) {
     cfg = cudaLaunchConfig_t{};
     cfg.gridDim = dim3(blocks);
     cfg.blockDim = dim3(NT);
     cfg.dynamicSmemBytes = (size_t)smem;
     cfg.stream = stream;
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = CL;
+    attr[0].val.clusterDim.x = cl;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     attr[1].id = cudaLaunchAttributeCooperative;
@@ -1186,24 +1196,27 @@ struct LaunchConfig {
 
 }  // namespace
 
-// The most blocks of `smem` dynamic bytes, in clusters of CL, that can be
-// co-resident on the current device (the cooperative launch's limit) into
-// *blocks, and the number of SMs into *sms (the common and the general
-// kernel: the same threads, register cap and shared memory).
-extern "C" int dctts_decode_coresident(int smem, int* blocks, int* sms) {
-  cudaError_t e = set_smem(smem);
+// The most blocks of `smem` dynamic bytes, in clusters of `cluster`, that
+// can be co-resident on the current device (the cooperative launch's limit)
+// into *blocks, and the number of SMs into *sms: the query of the
+// instantiation launched at that width (the common kernel at CL, the wide
+// one wider; every instantiation has the same threads, register cap and
+// shared memory).
+extern "C" int dctts_decode_coresident(int smem, int cluster, int* blocks,
+                                       int* sms) {
+  const Kernel kernel = decode_instance(false, false, cluster != CL, cluster);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, clusters = 0;
   e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  LaunchConfig lc(*sms / CL * CL, smem, 0);
-  e = cudaOccupancyMaxActiveClusters(&clusters,
-                                     decode_kernel<false, false, false>,
-                                     &lc.cfg);
+  LaunchConfig lc(*sms / cluster * cluster, smem, 0, cluster);
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &lc.cfg);
   if (e != cudaSuccess) return (int)e;
-  *blocks = clusters * CL;
+  *blocks = clusters * cluster;
   return 0;
 }
 
@@ -1214,7 +1227,9 @@ extern "C" int dctts_decode_coresident(int smem, int* blocks, int* sms) {
 // (hbuf: 2 x B x ldh floats; bar: a zeroed counter); flag 1: the flagged
 // exchange (hbuf: 2 x B x ldx zeroed 8-byte words; bar unused; epochs
 // epoch0 .. epoch0 + T x layers - 1), for a config of the common kernel
-// whose rows all lie in shared memory. Staged slices (fetch, stage0: the
+// whose rows all lie in shared memory. `blocks`: whole clusters of
+// `cluster`, a width the instantiation the launch takes is built at. Staged
+// slices (fetch, stage0: the
 // first staged layer, or -1; sbar_off: the slot's mbarrier, 8 bytes) and
 // wide tasks (rg RG_WIDE, every row and slice in shared memory) only on
 // the grid exchange's common kernel; a staged slice's rows and pitch are
@@ -1228,10 +1243,12 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
                             int rows_sh, int ring_floats, int spill_floats,
                             int part_off, int prev_off, int ln_off,
                             int z_off, int nv_max, int smem, int blocks,
-                            int flag, int ldx, int stage0, int sbar_off,
+                            int cluster, int flag, int ldx, int stage0,
+                            int sbar_off,
                             unsigned epoch0, void* stream) {
-  if (n_enc + n_dec > MAX_LAYERS || win < 1 || B < 1 || blocks < CL ||
-      blocks % CL || xw % 4 || (flag && (rows_sh < B || ldx < ldh)))
+  if (n_enc + n_dec > MAX_LAYERS || win < 1 || B < 1 || cluster < 1 ||
+      blocks < cluster || blocks % cluster || xw % 4 ||
+      (flag && (rows_sh < B || ldx < ldh)))
     return (int)cudaErrorInvalidValue;
   Program prog;
   prog.n_enc = n_enc;
@@ -1291,20 +1308,13 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
   p.epoch0 = epoch0;
   p.eps = eps;
   p.scale = (float)(1.0 / sqrt((double)d));
-  cudaError_t e = set_smem(smem);
-  if (e != cudaSuccess) return (int)e;
-  LaunchConfig lc(blocks, smem, (cudaStream_t)stream);
   if (flag && general) return (int)cudaErrorInvalidValue;
-  e = flag ? cudaLaunchKernelEx(&lc.cfg, decode_kernel<false, true, false>, p,
-                                prog)
-      : general
-          ? cudaLaunchKernelEx(&lc.cfg, decode_kernel<true, false, false>, p,
-                               prog)
-      : wide_kernel
-          ? cudaLaunchKernelEx(&lc.cfg, decode_kernel<false, false, true>, p,
-                               prog)
-          : cudaLaunchKernelEx(&lc.cfg, decode_kernel<false, false, false>,
-                               p, prog);
+  const Kernel kernel = decode_instance(flag, general, wide_kernel, cluster);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  LaunchConfig lc(blocks, smem, (cudaStream_t)stream, cluster);
+  e = cudaLaunchKernelEx(&lc.cfg, kernel, p, prog);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -38,8 +38,8 @@ U = ctypes.c_uint
 
 # argument types of each C entry, in order (see the sources)
 _SIGNATURES = {
-    "dctts_decode": [P] * 10 + [I] * 8 + [Fl] + [I] * 17 + [U, P],
-    "dctts_decode_coresident": [I, ctypes.POINTER(I), ctypes.POINTER(I)],
+    "dctts_decode": [P] * 10 + [I] * 8 + [Fl] + [I] * 18 + [U, P],
+    "dctts_decode_coresident": [I, I, ctypes.POINTER(I), ctypes.POINTER(I)],
     "dctts_decode_barriers": [P, I, I, P],
     "dctts_decode_exchanges": [P, I, I, I, P],
     "dctts_gl2": [P] * 8 + [ctypes.POINTER(I)] + [I] * 12

@@ -13,7 +13,8 @@ On the H100 (csrc/decode.cu): the T steps are sequential and every step
 runs 24 dependent layer products of a few MFLOP each, so the step is a
 latency chain, not a matter of bytes or operations. The design: one
 cooperative launch of one persistent 512-thread block per SM, in clusters
-of ``CLUSTER``. Block g owns the columns ``block_columns(W, G, g)`` of
+of ``CLUSTER`` blocks (``WIDE_CLUSTER`` in the wide kernel; the plan's
+``cluster``). Block g owns the columns ``block_columns(W, G, g)`` of
 every layer of width W and computes them for all B batch rows, so each
 weight is read once a step on the whole card; its slice of the weights
 (the transposed slots ``cw_t``, ``hcw_t``, ... below: a column's weights
@@ -30,9 +31,13 @@ pre-norm rows are exchanged in one of two ways (``EXCHANGES``; the plan
 picks one from B and the widest row, ``decode_plan``). "grid", for large
 B: each block writes its columns of the pre-norm rows to a global buffer
 and all blocks meet at a grid barrier (one a layer); then each block
-normalises the rows ``cluster_rows`` of its cluster rank, gates them, and
-stores the layer's output rows into the shared memory of every block of
-its cluster, and a cluster barrier closes the layer. "flag", for small B
+normalises the rows ``cluster_rows`` of its cluster rank, one warp a row,
+gates them, and stores the layer's output rows into the shared memory of
+every block of its cluster, and a cluster barrier closes the layer: the
+wider the cluster, the fewer rows a block normalises (at B = 72, 36 rows
+over a block's 16 warps in clusters of 2, three in turn for some warps; 9
+in the wide kernel's clusters of 8) and the fewer each cluster reads.
+"flag", for small B
 whose rows all lie in shared memory: each block publishes its columns as
 8-byte words of a value and the exchange's epoch, gathers every row,
 waiting on each word until it carries the epoch, and normalises every row
@@ -91,8 +96,14 @@ PRECS = ("highest", "high3", "hybrid", "default")
 # rounds of its warps (``decode_plan``'s ``task_rows``)
 RG = 4
 RG_WIDE = 8
-# blocks of a cluster, which split each layer's norm rows; CL there
+# blocks of a cluster, which split the grid exchange's norm rows: CL
+# there, the width of every plan but the wide kernel's
 CLUSTER = 2
+# the wide kernel's (CL_WIDE there): a block's warps normalise B / 8
+# rows, one round at B <= 128, where B / 2 took three rounds at B = 72; the
+# card holds fewer whole clusters of 8 (120 blocks on the H100, not 132),
+# which the wide kernel's products absorb (PERF.md, the cluster sweep)
+WIDE_CLUSTER = 8
 # warps of a block; NW there
 WARPS = 16
 # the operand kinds of a layer product, in the kernel's numbering (WK_*)
@@ -455,11 +466,18 @@ def task_rounds(B: int, rows: int, nv: int, wkind: str) -> int:
     return -(-tasks // WARPS)
 
 
-def cluster_rows(B: int, rank: int) -> Tuple[int, ...]:
+def cluster_rows(B: int, rank: int, width: int) -> Tuple[int, ...]:
     """The batch rows whose layer norms the block of cluster rank ``rank``
-    computes (and stores into every member of its cluster): rank, rank +
-    CLUSTER, ... (the kernel's ``post``)."""
-    return tuple(range(rank, B, CLUSTER))
+    computes (and stores into every member of its cluster) in clusters of
+    ``width``: rank, rank + width, ... (the kernel's ``post``)."""
+    return tuple(range(rank, B, width))
+
+
+def cluster_widths(wide: bool) -> Tuple[int, ...]:
+    """The cluster widths the kernel is built at (csrc/decode.cu
+    ``decode_instance``): the wide kernel at ``WIDE_CLUSTER`` (its plans')
+    and at ``CLUSTER``; every other instantiation at ``CLUSTER``."""
+    return (WIDE_CLUSTER, CLUSTER) if wide else (CLUSTER,)
 
 
 def general_kernel(cfg) -> bool:
@@ -502,13 +520,16 @@ class DecodePlan(NamedTuple):
     stage_bytes: int      # the staging slot's size (0: none)
     sbar_off: int         # bytes: the slot's mbarrier (8), or -1
     task_rows: Tuple[int, ...]  # per layer: rows of a product task
+    cluster: int = CLUSTER  # blocks of a cluster
 
 
-def staged_rows(B: int, exchange: str) -> int:
+def staged_rows(B: int, exchange: str, width: int) -> int:
     """Rows of ``ldh`` floats a block stages in shared memory: under
-    "grid" one a warp for its cluster rank's rows, under "flag" every row
-    (gathered, normalised in place, then applied by every thread)."""
-    return B if exchange == "flag" else min(WARPS, len(cluster_rows(B, 0)))
+    "grid" one a warp for its cluster rank's rows in clusters of ``width``
+    (rank 0 holds the most), under "flag" every row (gathered, normalised
+    in place, then applied by every thread)."""
+    return (B if exchange == "flag"
+            else min(WARPS, len(cluster_rows(B, 0, width))))
 
 
 def stageable(l: _Layer, wkind: str, ldw: int) -> bool:
@@ -527,7 +548,8 @@ def slice_bytes(l: _Layer, n: int, wkind: str) -> int:
 
 
 def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
-                exchange: str | None = None) -> DecodePlan:
+                exchange: str | None = None,
+                cluster: int | None = None) -> DecodePlan:
     """Where the kernel keeps what, at batch B over ``blocks`` blocks: the
     activation rows first (as many as shared memory holds), then each
     layer's weight slice, in program order, where it still fits (the rest
@@ -546,6 +568,11 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
     every step while the layer before it in the cycle of staged layers
     exchanges its rows (csrc/decode.cu). Every other plan keeps the layout
     above, and tasks of ``RG`` rows.
+
+    The cluster width (``cluster`` None): ``WIDE_CLUSTER`` for the wide
+    kernel, ``CLUSTER`` for every other; the grid exchange's staging of
+    the normalised rows follows it (``staged_rows``). Given a width the
+    plan's kernel is not built at (``cluster_widths``), raises ValueError.
 
     The exchange (``exchange`` None): "flag" where the common kernel takes
     the config (``general_kernel``), every row lies in shared memory and
@@ -571,16 +598,18 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
     can_stage = [stageable(l, k, pitch.get(l.kind, layer_depth(l)))
                  for (_, l), k in zip(layers, wkinds)]
 
-    def layout(exchange, slot=0):
+    def layout(exchange, width, slot=0):
         """(staging bytes, bytes before the activation rows, rows in
-        shared memory), with a weight staging slot of ``slot`` bytes."""
-        z_bytes = _up(4 * ldh * staged_rows(B, exchange), 16)
+        shared memory) in clusters of ``width``, with a weight staging slot
+        of ``slot`` bytes."""
+        z_bytes = _up(4 * ldh * staged_rows(B, exchange, width), 16)
         fixed = (_up(4 * B * nv_max, 16) + _up(4 * B, 16) + ln_bytes
                  + z_bytes + slot)
         return z_bytes, fixed, min(B, max(0, (SMEM_MAX - fixed) // (4 * xw)))
 
+    width = cluster or CLUSTER
     if exchange != "grid":
-        flag_fits = not general_kernel(cfg) and layout("flag")[2] == B
+        flag_fits = not general_kernel(cfg) and layout("flag", width)[2] == B
         if exchange == "flag" and not flag_fits:
             raise ValueError(f"fused_decode: the flagged exchange needs the "
                              f"common kernel and all {B} rows in shared "
@@ -588,7 +617,7 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
         if exchange is None:
             exchange = ("flag" if flag_fits and B * ldh <= FLAG_WORDS
                         else "grid")
-    z_bytes, fixed, rows_sh = layout(exchange)
+    z_bytes, fixed, rows_sh = layout(exchange, width)
     if fixed > SMEM_MAX:
         raise ValueError(f"fused_decode: B={B} over {blocks} blocks needs "
                          f"{fixed} bytes of shared memory before any "
@@ -603,7 +632,7 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
             cur += size if offs[-1] >= 0 else 0
         return offs, cur
 
-    def regions(rows_sh, slot):
+    def regions(rows_sh, z_bytes, slot):
         """(part_off, prev_off, ln_off, z_off, stage_off, first free)."""
         part_off = 4 * xw * rows_sh
         prev_off = part_off + _up(4 * B * nv_max, 16)
@@ -612,7 +641,7 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
         return (part_off, prev_off, ln_off, z_off, z_off + z_bytes,
                 z_off + z_bytes + slot)
 
-    *offs, cur = regions(rows_sh, 0)
+    *offs, cur = regions(rows_sh, z_bytes, 0)
     woff, cur = place(cur)
     stage_off, slot, staged = -1, 0, [False] * len(layers)
     task_rows = [RG] * len(layers)
@@ -626,18 +655,22 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
         # mbarrier) laid out before the rows; one alone keeps it, resident
         w_slot = 0 if min(woff) >= 0 or not any(can_stage) else max(
             s_ for s_, ok in zip(sizes, can_stage) if ok) + 16
-        _, w_fixed, w_rows = layout(exchange, w_slot)
-        *w_offs, w_cur = regions(w_rows, w_slot)
+        w_width = cluster or WIDE_CLUSTER
+        w_z, w_fixed, w_rows = layout(exchange, w_width, w_slot)
+        *w_offs, w_cur = regions(w_rows, w_z, w_slot)
         w_woff, w_cur = place(w_cur)
         w_staged = [o < 0 for o in w_woff]
         if (w_fixed <= SMEM_MAX and w_rows == B and all(
                 ok for s_, ok in zip(w_staged, can_stage) if s_)):
-            rows_sh, offs, cur = w_rows, w_offs, w_cur
+            rows_sh, offs, cur, width = w_rows, w_offs, w_cur, w_width
             if w_slot:
                 stage_off, slot = offs[-1], w_slot - 16
             woff = [stage_off if s_ else o for s_, o in zip(w_staged, w_woff)]
             staged = w_staged if sum(w_staged) > 1 else [False] * len(layers)
             task_rows = [RG_WIDE if w else RG for w in wide]
+    if width not in cluster_widths(RG_WIDE in task_rows):
+        raise ValueError(f"fused_decode: the plan's kernel at B={B} is not "
+                         f"built in clusters of {width}")
     part_off, prev_off, ln_off, z_off, _ = offs
     ldx = _up(ldh, LINE_WORDS) if exchange == "flag" else ldh
     hc = [n for (_, l), n in zip(layers, nmax) if l.kind == "HC"]
@@ -652,7 +685,7 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
         barriers_per_step=len(layers) if exchange == "grid" else 0,
         staged=tuple(staged), stage_off=stage_off, stage_bytes=slot,
         sbar_off=stage_off + slot if stage_off >= 0 else -1,
-        task_rows=tuple(task_rows))
+        task_rows=tuple(task_rows), cluster=width)
 
 
 # the next launch's first epoch of the flagged exchange
@@ -724,30 +757,58 @@ def _layer_arrays(packed: dict, cfg, prec: str, plan: DecodePlan):
             (ctypes.c_void_p * len(ptrs))(*ptrs))
 
 
-def _coresident(smem: int, device) -> Tuple[int, int]:
+def _coresident(smem: int, device, cluster: int) -> Tuple[int, int]:
     from ._build import check, load_library
 
     blocks, sms = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device):
         check(load_library().dctts_decode_coresident(
-            smem, ctypes.byref(blocks), ctypes.byref(sms)),
+            smem, cluster, ctypes.byref(blocks), ctypes.byref(sms)),
             "decode occupancy query")
     return blocks.value, sms.value
 
 
-def coresident_blocks(smem: int, device) -> Tuple[int, int]:
-    """(the most blocks of the kernel, in clusters of ``CLUSTER``, with
+def coresident_blocks(smem: int, device, cluster: int = CLUSTER
+                      ) -> Tuple[int, int]:
+    """(the most blocks of the kernel, in clusters of ``cluster``, with
     ``smem`` bytes of shared memory that fit on ``device`` at once, its
-    SMs): the occupancy query the cooperative launch is checked against."""
-    return _coresident(smem, device)
+    SMs): the occupancy query, of the instantiation launched at that width,
+    that the cooperative launch is checked against."""
+    return _coresident(smem, device, cluster)
 
 
 @functools.lru_cache(maxsize=None)
-def decode_blocks(device) -> int:
-    """The kernel's grid on ``device``: one block per SM, in whole clusters
-    of ``CLUSTER``, as many as fit at once."""
-    fits, sms = _coresident(SMEM_MAX, device)
-    return min(sms // CLUSTER * CLUSTER, fits)
+def decode_blocks(device, cluster: int = CLUSTER) -> int:
+    """The kernel's grid on ``device`` in clusters of ``cluster``: one
+    block per SM, in whole clusters, as many as fit at once."""
+    fits, sms = _coresident(SMEM_MAX, device, cluster)
+    return min(sms // cluster * cluster, fits)
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(cfg, B: int, prec: str, device, blocks: int | None = None,
+                exchange: str | None = None,
+                cluster: int | None = None) -> DecodePlan:
+    """The plan of a launch at batch B: over ``blocks`` blocks, or (None)
+    as many whole clusters of the plan's width as fit on ``device`` at once
+    (``decode_blocks``); with ``exchange`` and ``cluster``, or the plan's
+    choices (``decode_plan``). Raises ValueError unless the blocks are
+    whole clusters of the plan's width; needs the card only for
+    ``blocks`` None. Kept per arguments: a chunk's launch plans once (the
+    wide kernel's plan is taken twice, over the blocks of each width)."""
+    if blocks is None:
+        blocks = decode_blocks(device, cluster or CLUSTER)
+        plan = decode_plan(cfg, B, blocks, prec, exchange, cluster)
+        if plan.cluster != CLUSTER and cluster is None:
+            wide = decode_blocks(device, plan.cluster)
+            if wide != blocks:
+                plan = decode_plan(cfg, B, wide, prec, exchange)
+    else:
+        plan = decode_plan(cfg, B, blocks, prec, exchange, cluster)
+    if plan.blocks < plan.cluster or plan.blocks % plan.cluster:
+        raise ValueError(f"fused_decode: {plan.blocks} blocks are not whole "
+                         f"clusters of {plan.cluster}")
+    return plan
 
 
 def fused_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
@@ -756,7 +817,8 @@ def fused_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
     """Run the whole autoregressive decode. Kt/V (B, N, d) float32 ->
     (Y (B, T, n_mels), A (B, N, T)). ``packed`` is ``pack_decode_params(cfg,
     params, prec)``. CUDA tensors launch the kernel over one block per SM
-    (``decode_blocks``), with the exchange ``decode_plan`` picks, and count
+    in whole clusters (``launch_plan``), with the exchange and the cluster
+    width ``decode_plan`` picks, and count
     the launch as ``k1.launches``, ``k1.<prec>.launches`` and
     ``k1.<exchange>.launches``; CPU tensors take ``fused_decode_plain``.
     An unknown ``prec`` raises, and so does a packed array of another shape
@@ -771,12 +833,13 @@ def fused_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
 
 def launch_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
                   cfg, prec: str = "highest", blocks: int | None = None,
-                  exchange: str | None = None
+                  exchange: str | None = None, cluster: int | None = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``fused_decode``'s launch on CUDA tensors, over ``blocks`` blocks, a
-    multiple of ``CLUSTER`` (``decode_blocks`` if None), with ``exchange``
-    (``decode_plan``'s choice if None). Raises, before launching, if the
-    grid cannot be co-resident or the exchange cannot run."""
+    """``fused_decode``'s launch on CUDA tensors, over ``blocks`` blocks
+    in clusters of ``cluster``, with ``exchange`` (``launch_plan``'s choices
+    where None; ``cluster`` is given by tests and the smoke only). Raises,
+    before launching, if the blocks are not whole clusters, the grid cannot
+    be co-resident or the exchange cannot run."""
     from ._build import check, load_library
 
     B, N, d = Kt.shape
@@ -790,13 +853,9 @@ def launch_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
                          f"{tuple(V.shape)} do not match d={cfg.d}")
     _check_packed(packed, cfg, prec, Kt.device)
     enc_prog, dec_prog = _programs(cfg)
-    if blocks is None:
-        blocks = decode_blocks(Kt.device)
-    if blocks < CLUSTER or blocks % CLUSTER:
-        raise ValueError(f"fused_decode: {blocks} blocks are not whole "
-                         f"clusters of {CLUSTER}")
-    plan = decode_plan(cfg, B, blocks, prec, exchange)
-    fits, _ = coresident_blocks(plan.smem, Kt.device)
+    plan = launch_plan(cfg, B, prec, Kt.device, blocks, exchange, cluster)
+    blocks = plan.blocks
+    fits, _ = coresident_blocks(plan.smem, Kt.device, plan.cluster)
     if blocks > fits:
         raise RuntimeError(f"fused_decode: {blocks} blocks of {plan.smem} "
                            f"bytes cannot be co-resident ({fits} can)")
@@ -826,7 +885,8 @@ def launch_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
         cfg.ln_eps, cmo, plan.xw, plan.ldh,
         plan.rows_sh, plan.ring_floats, plan.spill_floats, plan.part_off,
         plan.prev_off, plan.ln_off, plan.z_off, plan.nv_max, plan.smem,
-        blocks, int(flag), plan.ldx, min(stage_cycle(plan), default=-1),
+        blocks, plan.cluster, int(flag), plan.ldx,
+        min(stage_cycle(plan), default=-1),
         plan.sbar_off, epoch0, stream)
     check(code, f"decode kernel ({prec}, {plan.exchange} exchange)")
     for name in ("k1", f"k1.{prec}", f"k1.{plan.exchange}"):

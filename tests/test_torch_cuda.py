@@ -117,6 +117,33 @@ def test_decode_kernel_at_b72_matches_plain(cuda, prec):
     _check_decode(cfg, p, _ids(cfg, 72).to(cuda), prec)
 
 
+@pytest.mark.parametrize("prec", [p for p in K1.PRECS if p != "high3"])
+def test_decode_cluster_widths_agree_at_b72(cuda, prec):
+    """In every precision the wide kernel takes (not "high3", whose split
+    products keep the common kernel), base_config at B = 72 over all 210
+    steps: the plan's clusters of ``WIDE_CLUSTER``, over the blocks whole
+    clusters of it give, and clusters of ``CLUSTER`` give Y and A bit for
+    bit (each row normalised by one warp in the same lane order, each
+    column summed in the same order); two grid-exchange launches."""
+    cfg = base_config()
+    plan = K1.launch_plan(cfg, 72, prec, cuda)
+    assert plan.cluster == K1.WIDE_CLUSTER and K1.RG_WIDE in plan.task_rows
+    assert plan.blocks == K1.decode_blocks(cuda, K1.WIDE_CLUSTER)
+    p = Text2Mel(cfg).init(torch.Generator().manual_seed(72), cuda)
+    Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, 72).to(cuda))
+    Kt, V = Kt.contiguous(), V.contiguous()
+    packed = K1.pack_decode_params(cfg, p, prec)
+    c0 = profiling.counts()
+    Y, A = K1.launch_decode(packed, Kt, V, cfg.max_T, cfg, prec,
+                            cluster=K1.WIDE_CLUSTER)
+    Y2, A2 = K1.launch_decode(packed, Kt, V, cfg.max_T, cfg, prec,
+                              cluster=K1.CLUSTER)
+    torch.cuda.synchronize()
+    assert _counted(c0)["k1.grid.launches"] == 2
+    assert torch.equal(Y, Y2) and torch.equal(A, A2)
+    assert bool(torch.isfinite(Y).all())
+
+
 def _check_decode(cfg, p, ids, prec):
     """The decode kernel on ``ids`` against the plain version: "highest"
     at 2e-5 with identical cursors, the reduced bodies at chip_smoke.py's
@@ -265,9 +292,9 @@ def test_decode_refuses_grid_not_coresident(cuda, monkeypatch):
     packed = K1.pack_decode_params(cfg, p)
     real = K1.coresident_blocks
 
-    def fewer(smem, device):
-        fits, sms = real(smem, device)
-        return K1.decode_blocks(device) - 1, sms
+    def fewer(smem, device, cluster=K1.CLUSTER):
+        fits, sms = real(smem, device, cluster)
+        return K1.decode_blocks(device, cluster) - 1, sms
 
     monkeypatch.setattr(K1, "coresident_blocks", fewer)
     c0 = profiling.counts()

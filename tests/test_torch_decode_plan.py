@@ -54,7 +54,7 @@ def test_partition_covers_every_column_and_row(name, B, blocks):
     # each row's layer norms: one block of each cluster
     normed = np.zeros(B, np.int64)
     for rank in range(K1.CLUSTER):
-        normed[list(K1.cluster_rows(B, rank))] += 1
+        normed[list(K1.cluster_rows(B, rank, K1.CLUSTER))] += 1
     assert (normed == 1).all()
 
 
@@ -77,7 +77,7 @@ def test_plan_fits_shared_memory(name, B, blocks):
         spans = [(plan.prev_off, plan.prev_off + 4 * B),
                  (plan.ln_off, plan.ln_off + 4 * 4 * cfg.d),
                  (plan.z_off, plan.z_off + 4 * plan.ldh
-                  * K1.staged_rows(B, plan.exchange))]
+                  * K1.staged_rows(B, plan.exchange, plan.cluster))]
         for (is_dec, l), n, off in zip(_layers(cfg), plan.nmax, plan.woff):
             width = K1.layer_width(l)
             assert n == max(c1 - c0 for c0, c1 in (
@@ -105,9 +105,10 @@ def test_plan_fits_shared_memory(name, B, blocks):
             len(_layers(cfg)) if plan.exchange == "grid" else 0)
         # the staging holds a row for every warp that normalises one: under
         # "grid" (sized for rank 0) in every rank, under "flag" every row
-        assert len(K1.cluster_rows(B, 0)) == max(
-            len(K1.cluster_rows(B, r)) for r in range(K1.CLUSTER))
-        assert K1.staged_rows(B, "flag") == B
+        assert len(K1.cluster_rows(B, 0, plan.cluster)) == max(
+            len(K1.cluster_rows(B, r, plan.cluster))
+            for r in range(plan.cluster))
+        assert K1.staged_rows(B, "flag", plan.cluster) == B
 
 
 @pytest.mark.parametrize("prec", K1.PRECS)
@@ -183,6 +184,92 @@ def test_plan_at_b72_stages_and_takes_wide_tasks():
     # the split's products keep RG rows
     assert set(K1.decode_plan(base_config(), 72, 132, "high3").task_rows) \
         == {K1.RG}
+
+
+@pytest.mark.parametrize("blocks", [120, 128, 132])
+@pytest.mark.parametrize("width", [2, 4, 8])
+@pytest.mark.parametrize("B", [1, 5, 20, 72])
+def test_cluster_rows_follow_the_width(B, width, blocks):
+    """In clusters of 2, 4 or 8 over the grids whole clusters of each
+    width give on the H100 (132, 120) and 128: every row's layer norms are computed by exactly
+    one rank of each cluster, rank 0 holds the most rows, and the grid
+    exchange's staging of the normalised rows (sized for rank 0) holds a
+    row for every warp of any rank that normalises one."""
+    normed = np.zeros(B, np.int64)
+    counts = []
+    for rank in range(width):
+        rows = K1.cluster_rows(B, rank, width)
+        assert all(b % width == rank for b in rows)
+        normed[list(rows)] += 1
+        counts.append(len(rows))
+    assert (normed == 1).all()
+    assert counts[0] == max(counts)
+    staged = K1.staged_rows(B, "grid", width)
+    assert staged == min(K1.WARPS, counts[0])
+    assert K1.staged_rows(B, "flag", width) == B
+    # a plan of this width, where the kernel it takes is built at it,
+    # stages that many rows
+    plan = K1.decode_plan(base_config(), B, blocks)
+    if width in K1.cluster_widths(K1.RG_WIDE in plan.task_rows):
+        plan = K1.decode_plan(base_config(), B, blocks, cluster=width)
+        assert plan.cluster == width
+        assert plan.z_off + 4 * plan.ldh * K1.staged_rows(
+            B, plan.exchange, width) <= plan.smem
+
+
+def test_plan_at_b72_takes_the_wide_cluster():
+    """At bulk synthesis's B = 72 the base_config plan takes the wide
+    kernel in clusters of ``WIDE_CLUSTER`` (a block normalises 72 /
+    WIDE_CLUSTER rows over its 16 warps, one round), over the grids
+    whole clusters of it give on the H100 (120) and others, and in clusters of
+    ``CLUSTER`` when asked, with the same task shape; every other kernel
+    keeps clusters of ``CLUSTER`` (the common kernel at B = 20 and under
+    "high3", the flagged one at B <= 2) and refuses another width."""
+    cfg = base_config()
+    for blocks in (120, 128, 132):
+        plan = K1.decode_plan(cfg, 72, blocks)
+        assert plan.cluster == K1.WIDE_CLUSTER > K1.CLUSTER
+        assert set(plan.task_rows) == {K1.RG_WIDE}
+        # a block's rows take its warps one round, not three
+        assert len(K1.cluster_rows(72, 0, plan.cluster)) <= K1.WARPS
+        assert len(K1.cluster_rows(72, 0, K1.CLUSTER)) > 2 * K1.WARPS
+        narrow = K1.decode_plan(cfg, 72, blocks, cluster=K1.CLUSTER)
+        assert narrow.cluster == K1.CLUSTER
+        assert narrow.task_rows == plan.task_rows
+        assert sum(narrow.staged) >= 12 and min(narrow.woff) >= 0
+    for B, prec in ((20, "highest"), (72, "high3"), (1, "highest"),
+                    (2, "highest")):
+        plan = K1.decode_plan(cfg, B, 132, prec)
+        assert plan.cluster == K1.CLUSTER and K1.RG_WIDE not in plan.task_rows
+        with pytest.raises(ValueError, match="clusters of"):
+            K1.decode_plan(cfg, B, 132, prec, cluster=K1.WIDE_CLUSTER)
+
+
+@pytest.mark.parametrize("blocks", [120, 126, 128, 130, 131, 132])
+def test_launch_refuses_blocks_not_whole_clusters(blocks):
+    """``launch_decode``'s check (``launch_plan``, no card needed when the
+    blocks are given): the grid must be whole clusters of the plan's width
+    (at B = 72 the wide kernel's ``WIDE_CLUSTER``; at B = 1 the flagged
+    exchange's ``CLUSTER``); asked for clusters of ``CLUSTER``, the wide
+    kernel takes them on any even grid."""
+    cfg = base_config()
+    for B in (72, 20, 1):
+        width = K1.decode_plan(cfg, B, blocks).cluster
+        assert width == {72: K1.WIDE_CLUSTER, 1: K1.CLUSTER}.get(B, width)
+        if blocks % width:
+            with pytest.raises(ValueError, match="whole clusters"):
+                K1.launch_plan(cfg, B, "highest", "cpu", blocks)
+        else:
+            plan = K1.launch_plan(cfg, B, "highest", "cpu", blocks)
+            assert (plan.blocks, plan.cluster) == (blocks, width)
+    if blocks % K1.CLUSTER:
+        with pytest.raises(ValueError, match="whole clusters"):
+            K1.launch_plan(cfg, 72, "highest", "cpu", blocks,
+                           cluster=K1.CLUSTER)
+    else:
+        plan = K1.launch_plan(cfg, 72, "highest", "cpu", blocks,
+                              cluster=K1.CLUSTER)
+        assert plan.cluster == K1.CLUSTER and K1.RG_WIDE in plan.task_rows
 
 
 # the flagged exchange's plans at base_config over 132 blocks, field for
