@@ -1160,7 +1160,8 @@ typedef void (*Kernel)(Args, Program);
 // kernel) in clusters of cl blocks, or null where it is not built at cl.
 Kernel decode_instance(bool flag, bool general, bool wide, int cl) {
   if (flag) return cl == CL ? decode_kernel<false, true, false, CL> : nullptr;
-  if (general) return cl == CL ? decode_kernel<true, false, false, CL> : nullptr;
+  if (general)
+    return cl == CL ? decode_kernel<true, false, false, CL> : nullptr;
   if (wide)
     return cl == CL_WIDE ? decode_kernel<false, false, true, CL_WIDE>
          : cl == CL ? decode_kernel<false, false, true, CL> : nullptr;

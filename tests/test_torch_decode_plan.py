@@ -191,10 +191,11 @@ def test_plan_at_b72_stages_and_takes_wide_tasks():
 @pytest.mark.parametrize("B", [1, 5, 20, 72])
 def test_cluster_rows_follow_the_width(B, width, blocks):
     """In clusters of 2, 4 or 8 over the grids whole clusters of each
-    width give on the H100 (132, 120) and 128: every row's layer norms are computed by exactly
-    one rank of each cluster, rank 0 holds the most rows, and the grid
-    exchange's staging of the normalised rows (sized for rank 0) holds a
-    row for every warp of any rank that normalises one."""
+    width give on the H100 (132, 120) and 128: every row's layer norms are
+    computed by exactly one rank of each cluster, rank 0 holds the most
+    rows, and the grid exchange's staging of the normalised rows (sized
+    for rank 0) holds a row for every warp of any rank that normalises
+    one."""
     normed = np.zeros(B, np.int64)
     counts = []
     for rank in range(width):
@@ -220,8 +221,8 @@ def test_cluster_rows_follow_the_width(B, width, blocks):
 def test_plan_at_b72_takes_the_wide_cluster():
     """At bulk synthesis's B = 72 the base_config plan takes the wide
     kernel in clusters of ``WIDE_CLUSTER`` (a block normalises 72 /
-    WIDE_CLUSTER rows over its 16 warps, one round), over the grids
-    whole clusters of it give on the H100 (120) and others, and in clusters of
+    WIDE_CLUSTER rows over its 16 warps, one round), over the grid whole
+    clusters of it give on the H100 (120) and others, and in clusters of
     ``CLUSTER`` when asked, with the same task shape; every other kernel
     keeps clusters of ``CLUSTER`` (the common kernel at B = 20 and under
     "high3", the flagged one at B <= 2) and refuses another width."""
