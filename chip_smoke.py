@@ -36,10 +36,16 @@ line:
              against clusters of 2 bit for bit, and prints the sha256 of Y
              and A at B=72, 20 and 1 (run it under --package on the parent
              in the same call: equal digests are bitwise equal outputs).
-3a. TextEnc - (lines TextEnc-B1, TextEnc-B72) TextEnc eager against the
-             Synthesizer's captured graph of it at B=1 and B=72, N=180:
-             device ms and host ms of a call (medians of 20, each started
-             on an idle device), K and V bitwise equal, one capture.
+3a. TextEnc - (lines TextEnc-B1, TextEnc-B72) TextEnc at B=1 and B=72,
+             N=180: the eager chain (gradients on) against the call
+             synthesis makes (gradients off: each block's tail through K5's
+             epilogue, one launch a block) within 1e-5 x max(1, max|K|),
+             and that call against the Synthesizer's captured graph of it,
+             K and V bitwise equal, one capture; device and host ms of a
+             call of each (medians of 20, each started on an idle device),
+             the graph's device ms by kind (epilogue, products, the rest)
+             and its kernels (chiprun_out/textenc_kernels.json), the sha256
+             of K and V.
 3b. K1-<prec> - K1's reduced-precision bodies (high3, hybrid, default) on
              phase K1's inputs, each against the plain version of the same
              mode replayed on the kernel's cursors, over all T steps:
@@ -85,7 +91,9 @@ line:
              must stay 0 on this default (dft_pallas2) path, K5 launches
              twice for each of SSRN's 16 blocks a chunk, TextEnc's
              graph (captured in the warm-up) is replayed once a chunk,
-             captured never, and the copy back's pinned staging pair
+             captured never (so K5's TextEnc epilogue, counted only while
+             a graph is captured, reads 0), and the copy back's pinned
+             staging pair
              (to_host.staging.allocs) and de-emphasis's tables
              (deemphasis.table_uploads), made in the warm-up, are made
              again never. Then (line
@@ -123,7 +131,8 @@ line:
              block's x, the taps' halves, the summed products and y moved
              once, at 3.35 TB/s. The kernels line's K5 row: B=72, its ms
              the two kernels' device ms a call, its plain ms the eager
-             chain's kernels other than the products.
+             chain's kernels other than the products. The sha256 of K5's
+             logits (two packages compared bit for bit under --package).
 6. K3      - the Griffin-Lim round kernels K3a (inverse rDFT GEMM +
              overlap-add) and K3b (re-frame + forward rDFT GEMM + phase) at
              the production geometry (n_fft 2048, hop 275, win 1102, F=840,
@@ -817,17 +826,40 @@ def _call_ms(fn, reps: int = 20):
     return float(np.median(dev_ms)), float(np.median(host_ms))
 
 
+# TextEnc's kernels by kind: K5's epilogue (the tails, where the package
+# routes them), the float32 products, the rest (the eager tails, the taps'
+# pad and concatenation, the embedding, K and V's copies)
+TEXTENC_KINDS = {"epilogue": ("ssrn_epilogue",),
+                 "products": ("gemm", "nvjet", "xmma", "cutlass", "splitK"),
+                 "other": ("",)}
+# replays of TextEnc's graph in one profiled window: its GEMMs' time moved
+# by ~10 % from one replay to the next on the H100
+REPLAYS = 5
+
+
 def phase_textenc(results):
-    """TextEnc eager (``Text2Mel.text_encode``) against its captured graph
-    (``pipeline.text_encode_graphs``, the Synthesizer's on the card) at
-    B = 1 and B = 72, N = max_N, base_config with seeded weights moved by
-    0.1 x N(0, 1) (biases and norm shifts away from 0): device and host ms
-    of a call (``_call_ms``), K and V bitwise equal, one capture."""
+    """TextEnc at B = 1 and B = 72, N = max_N, base_config with seeded
+    weights moved by 0.1 x N(0, 1) (biases and norm shifts away from 0):
+    the eager chain (``Text2Mel.text_encode`` with gradients on, which no
+    package routes) against the call synthesis makes (gradients off: each
+    block's tail through K5's epilogue where the package has the route) and
+    against its captured graph (``pipeline.text_encode_graphs``, the
+    Synthesizer's on the card). The graph's K and V bitwise the routed
+    call's, one capture; the routed call's within 1e-5 x max(1, max|K|)
+    of the eager chain's, launching the epilogue once a block
+    (``k5.textenc.launches``, 0 for a package without the route). Device
+    and host ms of a call (``_call_ms``), torch.profiler's device ms of a
+    replay (the mean of ``REPLAYS``) by kind (``TEXTENC_KINDS``) and by
+    kernel (to ``chiprun_out/textenc_kernels.json``), and the sha256 of K
+    and V (two packages' graphs compared bit for bit under
+    ``--package``)."""
     from dc_tts_tpu_torch.config import base_config
     from dc_tts_tpu_torch.models import Text2Mel
+    from dc_tts_tpu_torch.models import text2mel as t2m_mod
     from dc_tts_tpu_torch.pipeline import text_encode_graphs
     from dc_tts_tpu_torch.train.optimizer import tree_map
     from dc_tts_tpu_torch.utils import profiling
+    from torch.profiler import ProfilerActivity, profile
 
     cfg = base_config()
     dev = torch.device("cuda")
@@ -835,28 +867,81 @@ def phase_textenc(results):
     gen = torch.Generator().manual_seed(1)
     params = tree_map(lambda t: (t + 0.1 * torch.randn(
         t.shape, generator=gen)).to(dev), model.init(gen))
+    routes = hasattr(t2m_mod, "takes_k5")
+    n_blocks = len(t2m_mod.text_enc_specs(cfg))
+    listing = {}
     for B in (1, 72):
         graphs = text_encode_graphs(model, params)
         ids = torch.as_tensor(harvard_ids(cfg, B), device=dev)
+
+        def chain():
+            with torch.enable_grad():
+                return model.text_encode(params, ids)
+
+        def routed():
+            with torch.no_grad():
+                return model.text_encode(params, ids)
+
+        Kc, Vc = chain()
         c0 = profiling.counts()
-        with torch.no_grad():
-            Ke, Ve = model.text_encode(params, ids)
-            K, V = graphs(ids)
-            same = bool(torch.equal(K, Ke) and torch.equal(V, Ve))
-            eager = _call_ms(lambda: model.text_encode(params, ids))
-            graph = _call_ms(lambda: graphs(ids))
+        Kr, Vr = routed()
+        torch.cuda.synchronize()
+        launches = (profiling.counts() - c0)["k5.textenc.launches"]
+        c0 = profiling.counts()
+        K, V = graphs(ids)
         captures = (profiling.counts() - c0)["textenc.graph.captures"]
-        ok = same and captures == 1
-        line(f"TextEnc-B{B}", ok=ok, B=B, N=cfg.max_N,
+        same = bool(torch.equal(K, Kr) and torch.equal(V, Vr))
+        dK = float((Kr - Kc).abs().max())
+        dV = float((Vr - Vc).abs().max())
+        gate = 1e-5 * max(1.0, float(Kc.abs().max()), float(Vc.abs().max()))
+        digest = _digest(K, V)
+        eager = _call_ms(chain)
+        direct = _call_ms(routed)
+        graph = _call_ms(lambda: graphs(ids))
+        graphs(ids)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPLAYS):
+                graphs(ids)
+            torch.cuda.synchronize()
+        busy, by_name = device_busy(prof, None)
+        busy /= REPLAYS
+        listing[B] = {k: [round(t / REPLAYS, 4), n // REPLAYS] for k, (t, n)
+                      in sorted(by_name.items(), key=lambda kv: -kv[1][0])}
+        kinds = dict.fromkeys(TEXTENC_KINDS, 0.0)
+        for name, (t, _) in listing[B].items():
+            kinds[next(k for k, keys in TEXTENC_KINDS.items()
+                       if any(key in name for key in keys))] += t
+        ok = (same and captures == 1 and max(dK, dV) <= gate
+              and launches == (n_blocks if routes else 0))
+        line(f"TextEnc-B{B}", ok=ok, B=B, N=cfg.max_N, routes=routes,
+             k5_textenc_launches=launches, max_dK=f"{dK:.3e}",
+             max_dV=f"{dV:.3e}", gate=f"{gate:.3e}", graph_bitwise=same,
+             captures=captures,
              eager_device_ms=f"{eager[0]:.3f}",
              eager_host_ms=f"{eager[1]:.3f}",
+             routed_device_ms=f"{direct[0]:.3f}",
+             routed_host_ms=f"{direct[1]:.3f}",
              graph_device_ms=f"{graph[0]:.3f}",
-             graph_host_ms=f"{graph[1]:.3f}", bitwise=same,
-             captures=captures)
+             graph_host_ms=f"{graph[1]:.3f}",
+             graph_kinds_ms=json.dumps({
+                 k: round(v, 3) for k, v in kinds.items()}).replace(" ", ""),
+             graph_kernels=sum(n for _, n in listing[B].values()),
+             graph_kernel_ms=f"{busy:.3f}", KV_sha256=digest)
         if not ok:
-            raise AssertionError(f"TextEnc's graph at B={B}: bitwise={same}"
-                                 f" captures={captures}")
-        results[f"TextEnc_B{B}"] = dict(eager_ms=eager, graph_ms=graph)
+            raise AssertionError(
+                f"TextEnc at B={B}: graph bitwise={same} captures={captures}"
+                f" max|dK|={dK:.3e} max|dV|={dV:.3e} gate={gate:.3e} "
+                f"launches={launches}")
+        results[f"TextEnc_B{B}"] = dict(
+            eager_ms=eager, routed_ms=direct, graph_ms=graph, kinds=kinds,
+            max_dK=dK, max_dV=dV, launches=launches, digest=digest)
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    tag = "textenc_kernels" + ("" if routes else "_unrouted")
+    with open(os.path.join(out_dir, tag + ".json"), "w") as f:
+        json.dump(listing, f, indent=1)
 
 
 def _k1_bound(cfg, prec, B, T, A, tensors):
@@ -1405,6 +1490,7 @@ def phase_e2e(results, smi):
           and chunks > 0 and launches["k2.launches"] > 0
           and launches["k3a.launches"] == launches["k3b.launches"] == 0
           and launches["k5.launches"] == 2 * 16 * chunks
+          and launches["k5.textenc.launches"] == 0
           and launches["textenc.graph.captures"] == 0
           and launches["textenc.graph.replays"] == chunks
           and launches["to_host.staging.allocs"] == 0
@@ -1846,6 +1932,7 @@ def phase_ssrn_block(results):
                                                  kp.items()}).replace(" ", ""),
              k5_bound_ms=f"{bound_ms:.3f}", k5_GB=f"{n_bytes / 1e9:.3f}",
              peak_GB=json.dumps([round(v, 3) for v in peaks]),
+             logits_sha256=_digest(lf),
              tol="'Z max(1e-5, 2 x the eager chain float32-float64)'")
         if not ok:
             raise AssertionError(f"K5 at B={B}: {r}")

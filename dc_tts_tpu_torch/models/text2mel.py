@@ -21,6 +21,13 @@ are cast back to float32, so attention and the losses stay float32.
 (``parallel.shard_params``): each stack's output is whole, so TextEnc's K/V
 split, the attention and the losses see replicated tensors.
 
+In synthesis on the card (the tensors on CUDA, gradients off, not training,
+the float32 operand mode with float32 activations, no model group)
+TextEnc's blocks keep their float32 products and run each tail (the bias,
+the layer norms, the gate and highway mix, or the norm and activation) as
+one launch of K5's epilogue (``ops/ssrn_block.float32_block``). Every
+other call runs the eager chain of ``blocks.apply_stack``.
+
 Decode modes, as in the JAX package: "incremental" (a loop of one-frame
 steps, ``decode_step``, with cached conv history), "fused" (the whole loop
 in one launch of the decode kernel K1, ops/decode.py, in any of its
@@ -35,12 +42,22 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import Config
+from ..ops.ssrn_block import float32_stack
 from ..utils.profiling import span
 from . import layers as L
 from .blocks import (C, HC, apply_stack, init_stack, init_stack_state,
                      operand_modes, stack_in_channels, step_stack, widen)
 
 NEG_INF = -(2.0 ** 32 - 1.0)  # the original graph's mask constant
+
+
+def takes_k5(x: torch.Tensor, train: bool, dtype, act_dtype,
+             model_group) -> bool:
+    """Whether ``Text2Mel.text_encode`` runs its blocks' tails through K5's
+    epilogue: what the call can observe, synthesis on the card in the
+    float32 operand mode (module docstring)."""
+    return (x.is_cuda and not train and not torch.is_grad_enabled()
+            and dtype is None and act_dtype is None and model_group is None)
 
 
 def text_enc_specs(cfg: Config):
@@ -124,10 +141,15 @@ class Text2Mel:
     def text_encode(self, params, ids: torch.Tensor, *, gen=None,
                     train: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """ids (B, N) -> K, V each (B, N, d)."""
+        """ids (B, N) -> K, V each (B, N, d). In synthesis on the card
+        (``takes_k5``) each block's tail runs as one launch of K5's
+        epilogue on its float32 product (module docstring)."""
         x = L.embedding_lookup(params["embed"], ids)
-        x = self._stack(params["text_enc"], text_enc_specs(self.cfg), x, gen,
-                        train)
+        specs = text_enc_specs(self.cfg)
+        if takes_k5(x, train, self.dtype, self.act_dtype, self.model_group):
+            x = float32_stack(params["text_enc"], specs, x, self.cfg.ln_eps)
+        else:
+            x = self._stack(params["text_enc"], specs, x, gen, train)
         return torch.chunk(x, 2, dim=-1)
 
     def audio_encode(self, params, S: torch.Tensor, *, gen=None,

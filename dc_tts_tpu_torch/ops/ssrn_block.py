@@ -1,5 +1,7 @@
 """Kernel K5: an SSRN block in synthesis under the "high" operand mode, as
-one prologue and one epilogue launch around its three bf16 products.
+one prologue and one epilogue launch around its three bf16 products; and
+the tail of a TextEnc block in synthesis under the float32 operand mode, as
+one epilogue launch on its float32 product.
 
 The function is ``models/blocks.apply_block`` of a C, HC or D block with
 ``dtype="high"`` and float32 activations, outside training: gather the
@@ -39,6 +41,18 @@ rounding for rounding.
 tensors only. ``models/ssrn.SSRN.apply`` routes a call here when its
 tensors are on CUDA, gradients are off, it is not training, the operand
 mode is "high" with float32 activations and there is no model group.
+
+TextEnc's C and HC blocks (float32 operands, ``float32_block``) keep their
+products as the eager chain takes them: ``layers._gather_taps``, then one
+float32 matmul (TF32 off), bit for bit. The epilogue then runs the tail
+that eager PyTorch ran as ~25 kernels a block (the bias, two layer norms
+over ``torch.chunk``'s strided halves, the sigmoid, four kernels of the
+highway mix): 6.4 of TextEnc's 17.4 device ms at B = 72, beside 10.3 of
+products; the 14 epilogues take 0.66 (PERF.md). The epilogue's arithmetic
+is ``tail_plain``'s; CPU tensors run that. ``models/text2mel.Text2Mel.
+text_encode`` routes a call here when its tensors are on CUDA, gradients
+are off, it is not training, the operand mode is float32 with float32
+activations and there is no model group.
 """
 from __future__ import annotations
 
@@ -176,10 +190,10 @@ def _products(hi, lo, wh, wl) -> torch.Tensor:
     return torch.addmm(P, lo, wh, out_dtype=f32, out=P)
 
 
-def _check_x(x: torch.Tensor) -> None:
+def _check_x(x: torch.Tensor, what: str = "ssrn_block") -> None:
     if x.dim() != 3 or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"ssrn_block: x must be contiguous float32 (B, T, "
-                         f"C), got {tuple(x.shape)} {x.dtype}")
+        raise ValueError(f"{what}: x must be contiguous float32 (B, T, C), "
+                         f"got {tuple(x.shape)} {x.dtype}")
 
 
 def prologue(x: torch.Tensor, spec, Kp: int):
@@ -215,31 +229,14 @@ def ssrn_block(p: dict, spec, x: torch.Tensor, halves: Halves,
         return ssrn_block_plain(p, spec, x, halves, ln_eps)
     if x.device.type != "cuda":
         raise ValueError(f"ssrn_block: unsupported device {x.device}")
-    from ._build import check, load_library
-
-    kind = KINDS.get(type(spec))
-    if kind is None:
-        raise TypeError(f"ssrn_block: not a C, HC or D block: {spec!r}")
-    act = 0 if isinstance(spec, HC) else ACTS.get(spec.act)
-    if act is None:
-        raise ValueError(f"ssrn_block: activation {spec.act!r}")
-    _check_x(x)
+    kind, act, vecs = _tail_args(p, spec, x, "ssrn_block")
     B, T, cin = x.shape
-    b = p["conv"]["b"]
-    N, M, K = b.shape[0], B * T, _taps_width(spec, cin)
+    N, M, K = vecs[0].shape[0], B * T, _taps_width(spec, cin)
     wh, wl = halves
     if wh.shape[-2:] != (_ceil(K), _ceil(N)) or wh.dtype != torch.bfloat16 \
             or wl.shape != wh.shape or wl.dtype != torch.bfloat16:
         raise ValueError(f"ssrn_block: weight halves {tuple(wh.shape)} do "
                          f"not fit x {tuple(x.shape)} and {N} outputs")
-    ln1, ln2 = (p["ln1"], p["ln2"]) if isinstance(spec, HC) else \
-        (p["ln"], None)
-    vecs = [b, ln1["gamma"], ln1["beta"]] + \
-        ([ln2["gamma"], ln2["beta"]] if ln2 else [])
-    if any(v.dtype != torch.float32 or not v.is_contiguous()
-           or v.device != x.device for v in vecs):
-        raise ValueError("ssrn_block: biases and norm parameters must be "
-                         "contiguous float32 on x's device")
     hi, lo = prologue(x, spec, wh.shape[-2])
     if isinstance(spec, D):
         # E0 = x W0, E2 = x_prev W2 (the even rows), E1 = x W1 (the odd)
@@ -252,17 +249,48 @@ def ssrn_block(p: dict, spec, x: torch.Tensor, halves: Halves,
         y = torch.empty(B, T, cin if isinstance(spec, HC) else N,
                         device=x.device)
     del hi, lo
+    _epilogue(kind, act, P, vecs, x, y, M, ln_eps)
+    count("k5.launches", 2)
+    return y
+
+
+def _tail_args(p: dict, spec, x: torch.Tensor, what: str):
+    """(kind, act, vectors) of a block's epilogue: the bias, then each
+    norm's gain and shift; x checked (``_check_x``)."""
+    kind = KINDS.get(type(spec))
+    if kind is None:
+        raise TypeError(f"{what}: not a C, HC or D block: {spec!r}")
+    act = 0 if isinstance(spec, HC) else ACTS.get(spec.act)
+    if act is None:
+        raise ValueError(f"{what}: activation {spec.act!r}")
+    _check_x(x, what)
+    ln1, ln2 = (p["ln1"], p["ln2"]) if isinstance(spec, HC) else \
+        (p["ln"], None)
+    vecs = [p["conv"]["b"], ln1["gamma"], ln1["beta"]] + \
+        ([ln2["gamma"], ln2["beta"]] if ln2 else [])
+    if any(v.dtype != torch.float32 or not v.is_contiguous()
+           or v.device != x.device for v in vecs):
+        raise ValueError(f"{what}: biases and norm parameters must be "
+                         "contiguous float32 on x's device")
+    return kind, act, vecs
+
+
+def _epilogue(kind: int, act: int, P, vecs, x: torch.Tensor,
+              y: torch.Tensor, M: int, ln_eps: float) -> None:
+    """The epilogue kernel on the current stream: the products ``P`` (one,
+    or D's three) of M rows each, their rows ``P[0].shape[-1]`` apart, into
+    y; x is read by an HC block only."""
+    from ._build import check, load_library
+
     # null pointers for what the kind does not read: D's E2 and E1, HC's
     # second norm and its input x
     ptrs = [t.data_ptr() for t in P] + [0] * (3 - len(P))
     ptrs += [v.data_ptr() for v in vecs] + [0] * (5 - len(vecs))
-    ptrs.append(x.data_ptr() if isinstance(spec, HC) else 0)
+    ptrs.append(x.data_ptr() if kind == KINDS[HC] else 0)
     check(load_library().dctts_ssrn_epilogue(
-        kind, *ptrs, y.data_ptr(), M, y.shape[-1], P[0].shape[1], act,
+        kind, *ptrs, y.data_ptr(), M, y.shape[-1], P[0].shape[-1], act,
         float(ln_eps), torch.cuda.current_stream(x.device).cuda_stream),
         "K5 epilogue")
-    count("k5.launches", 2)
-    return y
 
 
 def ssrn_stack_plain(params: Sequence[dict], specs: Sequence,
@@ -280,4 +308,67 @@ def ssrn_stack(params: Sequence[dict], specs: Sequence, x: torch.Tensor,
     x = x.contiguous()
     for p, spec, halves in zip(params, specs, packed):
         x = ssrn_block(p, spec, x, halves, ln_eps)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# TextEnc: float32 products, the tail in the epilogue
+
+
+def _norm_plain(v: torch.Tensor, ln: dict, eps: float) -> torch.Tensor:
+    """The epilogue's layer norm: mean = sum * (1/W), var = sum((v -
+    mean)^2) * (1/W), ((v - mean) * rsqrt(var + eps)) * gamma + beta."""
+    inv = 1.0 / v.shape[-1]
+    d = v - v.sum(-1, keepdim=True) * inv
+    r = torch.rsqrt((d * d).sum(-1, keepdim=True) * inv + eps)
+    return d * r * ln["gamma"] + ln["beta"]
+
+
+def tail_plain(p: dict, spec, P: torch.Tensor, x: torch.Tensor,
+               ln_eps: float) -> torch.Tensor:
+    """The epilogue's arithmetic in PyTorch on a C or HC block's float32
+    product P (B, T, N), before its bias (csrc/ssrn_block.cu): C the layer
+    norm and the activation; HC each half's layer norm, the gate 1 / (1 +
+    exp(-h1)) and the highway mix with x. ``blocks.apply_block``'s tail up
+    to the order of the norms' sums and the gate's rounding."""
+    h = P + p["conv"]["b"]
+    if isinstance(spec, HC):
+        h1, h2 = torch.chunk(h, 2, dim=-1)
+        g = 1.0 / (1.0 + torch.exp(-_norm_plain(h1, p["ln1"], ln_eps)))
+        return g * _norm_plain(h2, p["ln2"], ln_eps) + (1.0 - g) * x
+    return _act(_norm_plain(h, p["ln"], ln_eps), spec.act)
+
+
+def float32_block(p: dict, spec, x: torch.Tensor,
+                  ln_eps: float) -> torch.Tensor:
+    """A C or HC block in the float32 operand mode, x (B, T, C_in) float32
+    contiguous -> y (B, T, C_out). The product is the eager chain's
+    (``layers.conv1d``'s taps and matmul, bit for bit); CUDA tensors then
+    launch the epilogue on it on the current stream (one launch, counted
+    as ``k5.textenc.launches``), CPU tensors take ``tail_plain``."""
+    if not isinstance(spec, (C, HC)):
+        raise TypeError(f"float32_block: not a C or HC block: {spec!r}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"float32_block: unsupported device {x.device}")
+    w = p["conv"]["w"]
+    K, cin, cout = w.shape
+    P = L.matmul(L._gather_taps(x, spec.size, spec.rate, spec.causal),
+                 w.reshape(K * cin, cout))
+    if x.device.type == "cpu":
+        return tail_plain(p, spec, P, x, ln_eps)
+    kind, act, vecs = _tail_args(p, spec, x, "float32_block")
+    B, T, _ = x.shape
+    y = torch.empty(B, T, cin if isinstance(spec, HC) else cout,
+                    device=x.device)
+    _epilogue(kind, act, (P,), vecs, x, y, B * T, ln_eps)
+    count("k5.textenc.launches")
+    return y
+
+
+def float32_stack(params: Sequence[dict], specs: Sequence, x: torch.Tensor,
+                  ln_eps: float) -> torch.Tensor:
+    """The stack's blocks in order through ``float32_block``."""
+    x = x.contiguous()
+    for p, spec in zip(params, specs):
+        x = float32_block(p, spec, x, ln_eps)
     return x

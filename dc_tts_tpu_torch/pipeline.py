@@ -34,7 +34,11 @@ diffuse attention), as the JAX package measured; TextEnc stays float32.
 On the card the Synthesizer runs TextEnc as one captured CUDA graph a batch
 shape (``text_encode_graphs``): at one sentence a call its ~360 eager
 launches took longer on the host than the encoder takes on the device, and
-the decode kernel, which needs its K and V, waited for them.
+the decode kernel, which needs its K and V, waited for them. The graph
+holds the call synthesis makes, each block's tail one launch of K5's
+epilogue (``models/text2mel.takes_k5``): the embedding, each block's taps,
+product and epilogue, then K and V's copies, 65 kernels at 72 sentences
+and 78 at one (386 and 399 with the eager tails).
 """
 from __future__ import annotations
 
@@ -141,8 +145,10 @@ class GraphCache:
 def text_encode_graphs(text2mel: Text2Mel, params) -> GraphCache:
     """Inference TextEnc on the card, ids (B, N) -> (K, V) contiguous, from
     a ``GraphCache`` of ``TEXTENC_GRAPHS`` batch shapes (the encoder of
-    ``text2mel.text_encode(params, ids)``: the same kernels, bit for bit).
-    Its counters are ``textenc.graph.captures`` and ``.replays``."""
+    ``text2mel.text_encode(params, ids)`` with gradients off: the same
+    kernels, bit for bit, K5's epilogue among them). Its counters are
+    ``textenc.graph.captures`` and ``.replays``; ``k5.textenc.launches``
+    counts the epilogue while a shape is captured, never in a replay."""
 
     @torch.no_grad()
     def encode(ids):

@@ -31,7 +31,10 @@ The chunked copy back through the pinned staging pair bit for bit
 ``synthesize_ids`` over the chunks, overlapped with the next chunk, its
 host waits outside the vocoder.
 TextEnc replayed from its captured graph (``pipeline.text_encode_graphs``)
-bit for bit the eager encoder, alone and through the Synthesizer. SSRN's
+bit for bit the eager encoder, alone and through the Synthesizer; in
+synthesis each TextEnc block's tail through K5's epilogue on its float32
+product, bitwise the eager product, y within 1e-5 x max(1, max|y|) of the
+eager chain's, K and V within the same bound. SSRN's
 blocks through K5 (``ops/ssrn_block.py``): the prologue's bf16 halves bit
 for bit its plain version's; each block's y within 1e-5 x max(1, max|y|)
 of the eager chain's; the whole SSRN's Z within max(1e-5, 2 x the eager
@@ -917,8 +920,9 @@ def _biased_t2m(cfg, dev, seed=7):
 
 @pytest.mark.parametrize("B,N", [(1, 180), (72, 180), (3, 40)])
 def test_textenc_graph_bitwise_equals_eager(cuda, B, N):
-    """The captured TextEnc's K and V equal eager ``text_encode``'s bit for
-    bit, at its capture and at a replay with other ids."""
+    """The captured TextEnc's K and V equal eager ``text_encode``'s in
+    synthesis (gradients off, the tails through K5) bit for bit, at its
+    capture and at a replay with other ids."""
     from dc_tts_tpu_torch.pipeline import text_encode_graphs
     cfg = base_config().replace(max_N=N)
     model = Text2Mel(cfg)
@@ -927,7 +931,8 @@ def test_textenc_graph_bitwise_equals_eager(cuda, B, N):
     for seed in (0, 1):
         ids = _ids(cfg, B, seed=seed).to(cuda)
         K, V = graphs(ids)
-        Ke, Ve = model.text_encode(p, ids)
+        with torch.no_grad():
+            Ke, Ve = model.text_encode(p, ids)
         assert K.is_contiguous() and V.is_contiguous()
         assert torch.equal(K, Ke) and torch.equal(V, Ve), seed
 
@@ -979,7 +984,8 @@ def test_textenc_graph_cache_evicts_and_recaptures(cuda):
     assert len(graphs.graphs) == TEXTENC_GRAPHS
     K, V = graphs(ids[2])
     assert _counted(c0)["textenc.graph.captures"] == TEXTENC_GRAPHS + 2
-    Ke, Ve = model.text_encode(p, ids[2])
+    with torch.no_grad():
+        Ke, Ve = model.text_encode(p, ids[2])
     assert torch.equal(K, Ke) and torch.equal(V, Ve)
 
 
@@ -999,7 +1005,8 @@ def test_textenc_graph_captured_under_the_profiler(cuda):
         K, V = graphs(ids)
         K, V = graphs(ids)
         torch.cuda.synchronize()
-    Ke, Ve = model.text_encode(p, ids)
+    with torch.no_grad():
+        Ke, Ve = model.text_encode(p, ids)
     assert torch.equal(K, Ke) and torch.equal(V, Ve)
     assert any(e.device_type == torch.autograd.DeviceType.CUDA
                for e in prof.events())
@@ -1133,3 +1140,103 @@ def test_synthesizer_runs_k5_once_a_block(cuda):
     Zp, _, gate = _k5_gate(synth.ssrn_params, ssrn_specs(cfg), Y,
                            cfg.ln_eps, synth.ssrn_packed)
     assert float((Z - Zp).abs().max()) <= gate
+
+
+# ------------------------------------------------------------ K5 in TextEnc
+
+
+@pytest.mark.parametrize("B", [1, 2, 72])
+def test_textenc_k5_blocks_match_the_eager_chain(cuda, B, monkeypatch):
+    """Every TextEnc block through ``float32_block`` on its input in the
+    eager chain, at N = 180: the product bitwise ``layers.conv1d``'s before
+    its bias, y within 1e-5 x max(1, max|y|) of ``apply_block``'s (the
+    layer norms' sums in another order), one epilogue launch a block and
+    never the plain tail on CUDA; then ``text_encode`` routed (gradients
+    off, 14 launches) against the eager chain (gradients on, none): K and
+    V within the same bound."""
+    from dc_tts_tpu_torch.models import blocks
+    from dc_tts_tpu_torch.models import layers as L
+    from dc_tts_tpu_torch.models.text2mel import text_enc_specs
+    from dc_tts_tpu_torch.ops import ssrn_block as K5
+
+    def refuse(*a):
+        raise AssertionError("the plain tail ran on CUDA tensors")
+
+    monkeypatch.setattr(K5, "tail_plain", refuse)
+    cfg = base_config()
+    model, p = Text2Mel(cfg), _biased_t2m(cfg, cuda)
+    ids = _ids(cfg, B, seed=B).to(cuda)
+    specs = text_enc_specs(cfg)
+    worst = {}
+    with torch.no_grad():
+        x = L.embedding_lookup(p["embed"], ids)
+        for i, (bp, spec) in enumerate(zip(p["text_enc"], specs)):
+            w = bp["conv"]["w"]
+            prod = L.matmul(L._gather_taps(x, spec.size, spec.rate,
+                                           spec.causal),
+                            w.reshape(-1, w.shape[-1]))
+            conv = L.conv1d(bp["conv"], x, size=spec.size, rate=spec.rate)
+            assert torch.equal(prod + bp["conv"]["b"], conv), (i, spec)
+            c0 = profiling.counts()
+            y = K5.float32_block(bp, spec, x, cfg.ln_eps)
+            assert _counted(c0)["k5.textenc.launches"] == 1
+            want = blocks.apply_block(bp, spec, x, ln_eps=cfg.ln_eps)
+            d = float((y - want).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            worst[f"{i}:{type(spec).__name__}"] = (d, scale)
+            assert y.shape == want.shape and d <= 1e-5 * scale, (i, spec, d)
+            x = want
+        c0 = profiling.counts()
+        K, V = model.text_encode(p, ids)
+        assert _counted(c0)["k5.textenc.launches"] == len(specs) == 14
+    c0 = profiling.counts()
+    Ke, Ve = model.text_encode(p, ids)                  # gradients on
+    assert _counted(c0)["k5.textenc.launches"] == 0
+    scale = max(1.0, float(Ke.abs().max()), float(Ve.abs().max()))
+    dK, dV = float((K - Ke).abs().max()), float((V - Ve).abs().max())
+    print(f"B={B} max|dK| {dK:.3e} max|dV| {dV:.3e} scale {scale:.2f}; "
+          + str({k: f"{d:.2e}/{s:.1f}" for k, (d, s) in worst.items()}))
+    assert K.shape == Ke.shape == (B, cfg.max_N, cfg.d)
+    assert max(dK, dV) <= 1e-5 * scale
+
+
+def test_textenc_k5_not_taken_off_the_route(cuda):
+    """Gradients on, training, the "high" and bf16 operand modes: TextEnc
+    launches no epilogue, and its K and V are the eager chain's bits."""
+    from dc_tts_tpu_torch.models.blocks import apply_stack
+    from dc_tts_tpu_torch.models import layers as L
+    from dc_tts_tpu_torch.models.text2mel import text_enc_specs
+    cfg = test_config()
+    p = _biased_t2m(cfg, cuda)
+    ids = _ids(cfg, 2).to(cuda)
+    c0 = profiling.counts()
+    K, V = Text2Mel(cfg).text_encode(p, ids)             # gradients on
+    with torch.no_grad():
+        Text2Mel(cfg.replace(dropout_rate=0.0)).text_encode(p, ids,
+                                                            train=True)
+        for compute in ("float32_high", "bfloat16", "bfloat16_full"):
+            Text2Mel(cfg.replace(compute_dtype=compute)).text_encode(p, ids)
+        want = apply_stack(p["text_enc"], text_enc_specs(cfg),
+                           L.embedding_lookup(p["embed"], ids),
+                           ln_eps=cfg.ln_eps)
+    assert _counted(c0)["k5.textenc.launches"] == 0
+    assert torch.equal(torch.cat([K, V], -1), want)
+
+
+def test_synthesizer_counts_textenc_k5_at_capture(cuda):
+    """The Synthesizer's TextEnc graph launches the epilogue once a block
+    in each of the capture's two calls (the side stream's, then the
+    captured one), and a replay counts none; SSRN's K5 still launches 32
+    times a call."""
+    from dc_tts_tpu_torch.bench import seeded_nets
+    cfg = base_config()
+    synth = Synthesizer(cfg, *seeded_nets(cfg), pcm16=True)
+    ids = _ids(cfg, 2).numpy()
+    c0 = profiling.counts()
+    synth.synthesize_ids(ids)
+    n = _counted(c0)
+    assert (n["k5.textenc.launches"], n["k5.launches"]) == (28, 32)
+    c0 = profiling.counts()
+    synth.synthesize_ids(ids)
+    n = _counted(c0)
+    assert (n["k5.textenc.launches"], n["k5.launches"]) == (0, 32)

@@ -4,7 +4,12 @@ SSRN has (and a causal HC), the prologue's plain layout, the weight halves
 ``pack_weights`` splits once, ``SSRN.apply``'s routing (``takes_k5``: what
 the call can observe, never a CPU tensor, training, gradients, another
 operand mode or a model group), the synthesizer packing the halves once,
-and the ``k5.launches`` counter. The kernels themselves run on the card
+and the ``k5.launches`` counter. TextEnc's side: the epilogue's arithmetic
+in PyTorch (``tail_plain``) against ``blocks.apply_block`` in the float32
+operand mode at 1e-6 x max(1, max|y|), ``Text2Mel.text_encode``'s routing
+(``text2mel.takes_k5``: synthesis on the card in the float32 mode only),
+the route forced open on the CPU against the eager chain, and
+``float32_block``'s refusals. The kernels themselves run on the card
 (``tests/test_torch_cuda.py``)."""
 from types import SimpleNamespace
 
@@ -16,9 +21,10 @@ from dc_tts_tpu_torch import pipeline
 from dc_tts_tpu_torch.bench import seeded_nets
 from dc_tts_tpu_torch.config import test_config
 from dc_tts_tpu_torch.dsp.stft import split_bf16
-from dc_tts_tpu_torch.models import SSRN
+from dc_tts_tpu_torch.models import SSRN, Text2Mel
 from dc_tts_tpu_torch.models import blocks
 from dc_tts_tpu_torch.models import ssrn as ssrn_mod
+from dc_tts_tpu_torch.models import text2mel as t2m_mod
 from dc_tts_tpu_torch.models.blocks import C, D, HC
 from dc_tts_tpu_torch.ops import ssrn_block as K5
 from dc_tts_tpu_torch.utils import profiling
@@ -222,3 +228,120 @@ def test_cuda_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         K5.ssrn_block(p, HC(3, 1), x, K5.pack_weights([p], [HC(3, 1)])[0],
                       1e-5)
+
+
+# ---------------------------------------------------------------------------
+# TextEnc: float32 products, the tail in K5's epilogue
+
+# (spec, C_in): every kind of block TextEnc has, and a causal HC
+TEXTENC_SPECS = {"C-relu": (C(1, 1, 96, "relu"), 40),
+                 "C-linear": (C(1, 1, None, None), 96),
+                 "HC-rate1": (HC(3, 1), 48),
+                 "HC-rate9": (HC(3, 9), 48),
+                 "HC-size1": (HC(1, 1), 48),
+                 "HC-causal": (HC(3, 3, causal=True), 48)}
+
+
+def _tail_gap(got, want):
+    return float((got - want).abs().max()) / max(1.0,
+                                                 float(want.abs().max()))
+
+
+@pytest.mark.parametrize("size", list(SIZES))
+@pytest.mark.parametrize("name", list(TEXTENC_SPECS))
+def test_tail_plain_is_apply_block_in_float32(name, size):
+    """The epilogue's arithmetic on the block's own float32 product, and
+    ``float32_block`` on the CPU, within 1e-6 x max(1, max|y|) of
+    ``apply_block`` (only the norms' sums and the gate's rounding
+    differ)."""
+    from dc_tts_tpu_torch.models.layers import _gather_taps
+    B, T, k = SIZES[size]
+    spec, cin = _scaled(*TEXTENC_SPECS[name], k)
+    p = _block(spec, cin, seed=len(name) + 7 * k)
+    x = torch.randn(B, T, cin, generator=torch.Generator().manual_seed(k))
+    w = p["conv"]["w"]
+    with torch.no_grad():
+        want = blocks.apply_block(p, spec, x, ln_eps=CFG.ln_eps)
+        P = _gather_taps(x, spec.size, spec.rate, spec.causal) @ \
+            w.reshape(-1, w.shape[-1])
+        got = K5.tail_plain(p, spec, P, x, CFG.ln_eps)
+        block = K5.float32_block(p, spec, x, CFG.ln_eps)
+    assert got.shape == want.shape == block.shape
+    assert torch.equal(block, got)
+    assert _tail_gap(got, want) <= 1e-6
+
+
+@pytest.mark.parametrize("case", ["k5", "cpu", "train", "grad", "high",
+                                  "bf16", "bf16_full", "group"])
+def test_text_encode_takes_k5_only_in_float32_synthesis_on_the_card(case):
+    kw = dict(x=_on_cuda(), train=False, dtype=None, act_dtype=None,
+              model_group=None)
+    if case == "cpu":
+        kw["x"] = torch.zeros(1)
+    elif case == "train":
+        kw["train"] = True
+    elif case in ("high", "bf16", "bf16_full"):
+        compute = {"high": "float32_high", "bf16": "bfloat16",
+                   "bf16_full": "bfloat16_full"}[case]
+        kw["dtype"], kw["act_dtype"] = blocks.operand_modes(compute)
+    elif case == "group":
+        kw["model_group"] = object()
+    with torch.set_grad_enabled(case == "grad"):
+        assert t2m_mod.takes_k5(**kw) == (case == "k5")
+
+
+@pytest.mark.parametrize("compute", ["float32", "float32_high", "bfloat16"])
+@pytest.mark.parametrize("train", [False, True])
+def test_cpu_text_encode_never_takes_the_route(monkeypatch, compute, train):
+    calls = []
+    monkeypatch.setattr(t2m_mod, "float32_stack",
+                        lambda *a, **k: calls.append(a))
+    model = Text2Mel(CFG.replace(compute_dtype=compute))
+    params = seeded_nets(CFG)[0]
+    ids = torch.randint(2, CFG.vocab_size, (2, CFG.max_N),
+                        generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        K, V = model.text_encode(params, ids, train=train,
+                                 gen=torch.Generator().manual_seed(0))
+    assert not calls and K.shape == V.shape == (2, CFG.max_N, CFG.d)
+
+
+def test_text_encode_through_the_route_is_the_eager_chain(monkeypatch):
+    """With the route forced open on the CPU, ``text_encode`` runs every
+    TextEnc block through ``float32_block`` (``tail_plain`` here): K and
+    V within 1e-5 x max(1, max|K|) of the eager chain's over the 14
+    blocks, each block's within 1e-6 of ``apply_block`` on its own
+    input."""
+    model = Text2Mel(CFG)
+    params = seeded_nets(CFG)[0]
+    ids = torch.randint(2, CFG.vocab_size, (3, CFG.max_N),
+                        generator=torch.Generator().manual_seed(4))
+    seen = []
+    real = K5.float32_block
+
+    def block(p, spec, x, eps):
+        y = real(p, spec, x, eps)
+        seen.append(_tail_gap(y, blocks.apply_block(p, spec, x, ln_eps=eps)))
+        return y
+
+    with torch.no_grad():
+        want = model.text_encode(params, ids)
+        monkeypatch.setattr(t2m_mod, "takes_k5", lambda *a: True)
+        monkeypatch.setattr(K5, "float32_block", block)
+        got = model.text_encode(params, ids)
+    assert len(seen) == len(t2m_mod.text_enc_specs(CFG)) == 14
+    assert max(seen) <= 1e-6
+    scale = max(1.0, *(float(t.abs().max()) for t in want))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= 1e-5 * scale
+
+
+def test_float32_block_refuses_d_blocks_and_other_devices():
+    p = _block(HC(3, 1), 8, seed=2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K5.float32_block(p, HC(3, 1), torch.zeros(1, 4, 8, device="meta"),
+                         1e-5)
+    d = _block(D(3), 8, seed=3)
+    with pytest.raises(TypeError, match="not a C or HC block"):
+        K5.float32_block(d, D(3), torch.zeros(1, 4, 8), 1e-5)
