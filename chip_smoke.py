@@ -58,6 +58,16 @@ line:
              ms, plain ms, the bound, the grid, the free run's first flip,
              and for information each mode's distance from the float32
              kernel (max|dY|, first cursor flip, rows flipped).
+3c. K1-stamps - K1's stamped twins (ops/decode.py: launched while spans
+             record) against the unstamped kernels at base_config, B = 72
+             (wide, clusters of 8), 20 (common) and 1 (flag): Y and A bit
+             for bit; CUDA-event ms of each, means of 10 launches in turns
+             (unstamped, stamped, stamped, unstamped, twice), and the
+             stamps' cost in per cent; one stamped launch's phases
+             (k1.phase.*: ms a launch, µs a layer-step, the slowest and
+             fastest block) and their sum against its kernel ms; then
+             ptxas's registers, spill bytes and static shared memory of
+             every decode_kernel instantiation (lines K1-ptxas).
 4. K2      - the Griffin-Lim kernels against their plain version at the
              production geometry (n_fft 2048, hop 275, win 1102, F=840,
              B=20): n_iter=1 and n_iter=3 waveforms within 1e-5 of the
@@ -1048,6 +1058,95 @@ def phase_k1_prec(results):
             results[f"K1_{prec}"] = dict(
                 max_abs_err=max(dY, dA), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by)
+
+
+def _queued_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() on the current stream, every launch
+    enqueued while the stream sleeps (after one warm-up call), so that no
+    host preparation shows in the events' time."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(4e8))          # ~0.2 s of the SM clock
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_k1_stamps(results, reps=10, rounds=2):
+    from dc_tts_tpu_torch.config import base_config
+    from dc_tts_tpu_torch.models import Text2Mel
+    from dc_tts_tpu_torch.ops import _build
+    from dc_tts_tpu_torch.ops import decode as K1
+    from dc_tts_tpu_torch.utils import profiling
+
+    cfg = base_config()
+    dev = torch.device("cuda")
+    model = Text2Mel(cfg)
+    params = model.init(torch.Generator().manual_seed(1), dev)
+    packed = K1.pack_decode_params(cfg, params)
+    T = cfg.max_T
+    out = {}
+    for B in (72, 20, 1):
+        ids = torch.as_tensor(harvard_ids(cfg, B), device=dev)
+        with torch.no_grad():
+            Kt, V = (x.contiguous() for x in model.text_encode(params, ids))
+
+        def plain():
+            return K1.launch_decode(packed, Kt, V, T, cfg)
+
+        def stamped():
+            with profiling.collect():
+                return plain()
+        Y, A = plain()
+        Ys, As = stamped()
+        bitwise = bool(torch.equal(Y, Ys) and torch.equal(A, As))
+        ms = {plain: [], stamped: []}
+        for order in ((plain, stamped), (stamped, plain)) * rounds:
+            for fn in order:
+                ms[fn].append(_queued_ms(fn, reps))
+        p_ms, s_ms = np.mean(ms[plain]), np.mean(ms[stamped])
+        profiling.reset()
+        one = _queued_ms(stamped, 1)    # the phases: of it and its warm-up
+        s = profiling.summary()
+        profiling.reset()
+        plan = K1.launch_plan(cfg, B, "highest", dev)
+        layer_steps = T * len(plan.nmax)
+        ph = {k: s[f"k1.phase.{k}"] for k in K1.PHASES}
+        total = sum(e["device_ms"] / e["count"] for e in ph.values())
+        out[B] = dict(
+            kernel=K1.kernel_name(cfg, plan), bitwise=bitwise,
+            plain_ms=p_ms, stamped_ms=s_ms, cost_pct=100 * (s_ms / p_ms - 1),
+            phases_ms={k: e["device_ms"] / e["count"] for k, e in ph.items()},
+            phases_max_ms={k: e["device_ms_max"] / e["count"]
+                           for k, e in ph.items()},
+            phases_min_ms={k: e["device_ms_min"] / e["count"]
+                           for k, e in ph.items()},
+            phases_sum_ms=total, launch_ms=one)
+        line(f"K1-stamps-B{B}", kernel=out[B]["kernel"], bitwise=bitwise,
+             blocks=plan.blocks, cluster=plan.cluster,
+             plain_ms=",".join(f"{v:.3f}" for v in ms[plain]),
+             stamped_ms=",".join(f"{v:.3f}" for v in ms[stamped]),
+             cost_pct=f"{out[B]['cost_pct']:.2f}",
+             launch_ms=f"{one:.3f}", phases_sum_ms=f"{total:.3f}",
+             **{f"{k}_ms": f"{v:.3f}" for k, v in
+                out[B]["phases_ms"].items()},
+             **{f"{k}_us_per_layer_step": f"{v * 1e3 / layer_steps:.3f}"
+                for k, v in out[B]["phases_ms"].items()},
+             **{f"{k}_max_min_ms": f"{out[B]['phases_max_ms'][k]:.3f}/"
+                f"{out[B]['phases_min_ms'][k]:.3f}" for k in K1.PHASES})
+        if not bitwise:
+            raise AssertionError(f"K1's stamped twin at B={B} differs from "
+                                 "the unstamped kernel")
+    for f, v in sorted(_build.ptxas_report().items()):
+        label = K1.instance_label(f)
+        if label:
+            line("K1-ptxas", kernel=repr(label), **v)
+            out.setdefault("ptxas", {})[label] = v
+    results["K1_stamps"] = out
 
 
 def _k2_gate(K2, n_fft, hop, win, F, B, dev, seed=2):
@@ -3821,7 +3920,8 @@ def _only(names, smi) -> int:
     import importlib.util
     results = {}
     phases = {"K1": phase_k1, "TextEnc": phase_textenc,
-              "K1-prec": phase_k1_prec, "K2": phase_k2,
+              "K1-prec": phase_k1_prec, "K1-stamps": phase_k1_stamps,
+              "K2": phase_k2,
               "e2e": lambda r: phase_e2e(r, smi), "K3": phase_k3,
               "e2e-dft_pallas": lambda r: phase_e2e_dft_pallas(r, smi),
               "ssrn-block": phase_ssrn_block,
@@ -3858,7 +3958,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="", help="comma-separated phases to "
-                    "run alone (K1, TextEnc, K1-prec, K2, e2e, "
+                    "run alone (K1, TextEnc, K1-prec, K1-stamps, K2, "
+                    "e2e, "
                     "ssrn-block, K3, "
                     "e2e-dft_pallas, K4, K4-bf16, ct-fwd, train-routes, "
                     "parallel, "
@@ -3888,6 +3989,7 @@ def main(argv=None) -> int:
     phase_k1(results)
     phase_textenc(results)
     phase_k1_prec(results)
+    phase_k1_stamps(results)
     phase_k2(results)
     phase_e2e(results, smi)
     phase_e2e_prec(results, smi)

@@ -109,6 +109,19 @@ namespace cg = cooperative_groups;
 #define WK_BF16 1
 #define WK_SPLIT 2
 
+// The phases the stamped twins time (PHASES in ops/decode.py, in order),
+// and the words of a block's record (STAMP_WORDS there): each phase's
+// cycles, the block's cycles, %globaltimer at its start and at its end; a
+// stamped twin's running record takes sizeof(StampRecord), 128 bytes, of
+// static shared memory (STAMP_SMEM there).
+#define PH_PROLOGUE 0
+#define PH_PRODUCT 1
+#define PH_EXCHANGE 2
+#define PH_NORM 3
+#define PH_ATTENTION 4
+#define N_PHASES 5
+#define STAMP_WORDS (N_PHASES + 3)
+
 namespace {
 
 typedef unsigned short bf16_t;  // bf16 bits
@@ -156,6 +169,7 @@ struct Args {
   int sbar_off;     // bytes: the staging slot's mbarrier
   unsigned epoch0;  // the flagged exchange's first epoch
   float eps, scale;
+  uint64_t* stamps;  // the stamped twins: blocks x STAMP_WORDS, the records
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -172,10 +186,102 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// The stamped twins' timer (STAMP). A reading of the SM clock at each
+// boundary the loop already has, after the barriers and waits that stand
+// there, ends one phase and begins the next, so the phases tile the block's
+// run; the record (StampRecord, in shared memory: every instantiation runs
+// at its 128-register cap) sums each phase's cycles. At a boundary right
+// after a block barrier every thread reads the same moment, so the reading
+// is the stamping thread's, STAMPER, the last warp's first lane: the last
+// warp takes the fewest product tasks (tasks go to warps in turn) and, up
+// to B = 15 x the cluster width, no norm row, so its readings, each of
+// which waits on a load of the record, are off the block's critical path
+// (thread 0 stamping every boundary cost 2.2-2.7 %; PERF.md). Where no
+// barrier stands (a block's norms under the grid exchange, its combine
+// under the flagged one) the end is warp 0's, which takes the most rows
+// and tasks: thread 0 only stores its reading (note), which the stamping
+// thread books at the next boundary (mark2). At the end the stamping
+// thread writes the block's record to out (blocks x STAMP_WORDS: the
+// phases' cycles, the block's cycles, %globaltimer at its start and at its
+// end). Without STAMP each call compiles to nothing.
+#define STAMPER (NT - 32)
+
+// 128 bytes: the dynamic shared memory, placed after it, keeps the
+// alignment to 128 bytes it has in the unstamped kernel (with an 80-byte
+// record the wide kernel's twin ran 10 % slower, with this one 0.6 %)
+struct __align__(128) StampRecord {
+  uint64_t total[N_PHASES];  // cycles of each phase
+  uint64_t last;             // the last booked reading
+  uint64_t first;            // the first reading
+  uint64_t start_ns;         // %globaltimer at the first reading
+  uint64_t noted;            // thread 0's reading, not yet booked
+};
+
+template <bool STAMP>
+struct Stamps {
+  static __device__ __forceinline__ void start() {}
+  static __device__ __forceinline__ void mark(int) {}
+  static __device__ __forceinline__ void note() {}
+  static __device__ __forceinline__ void mark2(int, int) {}
+  static __device__ __forceinline__ void finish(uint64_t*) {}
+};
+
+template <>
+struct Stamps<true> {
+  static __device__ __forceinline__ StampRecord& rec() {
+    __shared__ StampRecord r;
+    return r;
+  }
+  static __device__ __forceinline__ void start() {
+    if (threadIdx.x != STAMPER) return;
+    StampRecord& r = rec();
+    r.start_ns = sm90::global_ns();
+    r.first = r.last = clock64();
+    for (int i = 0; i < N_PHASES; ++i) r.total[i] = 0;
+  }
+  // ends phase `end` and begins the next
+  static __device__ __forceinline__ void mark(int end) {
+    if (threadIdx.x != STAMPER) return;
+    StampRecord& r = rec();
+    const uint64_t now = clock64();
+    r.total[end] += now - r.last;
+    r.last = now;
+  }
+  // thread 0's reading, which ends a phase the next mark2 books
+  static __device__ __forceinline__ void note() {
+    if (threadIdx.x == 0) rec().noted = clock64();
+  }
+  // books `ended` up to the noted reading (kept between the last booked
+  // one and now: a block whose warp 0 had no norm row may note before the
+  // stamping thread's reading after the same barrier), then `end` up to now
+  static __device__ __forceinline__ void mark2(int ended, int end) {
+    if (threadIdx.x != STAMPER) return;
+    StampRecord& r = rec();
+    const uint64_t now = clock64();
+    const uint64_t at = r.noted < r.last ? r.last
+                        : r.noted > now ? now : r.noted;
+    r.total[ended] += at - r.last;
+    r.total[end] += now - at;
+    r.last = now;
+  }
+  static __device__ __forceinline__ void finish(uint64_t* out) {
+    if (threadIdx.x != STAMPER) return;
+    const StampRecord& r = rec();
+    uint64_t* o = out + (size_t)blockIdx.x * STAMP_WORDS;
+    for (int i = 0; i < N_PHASES; ++i) o[i] = r.total[i];
+    o[N_PHASES] = r.last - r.first;
+    o[N_PHASES + 1] = r.start_ns;
+    o[N_PHASES + 2] = sm90::global_ns();
+  }
+};
+
 // Every block arrives once; the counter only grows, so the k-th barrier of
-// a launch waits for k * gridDim.x arrivals.
+// a launch waits for k * gridDim.x arrivals. The stamped twins' product
+// ends at its first block barrier.
+template <bool STAMP>
 __device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
   __syncthreads();
+  Stamps<STAMP>::mark(PH_PRODUCT);
   target += gridDim.x;
   if (threadIdx.x == 0) {
     // a release: the block's stores, ordered before it by __syncthreads,
@@ -710,6 +816,7 @@ __device__ void post(const Args& p, const Layer& L, const float* hb,
 // the staging holds every row. (Each warp taking a row's statistics itself
 // and applying its own columns from registers, with no staged z and one
 // barrier fewer, was slower: PERF.md.)
+template <bool STAMP>
 __device__ void post_flag(const Args& p, const Layer& L, const uint2* hw,
                           unsigned e, const float* lnb, float* zs, bool last,
                           int t, float* xs) {
@@ -719,6 +826,7 @@ __device__ void post_flag(const Args& p, const Layer& L, const uint2* hw,
   gather_rows(hw, p.ldx, p.B, hc ? 2 * W : W, e, zs, p.ldh);
   sm90::cp_async_wait_all();  // lnb
   __syncthreads();
+  Stamps<STAMP>::mark2(PH_PRODUCT, PH_EXCHANGE);
   for (int b = warp; b < p.B; b += NW) {
     float* z = zs + (size_t)b * p.ldh;
     if (hc) {
@@ -1037,11 +1145,14 @@ __device__ __forceinline__ void layer_product(const Args& p, const Layer& L,
 // kernels compile none of it. WIDE: the grid exchange's wide kernel (common
 // configs only, every row and slice in shared memory): wide product tasks
 // and the staged slices; the others compile none of it. CLW: the blocks of
-// a cluster, which split the grid exchange's norm rows.
-template <bool GEN, bool FLAG, bool WIDE, int CLW>
+// a cluster, which split the grid exchange's norm rows. STAMP: the stamped
+// twin, which times its phases (Stamps) into p.stamps; every instantiation
+// has one, launched only while the host records spans.
+template <bool GEN, bool FLAG, bool WIDE, int CLW, bool STAMP>
 __global__ void __launch_bounds__(NT, 1)
 decode_kernel(const __grid_constant__ Args p,
               const __grid_constant__ Program prog) {
+  Stamps<STAMP>::start();
   extern __shared__ __align__(16) char smem[];
   float* xs = reinterpret_cast<float*>(smem);
   float* part = reinterpret_cast<float*>(smem + p.part_off);
@@ -1074,6 +1185,7 @@ decode_kernel(const __grid_constant__ Args p,
   }
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();  // every member runs before any writes into its copy
+  Stamps<STAMP>::mark(PH_PROLOGUE);
 
   unsigned target = 0;
   int parity = 0;
@@ -1083,6 +1195,7 @@ decode_kernel(const __grid_constant__ Args p,
       if (li == prog.n_enc) {  // AudioEnc's output q -> [ctx; q]
         attention<GEN>(p, t, xs, xg, prev);
         __syncthreads();
+        Stamps<STAMP>::mark(PH_ATTENTION);
       }
       const Layer& L = prog.l[li];
       int c0, n;
@@ -1109,30 +1222,36 @@ decode_kernel(const __grid_constant__ Args p,
         uint2* hw = p.words + (size_t)parity * p.B * p.ldx;
         const unsigned e = p.epoch0 + (unsigned)(t * nl + li);
         combine<true>(p, L, t, c0, n, part, ring, nullptr, hw, e, first);
-        post_flag(p, L, hw, e, lnb, zs, li == nl - 1, t, xs);
+        Stamps<STAMP>::note();
+        post_flag<STAMP>(p, L, hw, e, lnb, zs, li == nl - 1, t, xs);
         __syncthreads();  // this block's copy holds the layer's output
+        Stamps<STAMP>::mark(PH_NORM);
       } else {
         float* hb = p.hbuf + (size_t)parity * p.B * p.ldh;
         combine<false>(p, L, t, c0, n, part, ring, hb, nullptr, 0, first);
         sm90::cp_async_wait_all();  // lnb
-        grid_sync(p.bar, target);
+        grid_sync<STAMP>(p.bar, target);
+        Stamps<STAMP>::mark(PH_EXCHANGE);
         post<GEN, CLW>(p, L, hb, lnb, zs, li == nl - 1, t, xs, xg);
+        Stamps<STAMP>::note();
         if (WIDE && L.fetch >= 0) {  // the slot holds the next staged slice
           sm90::mbar_wait(sbar, sphase);
           sphase ^= 1;
         }
         cluster.sync();  // every member's copy holds the layer's output
+        Stamps<STAMP>::mark2(PH_NORM, PH_EXCHANGE);
       }
       parity ^= 1;
     }
   }
+  Stamps<STAMP>::finish(p.stamps);
 }
 
 // The barriers of a decode alone, for the floor they set: n grid barriers
 // over the launch's blocks, nothing else.
 __global__ void __launch_bounds__(NT, 1) barrier_kernel(unsigned* bar, int n) {
   unsigned target = 0;
-  for (int i = 0; i < n; ++i) grid_sync(bar, target);
+  for (int i = 0; i < n; ++i) grid_sync<false>(bar, target);
 }
 
 // The flagged exchanges of a B = 1 decode alone, for the floor they set: n
@@ -1157,15 +1276,24 @@ __global__ void __launch_bounds__(NT, 1) exchange_kernel(uint2* words, int n,
 typedef void (*Kernel)(Args, Program);
 
 // The instantiation a launch takes (the flagged, general, wide or common
-// kernel) in clusters of cl blocks, or null where it is not built at cl.
-Kernel decode_instance(bool flag, bool general, bool wide, int cl) {
-  if (flag) return cl == CL ? decode_kernel<false, true, false, CL> : nullptr;
+// kernel) in clusters of cl blocks, or null where it is not built at cl;
+// with `stamp`, its stamped twin.
+template <bool S>
+Kernel instance(bool flag, bool general, bool wide, int cl) {
+  if (flag)
+    return cl == CL ? decode_kernel<false, true, false, CL, S> : nullptr;
   if (general)
-    return cl == CL ? decode_kernel<true, false, false, CL> : nullptr;
+    return cl == CL ? decode_kernel<true, false, false, CL, S> : nullptr;
   if (wide)
-    return cl == CL_WIDE ? decode_kernel<false, false, true, CL_WIDE>
-         : cl == CL ? decode_kernel<false, false, true, CL> : nullptr;
-  return cl == CL ? decode_kernel<false, false, false, CL> : nullptr;
+    return cl == CL_WIDE ? decode_kernel<false, false, true, CL_WIDE, S>
+         : cl == CL ? decode_kernel<false, false, true, CL, S> : nullptr;
+  return cl == CL ? decode_kernel<false, false, false, CL, S> : nullptr;
+}
+
+Kernel decode_instance(bool flag, bool general, bool wide, int cl,
+                       bool stamp) {
+  return stamp ? instance<true>(flag, general, wide, cl)
+               : instance<false>(flag, general, wide, cl);
 }
 
 cudaError_t set_smem(Kernel kernel, int smem) {
@@ -1205,7 +1333,8 @@ struct LaunchConfig {
 // shared memory).
 extern "C" int dctts_decode_coresident(int smem, int cluster, int* blocks,
                                        int* sms) {
-  const Kernel kernel = decode_instance(false, false, cluster != CL, cluster);
+  const Kernel kernel =
+      decode_instance(false, false, cluster != CL, cluster, false);
   if (!kernel) return (int)cudaErrorInvalidValue;
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
@@ -1234,7 +1363,10 @@ extern "C" int dctts_decode_coresident(int smem, int cluster, int* blocks,
 // first staged layer, or -1; sbar_off: the slot's mbarrier, 8 bytes) and
 // wide tasks (rg RG_WIDE, every row and slice in shared memory) only on
 // the grid exchange's common kernel; a staged slice's rows and pitch are
-// 16-byte multiples, on 16-byte boundaries.
+// 16-byte multiples, on 16-byte boundaries. stamps: null, or blocks x
+// STAMP_WORDS 64-bit words that the stamped twin of the launch's
+// instantiation fills with each block's record (its static shared memory
+// takes sizeof(StampRecord) bytes beside smem).
 extern "C" int dctts_decode(const float* kt, const float* v, float* y,
                             float* a, void* hbuf, float* ring, float* spill,
                             unsigned* bar, const int* layer_ints,
@@ -1245,8 +1377,8 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
                             int part_off, int prev_off, int ln_off,
                             int z_off, int nv_max, int smem, int blocks,
                             int cluster, int flag, int ldx, int stage0,
-                            int sbar_off,
-                            unsigned epoch0, void* stream) {
+                            int sbar_off, unsigned epoch0, void* stamps,
+                            void* stream) {
   if (n_enc + n_dec > MAX_LAYERS || win < 1 || B < 1 || cluster < 1 ||
       blocks < cluster || blocks % cluster || xw % 4 ||
       (flag && (rows_sh < B || ldx < ldh)))
@@ -1309,8 +1441,10 @@ extern "C" int dctts_decode(const float* kt, const float* v, float* y,
   p.epoch0 = epoch0;
   p.eps = eps;
   p.scale = (float)(1.0 / sqrt((double)d));
+  p.stamps = static_cast<uint64_t*>(stamps);
   if (flag && general) return (int)cudaErrorInvalidValue;
-  const Kernel kernel = decode_instance(flag, general, wide_kernel, cluster);
+  const Kernel kernel =
+      decode_instance(flag, general, wide_kernel, cluster, stamps != nullptr);
   if (!kernel) return (int)cudaErrorInvalidValue;
   cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;

@@ -19,6 +19,7 @@ import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -38,7 +39,7 @@ U = ctypes.c_uint
 
 # argument types of each C entry, in order (see the sources)
 _SIGNATURES = {
-    "dctts_decode": [P] * 10 + [I] * 8 + [Fl] + [I] * 18 + [U, P],
+    "dctts_decode": [P] * 10 + [I] * 8 + [Fl] + [I] * 18 + [U, P, P],
     "dctts_decode_coresident": [I, I, ctypes.POINTER(I), ctypes.POINTER(I)],
     "dctts_decode_barriers": [P, I, I, P],
     "dctts_decode_exchanges": [P, I, I, I, P],
@@ -129,6 +130,38 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def ptxas_report(log: str | None = None) -> dict:
+    """{entry function (mangled name): {"registers", "spill_stores",
+    "spill_loads", "smem" (static bytes)}} from ptxas's ``-v`` report: the
+    text ``log``, or the build log of the library (``build``)."""
+    if log is None:
+        with open(library_path() + ".log") as f:
+            log = f.read()
+    out, entry, props = {}, None, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+            out[entry] = {"registers": None, "spill_stores": 0,
+                          "spill_loads": 0, "smem": 0}
+            continue
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and props in out:
+            out[props]["spill_stores"] = int(m.group(1))
+            out[props]["spill_loads"] = int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry in out:
+            out[entry]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            out[entry]["smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def timed_build() -> float:

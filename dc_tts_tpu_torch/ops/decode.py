@@ -74,17 +74,36 @@ apart (tests/test_torch_decode_plan.py emulates the kernel's order).
 
 ``fused_decode`` launches the kernel for CUDA tensors and runs
 ``fused_decode_plain`` (the same loop in PyTorch) for CPU tensors only.
+
+Phases on the device: every instantiation has a stamped twin, which
+``launch_decode`` takes while spans record (``utils/profiling.recording``;
+``stamp_buffer``): each block reads the SM clock at the loop's boundaries,
+after the barriers and waits that stand there (the last warp's first
+thread, which has the least work after them; thread 0 where no barrier
+stands), and sums the cycles of each of ``PHASES`` (prologue: the zero
+start, the resident slices' loads and the first cluster barrier; product:
+the norm parameters' issue, the product, its barrier, the staged slice's
+issue and the combine up to the grid barrier's first block barrier, under
+"flag" thread 0's combine and publish; exchange: under "grid" the grid
+barrier, the staged slice's wait and the closing cluster barrier, under
+"flag" the gather; norm: the norms, to warp 0's last row; attention: the
+attention row, once a step). The launch's record buffer goes to
+``RECORDER.stamps``, which ``summary()`` reads into ``k1.phase.<phase>``.
+Its spans: ``k1.prepare`` (the checks, the plan, the occupancy query, the
+layer arrays, the buffers and the memset) and ``k1.launch`` (the library
+call).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import re
 from typing import NamedTuple, Tuple
 
 import torch
 
 from ..dsp.stft import split_bf16
-from ..utils.profiling import count
+from ..utils.profiling import RECORDER, count, recording, span
 
 NEG_INF = -(2.0 ** 32 - 1.0)
 
@@ -125,6 +144,14 @@ LINE_WORDS = 16
 # ints a layer of the program the wrapper hands the kernel; LAYER_INTS
 # there
 LAYER_INTS = 14
+# the phases the stamped twins time, in their record's order (PH_* there)
+PHASES = ("prologue", "product", "exchange", "norm", "attention")
+# 64-bit words of a block's record: the phases' cycles, the block's cycles,
+# its %globaltimer at start and end; STAMP_WORDS there
+STAMP_WORDS = len(PHASES) + 3
+# a stamped twin's static shared memory (its running record,
+# sizeof(StampRecord) there, aligned to 128 bytes), bytes
+STAMP_SMEM = 128
 
 
 class _Layer(NamedTuple):
@@ -831,6 +858,44 @@ def fused_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
     return launch_decode(packed, Kt, V, T, cfg, prec)
 
 
+def kernel_name(cfg, plan: DecodePlan) -> str:
+    """The instantiation ``plan``'s launch takes (csrc/decode.cu
+    ``decode_instance``): "flag", "general", "wide" (wide tasks or staged
+    slices) or "common"."""
+    if plan.exchange == "flag":
+        return "flag"
+    if general_kernel(cfg):
+        return "general"
+    return ("wide" if RG_WIDE in plan.task_rows or any(plan.staged)
+            else "common")
+
+
+def instance_label(function: str) -> str | None:
+    """"<kernel> CL<width>", with " stamped" for a stamped twin, of a
+    ``decode_kernel`` instantiation's mangled name (as ptxas reports it,
+    ``_build.ptxas_report``; also from before the twins, whose names lack
+    the STAMP argument); None for another function."""
+    m = re.search(r"decode_kernelILb([01])ELb([01])ELb([01])ELi(\d+)E"
+                  r"(?:Lb([01])E)?", function)
+    if m is None:
+        return None
+    gen, flag, wide, width, stamp = m.groups()
+    kernel = ("flag" if flag == "1" else "general" if gen == "1"
+              else "wide" if wide == "1" else "common")
+    return f"{kernel} CL{width}" + (" stamped" if stamp == "1" else "")
+
+
+def stamp_buffer(plan: DecodePlan, device) -> torch.Tensor | None:
+    """The record buffer of the launch's stamped twin (``plan.blocks`` x
+    ``STAMP_WORDS`` int64, written whole by the kernel), or None for the
+    unstamped kernel: None unless spans record (``recording()``) and the
+    plan leaves the twin's ``STAMP_SMEM`` bytes of shared memory."""
+    if not recording() or plan.smem + STAMP_SMEM > SMEM_MAX:
+        return None
+    return torch.empty(plan.blocks, STAMP_WORDS, dtype=torch.int64,
+                       device=device)
+
+
 def launch_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
                   cfg, prec: str = "highest", blocks: int | None = None,
                   exchange: str | None = None, cluster: int | None = None
@@ -839,56 +904,66 @@ def launch_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
     in clusters of ``cluster``, with ``exchange`` (``launch_plan``'s choices
     where None; ``cluster`` is given by tests and the smoke only). Raises,
     before launching, if the blocks are not whole clusters, the grid cannot
-    be co-resident or the exchange cannot run."""
+    be co-resident or the exchange cannot run. While spans record, the
+    stamped twin (``stamp_buffer``), its record kept by ``RECORDER``."""
     from ._build import check, load_library
 
-    B, N, d = Kt.shape
-    for x in (Kt, V):
-        if x.device != Kt.device or x.dtype != torch.float32 \
-                or not x.is_contiguous() or x.device.type != "cuda":
-            raise ValueError("fused_decode: Kt and V must be contiguous "
-                             "float32 tensors on one CUDA device")
-    if V.shape != Kt.shape or d != cfg.d:
-        raise ValueError(f"fused_decode: Kt {tuple(Kt.shape)} / V "
-                         f"{tuple(V.shape)} do not match d={cfg.d}")
-    _check_packed(packed, cfg, prec, Kt.device)
-    enc_prog, dec_prog = _programs(cfg)
-    plan = launch_plan(cfg, B, prec, Kt.device, blocks, exchange, cluster)
-    blocks = plan.blocks
-    fits, _ = coresident_blocks(plan.smem, Kt.device, plan.cluster)
-    if blocks > fits:
-        raise RuntimeError(f"fused_decode: {blocks} blocks of {plan.smem} "
-                           f"bytes cannot be co-resident ({fits} can)")
-    ints, ptrs = _layer_arrays(packed, cfg, prec, plan)
-    dev = Kt.device
-    Y = torch.empty(B, T, cfg.n_mels, device=dev)
-    A = torch.empty(B, N, T, device=dev)
-    flag = plan.exchange == "flag"
-    # one memset either way: the flagged exchange's words (0 is no epoch),
-    # or the grid barrier's counter
-    if flag:
-        hbuf, bar = exchange_buffer(plan, dev), None
-        epoch0 = next_epoch0(T * len(plan.nmax))
-    else:
-        hbuf = torch.empty(2, B, plan.ldh, device=dev)
-        bar, epoch0 = torch.zeros(1, dtype=torch.int32, device=dev), 0
-    ring = torch.empty(max(1, blocks * plan.ring_floats), device=dev)
-    spill = torch.empty(max(1, blocks * plan.spill_floats), device=dev)
-    cmo = packed["cb"].shape[-1]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = load_library().dctts_decode(
-        Kt.data_ptr(), V.data_ptr(), Y.data_ptr(), A.data_ptr(),
-        hbuf.data_ptr(), ring.data_ptr(), spill.data_ptr(),
-        None if bar is None else bar.data_ptr(),
-        ctypes.addressof(ints), ctypes.addressof(ptrs), len(enc_prog),
-        len(dec_prog), B, N, d, cfg.n_mels, T, cfg.attention_win_size,
-        cfg.ln_eps, cmo, plan.xw, plan.ldh,
-        plan.rows_sh, plan.ring_floats, plan.spill_floats, plan.part_off,
-        plan.prev_off, plan.ln_off, plan.z_off, plan.nv_max, plan.smem,
-        blocks, plan.cluster, int(flag), plan.ldx,
-        min(stage_cycle(plan), default=-1),
-        plan.sbar_off, epoch0, stream)
+    with span("k1.prepare"):
+        B, N, d = Kt.shape
+        for x in (Kt, V):
+            if x.device != Kt.device or x.dtype != torch.float32 \
+                    or not x.is_contiguous() or x.device.type != "cuda":
+                raise ValueError("fused_decode: Kt and V must be contiguous "
+                                 "float32 tensors on one CUDA device")
+        if V.shape != Kt.shape or d != cfg.d:
+            raise ValueError(f"fused_decode: Kt {tuple(Kt.shape)} / V "
+                             f"{tuple(V.shape)} do not match d={cfg.d}")
+        _check_packed(packed, cfg, prec, Kt.device)
+        enc_prog, dec_prog = _programs(cfg)
+        plan = launch_plan(cfg, B, prec, Kt.device, blocks, exchange,
+                           cluster)
+        blocks = plan.blocks
+        fits, _ = coresident_blocks(plan.smem, Kt.device, plan.cluster)
+        if blocks > fits:
+            raise RuntimeError(f"fused_decode: {blocks} blocks of "
+                               f"{plan.smem} bytes cannot be co-resident "
+                               f"({fits} can)")
+        ints, ptrs = _layer_arrays(packed, cfg, prec, plan)
+        dev = Kt.device
+        Y = torch.empty(B, T, cfg.n_mels, device=dev)
+        A = torch.empty(B, N, T, device=dev)
+        flag = plan.exchange == "flag"
+        # one memset either way: the flagged exchange's words (0 is no
+        # epoch), or the grid barrier's counter
+        if flag:
+            hbuf, bar = exchange_buffer(plan, dev), None
+            epoch0 = next_epoch0(T * len(plan.nmax))
+        else:
+            hbuf = torch.empty(2, B, plan.ldh, device=dev)
+            bar, epoch0 = torch.zeros(1, dtype=torch.int32, device=dev), 0
+        ring = torch.empty(max(1, blocks * plan.ring_floats), device=dev)
+        spill = torch.empty(max(1, blocks * plan.spill_floats), device=dev)
+        stamps = stamp_buffer(plan, dev)
+        cmo = packed["cb"].shape[-1]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    with span("k1.launch"):
+        code = load_library().dctts_decode(
+            Kt.data_ptr(), V.data_ptr(), Y.data_ptr(), A.data_ptr(),
+            hbuf.data_ptr(), ring.data_ptr(), spill.data_ptr(),
+            None if bar is None else bar.data_ptr(),
+            ctypes.addressof(ints), ctypes.addressof(ptrs), len(enc_prog),
+            len(dec_prog), B, N, d, cfg.n_mels, T, cfg.attention_win_size,
+            cfg.ln_eps, cmo, plan.xw, plan.ldh,
+            plan.rows_sh, plan.ring_floats, plan.spill_floats, plan.part_off,
+            plan.prev_off, plan.ln_off, plan.z_off, plan.nv_max, plan.smem,
+            blocks, plan.cluster, int(flag), plan.ldx,
+            min(stage_cycle(plan), default=-1), plan.sbar_off, epoch0,
+            None if stamps is None else stamps.data_ptr(), stream)
     check(code, f"decode kernel ({prec}, {plan.exchange} exchange)")
+    if stamps is not None:
+        RECORDER.stamps("k1", PHASES, stamps, kernel=kernel_name(cfg, plan),
+                        exchange=plan.exchange, cluster=plan.cluster,
+                        blocks=blocks, B=B)
     for name in ("k1", f"k1.{prec}", f"k1.{plan.exchange}"):
         count(name + ".launches")
     return Y, A

@@ -14,6 +14,13 @@ span waits for the device. ``summary()`` waits once and sums the spans by
 name; ``reset()`` empties the store. A module that records stages names
 them in its own docstring.
 
+Phases inside a kernel: a kernel with a stamped twin (K1, ``ops/decode.py``)
+launches it while spans record (``recording()``) and hands its record buffer
+to ``RECORDER.stamps``: per block, each phase's clock64 cycles, the block's
+cycles and its ``%globaltimer`` at start and end. ``summary()`` reads the
+buffers after its one wait and adds an entry ``<kernel>.phase.<phase>`` a
+phase (``phase_ms``).
+
 Counters: the code that launches a kernel, or captures or replays a graph,
 calls ``count(name)`` once it has; ``counts()`` reads them and
 ``reset_counts()`` sets them to 0. A launch counts under its kernel's name
@@ -64,6 +71,24 @@ class _Record:
                  "ev1")
 
 
+class _Stamped:
+    __slots__ = ("name", "phases", "words", "plan", "ms")
+
+
+def phase_ms(words: torch.Tensor, n_phases: int) -> torch.Tensor:
+    """One stamped launch's record (blocks, ``n_phases`` + 3) int64: each
+    block's phase cycles, its cycles, its ``%globaltimer`` ns at start and
+    end -> (n_phases, 3) float64: each phase's ms, the mean, the largest and
+    the least over the blocks. A block's phase takes its share of the
+    block's cycles times the block's globaltimer span, so the split holds
+    while the SM clock moves."""
+    w = words.cpu()
+    span_ns = (w[:, n_phases + 2] - w[:, n_phases + 1]).double()
+    ms = (w[:, :n_phases].double() / w[:, n_phases:n_phases + 1].double()
+          * span_ns[:, None] / 1e6)
+    return torch.stack([ms.mean(0), ms.amax(0), ms.amin(0)], dim=1)
+
+
 class Recorder:
     """The spans recorded so far, at most ``cap`` of them; spans past the
     cap are counted in ``dropped`` and not kept."""
@@ -77,9 +102,24 @@ class Recorder:
         self.reset()
 
     def reset(self) -> None:
-        """Forget the kept spans (spans still open are not kept)."""
+        """Forget the kept spans (spans still open are not kept) and the
+        stamped launches."""
         self.records: list = []
+        self.stamped: list = []
         self.dropped = 0
+
+    def stamps(self, name: str, phases, words: torch.Tensor, **plan) -> None:
+        """Keep a stamped launch of kernel ``name``: ``words`` its record
+        buffer (blocks, len(phases) + 3) int64, filled on the stream;
+        ``plan`` what the launch ran (kernel, exchange, cluster, blocks,
+        B). Past ``cap`` it is counted in ``dropped``."""
+        if len(self.stamped) >= self.cap:
+            self.dropped += 1
+            return
+        st = _Stamped()
+        st.name, st.phases, st.words, st.plan, st.ms = (name, tuple(phases),
+                                                        words, plan, None)
+        self.stamped.append(st)
 
     def stack(self) -> list:
         """This thread's open spans, innermost last."""
@@ -94,9 +134,14 @@ class Recorder:
         child spans' host ms), ``device_ms`` and ``device_self_ms`` (the
         CUDA event pairs' stream time; None without events). Beside them
         the counters counted so far (``counts()``) and ``spans.dropped``.
+        Per phase of a stamped kernel, ``<kernel>.phase.<phase>``: ``count``
+        (launches), ``device_ms``, ``device_ms_max`` and ``device_ms_min``
+        (the sums over its launches of the phase's mean, largest and least
+        ms over the blocks, ``phase_ms``), ``plans`` (launches by plan).
         Waits for the device once."""
         done = [r for r in self.records if r.t1 is not None]
-        if any(r.ev0 is not None for r in done):
+        if any(r.ev0 is not None for r in done) or any(
+                st.ms is None and st.words.is_cuda for st in self.stamped):
             torch.cuda.synchronize()
         host, dev, child_host, child_dev = {}, {}, {}, {}
         for r in done:
@@ -121,6 +166,22 @@ class Recorder:
                 s["device_ms"] = (s["device_ms"] or 0.0) + dev[r.sid]
                 s["device_self_ms"] = (s["device_self_ms"] or 0.0) \
                     + dev[r.sid] - child_dev.get(r.sid, 0.0)
+        for st in self.stamped:
+            if st.ms is None:     # read once; the device buffer is let go
+                st.ms, st.words = phase_ms(st.words, len(st.phases)), None
+            plan = " ".join(f"{k} {v}" for k, v in st.plan.items())
+            for phase, (mean, most, least) in zip(st.phases, st.ms.tolist()):
+                s = out.setdefault(f"{st.name}.phase.{phase}", {
+                    "count": 0, "n": None, "host_ms": None,
+                    "host_self_ms": None, "device_ms": 0.0,
+                    "device_self_ms": 0.0, "device_ms_max": 0.0,
+                    "device_ms_min": 0.0, "plans": {}})
+                s["count"] += 1
+                s["device_ms"] += mean
+                s["device_self_ms"] += mean
+                s["device_ms_max"] += most
+                s["device_ms_min"] += least
+                s["plans"][plan] = s["plans"].get(plan, 0) + 1
         out.update(counts())
         out["spans.dropped"] = self.dropped
         return out
@@ -183,6 +244,12 @@ class span:
         return False
 
 
+def recording() -> bool:
+    """Whether spans record now: ``torch.profiler`` runs, or a
+    ``collect()`` block is open (the check ``span`` makes)."""
+    return bool(_profiling() or RECORDER.collecting)
+
+
 @contextlib.contextmanager
 def collect():
     """Record spans inside the block without ``torch.profiler``."""
@@ -199,7 +266,7 @@ def summary() -> dict:
 
 
 def reset() -> None:
-    """Forget every recorded span."""
+    """Forget every recorded span and stamped launch."""
     RECORDER.reset()
 
 
