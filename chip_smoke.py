@@ -65,7 +65,11 @@ line:
              (unstamped, stamped, stamped, unstamped, twice), and the
              stamps' cost in per cent; one stamped launch's phases
              (k1.phase.*: ms a launch, µs a layer-step, the slowest and
-             fastest block) and their sum against its kernel ms; then
+             fastest block; the attention's µs a step) and their sum
+             against its kernel ms; the unstamped launch's
+             k1.attn_split.launches (1 where the plan splits the attention
+             rows over the cluster's ranks: B = 72) and the sha256 of its Y
+             and A (compare with another package's under --package); then
              ptxas's registers, spill bytes and static shared memory of
              every decode_kernel instantiation (lines K1-ptxas).
 4. K2      - the Griffin-Lim kernels against their plain version at the
@@ -1101,7 +1105,9 @@ def phase_k1_stamps(results, reps=10, rounds=2):
         def stamped():
             with profiling.collect():
                 return plain()
+        c0 = profiling.counts()
         Y, A = plain()
+        split = (profiling.counts() - c0)["k1.attn_split.launches"]
         Ys, As = stamped()
         bitwise = bool(torch.equal(Y, Ys) and torch.equal(A, As))
         ms = {plain: [], stamped: []}
@@ -1125,9 +1131,14 @@ def phase_k1_stamps(results, reps=10, rounds=2):
                            for k, e in ph.items()},
             phases_min_ms={k: e["device_ms_min"] / e["count"]
                            for k, e in ph.items()},
-            phases_sum_ms=total, launch_ms=one)
+            phases_sum_ms=total, launch_ms=one, attn_split_launches=split,
+            yA_sha256=_digest(Y, A))
+        att_ms = out[B]["phases_ms"]["attention"]
         line(f"K1-stamps-B{B}", kernel=out[B]["kernel"], bitwise=bitwise,
              blocks=plan.blocks, cluster=plan.cluster,
+             attn_split_launches=split,
+             attention_us_per_step=f"{att_ms * 1e3 / T:.2f}",
+             yA_sha256=out[B]["yA_sha256"],
              plain_ms=",".join(f"{v:.3f}" for v in ms[plain]),
              stamped_ms=",".join(f"{v:.3f}" for v in ms[stamped]),
              cost_pct=f"{out[B]['cost_pct']:.2f}",

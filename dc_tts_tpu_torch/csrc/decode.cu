@@ -39,7 +39,10 @@
 //   into its own copy: one L2 round trip a layer and no barrier. Every
 //   block computes the same bits, so the copies agree.
 // The attention row is computed in every block for every row: the
-// arithmetic is identical, so the cursors agree without a barrier. The
+// arithmetic is identical, so the cursors agree without a barrier. In the
+// wide kernel's clusters of CL_WIDE each rank computes the attention of its
+// norm rows alone and stores their [ctx; q] into its cluster's copies, and
+// a cluster barrier follows (attention_split). The
 // config's widths are free, as the TPU kernel's are (only its VMEM bounds
 // it): the attention walks the window in register chunks of MAX_WIN keys
 // and the features in chunks of 256; each tap of a weight slot is padded to
@@ -858,19 +861,25 @@ __device__ void post_flag(const Args& p, const Layer& L, const uint2* hw,
   }
 }
 
-// Every row's attention, one warp a row, in every block: scores of the
-// <= win unmasked keys, softmax (the masked keys' exp(NEG_INF - max) is
-// exactly 0), new cursor = first argmax, ctx = a.V; the row [q] becomes
-// [ctx; q]. The row's owner block writes column t of A. A config whose
+// Every row's attention, one warp a row, in every block (attention_split:
+// in the wide kernel's clusters of CL_WIDE, a cluster rank's rows only):
+// scores of the <= win unmasked keys, softmax (the masked keys'
+// exp(NEG_INF - max) is exactly 0), new cursor = first argmax, ctx = a.V;
+// the row [q] becomes [ctx; q]. The row's owner block writes column t of
+// A. A config whose
 // window is at most ROW_WIN keys with d <= 256 (32 * FCH) takes
 // attention_row, straight-line code with all the keys' features loaded at
 // once; any other takes attention_walk, which computes the same sums in the
 // same order.
 
 // One row: lane l holds features l + 32i; the keys are loaded at once, then
-// the values. Returns the cursor's offset in the window.
-__device__ __forceinline__ int attention_row(const Args& p, int t, float* x,
-                                             int b, int pv, int nw) {
+// the values; q is read from x and [ctx; q] stored into each of the ND
+// copies dst. Returns the cursor's offset in the window.
+template <int ND>
+__device__ __forceinline__ int attention_row(const Args& p, int t,
+                                             const float* x,
+                                             float* const (&dst)[ND], int b,
+                                             int pv, int nw) {
   const int lane = threadIdx.x & 31, d = p.d;
   float q[FCH], kk[ROW_WIN][FCH];
   const size_t row0 = ((size_t)b * p.N + pv) * d;
@@ -878,7 +887,8 @@ __device__ __forceinline__ int attention_row(const Args& p, int t, float* x,
   for (int i = 0; i < FCH; ++i) {
     const int c = lane + 32 * i;
     q[i] = c >= d ? 0.f
-           : b < p.rows_sh ? x[c] : *static_cast<volatile float*>(x + c);
+           : b < p.rows_sh ? x[c]
+                           : *static_cast<const volatile float*>(x + c);
 #pragma unroll
     for (int w = 0; w < ROW_WIN; ++w)
       kk[w][i] = c < d && w < nw ? __ldg(p.kt + row0 + (size_t)w * d + c)
@@ -924,8 +934,11 @@ __device__ __forceinline__ int attention_row(const Args& p, int t, float* x,
       for (int w = 0; w < ROW_WIN; ++w)
         if (w < nw)
           acc = fmaf(s[w], __ldg(p.v + row0 + (size_t)w * d + c), acc);
-      x[d + c] = q[i];
-      x[c] = acc;
+#pragma unroll
+      for (int u = 0; u < ND; ++u) {
+        dst[u][d + c] = q[i];
+        dst[u][c] = acc;
+      }
     }
   }
   if (b % gridDim.x == blockIdx.x) {
@@ -1041,9 +1054,10 @@ __device__ void attention(const Args& p, int t, float* xs, float* xg,
   // branch a row, cost it ~2 %)
   if (!GEN || (p.win <= ROW_WIN && p.d <= 32 * FCH)) {
     for (int b = warp; b < p.B; b += NW) {
-      float* x = xrow(p, xs, xg, b);
+      float* const x[1] = {xrow(p, xs, xg, b)};
       const int pv = prev[b];
-      const int bi = attention_row(p, t, x, b, pv, min(p.win, p.N - pv));
+      const int bi =
+          attention_row(p, t, x[0], x, b, pv, min(p.win, p.N - pv));
       __syncwarp();
       if (lane == 0) prev[b] = pv + bi;
     }
@@ -1055,6 +1069,33 @@ __device__ void attention(const Args& p, int t, float* xs, float* xg,
       __syncwarp();
       if (lane == 0) prev[b] = pv + bi;
     }
+  }
+}
+
+// The wide kernel's attention (every row in shared memory, attention_row):
+// the block of cluster rank r computes the rows whose norms it computes,
+// b = r + CLW k (post), one warp a row, and stores each row's [ctx; q] into
+// the copies of every block of its cluster; a cluster barrier after it
+// closes the phase. Rank r always computes the same rows, so row b's cursor
+// lives in that block's prev alone; every cluster computes the same bits,
+// so the clusters' copies agree. The owner of A's row b (b % blocks) has
+// rank b % CLW, since the blocks are whole clusters. At B = 72 in clusters
+// of 8 a block's 9 rows are one round of its warps, where every block's 72
+// rows took five, each row's keys and values read by all 120 blocks at once.
+template <int CLW>
+__device__ void attention_split(const Args& p, int t, float* xs, int* prev) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rank = (int)cg::this_cluster().block_rank();
+  for (int k = warp; rank + CLW * k < p.B; k += NW) {
+    const int b = rank + CLW * k;
+    float* dst[CLW];
+#pragma unroll
+    for (int q = 0; q < CLW; ++q) dst[q] = xrow_in(p, xs, q, b);
+    const int pv = prev[b];
+    const int bi = attention_row(p, t, xs + (size_t)b * p.xw, dst, b, pv,
+                                 min(p.win, p.N - pv));
+    __syncwarp();
+    if (lane == 0) prev[b] = pv + bi;
   }
 }
 
@@ -1145,13 +1186,18 @@ __device__ __forceinline__ void layer_product(const Args& p, const Layer& L,
 // kernels compile none of it. WIDE: the grid exchange's wide kernel (common
 // configs only, every row and slice in shared memory): wide product tasks
 // and the staged slices; the others compile none of it. CLW: the blocks of
-// a cluster, which split the grid exchange's norm rows. STAMP: the stamped
+// a cluster, which split the grid exchange's norm rows (and, in the wide
+// kernel at CL_WIDE, its attention rows: ATTN_SPLIT). STAMP: the stamped
 // twin, which times its phases (Stamps) into p.stamps; every instantiation
 // has one, launched only while the host records spans.
 template <bool GEN, bool FLAG, bool WIDE, int CLW, bool STAMP>
 __global__ void __launch_bounds__(NT, 1)
 decode_kernel(const __grid_constant__ Args p,
               const __grid_constant__ Program prog) {
+  // the attention rows split over the cluster's ranks (attention_split;
+  // attn_split in ops/decode.py): in clusters of 2 a rank's 36 rows at
+  // B = 72 took three rounds of its warps, and K1 did not gain (PERF.md)
+  constexpr bool ATTN_SPLIT = WIDE && CLW == CL_WIDE;
   Stamps<STAMP>::start();
   extern __shared__ __align__(16) char smem[];
   float* xs = reinterpret_cast<float*>(smem);
@@ -1193,8 +1239,13 @@ decode_kernel(const __grid_constant__ Args p,
   for (int t = 0; t < p.T; ++t) {
     for (int li = 0; li < nl; ++li) {
       if (li == prog.n_enc) {  // AudioEnc's output q -> [ctx; q]
-        attention<GEN>(p, t, xs, xg, prev);
-        __syncthreads();
+        if constexpr (ATTN_SPLIT) {
+          attention_split<CLW>(p, t, xs, prev);
+          cluster.sync();  // every member's copy holds every row's [ctx; q]
+        } else {
+          attention<GEN>(p, t, xs, xg, prev);
+          __syncthreads();
+        }
         Stamps<STAMP>::mark(PH_ATTENTION);
       }
       const Layer& L = prog.l[li];

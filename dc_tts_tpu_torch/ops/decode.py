@@ -44,7 +44,12 @@ waiting on each word until it carries the epoch, and normalises every row
 into its own copy: one L2 round trip a layer, no barrier, at the cost of
 B x the widest row read by every block. The attention row, and under
 "flag" every norm, is computed redundantly in every block: the same
-arithmetic gives the same bits everywhere. An HC layer's three taps are
+arithmetic gives the same bits everywhere. In the wide kernel's clusters of
+``WIDE_CLUSTER`` (``attn_split``) each rank computes the attention of its
+norm rows alone (``attention_rows``) and stores each row's [ctx; q] into
+its cluster's copies, and a cluster barrier closes the phase: 9 rows a
+block at B = 72, one round of its warps, not 72 in five, and an eighth of
+the keys and values read. An HC layer's three taps are
 three products of the current input; each block keeps the older taps'
 products of its columns in a ring in a global scratch the wrapper
 allocates, so only x_t is read. The activation rows sit in shared memory
@@ -87,7 +92,8 @@ issue and the combine up to the grid barrier's first block barrier, under
 "flag" thread 0's combine and publish; exchange: under "grid" the grid
 barrier, the staged slice's wait and the closing cluster barrier, under
 "flag" the gather; norm: the norms, to warp 0's last row; attention: the
-attention row, once a step). The launch's record buffer goes to
+attention row, once a step, under ``attn_split`` with its cluster
+barrier). The launch's record buffer goes to
 ``RECORDER.stamps``, which ``summary()`` reads into ``k1.phase.<phase>``.
 Its spans: ``k1.prepare`` (the checks, the plan, the occupancy query, the
 layer arrays, the buffers and the memset) and ``k1.launch`` (the library
@@ -500,6 +506,24 @@ def cluster_rows(B: int, rank: int, width: int) -> Tuple[int, ...]:
     return tuple(range(rank, B, width))
 
 
+def attention_rows(B: int, rank: int, width: int,
+                   split: bool) -> Tuple[int, ...]:
+    """The batch rows whose attention the block of cluster rank ``rank``
+    computes in clusters of ``width``: under the plan's ``attn_split`` its
+    norm rows (``cluster_rows``), whose [ctx; q] it stores into every member
+    of its cluster (csrc/decode.cu ``attention_split``); else every row."""
+    return cluster_rows(B, rank, width) if split else tuple(range(B))
+
+
+def row_owner(b: int, blocks: int) -> int:
+    """The block that writes batch row b of A (and of Y) over ``blocks``
+    blocks (the kernel's ``b % gridDim.x``). The blocks are whole clusters,
+    so its cluster rank is b % width: one of the blocks that compute row b
+    (``attention_rows``, ``cluster_rows``), the one of cluster
+    (b / width) % clusters."""
+    return b % blocks
+
+
 def cluster_widths(wide: bool) -> Tuple[int, ...]:
     """The cluster widths the kernel is built at (csrc/decode.cu
     ``decode_instance``): the wide kernel at ``WIDE_CLUSTER`` (its plans')
@@ -548,6 +572,8 @@ class DecodePlan(NamedTuple):
     sbar_off: int         # bytes: the slot's mbarrier (8), or -1
     task_rows: Tuple[int, ...]  # per layer: rows of a product task
     cluster: int = CLUSTER  # blocks of a cluster
+    attn_split: bool = False  # the attention rows split over the cluster's
+    #                           ranks: the wide kernel at WIDE_CLUSTER
 
 
 def staged_rows(B: int, exchange: str, width: int) -> int:
@@ -600,6 +626,11 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
     kernel, ``CLUSTER`` for every other; the grid exchange's staging of
     the normalised rows follows it (``staged_rows``). Given a width the
     plan's kernel is not built at (``cluster_widths``), raises ValueError.
+    The wide kernel at ``WIDE_CLUSTER`` splits the attention rows over the
+    cluster's ranks (``attn_split``, ``attention_rows``); in clusters of
+    ``CLUSTER`` a rank's 36 rows at B = 72 took three rounds of its warps
+    and K1 did not gain, so every other plan computes every row in every
+    block.
 
     The exchange (``exchange`` None): "flag" where the common kernel takes
     the config (``general_kernel``), every row lies in shared memory and
@@ -695,7 +726,8 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
             woff = [stage_off if s_ else o for s_, o in zip(w_staged, w_woff)]
             staged = w_staged if sum(w_staged) > 1 else [False] * len(layers)
             task_rows = [RG_WIDE if w else RG for w in wide]
-    if width not in cluster_widths(RG_WIDE in task_rows):
+    wide_kernel = RG_WIDE in task_rows
+    if width not in cluster_widths(wide_kernel):
         raise ValueError(f"fused_decode: the plan's kernel at B={B} is not "
                          f"built in clusters of {width}")
     part_off, prev_off, ln_off, z_off, _ = offs
@@ -712,7 +744,8 @@ def decode_plan(cfg, B: int, blocks: int, prec: str = "highest",
         barriers_per_step=len(layers) if exchange == "grid" else 0,
         staged=tuple(staged), stage_off=stage_off, stage_bytes=slot,
         sbar_off=stage_off + slot if stage_off >= 0 else -1,
-        task_rows=tuple(task_rows), cluster=width)
+        task_rows=tuple(task_rows), cluster=width,
+        attn_split=wide_kernel and width == WIDE_CLUSTER)
 
 
 # the next launch's first epoch of the flagged exchange
@@ -847,7 +880,9 @@ def fused_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
     in whole clusters (``launch_plan``), with the exchange and the cluster
     width ``decode_plan`` picks, and count
     the launch as ``k1.launches``, ``k1.<prec>.launches`` and
-    ``k1.<exchange>.launches``; CPU tensors take ``fused_decode_plain``.
+    ``k1.<exchange>.launches``, and as ``k1.attn_split.launches`` where the
+    plan splits the attention rows (``attn_split``); CPU tensors take
+    ``fused_decode_plain``.
     An unknown ``prec`` raises, and so does a packed array of another shape
     or type than ``prec`` reads: nothing is converted quietly."""
     check_prec(prec)
@@ -966,6 +1001,8 @@ def launch_decode(packed: dict, Kt: torch.Tensor, V: torch.Tensor, T: int,
                         blocks=blocks, B=B)
     for name in ("k1", f"k1.{prec}", f"k1.{plan.exchange}"):
         count(name + ".launches")
+    if plan.attn_split:
+        count("k1.attn_split.launches")
     return Y, A
 
 

@@ -147,6 +147,53 @@ def test_decode_cluster_widths_agree_at_b72(cuda, prec):
     assert bool(torch.isfinite(Y).all())
 
 
+def test_decode_attention_split_bitwise(cuda):
+    """base_config over all 210 steps at B = 72 and at the smallest and
+    largest B whose launch takes the wide kernel (its plan ``attn_split``):
+    the wide kernel in clusters of ``WIDE_CLUSTER``, each rank computing
+    its own rows' attention, gives Y and A bit for bit those of the same
+    kernel over the same blocks in clusters of ``CLUSTER``, which computes
+    every row in every block; ``k1.attn_split.launches`` counts the first
+    launch only."""
+    cfg = base_config()
+    wide = [B for B in range(1, 289)
+            if K1.launch_plan(cfg, B, "highest", cuda).attn_split]
+    assert 72 in wide and wide == list(range(wide[0], wide[-1] + 1))
+    p = Text2Mel(cfg).init(torch.Generator().manual_seed(30), cuda)
+    packed = K1.pack_decode_params(cfg, p)
+    for B in (wide[0], 72, wide[-1]):
+        plan = K1.launch_plan(cfg, B, "highest", cuda)
+        assert plan.cluster == K1.WIDE_CLUSTER
+        Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, B, seed=B).to(cuda))
+        Kt, V = Kt.contiguous(), V.contiguous()
+        c0 = profiling.counts()
+        Y, A = K1.launch_decode(packed, Kt, V, cfg.max_T, cfg)
+        c1 = profiling.counts()
+        Y2, A2 = K1.launch_decode(packed, Kt, V, cfg.max_T, cfg,
+                                  blocks=plan.blocks, cluster=K1.CLUSTER)
+        torch.cuda.synchronize()
+        assert (c1 - c0)["k1.attn_split.launches"] == 1
+        assert _counted(c1)["k1.attn_split.launches"] == 0
+        assert torch.equal(Y, Y2) and torch.equal(A, A2), B
+        assert bool(torch.isfinite(Y).all())
+
+
+def test_decode_counts_attention_split_launches(cuda):
+    """``fused_decode`` at base_config counts ``k1.attn_split.launches``
+    once a launch at bulk synthesis's B = 72 and never at B = 1 or 20."""
+    cfg = base_config()
+    p = Text2Mel(cfg).init(torch.Generator().manual_seed(4), cuda)
+    packed = K1.pack_decode_params(cfg, p)
+    for B, n in ((72, 1), (20, 0), (1, 0)):
+        Kt, V = Text2Mel(cfg).text_encode(p, _ids(cfg, B).to(cuda))
+        c0 = profiling.counts()
+        for _ in range(2):
+            K1.fused_decode(packed, Kt.contiguous(), V.contiguous(), 8, cfg)
+        torch.cuda.synchronize()
+        c = _counted(c0)
+        assert (c["k1.launches"], c["k1.attn_split.launches"]) == (2, 2 * n)
+
+
 def _check_decode(cfg, p, ids, prec):
     """The decode kernel on ``ids`` against the plain version: "highest"
     at 2e-5 with identical cursors, the reduced bodies at chip_smoke.py's

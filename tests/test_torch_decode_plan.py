@@ -246,6 +246,76 @@ def test_plan_at_b72_takes_the_wide_cluster():
             K1.decode_plan(cfg, B, 132, prec, cluster=K1.WIDE_CLUSTER)
 
 
+def _wide_batches(blocks):
+    """The B (1 .. 288) at which the base_config plan over ``blocks``
+    blocks takes the wide kernel's tasks."""
+    cfg = base_config()
+    return [B for B in range(1, 289)
+            if K1.RG_WIDE in K1.decode_plan(cfg, B, blocks).task_rows]
+
+
+@pytest.mark.parametrize("blocks", [120, 128, 132])
+@pytest.mark.parametrize("width", [2, 4, 8])
+def test_attention_rows_and_owners_cover_every_row(width, blocks):
+    """Over the grid whole clusters of ``width`` give from 120, 128 or 132
+    blocks, at every B the wide kernel takes there at base_config: with
+    the attention split, every row's attention is computed by exactly one
+    rank of each cluster, the rank that normalises it; and every row of A
+    has exactly one writer over the grid, a block that computes the row
+    (its owner, of rank b % width in cluster (b / width) % clusters).
+    Without the split every block computes every row and the owner alone
+    writes it."""
+    grid = blocks // width * width
+    clusters = grid // width
+    batches = _wide_batches(grid)
+    assert batches and min(batches) > 2
+    for B in batches:
+        for split in (True, False):
+            writers = np.zeros(B, np.int64)
+            for c in range(clusters):
+                computed = np.zeros(B, np.int64)
+                for rank in range(width):
+                    g = c * width + rank
+                    rows = K1.attention_rows(B, rank, width, split)
+                    computed[list(rows)] += 1
+                    if split:
+                        assert rows == K1.cluster_rows(B, rank, width)
+                    for b in rows:
+                        writers[b] += K1.row_owner(b, grid) == g
+                assert (computed == (1 if split else width)).all(), (B, c)
+            assert (writers == 1).all(), (B, split)
+        for b in range(B):
+            g = K1.row_owner(b, grid)
+            assert (g % width, g // width) == (b % width,
+                                               (b // width) % clusters)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_plan_splits_the_attention_where_it_takes_wide_tasks(name):
+    """``decode_plan`` sets ``attn_split`` exactly where it takes RG_WIDE
+    tasks (the wide kernel, in its clusters of ``WIDE_CLUSTER``), over 120,
+    128 and 132 blocks, B = 1 .. 288, in every precision; asked for
+    clusters of ``CLUSTER`` the wide kernel keeps every row's attention in
+    every block. At base_config over the H100's 132 blocks (the grid a
+    launch plans over first): split at B = 72, not at B = 1 or 20."""
+    cfg = CONFIGS[name]()
+    for blocks in (120, 128, 132):
+        for prec in K1.PRECS:
+            for B in range(1, 289):
+                plan = K1.decode_plan(cfg, B, blocks, prec)
+                wide = K1.RG_WIDE in plan.task_rows
+                assert plan.attn_split == wide, (blocks, prec, B)
+                assert plan.attn_split == (
+                    K1.kernel_name(cfg, plan) == "wide"
+                    and plan.cluster == K1.WIDE_CLUSTER)
+                if wide:
+                    assert not K1.decode_plan(cfg, B, blocks, prec,
+                                              cluster=K1.CLUSTER).attn_split
+    if name == "base":
+        assert [K1.decode_plan(cfg, B, 132).attn_split
+                for B in (72, 20, 1)] == [True, False, False]
+
+
 @pytest.mark.parametrize("blocks", [120, 126, 128, 130, 131, 132])
 def test_launch_refuses_blocks_not_whole_clusters(blocks):
     """``launch_decode``'s check (``launch_plan``, no card needed when the
