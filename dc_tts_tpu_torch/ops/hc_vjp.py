@@ -91,6 +91,12 @@ A) are read as they lie, with no transposed copy. 64-deep k-tiles, float32
 register sums promoted every 2 k-tiles. The copies need C % 8 == 0 (other
 widths are padded as above). The wrappers count these launches also
 under ``k4.fwd.bf16.launches`` and ``k4.bwd.bf16.launches``.
+
+Spans: the differentiable entry records ``k4.fwd`` around each forward
+call and ``k4.bwd`` around each backward call (the kernels' launches on
+the card, the plain versions on the CPU) while spans record
+(``utils/profiling``); under ``torch.autograd`` on the card the backward
+runs in the engine's device thread, so ``k4.bwd`` is a root span there.
 """
 from __future__ import annotations
 
@@ -98,7 +104,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from ..utils.profiling import count
+from ..utils.profiling import count, span
 
 _GEMM_TILE = 128          # csrc/hc_vjp.cu TBM = TBN, and the bf16 BM = BN
 _GEMM_DEPTH = 32          # csrc/hc_vjp.cu TBK, the float32 core's k-tile
@@ -418,13 +424,15 @@ class HCBlockTrainable(torch.autograd.Function):
     def forward(ctx, x, w, b, g1, b1, g2, b2, size, rate, causal, eps, bf16):
         ctx.save_for_backward(x, w, b, g1, b1, g2, b2)
         ctx.geom = (size, rate, causal, eps, bf16)
-        return hc_block_fwd(x, w, b, g1, b1, g2, b2, size, rate, causal, eps,
-                            bf16)
+        with span("k4.fwd"):
+            return hc_block_fwd(x, w, b, g1, b1, g2, b2, size, rate, causal,
+                                eps, bf16)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        grads = hc_block_bwd(*ctx.saved_tensors, dy, *ctx.geom)
+        with span("k4.bwd"):
+            grads = hc_block_bwd(*ctx.saved_tensors, dy, *ctx.geom)
         return (*grads, None, None, None, None, None)
 
 

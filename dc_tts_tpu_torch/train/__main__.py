@@ -6,8 +6,9 @@ every ``--ckpt-every`` steps, resume from the latest checkpoint on restart,
 stop at ``--max-steps``. The same flags and cadence as
 ``python -m dc_tts_tpu.train``, plus ``--device`` (default cuda; raises
 without a card unless ``--device cpu``). ``--dtype`` sets
-``cfg.compute_dtype``. The JAX PRNG choice is refused. As in the JAX
-package, kernel K4 runs only where a caller sets ``cfg.use_pallas``.
+``cfg.compute_dtype``; ``--pallas`` sets ``cfg.use_pallas``, so that every
+HC block of the network trains through kernel K4 (``ops/hc_vjp.py``), in
+bf16 operands under ``--dtype bfloat16``. The JAX PRNG choice is refused.
 
 Data parallelism: under ``torchrun --nproc-per-node N`` every rank is one
 process with one device (NCCL on cards, gloo with ``--device cpu``);
@@ -104,6 +105,12 @@ def main(argv=None):
                          "bfloat16_full also stores activations (conv "
                          "outputs, LN/gate chains, residuals) in bf16; LN "
                          "statistics still compute in float32")
+    ap.add_argument("--pallas", action="store_true",
+                    help="train every HC block through kernel K4, its "
+                         "forward and hand-written backward (float32 or, "
+                         "with --dtype bfloat16, bf16 operands; K4 takes "
+                         "float32 activations, so under bfloat16_full the "
+                         "HC blocks keep the eager path)")
     ap.add_argument("--rng", default=None,
                     help="not ported: selects a JAX PRNG implementation; "
                          "the port draws dropout masks from torch.Generator")
@@ -135,6 +142,8 @@ def main(argv=None):
     cfg = test_config() if args.tiny else base_config()
     if args.dtype != "float32":
         cfg = cfg.replace(compute_dtype=args.dtype)
+    if args.pallas:
+        cfg = cfg.replace(use_pallas=True)
     if args.data:
         cfg = cfg.replace(data=args.data)
     if args.batch_size:

@@ -52,8 +52,16 @@ def test_decode_text_encoder_hook_matches_default(mode):
 
 
 def test_cpu_synthesizer_never_captures():
+    """A CPU Synthesizer keeps no text encoder and counts no capture,
+    replay or launch. A shape's first de-emphasis builds its tables, counted
+    once a process (``deemphasis.table_uploads``) by whichever call came
+    first, another test's included: so the first call may move that
+    counter alone, and a second call of the shape moves none."""
     synth = Synthesizer(CFG, *seeded_nets(CFG), device="cpu",
                         decode_mode="incremental")
+    before = profiling.counts()
+    synth.synthesize_ids(_ids(1))
+    assert set(profiling.counts() - before) <= {"deemphasis.table_uploads"}
     before = profiling.counts()
     synth.synthesize_ids(_ids(1))
     assert synth.text_encoder is None

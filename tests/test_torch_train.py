@@ -21,7 +21,8 @@ the CPU at ``test_config()``:
   (rtol 1e-5);
 * train-state checkpoints across the two packages, both ways, and the
   legacy params-only restore;
-* the prepro and train CLIs on the CPU, resume included.
+* the prepro and train CLIs on the CPU, resume included, and the train
+  CLI's ``--pallas`` (every HC block of SSRN through K4).
 """
 import os
 
@@ -413,6 +414,55 @@ def test_cli_prepro_train_and_resume_on_cpu(tmp_path, capsys):
             capsys.readouterr().out
         with np.load(os.path.join(logdir, "model_gs_000k.npz")) as d:
             assert int(d["__step__"]) == 3
+
+
+@pytest.fixture(scope="module")
+def tiny_features(tmp_path_factory):
+    """(corpus, features) of 8 synthetic utterances at the tiny config."""
+    from dc_tts_tpu_torch import prepro
+    from dc_tts_tpu_torch.data.synthetic import make_corpus
+
+    root = tmp_path_factory.mktemp("cli")
+    data = make_corpus(str(root / "corpus"), ["the cat sat", "a dog ran"] * 4,
+                       [0.06 + 0.004 * i for i in range(8)], CFG.sr)
+    feats = str(root / "feats")
+    prepro.main(["--tiny", "--device", "cpu", "--data", data, "--out",
+                 feats])
+    return data, feats
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+def test_train_cli_pallas_routes_ssrn_hc_blocks_through_k4(
+        pallas, tiny_features, tmp_path, monkeypatch):
+    """``--dtype bfloat16 --pallas`` trains SSRN with every one of its 8 HC
+    blocks through K4 in bf16 operands: 8 forward and 8 backward calls a
+    step, each inside its ``k4.fwd`` / ``k4.bwd`` span; without
+    ``--pallas`` none."""
+    from dc_tts_tpu_torch.ops import hc_vjp
+    from dc_tts_tpu_torch.train.__main__ import main as train_main
+    from dc_tts_tpu_torch.utils import profiling
+
+    calls = []
+    for d in ("fwd", "bwd"):
+        orig = getattr(hc_vjp, f"hc_block_{d}")
+
+        def seam(*a, _d=d, _orig=orig, **k):
+            calls.append((_d, a[-1]))           # bf16, the last argument
+            return _orig(*a, **k)
+        monkeypatch.setattr(hc_vjp, f"hc_block_{d}", seam)
+    data, feats = tiny_features
+    profiling.reset()
+    with profiling.collect():
+        train_main(["2", "--tiny", "--device", "cpu", "--data", data,
+                    "--features", feats, "--logdir", str(tmp_path / "log"),
+                    "--dtype", "bfloat16", "--max-steps", "2"]
+                   + ["--pallas"] * pallas)
+    spans = profiling.summary()
+    profiling.reset()
+    step = [("fwd", True)] * 8 + [("bwd", True)] * 8
+    assert calls == step * 2 * pallas
+    for d in ("fwd", "bwd"):
+        assert spans.get(f"k4.{d}", {"count": 0})["count"] == 8 * 2 * pallas
 
 
 @pytest.mark.parametrize("flag", [["--data-parallel", "2"],
